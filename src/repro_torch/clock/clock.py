@@ -1,0 +1,52 @@
+"""VirtualClock: schedule clock + priced ledger (port of
+``repro/clock/clock.py`` without the observability hook, which waits for
+the obs port; see ROADMAP.md).
+
+  * ``now`` is the schedule clock — the value failure injectors and the
+    coordinator checkpoint timer read;
+  * ``breakdown`` is the ``TimeBreakdown`` ledger every layer charges into;
+  * ``charge(component, seconds)`` books time into the ledger and, by
+    default, advances the schedule clock with it; ``advance=False`` books
+    a ledger-only charge (FTSession's repair and replica share);
+  * ``injection_horizon`` is the failure-injection horizon with slack.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+from repro_torch.clock.breakdown import COMPONENTS, TimeBreakdown
+
+
+def injection_horizon(n_steps: int, step_time_s: float,
+                      ckpt_cost_s: float = 0.0) -> float:
+    """Failure-injection horizon with slack: rollbacks extend virtual time
+    past ``n_steps``, so time-indexed schedules get 2x headroom, plus a
+    checkpoint-write allowance."""
+    return n_steps * step_time_s * 2.0 + 100.0 * ckpt_cost_s
+
+
+class VirtualClock:
+    """Schedule clock + TimeBreakdown ledger."""
+
+    def __init__(self, breakdown: Optional[TimeBreakdown] = None):
+        self.breakdown = breakdown if breakdown is not None \
+            else TimeBreakdown()
+        self.now = 0.0
+
+    def charge(self, component: str, seconds: float, *,
+               advance: bool = True,
+               label: Optional[str] = None) -> float:
+        """Book ``seconds`` of ``component`` time into the ledger;
+        ``advance`` also moves the schedule clock. ``label`` names what the
+        charge was for; the ledger ignores it. Returns ``seconds``."""
+        del label
+        if component not in COMPONENTS:
+            raise ValueError(f"unknown time component {component!r}; "
+                             f"expected one of {COMPONENTS}")
+        if seconds < 0:
+            raise ValueError(f"cannot charge negative time ({seconds})")
+        setattr(self.breakdown, component,
+                getattr(self.breakdown, component) + seconds)
+        if advance:
+            self.now += seconds
+        return seconds

@@ -1,0 +1,76 @@
+"""Workload protocol and the decode-loop adapter (port of
+``repro/ft/workload.py``: ``DecodeWorkload``; the train adapter comes with
+the training slice, ROADMAP.md).
+
+A workload is anything that can be driven step by step over an explicit
+state tree:
+
+    init_state() -> state
+    step(state, t) -> (state, metrics)        # t is the step index
+
+Determinism contract: ``step`` is a function of (state, t) only — the same
+state and step index always give bit-identical results — which is what
+makes replica double execution equal to running on a second slice and
+promotion exact (the paper's FT theorem).
+"""
+from __future__ import annotations
+
+from typing import Any, Callable, Protocol, Tuple, runtime_checkable
+
+import numpy as np
+import torch
+
+from repro_torch.tree import copy_tree
+
+__all__ = ["Workload", "DecodeWorkload", "copy_tree"]
+
+
+@runtime_checkable
+class Workload(Protocol):
+    def init_state(self) -> Any: ...
+
+    def step(self, state: Any, t: int) -> Tuple[Any, Any]: ...
+
+
+def _greedy(logits: torch.Tensor) -> torch.Tensor:
+    return torch.argmax(logits[:, -1, :], dim=-1)[:, None].to(torch.int32)
+
+
+class DecodeWorkload:
+    """Greedy decode as a Workload: state carries the KV cache, the last
+    token, the position cursor and the emitted tokens (host numpy arrays).
+    One step = append the current token and decode the next one.
+    Replicating this state IS the paper's replication story for serving:
+    the replica's cache stays current, so failover is one promotion with no
+    prefill replay.
+
+    ``step`` writes the KV cache of the state it is given in place (the
+    decode step's ring write); everything else in the returned state is
+    new. The replica's state is a clone (``copy_tree``), so the two slices
+    never share a cache buffer."""
+
+    def __init__(self, *, params, prefill: Callable, decode: Callable,
+                 batch: dict, prompt_len: int):
+        self.params = params
+        self.prefill = prefill
+        self.decode = decode
+        self.batch = batch
+        self.prompt_len = prompt_len
+
+    def init_state(self):
+        logits, cache = self.prefill(self.params, self.batch)
+        tok = _greedy(logits)
+        pos = torch.full((tok.shape[0], 1), self.prompt_len,
+                         dtype=torch.int32, device=tok.device)
+        return {"cache": cache, "tok": tok, "pos": pos, "out": []}
+
+    def step(self, state, t):
+        out = state["out"] + [state["tok"].cpu().numpy()]
+        logits, cache = self.decode(self.params, state["cache"],
+                                    state["tok"], state["pos"])
+        return {"cache": cache, "tok": _greedy(logits),
+                "pos": state["pos"] + 1, "out": out}, None
+
+    @staticmethod
+    def tokens(state) -> np.ndarray:
+        return np.concatenate(state["out"], axis=1)

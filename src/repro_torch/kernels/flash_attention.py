@@ -1,0 +1,85 @@
+"""Flash attention forward on the card: wrapper of the hand-written CUDA
+kernel ``csrc/flash_attention.cu``.
+
+Replaces the Pallas TPU kernel
+``repro/kernels/flash_attention.py::flash_attention`` (causal, sliding
+window, GQA; positions from 0). At the qwen3-8b prefill shape its least
+time on the H100 is set by memory traffic (q, k, v read once, o written
+once: ~42 MB, 12.5 us); this first kernel does both products with f32 FMAs
+and sits well above that bound (see ``PERF.md``). It reads q, k and v
+through their strides, so the model's [B, S, H, D] projections go in
+without a transposed copy, and writes its output in [B, S, H, D] storage.
+``ops.attention`` routes CUDA tensors here and CPU tensors to
+``ref.flash_attention_ref``.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import build
+from repro_torch.kernels.rmsnorm import DTYPE_CODES
+
+HEAD_DIMS = (32, 64, 128)
+_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 21
+             + [ctypes.c_float, ctypes.c_void_p])
+_INT_MAX = 2 ** 31 - 1
+
+
+def _bsh_strides(t: torch.Tensor):
+    """(batch, seq, head) strides of a [B, H, S, D] tensor."""
+    return t.stride(0), t.stride(2), t.stride(1)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int = 0) -> torch.Tensor:
+    """q: [B, Hq, Sq, D]; k, v: [B, Hkv, Skv, D] CUDA tensors of one dtype
+    (bf16 or f32), any strides with a contiguous last dimension that is a
+    multiple of 4 elements. Returns [B, Hq, Sq, D] in q's dtype, a view of
+    a new contiguous [B, Sq, Hq, D] tensor."""
+    dev = q.device
+    if dev.type != "cuda" or k.device != dev or v.device != dev:
+        raise ValueError("flash attention kernel needs q, k, v on one CUDA "
+                         "device")
+    if q.dtype not in DTYPE_CODES or k.dtype != q.dtype or \
+            v.dtype != q.dtype:
+        raise TypeError(f"flash attention kernel takes one dtype of "
+                        f"{list(DTYPE_CODES)}, got {q.dtype}, {k.dtype}, "
+                        f"{v.dtype}")
+    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
+        raise ValueError(f"want q [B,Hq,Sq,D] and k, v [B,Hkv,Skv,D], got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    b, hq, sq, d = q.shape
+    _, hkv, skv, dk = k.shape
+    if k.shape[0] != b or dk != d or d not in HEAD_DIMS or hq % hkv:
+        raise ValueError(f"unsupported shapes q {tuple(q.shape)}, "
+                         f"k {tuple(k.shape)}: need equal B and D, D in "
+                         f"{HEAD_DIMS}, Hq % Hkv == 0")
+    for t in (q, k, v):
+        if t.stride(3) != 1 or any(s % 4 for s in t.stride()[:3]) or \
+                t.data_ptr() % 16 or max(t.stride()) > _INT_MAX:
+            raise ValueError(f"flash attention kernel needs a contiguous, "
+                             f"16-byte aligned head dim and strides that "
+                             f"are multiples of 4; got {t.stride()}")
+    if window < 0:
+        raise ValueError(f"window must be >= 0, got {window}")
+    o = torch.empty((b, sq, hq, d), dtype=q.dtype, device=dev).transpose(1, 2)
+    if b == 0 or sq == 0 or hq == 0:
+        return o
+    if skv == 0:
+        raise ValueError("flash attention kernel needs at least one key")
+    fn = build.load_function("flash_attention", "flash_attention_fwd",
+                             _ARGTYPES)
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+             DTYPE_CODES[q.dtype], b, hq, hkv, sq, skv, d,
+             *_bsh_strides(q), *_bsh_strides(k), *_bsh_strides(v),
+             *_bsh_strides(o), int(causal), int(window), d ** -0.5,
+             torch.cuda.current_stream(dev).cuda_stream)
+    build.check("flash_attention", err)
+    flash_attention.launches += 1
+    return o
+
+
+flash_attention.launches = 0

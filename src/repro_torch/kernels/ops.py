@@ -1,0 +1,43 @@
+"""Dispatch between the CUDA kernels and their plain versions.
+
+Counterpart of ``repro/kernels/ops.py``. A tensor on the CPU, or
+``backend="ref"``, goes to the plain PyTorch version in ``ref``; a CUDA
+tensor goes to the hand-written kernel, which raises on what it does not
+take. There is no fallback from the kernel to the plain version: a build or
+launch failure surfaces.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import ref
+from repro_torch.kernels.flash_attention import flash_attention as _flash_cuda
+from repro_torch.kernels.rmsnorm import rmsnorm as _rmsnorm_cuda
+
+BACKENDS = ("auto", "ref")
+
+
+def _use_kernel(x: torch.Tensor, backend: str) -> bool:
+    if backend not in BACKENDS:
+        raise ValueError(f"unknown backend {backend!r}; expected one of "
+                         f"{BACKENDS}")
+    if backend == "ref" or x.device.type == "cpu":
+        return False
+    if x.device.type == "cuda":
+        return True
+    raise ValueError(f"no kernel for tensors on {x.device}")
+
+
+def attention(q, k, v, *, causal: bool = True, window: int = 0,
+              backend: str = "auto"):
+    """Flash attention. q: [B,Hq,S,D]; k, v: [B,Hkv,S,D] (any strides)."""
+    if _use_kernel(q, backend):
+        return _flash_cuda(q, k, v, causal=causal, window=window)
+    return ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+
+
+def rmsnorm(x, w, *, eps: float = 1e-5, backend: str = "auto"):
+    """RMSNorm over the last dimension of x with weight w."""
+    if _use_kernel(x, backend):
+        return _rmsnorm_cuda(x, w, eps=eps)
+    return ref.rmsnorm_ref(x, w, eps=eps)

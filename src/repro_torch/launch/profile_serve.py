@@ -1,0 +1,100 @@
+"""Where the serving path's time goes on the card: a ``torch.profiler``
+trace of one prefill and of a few decode steps of full qwen3-8b (one
+slice, bf16, random weights from a seed).
+
+    python -m repro_torch.launch.profile_serve
+
+Prints one JSON line per window: wall time, device busy time (the sum of
+kernel times; one stream, so kernels do not overlap), the device's idle
+share, the kernel time grouped by kind, and the top kernels by device
+time. Needs CUDA.
+"""
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+from collections import defaultdict
+
+import numpy as np
+import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+
+from repro_torch.launch.serve import ReplicatedServer
+
+# the serve cell of chip_smoke.py
+BATCH, PROMPT_LEN, DECODE_STEPS = 4, 512, 5
+# kernel-name fragments -> group (first match wins)
+GROUPS = (("rmsnorm", "rmsnorm kernel"), ("flash_fwd", "attention kernel"),
+          ("gemm", "matmul"), ("gemv", "matmul"), ("nvjet", "matmul"),
+          ("cutlass", "matmul"), ("xmma", "matmul"))
+
+
+def _group(name: str) -> str:
+    low = name.lower()
+    for frag, group in GROUPS:
+        if frag in low:
+            return group
+    return "other (elementwise, copies, reductions)"
+
+
+def _device_us(evt) -> float:
+    for attr in ("self_device_time_total", "self_cuda_time_total"):
+        val = getattr(evt, attr, None)
+        if val is not None:
+            return float(val)
+    return 0.0
+
+
+def trace(label: str, fn, card: str) -> dict:
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and _device_us(e) > 0]
+    busy_ms = sum(_device_us(e) for e in kernels) / 1e3
+    groups = defaultdict(float)
+    for e in kernels:
+        groups[_group(e.key)] += _device_us(e) / 1e3
+    top = sorted(kernels, key=_device_us, reverse=True)[:8]
+    return {"trace": label, "wall_ms": wall_ms, "device_busy_ms": busy_ms,
+            "device_idle_share": (1 - busy_ms / wall_ms) if busy_ms else None,
+            "kernel_launches": sum(e.count for e in kernels),
+            "groups_ms": dict(groups),
+            "top": [{"name": e.key[:90], "count": e.count,
+                     "ms": _device_us(e) / 1e3} for e in top],
+            "card": card}
+
+
+def main() -> int:
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    srv = ReplicatedServer("qwen3-8b", reduced=False, batch=BATCH,
+                           prompt_len=PROMPT_LEN, device="cuda")
+    prompts = np.random.default_rng(0).integers(
+        0, srv.cfg.vocab_size, (BATCH, PROMPT_LEN), dtype=np.int32)
+    wl = srv.workload(prompts)
+    state = wl.init_state()                      # warm-up
+    state, _ = wl.step(state, 0)
+    print(json.dumps(trace("prefill", wl.init_state, card)), flush=True)
+
+    def decode():
+        nonlocal state
+        for t in range(DECODE_STEPS):
+            state, _ = wl.step(state, 1 + t)
+
+    out = trace(f"decode x{DECODE_STEPS}", decode, card)
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,283 @@
+"""Shared layers of the dense decoder, in PyTorch (port of
+``repro/models/layers.py``, dense subset).
+
+Conventions (kept from the JAX package so the two compare like with like)
+---------------------------------------------------------------------------
+- Params are nested dicts with the JAX names (``ParamTree`` modules in the
+  model); ``wq`` is [d, H, Dh], ``wo`` is [H, Dh, d].
+- Activations: ``x[batch, seq, d_model]``; attention heads ``[B, S, H, Dh]``.
+- Compute dtype is the model's (bf16) with f32 softmax / norm accumulation.
+- RMSNorm and prefill attention go through ``kernels.ops``: the hand-written
+  CUDA kernels on the card, their plain versions on the CPU. Decode
+  attention is plain PyTorch, as it is plain jnp in the JAX package.
+
+One deliberate difference: the JAX model's blockwise attention casts the
+probability tile to bf16 before the PV product (``layers.py:108``); the
+port follows the TPU kernel and ``kernels/ref.py`` and keeps it in f32.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import ops
+
+F32 = torch.float32
+NEG_INF = -1e30
+CACHE_HEADROOM = 64
+
+
+# ---------------------------------------------------------------------------
+# init helpers
+# ---------------------------------------------------------------------------
+
+def dense_init_(t: torch.Tensor, gen: torch.Generator,
+                scale: float = 1.0) -> torch.Tensor:
+    """Fill ``t`` in place with normal * scale * fan_in^-1/2 (fan_in =
+    leading dim), drawn in f32 — the JAX ``_dense_init`` distribution."""
+    fan_in = t.shape[0] if t.dim() >= 1 else 1
+    std = scale / max(fan_in, 1) ** 0.5
+    w = torch.randn(t.shape, generator=gen, dtype=F32, device=t.device)
+    t.copy_(w * std)
+    return t
+
+
+def rmsnorm_params(d: int, dtype, device) -> dict:
+    return {"scale": torch.ones((d,), dtype=dtype, device=device)}
+
+
+def attention_params(cfg: ModelConfig, dtype, device) -> dict:
+    """Uninitialised attention weights (``init`` fills them)."""
+    d, dh = cfg.d_model, cfg.resolved_head_dim
+    p = {
+        "wq": torch.empty((d, cfg.n_heads, dh), dtype=dtype, device=device),
+        "wk": torch.empty((d, cfg.n_kv_heads, dh), dtype=dtype,
+                          device=device),
+        "wv": torch.empty((d, cfg.n_kv_heads, dh), dtype=dtype,
+                          device=device),
+        "wo": torch.empty((cfg.n_heads, dh, d), dtype=dtype, device=device),
+    }
+    if cfg.qkv_bias:
+        p["bq"] = torch.zeros((cfg.n_heads, dh), dtype=dtype, device=device)
+        p["bk"] = torch.zeros((cfg.n_kv_heads, dh), dtype=dtype,
+                              device=device)
+        p["bv"] = torch.zeros((cfg.n_kv_heads, dh), dtype=dtype,
+                              device=device)
+    if cfg.qk_norm:
+        p["q_norm"] = rmsnorm_params(dh, dtype, device)
+        p["k_norm"] = rmsnorm_params(dh, dtype, device)
+    return p
+
+
+def mlp_params(d: int, f: int, dtype, device) -> dict:
+    return {"wi": torch.empty((d, f), dtype=dtype, device=device),
+            "wg": torch.empty((d, f), dtype=dtype, device=device),
+            "wo": torch.empty((f, d), dtype=dtype, device=device)}
+
+
+def embed_params(cfg: ModelConfig, dtype, device) -> dict:
+    p = {"embed": torch.empty((cfg.vocab_size, cfg.d_model), dtype=dtype,
+                              device=device)}
+    if not cfg.tie_embeddings:
+        p["unembed"] = torch.empty((cfg.d_model, cfg.vocab_size),
+                                   dtype=dtype, device=device)
+    return p
+
+
+# ---------------------------------------------------------------------------
+# RMSNorm, RoPE
+# ---------------------------------------------------------------------------
+
+def rmsnorm(p, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """RMSNorm over the last dim; ``p`` holds ``scale`` [d]."""
+    return ops.rmsnorm(x, p["scale"], eps=eps)
+
+
+def rope(x: torch.Tensor, positions: torch.Tensor, theta: float
+         ) -> torch.Tensor:
+    """x: [B, S, H, Dh]; positions: [B, S] absolute token positions."""
+    half = x.shape[-1] // 2
+    # log(theta) in f32, as jnp.log computes it; everything else is made on
+    # x's device (a host tensor copied over would synchronise the stream)
+    log_theta = float(np.log(np.float32(theta)))
+    freqs = torch.exp(-log_theta * torch.arange(0, half, dtype=F32,
+                                                device=x.device) / half)
+    ang = positions[..., None].to(F32) * freqs               # [B, S, half]
+    sin = torch.sin(ang)[:, :, None, :]
+    cos = torch.cos(ang)[:, :, None, :]
+    x1, x2 = x.to(F32).chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Attention
+# ---------------------------------------------------------------------------
+
+def _scores_block(q, k, q_pos, k_pos, window: int, causal: bool = True):
+    """q: [B, Tq, Hkv, G, Dh], k: [B, Tk, Hkv, Dh] -> masked f32 scores
+    [B, Hkv, G, Tq, Tk]."""
+    s = torch.einsum("bqhgd,bkhd->bhgqk", q.to(F32), k.to(F32))
+    s = s * (1.0 / q.shape[-1] ** 0.5)
+    mask = (k_pos >= 0)[:, None, :]                        # empty cache slots
+    if causal:
+        mask = mask & (k_pos[:, None, :] <= q_pos[:, :, None])
+    if window:
+        mask = mask & (k_pos[:, None, :] > q_pos[:, :, None] - window)
+    return torch.where(mask[:, None, None, :, :], s, NEG_INF)
+
+
+def prefill_attention(q, k, v, *, window: int = 0) -> torch.Tensor:
+    """Causal (optionally sliding-window) attention over one prompt whose
+    positions run from 0. q: [B, S, Hq, Dh]; k, v: [B, S, Hkv, Dh].
+
+    The kernel reads the [B, S, H, Dh] tensors through their strides (the
+    transposes below are views) and writes [B, S, Hq, Dh] storage, so
+    neither side makes a transposed copy on the card."""
+    out = ops.attention(q.transpose(1, 2), k.transpose(1, 2),
+                        v.transpose(1, 2), causal=True, window=window)
+    return out.transpose(1, 2)
+
+
+def decode_attention(q, k_cache, v_cache, q_pos, k_pos, *, window: int = 0):
+    """Single-token attention against a (possibly ring-buffered) KV cache.
+
+    q: [B, 1, Hq, Dh]; caches: [B, S, Hkv, Dh]; k_pos: [B, S] absolute
+    positions (-1 for unwritten slots)."""
+    b, _, hq, dh = q.shape
+    hkv = k_cache.shape[2]
+    qg = q.reshape(b, 1, hkv, hq // hkv, dh)
+    s = _scores_block(qg, k_cache, q_pos, k_pos, window)   # [B,Hkv,G,1,S]
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = p.sum(dim=-1)
+    o = torch.einsum("bhgqk,bkhd->bhgqd", p, v_cache.to(F32)) / l[..., None]
+    o = o.permute(0, 3, 1, 2, 4).reshape(b, 1, hq, dh)
+    return o.to(q.dtype)
+
+
+def _heads(x, w):
+    """einsum('bsd,dhe->bshe') as one matmul."""
+    d, h, e = w.shape
+    return (x @ w.reshape(d, h * e)).view(*x.shape[:-1], h, e)
+
+
+def _project_qkv(cfg: ModelConfig, p, x, positions, rope_theta: float):
+    q = _heads(x, p["wq"])
+    k = _heads(x, p["wk"])
+    v = _heads(x, p["wv"])
+    if cfg.qkv_bias:
+        q = q + p["bq"]
+        k = k + p["bk"]
+        v = v + p["bv"]
+    if cfg.qk_norm:
+        q = rmsnorm(p["q_norm"], q, cfg.norm_eps)
+        k = rmsnorm(p["k_norm"], k, cfg.norm_eps)
+    if rope_theta:
+        q = rope(q, positions, rope_theta)
+        k = rope(k, positions, rope_theta)
+    return q, k, v
+
+
+def attention_out(p, out):
+    """einsum('bshe,hed->bsd') as one matmul."""
+    h, e, d = p["wo"].shape
+    return out.reshape(*out.shape[:2], h * e) @ p["wo"].reshape(h * e, d)
+
+
+def attention_apply(cfg: ModelConfig, p, x, positions, *,
+                    cache: Optional[dict] = None, use_rope: bool = True,
+                    window: Optional[int] = None):
+    """Returns (y, new_cache). cache=None => prefill without cache emission.
+
+    Decode (one token with a cache) writes the new key, value and position
+    into the ring cache IN PLACE (the JAX server donates the cache to its
+    decode step for the same effect) and returns the same tensors in the
+    new cache dict. That is safe under replication only because the FT
+    layer's ``copy_tree`` clones, so the replica's cache is its own."""
+    theta = cfg.rope_theta if use_rope else 0.0
+    win = cfg.sliding_window if window is None else window
+    q, k, v = _project_qkv(cfg, p, x, positions, theta)
+
+    if cache is None:
+        out = prefill_attention(q, k, v, window=win)
+        new_cache = None
+    elif x.shape[1] == 1:
+        slot = cache["idx"] % cache["k"].shape[1]
+        _ring_write(cache["k"], k, slot)
+        _ring_write(cache["v"], v, slot)
+        cache["pos"][:, slot] = positions[:, 0].to(cache["pos"].dtype)
+        out = decode_attention(q, cache["k"], cache["v"], positions,
+                               cache["pos"], window=win)
+        new_cache = {"k": cache["k"], "v": cache["v"], "pos": cache["pos"],
+                     "idx": cache["idx"] + 1}
+    else:
+        out = prefill_attention(q, k, v, window=win)
+        new_cache = init_cache_from(cfg, k, v, positions, win)
+
+    y = attention_out(p, out)
+    if cfg.attn_out_bias and "bo" in p:
+        y = y + p["bo"]
+    return y, new_cache
+
+
+def _ring_write(cache: torch.Tensor, val: torch.Tensor, slot: int) -> None:
+    """cache [B,S,H,D] <- val [B,1,H,D] at ``slot``, in place."""
+    cache[:, slot] = val[:, 0].to(cache.dtype)
+
+
+def init_cache_from(cfg: ModelConfig, k, v, positions, window: int,
+                    headroom: int = CACHE_HEADROOM) -> dict:
+    """Build a cache from prefill keys/values.
+
+    Sliding-window archs get a ring buffer of exactly ``window`` slots;
+    full-attention archs get ``headroom`` spare slots so decode appends
+    instead of ring-overwriting history (decode writes at slot
+    idx % capacity, starting at idx = prompt_len). ``idx`` is a host int."""
+    b, s = k.shape[:2]
+    if window:
+        cap = min(s, window)
+        k_c = k[:, s - cap:].clone()
+        v_c = v[:, s - cap:].clone()
+        pos_c = positions[:, s - cap:].to(torch.int32).clone()
+    else:
+        k_c = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, headroom))
+        v_c = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, headroom))
+        pos_c = torch.nn.functional.pad(positions.to(torch.int32),
+                                        (0, headroom), value=-1)
+    return {"k": k_c, "v": v_c, "pos": pos_c, "idx": s}
+
+
+def empty_cache(cfg: ModelConfig, batch: int, cache_len: int, dtype,
+                device) -> dict:
+    """A zeroed KV cache for one layer."""
+    dh = cfg.resolved_head_dim
+    shape = (batch, cache_len, cfg.n_kv_heads, dh)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device),
+            "pos": torch.full((batch, cache_len), -1, dtype=torch.int32,
+                              device=device),
+            "idx": 0}
+
+
+# ---------------------------------------------------------------------------
+# SwiGLU MLP, embedding
+# ---------------------------------------------------------------------------
+
+def mlp_apply(p, x: torch.Tensor) -> torch.Tensor:
+    h = x @ p["wi"]
+    g = x @ p["wg"]
+    h = h * torch.nn.functional.silu(g.to(F32)).to(h.dtype)
+    return h @ p["wo"]
+
+
+def embed_lookup(p, tokens: torch.Tensor) -> torch.Tensor:
+    return p["embed"][tokens]
+
+
+def unembed(cfg: ModelConfig, p, x: torch.Tensor) -> torch.Tensor:
+    w = p["unembed"] if "unembed" in p else p["embed"].T
+    return x @ w

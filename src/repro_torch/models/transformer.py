@@ -1,0 +1,153 @@
+"""Decoder-only transformer, dense family (port of
+``repro/models/transformer.py:62-268``).
+
+The JAX model stacks its layers on a leading ``L`` axis and scans over
+them; here each layer is one module of an ``nn.ModuleList`` and the forward
+loops over them in Python. Parameter names mirror the JAX tree, with the
+layer index after ``layers`` (``layers.3.attn.wq`` <-> ``layers/attn/wq[3]``),
+so ``models.convert`` carries JAX weights across by name. The KV cache is a
+list of per-layer dicts instead of one dict of stacked arrays.
+"""
+from __future__ import annotations
+
+from typing import List
+
+import torch
+from torch import nn
+
+from repro_torch import device as device_lib
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import layers as L
+
+_ZERO_INIT = ("bq", "bk", "bv", "bo")
+
+
+class ParamTree(nn.Module):
+    """A nested dict of tensors held as a module: ``p["wq"]`` and
+    ``p["q_norm"]["scale"]`` read like the JAX param dicts, and the
+    state-dict names follow the same paths. Weights never need grads here,
+    so every parameter is made with ``requires_grad=False``."""
+
+    def __init__(self, tree: dict):
+        super().__init__()
+        for key, val in tree.items():
+            if isinstance(val, dict):
+                self.add_module(key, ParamTree(val))
+            else:
+                self.register_parameter(
+                    key, nn.Parameter(val, requires_grad=False))
+
+    def __getitem__(self, key: str):
+        return getattr(self, key)
+
+    def __contains__(self, key: str) -> bool:
+        return key in self._parameters or key in self._modules
+
+
+def _layer_params(cfg: ModelConfig, dtype, dev) -> dict:
+    return {
+        "ln1": L.rmsnorm_params(cfg.d_model, dtype, dev),
+        "attn": L.attention_params(cfg, dtype, dev),
+        "ln2": L.rmsnorm_params(cfg.d_model, dtype, dev),
+        "ffn": L.mlp_params(cfg.d_model, cfg.d_ff, dtype, dev),
+    }
+
+
+def _layer_apply(cfg: ModelConfig, lp, x, positions, *, cache=None):
+    h, new_cache = L.attention_apply(
+        cfg, lp["attn"], L.rmsnorm(lp["ln1"], x, cfg.norm_eps), positions,
+        cache=cache)
+    x = x + h
+    x = x + L.mlp_apply(lp["ffn"], L.rmsnorm(lp["ln2"], x, cfg.norm_eps))
+    return x, new_cache
+
+
+class Transformer(nn.Module):
+    """Dense decoder: ``init`` / ``init_cache`` / ``prefill`` /
+    ``decode_step``. Built on ``device`` (CUDA unless told otherwise) with
+    uninitialised weights; ``init(generator)`` fills them."""
+
+    def __init__(self, cfg: ModelConfig, *, device=None):
+        super().__init__()
+        if cfg.family != "dense":
+            raise NotImplementedError(
+                f"Transformer port covers the dense family, not "
+                f"{cfg.family!r}")
+        self.cfg = cfg
+        self.dtype = getattr(torch, cfg.dtype)
+        dev = device_lib.resolve(device)
+        self.embed = ParamTree(L.embed_params(cfg, self.dtype, dev))
+        self.ln_f = ParamTree(L.rmsnorm_params(cfg.d_model, self.dtype, dev))
+        self.layers = nn.ModuleList(
+            ParamTree(_layer_params(cfg, self.dtype, dev))
+            for _ in range(cfg.n_layers))
+
+    @property
+    def device(self) -> torch.device:
+        return self.ln_f["scale"].device
+
+    # -- params ---------------------------------------------------------------
+
+    @torch.no_grad()
+    def init(self, gen: torch.Generator) -> "Transformer":
+        """Norm scales 1, biases 0, every matrix normal * fan_in^-1/2 —
+        the JAX init's distribution (not its bits). ``gen`` must live on
+        the model's device."""
+        for name, p in self.named_parameters():
+            leaf = name.rsplit(".", 1)[-1]
+            if leaf == "scale":
+                p.fill_(1)
+            elif leaf in _ZERO_INIT:
+                p.zero_()
+            else:
+                L.dense_init_(p, gen)
+        return self
+
+    # -- serve ----------------------------------------------------------------
+
+    def cache_len(self, seq_len: int) -> int:
+        w = self.cfg.sliding_window
+        return min(seq_len, w) if w else seq_len
+
+    def init_cache(self, batch: int, seq_len: int) -> List[dict]:
+        cl = self.cache_len(seq_len)
+        return [L.empty_cache(self.cfg, batch, cl, self.dtype, self.device)
+                for _ in self.layers]
+
+    @torch.no_grad()
+    def prefill(self, batch: dict):
+        """Process the full prompt; return (last_logits [B, 1, V], cache)."""
+        cfg = self.cfg
+        tokens = batch["tokens"]
+        b, s = tokens.shape
+        positions = torch.arange(s, dtype=torch.int32,
+                                 device=tokens.device).expand(b, s)
+        x = L.embed_lookup(self.embed, tokens)
+        cache = []
+        for lp in self.layers:
+            h_in = L.rmsnorm(lp["ln1"], x, cfg.norm_eps)
+            q, k, v = L._project_qkv(cfg, lp["attn"], h_in, positions,
+                                     cfg.rope_theta)
+            out = L.prefill_attention(q, k, v, window=cfg.sliding_window)
+            x = x + L.attention_out(lp["attn"], out)
+            x = x + L.mlp_apply(lp["ffn"],
+                                L.rmsnorm(lp["ln2"], x, cfg.norm_eps))
+            cache.append(L.init_cache_from(cfg, k, v, positions,
+                                           cfg.sliding_window))
+        x = L.rmsnorm(self.ln_f, x, cfg.norm_eps)
+        logits = L.unembed(cfg, self.embed, x[:, -1:, :])
+        return logits, cache
+
+    @torch.no_grad()
+    def decode_step(self, cache: List[dict], tokens, pos):
+        """tokens: [B, 1]; pos: [B, 1] absolute positions. Writes each
+        layer's ring cache in place (see ``layers.attention_apply``)."""
+        cfg = self.cfg
+        x = L.embed_lookup(self.embed, tokens)
+        new_cache = []
+        for lp, ci in zip(self.layers, cache):
+            x, nc = _layer_apply(cfg, lp, x, pos, cache=ci)
+            new_cache.append(nc)
+        x = L.rmsnorm(self.ln_f, x, cfg.norm_eps)
+        logits = L.unembed(cfg, self.embed, x)
+        return logits, new_cache

@@ -1,0 +1,204 @@
+"""The port's kernel layer against the JAX package's.
+
+On the CPU the port's ``ops`` run the plain PyTorch versions; these are
+held against ``repro.kernels.ref`` and against the Pallas kernels in
+interpret mode over every shape of ``tests/test_kernels.py``, at that
+file's tolerances (f32: 2e-5, summation order only; bf16: rtol 2e-2 /
+atol 3e-2, one bf16 rounding of an f32 result). Inputs are made once with
+numpy and handed to both sides. The CUDA kernels themselves are compared
+with the plain versions in ``test_torch_cuda.py``, which runs on a card.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ops as jops
+from repro.kernels import ref as jref
+from repro_torch.kernels import build, ops
+from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.rmsnorm import rmsnorm, row_view
+from repro_torch.models.convert import to_tensor
+
+RTOL = {"float32": 2e-5, "bfloat16": 2e-2}
+ATOL = {"float32": 2e-5, "bfloat16": 3e-2}
+
+
+def _pair(rng, shape, dtype):
+    """The same values as a jax array and a torch tensor (bf16 rounded
+    once, by jax, and carried bitwise)."""
+    x = jnp.asarray(rng.standard_normal(shape, dtype=np.float32)).astype(
+        getattr(jnp, dtype))
+    return x, to_tensor(np.asarray(x))
+
+
+def _close(got, want, dtype):
+    np.testing.assert_allclose(
+        np.asarray(got.float() if isinstance(got, torch.Tensor) else got,
+                   np.float32),
+        np.asarray(want, np.float32), rtol=RTOL[dtype], atol=ATOL[dtype])
+
+
+@pytest.fixture(autouse=True)
+def _no_launches():
+    """On the CPU the wrappers never launch: the counters stay at 0."""
+    rmsnorm.launches = flash_attention.launches = 0
+    yield
+    assert rmsnorm.launches == 0 and flash_attention.launches == 0
+
+
+# ---------------------------------------------------------------- flash attn
+
+def _attention_case(seed, b, hq, hkv, s, d, dtype, **kw):
+    rng = np.random.default_rng(seed)
+    (jq, tq), (jk, tk), (jv, tv) = (_pair(rng, (b, h, s, d), dtype)
+                                    for h in (hq, hkv, hkv))
+    got = ops.attention(tq, tk, tv, **kw)
+    assert got.dtype == tq.dtype and got.shape == tq.shape
+    return got, (jq, jk, jv)
+
+
+@pytest.mark.parametrize("b,hq,hkv,s,d", [
+    (1, 4, 4, 128, 64),        # MHA
+    (2, 4, 2, 256, 64),        # GQA 2x
+    (1, 8, 2, 128, 32),        # GQA 4x
+    (2, 2, 1, 192, 128),       # ragged seq vs block
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_attention_causal_matches_ref_and_pallas(b, hq, hkv, s, d, dtype):
+    got, (q, k, v) = _attention_case(0, b, hq, hkv, s, d, dtype, causal=True)
+    _close(got, jref.flash_attention_ref(q, k, v, causal=True), dtype)
+    _close(got, jops.attention(q, k, v, causal=True, q_block=64, kv_block=64,
+                               backend="interpret"), dtype)
+
+
+@pytest.mark.parametrize("window", [64, 128, 192])
+def test_attention_sliding_window_matches_ref_and_pallas(window):
+    got, (q, k, v) = _attention_case(1, 1, 4, 2, 256, 64, "float32",
+                                     causal=True, window=window)
+    _close(got, jref.flash_attention_ref(q, k, v, causal=True,
+                                         window=window), "float32")
+    _close(got, jops.attention(q, k, v, causal=True, window=window,
+                               q_block=64, kv_block=64, backend="interpret"),
+           "float32")
+
+
+def test_attention_noncausal_matches_ref_and_pallas():
+    got, (q, k, v) = _attention_case(2, 1, 2, 2, 128, 64, "float32",
+                                     causal=False)
+    _close(got, jref.flash_attention_ref(q, k, v, causal=False), "float32")
+    _close(got, jops.attention(q, k, v, causal=False, q_block=64,
+                               kv_block=64, backend="interpret"), "float32")
+
+
+@pytest.mark.parametrize("qb,kb", [(32, 64), (128, 32), (64, 64)])
+def test_attention_matches_pallas_at_any_tiling(qb, kb):
+    """The port has one tiling of its own; the TPU kernel's output does not
+    depend on its tiles, so the port equals it at each of them."""
+    got, (q, k, v) = _attention_case(3, 1, 2, 2, 128, 32, "float32")
+    _close(got, jops.attention(q, k, v, q_block=qb, kv_block=kb,
+                               backend="interpret"), "float32")
+
+
+def test_attention_strided_views_equal_contiguous():
+    """The model hands [B, S, H, D] storage in as [B, H, S, D] views."""
+    rng = np.random.default_rng(4)
+    q, k, v = (torch.as_tensor(rng.standard_normal((2, 64, h, 32),
+                                                   dtype=np.float32))
+               for h in (4, 2, 2))
+    views = [t.transpose(1, 2) for t in (q, k, v)]
+    want = ops.attention(*[t.contiguous() for t in views])
+    torch.testing.assert_close(ops.attention(*views), want, rtol=0, atol=0)
+
+
+# ------------------------------------------------------------------- rmsnorm
+
+@pytest.mark.parametrize("shape", [(8, 128), (3, 5, 256), (1, 1, 64)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rmsnorm_matches_ref_and_pallas(shape, dtype):
+    rng = np.random.default_rng(5)
+    jx, tx = _pair(rng, shape, dtype)
+    jw, tw = _pair(rng, shape[-1:], dtype)
+    got = ops.rmsnorm(tx, tw)
+    assert got.dtype == tx.dtype and got.shape == tx.shape
+    _close(got, jref.rmsnorm_ref(jx, jw), dtype)
+    _close(got, jops.rmsnorm(jx, jw, backend="interpret", block_rows=4),
+           dtype)
+
+
+@pytest.mark.parametrize("eps", [1e-5, 1e-6])
+def test_rmsnorm_eps_reaches_plain_version(eps):
+    rng = np.random.default_rng(6)
+    jx, tx = _pair(rng, (4, 64), "float32")
+    jw, tw = _pair(rng, (64,), "float32")
+    _close(ops.rmsnorm(tx * 1e-3, tw, eps=eps),
+           jref.rmsnorm_ref(jx * 1e-3, jw, eps=eps), "float32")
+
+
+# -------------------------------------------------------------- dispatch
+
+def test_ops_ref_backend_equals_auto_on_cpu():
+    x = torch.randn(3, 16)
+    w = torch.randn(16)
+    torch.testing.assert_close(ops.rmsnorm(x, w, backend="ref"),
+                               ops.rmsnorm(x, w), rtol=0, atol=0)
+
+
+def test_ops_rejects_unknown_backend_and_device():
+    x = torch.randn(3, 16)
+    with pytest.raises(ValueError, match="backend"):
+        ops.rmsnorm(x, x[0], backend="pallas")
+    meta = torch.empty(3, 16, device="meta")
+    with pytest.raises(ValueError, match="meta"):
+        ops.rmsnorm(meta, meta[0])
+
+
+def test_kernel_wrappers_refuse_cpu_tensors():
+    """No fallback inside a wrapper: it launches its kernel or raises."""
+    x = torch.randn(2, 2, 8, 32)
+    with pytest.raises(ValueError, match="CUDA"):
+        rmsnorm(x, torch.ones(32))
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_attention(x, x, x)
+
+
+@pytest.mark.parametrize("shape,index,want", [
+    ((2, 3, 8), (slice(None),), (6, 6, 0, 8)),
+    ((2, 3, 8), (slice(None), slice(0, 2)), (4, 2, 24, 8)),
+    ((4, 6, 5, 8), (slice(None), slice(None), slice(0, 3)), (72, 3, 40, 8)),
+    ((1, 1, 64), (slice(None),), (1, 1, 0, 0)),
+])
+def test_row_view_addresses_every_row(shape, index, want):
+    x = torch.arange(int(np.prod(shape)), dtype=torch.float32).view(shape)
+    view = x[index]
+    rows, inner_n, outer, inner = row_view(view)
+    assert (rows, inner_n, outer, inner) == want
+    flat = x.reshape(-1)
+    d = view.shape[-1]
+    starts = [(r // inner_n) * outer + (r % inner_n) * inner
+              for r in range(rows)]
+    got = torch.stack([flat[s:s + d] for s in starts])
+    torch.testing.assert_close(got, view.reshape(rows, d))
+
+
+def test_row_view_rejects_what_the_kernel_cannot_address():
+    x = torch.randn(4, 5, 6, 8)
+    with pytest.raises(ValueError, match="two-level"):
+        row_view(x[::2, ::2, ::2])
+    with pytest.raises(ValueError, match="contiguous"):
+        row_view(x.transpose(-1, -2))
+
+
+def test_build_keys_library_on_source_and_flags(monkeypatch):
+    assert build.sources() == ["flash_attention", "rmsnorm"]
+    a = build.library_path("rmsnorm")
+    assert a.name.startswith("rmsnorm-") and a.suffix == ".so"
+    monkeypatch.setattr(build, "NVCC_FLAGS", build.NVCC_FLAGS + ["-G"])
+    assert build.library_path("rmsnorm") != a
+
+
+def test_build_without_nvcc_raises(monkeypatch):
+    monkeypatch.setattr(build.shutil, "which", lambda _: None)
+    monkeypatch.setattr(build.os.path, "exists", lambda _: False)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        build._nvcc()

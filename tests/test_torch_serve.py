@@ -1,0 +1,162 @@
+"""The port's serving path and FT core.
+
+* Ports of ``test_system.py::test_serve_failover_identical_stream`` and
+  ``test_serve_without_replication_fails`` on the CPU: a mid-stream kill
+  with replication gives the bitwise-identical token stream (one
+  promotion); without a replica it is fatal.
+* The replica's cache owns its storage after ``on_start`` and after a
+  promotion (the decode step writes its cache in place, so an aliased copy
+  would silently follow the computational slice).
+* The port's copy of the FT core (``FTSession``, strategies, injector,
+  replica map, planner, clock) against ``repro``'s on one numpy workload
+  and the same kill schedules: every ``RunReport`` field, the event list
+  and the final state are equal (exact: the same arithmetic on the host).
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro.configs.base import FTConfig as JaxFTConfig
+from repro.ft import FTSession as JaxFTSession
+from repro_torch.configs.base import FTConfig
+from repro_torch.ft import DecodeWorkload, FTSession, make_strategy
+from repro_torch.launch.serve import ReplicatedServer
+from repro_torch.tree import copy_tree, tree_map
+
+
+@pytest.mark.parametrize("arch", ["qwen3-8b", "codeqwen1.5-7b"])
+def test_serve_failover_identical_stream(arch):
+    prompts = np.random.default_rng(0).integers(0, 400, (2, 16),
+                                                dtype=np.int32)
+    a = ReplicatedServer(arch, batch=2, prompt_len=16, device="cpu")
+    clean = a.generate(prompts, 8, kill_at=-1)
+    b = ReplicatedServer(arch, batch=2, prompt_len=16, device="cpu")
+    faulty = b.generate(prompts, 8, kill_at=3)
+    assert clean.shape == (2, 8)
+    np.testing.assert_array_equal(clean, faulty)
+    assert b.promotions == 1 and b.failures == 1 and a.promotions == 0
+
+
+def test_serve_without_replication_fails():
+    prompts = np.zeros((2, 16), dtype=np.int32)
+    srv = ReplicatedServer("qwen3-8b", batch=2, prompt_len=16,
+                           replication=False, device="cpu")
+    with pytest.raises(RuntimeError):
+        srv.generate(prompts, 8, kill_at=2)
+    assert srv.failures == 1
+
+
+def _storage(tree):
+    """Addresses of the storages behind every tensor of ``tree``."""
+    ptrs = set()
+
+    def visit(leaf):
+        if isinstance(leaf, torch.Tensor):
+            ptrs.add(leaf.untyped_storage().data_ptr())
+    tree_map(visit, tree)
+    return ptrs
+
+
+class _StorageProbe:
+    """Wraps a workload; at each step of the computational slice records
+    whether its cache shares storage with the replica's."""
+
+    def __init__(self, inner, session):
+        self.inner, self.session, self.seen = inner, session, []
+
+    def init_state(self):
+        return self.inner.init_state()
+
+    def step(self, state, t):
+        replica = self.session.strategy.replica_state
+        if replica is not None and replica is not state:
+            self.seen.append((t, _storage(state["cache"])
+                              & _storage(replica["cache"])))
+        return self.inner.step(state, t)
+
+
+def test_replica_cache_owns_its_storage():
+    srv = ReplicatedServer("qwen3-8b", batch=2, prompt_len=16, device="cpu")
+    prompts = np.random.default_rng(1).integers(0, 400, (2, 16),
+                                                dtype=np.int32)
+    # two ranks: after worker 0 dies, rank 0's replica is promoted and
+    # rank 1 still has one, so the promoted state is copied again
+    session = FTSession(ft=FTConfig(mode="replication"), injector={3: [0]},
+                        n_logical_workers=2, workers_per_node=1,
+                        allow_restart=False)
+    probe = _StorageProbe(srv.workload(prompts), session)
+    rep = session.run(probe, 6)
+    assert rep.promotions == 1
+    steps = [t for t, _ in probe.seen]
+    assert steps == list(range(6))              # before and after promotion
+    assert all(not shared for _, shared in probe.seen)
+    clean = srv.generate(prompts, 6)
+    np.testing.assert_array_equal(DecodeWorkload.tokens(rep.final_state),
+                                  clean)
+
+
+def test_copy_tree_clones_tensors_and_arrays():
+    tree = {"a": torch.ones(3), "b": [np.zeros(2), 5], "c": (torch.zeros(1),)}
+    out = copy_tree(tree)
+    assert out["b"][1] == 5 and isinstance(out["c"], tuple)
+    assert not _storage(tree) & _storage(out)
+    assert out["b"][0] is not tree["b"][0]
+    out["a"].add_(1)
+    assert torch.all(tree["a"] == 1)
+
+
+# ---------------------------------------------- the FT core against repro
+
+class _Toy:
+    """A deterministic numpy workload: any (state, t) -> same result."""
+
+    def init_state(self):
+        return {"x": np.arange(4.0), "n": 0, "hist": []}
+
+    def step(self, s, t):
+        x = s["x"] * 1.5 + t
+        return {"x": x, "n": s["n"] + 1,
+                "hist": s["hist"] + [float(x.sum())]}, float(x.sum())
+
+
+SCHEDULES = [
+    ("replication", 2, {3: [0]}, False),          # promotion
+    ("replication", 2, {2: [3]}, False),          # a replica dies
+    ("replication", 2, {2: [0, 2]}, True),        # a rank loses both copies
+    ("replication", 2, {1: [0], 4: [2]}, True),   # promote, then lose it
+    ("replication", 3, {2: [1], 5: [0, 4]}, True),
+    ("none", 2, {3: [1]}, True),                  # restart from scratch
+    ("none", 1, {}, False),                       # clean
+]
+
+
+@pytest.mark.parametrize("mode,n,kills,allow_restart", SCHEDULES)
+def test_ft_core_matches_repro(mode, n, kills, allow_restart):
+    def run(session_cls, ft_cls):
+        session = session_cls(ft=ft_cls(mode=mode), injector=dict(kills),
+                              n_logical_workers=n, workers_per_node=1,
+                              allow_restart=allow_restart)
+        return session.run(_Toy(), 8)
+
+    ours, theirs = run(FTSession, FTConfig), run(JaxFTSession, JaxFTConfig)
+    for field in ("steps", "metrics", "failures", "promotions", "restarts",
+                  "rolled_back_steps"):
+        assert getattr(ours, field) == getattr(theirs, field), field
+    assert [(e.step, e.kind, e.detail) for e in ours.events] == \
+        [(e.step, e.kind, e.detail) for e in theirs.events]
+    assert ours.time.as_dict() == theirs.time.as_dict()
+    np.testing.assert_array_equal(ours.final_state["x"],
+                                  theirs.final_state["x"])
+    assert ours.final_state["hist"] == theirs.final_state["hist"]
+    assert ours.final_state["n"] == theirs.final_state["n"]
+
+
+@pytest.mark.parametrize("mode", ["checkpoint", "combined"])
+def test_checkpoint_modes_not_ported_yet(mode):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        make_strategy(FTConfig(mode=mode))
+
+
+def test_topology_pricing_not_ported_yet():
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        FTSession(ft=FTConfig(mode="replication", topology="fattree"))
