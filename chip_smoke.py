@@ -8,15 +8,23 @@ Phases (each a function; any failure exits non-zero):
      every kernel in ``src/repro_torch/kernels/csrc`` (one process per
      source, all at once);
   2. RMSNorm kernel against its plain PyTorch version on the card;
-  3. flash-attention kernel against its plain PyTorch version on the card;
-  4. serve: qwen3-8b at full width and depth in bf16 (random weights from a
-     seed) under replication — a clean run, a run whose computational slice
-     is killed mid-stream (the token streams must be bitwise equal, one
-     promotion), and an unreplicated kill that must raise; the kernels'
-     launch counters must show the path went through them;
-  5. times: CUDA-event medians of each kernel, its plain version and the
-     PyTorch library call at the serve phase's shapes, and the whole path's
-     prefill and decode times.
+  3. flash-attention kernel against its plain PyTorch version on the card
+     (head dims 32, 64, 112, 128);
+  4. Mamba2 SSD scan kernel against its plain PyTorch version (the exact
+     recurrence) on the card;
+  5. reference: the reduced qwen3-8b and zamba2-7b in f32, kernel path on
+     the card against the plain path on the CPU;
+  6. serve, for each model — qwen3-8b (slice 1) and zamba2-7b (slice 2), at
+     full width and depth in bf16 (random weights from a seed) under
+     replication: a clean run, a run whose computational slice is killed
+     mid-stream (the token streams and the whole final state must be
+     bitwise equal, one promotion), and an unreplicated kill that must
+     raise; the kernels' launch counters, zeroed just before each path and
+     read just after, must equal the counts the path implies;
+  7. times, after each serve phase: CUDA-event medians of each kernel, its
+     plain version and the PyTorch library call (where one exists) at the
+     path's shapes, and the whole path's prefill and decode times. Each
+     model's servers are freed before the next model's serve phase.
 
 Prints JSON lines as it goes, then ``{"kernels": [...]}`` and, last,
 ``{"ok": true, "device": {...}}``. Exits non-zero without CUDA, and when run
@@ -25,6 +33,7 @@ outside the repository (the port's package must be beside it in ``src``).
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import os
 import statistics
@@ -44,10 +53,13 @@ import torch.nn.functional as F  # noqa: E402
 from repro_torch.configs import get_arch  # noqa: E402
 from repro_torch.kernels import build, ref  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
+from repro_torch.kernels.mamba_scan import mamba_chunk_scan  # noqa: E402
 from repro_torch.kernels.rmsnorm import rmsnorm  # noqa: E402
 from repro_torch.launch.serve import ReplicatedServer  # noqa: E402
-from repro_torch.models import api  # noqa: E402
+from repro_torch.models import api, mamba2  # noqa: E402
 from repro_torch.models.transformer import Transformer  # noqa: E402
+from repro_torch.models.zamba import Zamba  # noqa: E402
+from repro_torch.tree import tree_map  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 BF16_FLOPS = 989e12                # dense bf16 tensor-core peak
@@ -55,10 +67,16 @@ BF16_FLOPS = 989e12                # dense bf16 tensor-core peak
 # tolerances): f32 differs only by summation order; bf16 by at most one
 # rounding of the f32 result
 TOL = {torch.float32: (2e-5, 2e-5), torch.bfloat16: (3e-2, 2e-2)}
+# the Mamba2 scan's f32 outputs: the chunked scan against the exact per-step
+# recurrence (tests/test_kernels.py's sweep tolerance)
+MAMBA_TOL = (3e-4, 3e-4)
 
 B, S, GEN, KILL_AT = 4, 512, 32, 8
 SPIN_CYCLES = 2_000_000            # ~1 ms at the H100's clock
 QWEN = get_arch("qwen3-8b")
+ZAMBA = get_arch("zamba2-7b")
+KERNELS = {"rmsnorm": rmsnorm, "flash_attention": flash_attention,
+           "mamba_scan": mamba_chunk_scan}
 
 
 def emit(obj) -> None:
@@ -73,8 +91,17 @@ def card() -> str:
     return out[0].strip()
 
 
-def compare(name, got, want, dtype, **shape):
-    atol, rtol = TOL[dtype]
+def reset_launches():
+    for fn in KERNELS.values():
+        fn.launches = 0
+
+
+def read_launches():
+    return {name: fn.launches for name, fn in KERNELS.items()}
+
+
+def compare(name, got, want, dtype, tol=None, **shape):
+    atol, rtol = tol or TOL[dtype]
     torch.cuda.synchronize()
     err = (got.float() - want.float()).abs()
     bound = atol + rtol * want.float().abs()
@@ -161,6 +188,16 @@ def phase_attention(state):
              dtype=torch.bfloat16),                      # D = 32, GQA 4x
         dict(b=2, hq=4, hkv=2, s=256, d=64, causal=True, window=0,
              dtype=torch.bfloat16),                      # D = 64, GQA 2x
+        dict(b=B, hq=ZAMBA.n_heads, hkv=ZAMBA.n_kv_heads, s=S,
+             d=ZAMBA.resolved_head_dim, causal=True, window=0,
+             dtype=torch.bfloat16),                      # zamba2-7b prefill
+        dict(b=B, hq=ZAMBA.n_heads, hkv=ZAMBA.n_kv_heads, s=S,
+             d=ZAMBA.resolved_head_dim, causal=True, window=0,
+             dtype=torch.float32),
+        dict(b=1, hq=4, hkv=4, s=256, d=112, causal=True, window=64,
+             dtype=torch.float32),                       # D = 112, window
+        dict(b=1, hq=2, hkv=2, s=128, d=112, causal=False, window=0,
+             dtype=torch.bfloat16),                      # D = 112, full
     ]
     worst = 0.0
     for c in cases:
@@ -181,7 +218,66 @@ def phase_attention(state):
     state["attention_err"] = worst
 
 
-# ------------------------------------------------------- reference check
+# ---------------------------------------------------------------- phase 4
+
+def _mamba_inputs(gen, b, s, h, p, n, dtype):
+    """x, B, C in ``dtype``; dt = softplus(noise) and da = -dt * exp(noise)
+    in f32 (tests/test_kernels.py's sweep inputs)."""
+    x, bm, cm = (_rand(gen, shape, dtype) for shape in
+                 ((b, s, h, p), (b, s, n), (b, s, n)))
+    dt = F.softplus(_rand(gen, (b, s, h), torch.float32))
+    da = -dt * torch.exp(_rand(gen, (h,), torch.float32) * 0.1)
+    return x, bm, cm, dt, da
+
+
+def phase_mamba_scan(state):
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    bf, f32 = torch.bfloat16, torch.float32
+    _, nh, p, n = mamba2.dims(ZAMBA)                    # 112 heads, 64, 64
+    cases = [  # (b, s, h, p, n, chunk, input dtype, output dtype)
+        (B, S, nh, p, n, ZAMBA.ssm_chunk, bf, f32),    # zamba2-7b prefill
+        (B, S, nh, p, n, ZAMBA.ssm_chunk, bf, bf),
+        (B, S, nh, p, n, ZAMBA.ssm_chunk, f32, f32),
+        (1, 64, 2, 8, 4, 16, f32, f32),                 # the sweep shapes
+        (2, 128, 3, 16, 8, 32, f32, f32),
+        (1, 96, 1, 8, 16, 32, f32, f32),
+        (2, 40, 4, 64, 16, 40, bf, f32),                # T = S < 128
+    ]
+    worst = 0.0
+    for b, s, h, p_, n_, chunk, dtype, out in cases:
+        args = _mamba_inputs(gen, b, s, h, p_, n_, dtype)
+        y, hf = mamba_chunk_scan(*args, chunk=chunk, out_dtype=out)
+        wy, wh = ref.mamba_chunk_scan_ref(*args, out_dtype=out)
+        shape = dict(x=[b, s, h, p_], n=n_, chunk=chunk,
+                     out=str(out).replace("torch.", ""))
+        tol = MAMBA_TOL if out == f32 else None
+        worst = max(worst, compare("mamba_scan.y", y, wy, out, tol, **shape),
+                    compare("mamba_scan.h", hf, wh, f32, MAMBA_TOL, **shape))
+        again = mamba_chunk_scan(*args, chunk=chunk, out_dtype=out)
+        if not (torch.equal(y, again[0]) and torch.equal(hf, again[1])):
+            raise AssertionError(f"mamba scan rerun differs: {shape}")
+    # the model's split views of its conv output, read through strides
+    xbc = _rand(gen, (B, 128, nh * p + 2 * n), bf)
+    x = xbc[..., :nh * p].reshape(B, 128, nh, p)
+    bm, cm = xbc[..., nh * p:nh * p + n], xbc[..., nh * p + n:]
+    _, _, _, dt, da = _mamba_inputs(gen, B, 128, nh, p, n, bf)
+    got = mamba_chunk_scan(x, bm, cm, dt, da, chunk=64, out_dtype=f32)
+    want = mamba_chunk_scan(x.contiguous(), bm.contiguous(), cm.contiguous(),
+                            dt, da, chunk=64, out_dtype=f32)
+    if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+        raise AssertionError("mamba scan on strided views differs")
+    # the result does not depend on the chunking (summation order only)
+    args = _mamba_inputs(gen, 1, 128, 2, 8, 8, f32)
+    y32, h32 = mamba_chunk_scan(*args, chunk=32)
+    y64, h64 = mamba_chunk_scan(*args, chunk=64)
+    compare("mamba_scan.chunk_invariance.y", y32, y64, f32, (1e-5, 1e-5),
+            chunks=[32, 64])
+    compare("mamba_scan.chunk_invariance.h", h32, h64, f32, (1e-5, 1e-5),
+            chunks=[32, 64])
+    state["mamba_scan_err"] = worst
+
+
+# ---------------------------------------------------------------- phase 5
 
 def phase_reference(state):
     """The kernel path against the plain path on a small input: the
@@ -214,12 +310,76 @@ def phase_reference(state):
         raise AssertionError(f"card and CPU logits differ by {worst}")
 
 
-# ----------------------------------------------------------- phase 4: serve
+def phase_reference_zamba(state):
+    """The same for the reduced zamba2-7b (7 blocks, window 64), through
+    all three kernels on the card: a 96-token prompt (windowed prefill) and
+    a 32-token one (the ring of 32 slots is overwritten from position 0 by
+    decode, as in the reference), each with 8 greedy decode steps; logits
+    within 1e-3, tokens equal."""
+    cfg = dataclasses.replace(ZAMBA.reduced(), dtype="float32")
+    cpu = Zamba(cfg, device="cpu").init(torch.Generator().manual_seed(0))
+    gpu = Zamba(cfg, device="cuda")
+    gpu.load_state_dict(cpu.state_dict())
+    worst = 0.0
+    for s in (96, 32):
+        reset_launches()
+        toks = torch.as_tensor(np.random.default_rng(s).integers(
+            0, cfg.vocab_size, (2, s), dtype=np.int32))
+        lc, cc = cpu.prefill({"tokens": toks})
+        lg, cg = gpu.prefill({"tokens": toks.cuda()})
+        worst = max(worst, float((lg.cpu() - lc).abs().max()))
+        pos = torch.full((2, 1), s, dtype=torch.int32)
+        for _ in range(8):
+            tok = torch.argmax(lc[:, -1], -1)[:, None].to(torch.int32)
+            if not torch.equal(tok, torch.argmax(lg[:, -1], -1)[:, None]
+                               .to(torch.int32).cpu()):
+                raise AssertionError("kernel path picked another token")
+            lc, cc = cpu.decode_step(cc, tok, pos)
+            lg, cg = gpu.decode_step(cg, tok.cuda(), pos.cuda())
+            worst = max(worst, float((lg.cpu() - lc).abs().max()))
+            pos = pos + 1
+        counts = read_launches()
+        if min(counts.values()) == 0:
+            raise AssertionError(f"a kernel was not launched: {counts}")
+    emit({"check": "reduced_zamba_card_vs_cpu", "prompts": [96, 32],
+          "decode_steps": 8, "max_abs_err": worst, "atol": 1e-3,
+          "ok": worst <= 1e-3})
+    if worst > 1e-3:
+        raise AssertionError(f"card and CPU logits differ by {worst}")
 
-def phase_serve(state):
-    cfg = QWEN
+
+# ---------------------------------------------------------------- phase 6
+
+def _state_tensors(tree):
+    out = []
+    tree_map(lambda leaf: out.append(leaf)
+             if isinstance(leaf, torch.Tensor) else None, tree)
+    return out
+
+
+def expected_launches(cfg):
+    """Launches of each kernel in one serve phase: 3 prefills (clean,
+    killed, unreplicated) and the decode steps (clean 2 x GEN, the replica
+    re-executing; killed 2 x KILL_AT + the rest; unreplicated KILL_AT)."""
+    prefills = 3
+    decodes = 2 * GEN + (2 * KILL_AT + GEN - KILL_AT) + KILL_AT
+    if cfg.family == "hybrid":
+        groups = cfg.n_layers // cfg.attn_every
+        # 2 norms per attention application and per Mamba block, and ln_f
+        per_fwd = 2 * groups + 2 * cfg.n_layers + 1
+        return {"rmsnorm": per_fwd * (prefills + decodes),
+                "flash_attention": groups * prefills,
+                "mamba_scan": cfg.n_layers * prefills}
+    per_fwd = 4 * cfg.n_layers + 1      # ln1, ln2, q_norm, k_norm; ln_f
+    return {"rmsnorm": per_fwd * (prefills + decodes),
+            "flash_attention": cfg.n_layers * prefills, "mamba_scan": 0}
+
+
+def serve(state, cfg):
+    """The replicated serving path of ``cfg`` at full size; leaves the
+    server in ``state`` for the times that follow."""
     t0 = time.perf_counter()
-    srv = ReplicatedServer("qwen3-8b", reduced=False, batch=B, prompt_len=S,
+    srv = ReplicatedServer(cfg.name, reduced=False, batch=B, prompt_len=S,
                            device="cuda")
     torch.cuda.synchronize()
     emit({"phase": "serve.build", "arch": cfg.name,
@@ -229,21 +389,22 @@ def phase_serve(state):
     prompts = np.random.default_rng(0).integers(
         0, cfg.vocab_size, (B, S), dtype=np.int32)
 
-    rmsnorm.launches = flash_attention.launches = 0
+    reset_launches()
     t0 = time.perf_counter()
     clean = srv.generate(prompts, GEN)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    clean_cache = srv.last_report.final_state["cache"]
+    clean_state = _state_tensors(srv.last_report.final_state["cache"])
     faulty = srv.generate(prompts, GEN, kill_at=KILL_AT)
     # the FT theorem on the whole state, not only the tokens: after the
-    # promotion the final KV cache equals the clean run's bit for bit
-    faulty_cache = srv.last_report.final_state["cache"]
-    cache_equal = all(torch.equal(a[key], b[key])
-                      for a, b in zip(clean_cache, faulty_cache)
-                      for key in ("k", "v", "pos"))
-    del clean_cache, faulty_cache
-    unreplicated = ReplicatedServer("qwen3-8b", reduced=False, batch=B,
+    # promotion every tensor of the final state (KV rings and, for the
+    # hybrid, every Mamba h and conv) equals the clean run's bit for bit
+    faulty_state = _state_tensors(srv.last_report.final_state["cache"])
+    state_equal = len(clean_state) == len(faulty_state) and all(
+        torch.equal(a, b) for a, b in zip(clean_state, faulty_state))
+    n_state = len(clean_state)
+    del clean_state, faulty_state
+    unreplicated = ReplicatedServer(cfg.name, reduced=False, batch=B,
                                     prompt_len=S, replication=False,
                                     device="cuda")
     try:
@@ -253,26 +414,21 @@ def phase_serve(state):
     else:
         raise AssertionError("an unreplicated kill did not raise")
     torch.cuda.synchronize()
-    counts = {"rmsnorm": rmsnorm.launches,
-              "flash_attention": flash_attention.launches}
+    counts = read_launches()
     del unreplicated
+    torch.cuda.empty_cache()
 
     if clean.shape != (B, GEN) or clean.min() < 0 or \
             clean.max() >= cfg.vocab_size:
         raise AssertionError(f"bad token stream {clean.shape}")
-    if not np.array_equal(clean, faulty) or not cache_equal:
-        raise AssertionError("token stream or cache after failover differs")
+    if not np.array_equal(clean, faulty) or not state_equal:
+        raise AssertionError("token stream or state after failover differs")
     if srv.promotions != 1 or srv.failures != 1:
         raise AssertionError(f"promotions={srv.promotions} "
                              f"failures={srv.failures}")
-    # forwards: 3 prefills (clean, killed, unreplicated); decodes: clean
-    # 2 x 32 (replica re-executes), killed 2 x 8 + 24, unreplicated 8
-    prefills = 3
-    decodes = 2 * GEN + (2 * KILL_AT + GEN - KILL_AT) + KILL_AT
-    per_fwd = 4 * cfg.n_layers + 1
-    want = {"rmsnorm": per_fwd * (prefills + decodes),
-            "flash_attention": cfg.n_layers * prefills}
-    emit({"phase": "serve", "tokens_equal": True, "cache_equal": True,
+    want = expected_launches(cfg)
+    emit({"phase": "serve", "arch": cfg.name, "tokens_equal": True,
+          "state_equal": True, "state_tensors": n_state,
           "promotions": srv.promotions, "failures": srv.failures,
           "unreplicated_kill": fatal, "launches": counts,
           "launches_expected": want, "first_tokens": clean[:, :8].tolist(),
@@ -281,12 +437,21 @@ def phase_serve(state):
           "card": state["card"]})
     if counts != want:
         raise AssertionError(f"launch counts {counts}, expected {want}")
-    state["launches"] = counts
+    state.setdefault("launches", {})[cfg.name] = counts
     state["server"] = srv
     state["prompts"] = prompts
+    state.setdefault("generate_tok_per_s", {})[cfg.name] = clean.size / wall
 
 
-# ----------------------------------------------------------- phase 5: times
+def phase_serve(state):
+    serve(state, QWEN)
+
+
+def phase_serve_zamba(state):
+    serve(state, ZAMBA)
+
+
+# ---------------------------------------------------------------- phase 7
 
 class _L2Flush:
     """Writes 128 MB between timed runs so no run finds its inputs in the
@@ -355,32 +520,9 @@ def _rmsnorm_times(card_name, flush, calls, eps):
     return tot
 
 
-def phase_times(state):
-    card_name = state["card"]
-    flush = _L2Flush()
-    cfg = QWEN
-    srv = state["server"]
-    gen = torch.Generator(device="cuda").manual_seed(5)
+def _attention_times(card_name, flush, gen, hq, hkv, dh):
+    """K2 at the prefill shape [B, hq, S, dh] bf16, causal."""
     bf = torch.bfloat16
-    d, hq, hkv, dh = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
-                      cfg.resolved_head_dim)
-    lp = srv.model.layers[0]
-    k1 = _rmsnorm_times(card_name, flush, [
-        ("ln1", _rand(gen, (B, S, d), bf), lp["ln1"]["scale"]),
-        ("ln2", _rand(gen, (B, S, d), bf), lp["ln2"]["scale"]),
-        ("q_norm", _rand(gen, (B, S, hq, dh), bf),
-         lp["attn"]["q_norm"]["scale"]),
-        ("k_norm", _rand(gen, (B, S, hkv, dh), bf),
-         lp["attn"]["k_norm"]["scale"])], cfg.norm_eps)
-    emit({"time": "rmsnorm", "call": "one prefill layer: ln1+ln2+q+k",
-          **k1, "card": card_name})
-    k1_decode = _rmsnorm_times(card_name, flush, [
-        ("ln1_decode", _rand(gen, (B, 1, d), bf), lp["ln1"]["scale"]),
-        ("q_norm_decode", _rand(gen, (B, 1, hq, dh), bf),
-         lp["attn"]["q_norm"]["scale"])], cfg.norm_eps)
-    emit({"time": "rmsnorm", "call": "decode: ln1+q_norm", **k1_decode,
-          "card": card_name})
-
     q = _bshd(gen, B, S, hq, dh, bf)
     k = _bshd(gen, B, S, hkv, dh, bf)
     v = _bshd(gen, B, S, hkv, dh, bf)
@@ -397,8 +539,13 @@ def phase_times(state):
     }
     emit({"time": "flash_attention", "shape": list(q.shape), **k2,
           "card": card_name})
+    return k2
 
-    # whole path: the workload's prefill, then its decode steps (one slice)
+
+def _path_times(state, cfg, flush):
+    """The whole path: the workload's prefill, then its decode steps (one
+    slice); the prefill logits must be finite of the expected shape."""
+    srv = state["server"]
     wl = srv.workload(state["prompts"])
     prefill_ms = time_ms(wl.init_state, flush, reps=20)
     logits, _ = srv.model.prefill(wl.batch)
@@ -418,29 +565,132 @@ def phase_times(state):
     emit({"time": "serve_path", "arch": cfg.name, "batch": B,
           "prompt_len": S, "prefill_ms": prefill_ms,
           "decode_ms_per_step": decode_ms,
-          "decode_tok_per_s": B / (decode_ms * 1e-3), "card": card_name})
-    state["times"] = {"rmsnorm": k1, "flash_attention": k2}
+          "decode_tok_per_s": B / (decode_ms * 1e-3),
+          "replicated_generate_tok_per_s":
+              state["generate_tok_per_s"][cfg.name],
+          "card": state["card"]})
+
+
+def _free_server(state):
+    """Drop the model's server before the next model is built."""
+    del state["server"]
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_times(state):
+    card_name = state["card"]
+    flush = _L2Flush()
+    cfg = QWEN
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    bf = torch.bfloat16
+    d, hq, hkv, dh = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                      cfg.resolved_head_dim)
+    lp = state["server"].model.layers[0]
+    k1 = _rmsnorm_times(card_name, flush, [
+        ("ln1", _rand(gen, (B, S, d), bf), lp["ln1"]["scale"]),
+        ("ln2", _rand(gen, (B, S, d), bf), lp["ln2"]["scale"]),
+        ("q_norm", _rand(gen, (B, S, hq, dh), bf),
+         lp["attn"]["q_norm"]["scale"]),
+        ("k_norm", _rand(gen, (B, S, hkv, dh), bf),
+         lp["attn"]["k_norm"]["scale"])], cfg.norm_eps)
+    emit({"time": "rmsnorm", "call": "one prefill layer: ln1+ln2+q+k",
+          **k1, "card": card_name})
+    k1_decode = _rmsnorm_times(card_name, flush, [
+        ("ln1_decode", _rand(gen, (B, 1, d), bf), lp["ln1"]["scale"]),
+        ("q_norm_decode", _rand(gen, (B, 1, hq, dh), bf),
+         lp["attn"]["q_norm"]["scale"])], cfg.norm_eps)
+    emit({"time": "rmsnorm", "call": "decode: ln1+q_norm", **k1_decode,
+          "card": card_name})
+    k2 = _attention_times(card_name, flush, gen, hq, hkv, dh)
+    _path_times(state, cfg, flush)
+    state.setdefault("times", {})[cfg.name] = {"rmsnorm": k1,
+                                               "flash_attention": k2}
+    _free_server(state)
+
+
+def phase_times_zamba(state):
+    card_name = state["card"]
+    flush = _L2Flush()
+    cfg = ZAMBA
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    bf, f32 = torch.bfloat16, torch.float32
+    d = cfg.d_model
+    d_inner, nh, p, n = mamba2.dims(cfg)
+    model = state["server"].model
+    blk = model.mamba[0][0]
+    k1 = _rmsnorm_times(card_name, flush, [
+        ("mamba.ln d=3584", _rand(gen, (B, S, d), bf), blk["ln"]["scale"]),
+        ("mamba.out_norm d=7168", _rand(gen, (B, S, d_inner), bf),
+         blk["out_norm"]["scale"])], cfg.norm_eps)
+    emit({"time": "rmsnorm", "call": "one prefill Mamba block: ln+out_norm",
+          **k1, "card": card_name})
+    k1_attn = _rmsnorm_times(card_name, flush, [
+        ("attn_ln d=3584", _rand(gen, (B, S, d), bf),
+         model.attn_ln["scale"]),
+        ("attn_mlp_ln d=3584", _rand(gen, (B, S, d), bf),
+         model.attn_mlp_ln["scale"])], cfg.norm_eps)
+    emit({"time": "rmsnorm", "call": "one attention application: "
+          "attn_ln+attn_mlp_ln", **k1_attn, "card": card_name})
+    k1_decode = _rmsnorm_times(card_name, flush, [
+        ("mamba.ln_decode", _rand(gen, (B, 1, d), bf), blk["ln"]["scale"]),
+        ("mamba.out_norm_decode", _rand(gen, (B, 1, d_inner), bf),
+         blk["out_norm"]["scale"])], cfg.norm_eps)
+    emit({"time": "rmsnorm", "call": "decode Mamba block: ln+out_norm",
+          **k1_decode, "card": card_name})
+    k2 = _attention_times(card_name, flush, gen, cfg.n_heads,
+                          cfg.n_kv_heads, cfg.resolved_head_dim)
+
+    # K3 as the model calls it: bf16 x, B, C; f32 dt, da; y in f32
+    T = cfg.ssm_chunk
+    x, bm, cm, dt, da = _mamba_inputs(gen, B, S, nh, p, n, bf)
+    pairs = T * (T + 1) // 2                     # causal (t, s) pairs
+    per_chunk = 2 * (pairs * n + pairs * p + 2 * T * p * n)
+    n_bytes = (x.numel() * 2 + (bm.numel() + cm.numel()) * 2
+               + (dt.numel() + da.numel()) * 4     # inputs read once
+               + x.numel() * 4 + B * nh * p * n * 4)   # y f32, h written
+    k3 = {
+        "ms": time_ms(lambda: mamba_chunk_scan(x, bm, cm, dt, da, chunk=T,
+                                               out_dtype=f32), flush),
+        "plain_ms": time_ms(lambda: ref.mamba_chunk_scan_ref(
+            x, bm, cm, dt, da, out_dtype=f32), flush, reps=5, warmup=1),
+        "library_ms": None,      # no single PyTorch call computes the scan
+        **bound(n_bytes, per_chunk * (S // T) * B * nh),
+    }
+    emit({"time": "mamba_scan", "shape": list(x.shape), "n": n, "chunk": T,
+          **k3, "card": card_name})
+    _path_times(state, cfg, flush)
+    state.setdefault("times", {})[cfg.name] = {
+        "rmsnorm": k1, "flash_attention": k2, "mamba_scan": k3}
+    _free_server(state)
 
 
 PHASES = [phase_device_and_build, phase_rmsnorm, phase_attention,
-          phase_reference, phase_serve, phase_times]
+          phase_mamba_scan, phase_reference, phase_reference_zamba,
+          phase_serve, phase_times, phase_serve_zamba, phase_times_zamba]
+
+REPLACES = {"rmsnorm": "src/repro/kernels/rmsnorm.py:31",
+            "flash_attention": "src/repro/kernels/flash_attention.py:97",
+            "mamba_scan": "src/repro/kernels/mamba_scan.py:79"}
+ERRORS = {"rmsnorm": "rmsnorm_err", "flash_attention": "attention_err",
+          "mamba_scan": "mamba_scan_err"}
 
 
 def kernels_line(state):
+    """One row per kernel, with the launch counts and times of this
+    slice's path (zamba2-7b), the only one that runs all three; the
+    qwen3-8b path's are on its own serve and time lines."""
     rows = []
-    for name, replaces, err in (
-            ("rmsnorm", "src/repro/kernels/rmsnorm.py:31",
-             state["rmsnorm_err"]),
-            ("flash_attention", "src/repro/kernels/flash_attention.py:97",
-             state["attention_err"])):
-        t = state["times"][name]
+    for name, replaces in REPLACES.items():
+        t = state["times"][ZAMBA.name][name]
         rows.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{name}.cu",
-            "replaces": replaces, "launches": state["launches"][name],
-            "max_abs_err": err, "ms": t["ms"], "plain_ms": t["plain_ms"],
-            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-            "library_ms": t["library_ms"]})
+            "replaces": replaces,
+            "launches": state["launches"][ZAMBA.name][name],
+            "max_abs_err": state[ERRORS[name]], "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
     return {"kernels": rows}
 
 

@@ -30,5 +30,5 @@ def pricing_from_ft(ft, cluster) -> ClockPricing:
     if getattr(ft, "topology", None):
         raise NotImplementedError(
             f"topology pricing ({ft.topology!r}) is not ported to PyTorch "
-            f"yet (ROADMAP.md, Queue 1 item 2)")
+            f"yet (ROADMAP.md, Queue 1 item 3)")
     return ClockPricing()

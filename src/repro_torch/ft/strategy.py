@@ -124,7 +124,7 @@ def make_strategy(ft: FTConfig) -> FTStrategy:
     if ft.mode in _NOT_PORTED:
         raise NotImplementedError(
             f"FT mode {ft.mode!r} needs the checkpoint strategies, which "
-            f"are not ported to PyTorch yet (ROADMAP.md, Queue 1 item 4)")
+            f"are not ported to PyTorch yet (ROADMAP.md, Queue 1 item 5)")
     try:
         return _STRATEGIES[ft.mode](ft)
     except KeyError:

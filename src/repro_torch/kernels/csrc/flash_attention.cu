@@ -217,6 +217,10 @@ int launch_d(int d, const void* q, const void* k, const void* v, void* o,
       launch<T, 64>(q, k, v, o, batch, hq, sq, skv, group, qs, ks, vs, os,
                     causal, window, scale, stream);
       return 0;
+    case 112:  // zamba2's shared attention: 28 float4 chunks, 7 a lane
+      launch<T, 112>(q, k, v, o, batch, hq, sq, skv, group, qs, ks, vs, os,
+                     causal, window, scale, stream);
+      return 0;
     case 128:
       launch<T, 128>(q, k, v, o, batch, hq, sq, skv, group, qs, ks, vs, os,
                      causal, window, scale, stream);
@@ -230,7 +234,7 @@ int launch_d(int d, const void* q, const void* k, const void* v, void* o,
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16; d in {32, 64, 128}. Strides are in
+// dtype: 0 = float32, 1 = bfloat16; d in {32, 64, 112, 128}. Strides are in
 // elements, ordered (batch, seq, head) for each of q, k, v, o; the last
 // dimension is contiguous. Returns cudaGetLastError() after the launch.
 int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,

@@ -21,7 +21,7 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.rmsnorm import DTYPE_CODES
 
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 112, 128)
 _ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 21
              + [ctypes.c_float, ctypes.c_void_p])
 _INT_MAX = 2 ** 31 - 1

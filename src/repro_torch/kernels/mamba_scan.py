@@ -1,0 +1,96 @@
+"""Mamba2 SSD chunk scan on the card: wrapper of the hand-written CUDA
+kernel ``csrc/mamba_scan.cu``.
+
+Replaces the Pallas TPU kernel ``repro/kernels/mamba_scan.py::
+mamba_chunk_scan``. At the zamba2-7b prefill shape its least time on the
+H100 is set by memory traffic (x, B, C, dt, da read once, y and the final
+state written once: ~98 MB, ~29 us); this first kernel does its products
+with f32 FMAs, one CTA per (batch, head) with the chunk loop inside and the
+state in shared memory (see the source for the design). It reads its inputs
+through their strides, so the model's split views of the conv output go in
+without a copy. ``ops.mamba_chunk_scan`` routes CUDA tensors here and CPU
+tensors to ``ref.mamba_chunk_scan_ref``.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Optional, Tuple
+
+import torch
+
+from repro_torch.kernels import build
+from repro_torch.kernels.rmsnorm import DTYPE_CODES
+
+MAX_CHUNK, MAX_P, MAX_N = 128, 64, 64
+_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 21
+             + [ctypes.c_void_p])
+_INT_MAX = 2 ** 31 - 1
+
+
+def _check_last_dim(name: str, t: torch.Tensor) -> None:
+    if t.shape[-1] > 1 and t.stride(-1) != 1:
+        raise ValueError(f"mamba scan kernel needs a contiguous last "
+                         f"dimension of {name}, got strides {t.stride()}")
+
+
+def mamba_chunk_scan(x: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
+                     dt: torch.Tensor, da: torch.Tensor, *, chunk: int = 128,
+                     out_dtype: Optional[torch.dtype] = None
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x: [B, S, H, P]; b, c: [B, S, N] (x, b, c one dtype, bf16 or f32,
+    last dimension contiguous, any other strides); dt, da: [B, S, H] f32
+    (da = dt * A, the log decay). S % chunk == 0, chunk <= 128, P <= 64,
+    N <= 64. Returns (y [B, S, H, P] in ``out_dtype`` (x's dtype by
+    default), h [B, H, P, N] f32), both new contiguous tensors; the scan
+    starts from h = 0."""
+    dev = x.device
+    if dev.type != "cuda" or any(t.device != dev for t in (b, c, dt, da)):
+        raise ValueError("mamba scan kernel needs x, b, c, dt, da on one "
+                         "CUDA device")
+    if x.dtype not in DTYPE_CODES or b.dtype != x.dtype or \
+            c.dtype != x.dtype:
+        raise TypeError(f"mamba scan kernel takes x, b, c of one dtype of "
+                        f"{list(DTYPE_CODES)}, got {x.dtype}, {b.dtype}, "
+                        f"{c.dtype}")
+    if dt.dtype != torch.float32 or da.dtype != torch.float32:
+        raise TypeError(f"dt and da must be float32, got {dt.dtype}, "
+                        f"{da.dtype}")
+    out_dtype = x.dtype if out_dtype is None else out_dtype
+    if out_dtype not in DTYPE_CODES:
+        raise TypeError(f"out_dtype must be one of {list(DTYPE_CODES)}, got "
+                        f"{out_dtype}")
+    if x.dim() != 4 or b.dim() != 3 or c.shape != b.shape or \
+            dt.shape != x.shape[:3] or da.shape != dt.shape:
+        raise ValueError(f"want x [B,S,H,P], b, c [B,S,N], dt, da [B,S,H]; "
+                         f"got {tuple(x.shape)}, {tuple(b.shape)}, "
+                         f"{tuple(c.shape)}, {tuple(dt.shape)}, "
+                         f"{tuple(da.shape)}")
+    bsz, s, h, p = x.shape
+    n = b.shape[-1]
+    if b.shape[:2] != (bsz, s):
+        raise ValueError(f"b {tuple(b.shape)} does not match x "
+                         f"{tuple(x.shape)}")
+    if not 0 < chunk <= MAX_CHUNK or s % chunk or p > MAX_P or n > MAX_N:
+        raise ValueError(f"mamba scan kernel takes chunk <= {MAX_CHUNK} "
+                         f"dividing S, P <= {MAX_P}, N <= {MAX_N}; got "
+                         f"chunk={chunk}, S={s}, P={p}, N={n}")
+    for name, t in (("x", x), ("b", b), ("c", c)):
+        _check_last_dim(name, t)
+    strides = (*x.stride()[:3], *b.stride()[:2], *c.stride()[:2],
+               *dt.stride(), *da.stride())
+    if max(strides) > _INT_MAX:
+        raise ValueError("mamba scan kernel takes strides that fit in 32 "
+                         "bits")
+    y = torch.empty((bsz, s, h, p), dtype=out_dtype, device=dev)
+    h_out = torch.empty((bsz, h, p, n), dtype=torch.float32, device=dev)
+    fn = build.load_function("mamba_scan", "mamba_scan_fwd", _ARGTYPES)
+    err = fn(x.data_ptr(), b.data_ptr(), c.data_ptr(), dt.data_ptr(),
+             da.data_ptr(), y.data_ptr(), h_out.data_ptr(),
+             DTYPE_CODES[x.dtype], DTYPE_CODES[out_dtype], bsz, s, h, p, n,
+             chunk, *strides, torch.cuda.current_stream(dev).cuda_stream)
+    build.check("mamba_scan", err)
+    mamba_chunk_scan.launches += 1
+    return y, h_out
+
+
+mamba_chunk_scan.launches = 0

@@ -12,6 +12,7 @@ import torch
 
 from repro_torch.kernels import ref
 from repro_torch.kernels.flash_attention import flash_attention as _flash_cuda
+from repro_torch.kernels.mamba_scan import mamba_chunk_scan as _mamba_cuda
 from repro_torch.kernels.rmsnorm import rmsnorm as _rmsnorm_cuda
 
 BACKENDS = ("auto", "ref")
@@ -41,3 +42,17 @@ def rmsnorm(x, w, *, eps: float = 1e-5, backend: str = "auto"):
     if _use_kernel(x, backend):
         return _rmsnorm_cuda(x, w, eps=eps)
     return ref.rmsnorm_ref(x, w, eps=eps)
+
+
+def mamba_chunk_scan(x, b, c, dt, da, *, chunk: int = 128, out_dtype=None,
+                     backend: str = "auto"):
+    """Mamba2 SSD scan from h = 0. x: [B,S,H,P]; b, c: [B,S,N]; dt, da:
+    [B,S,H] -> (y [B,S,H,P] in ``out_dtype`` or x's dtype, h [B,H,P,N]
+    f32). S must divide by ``chunk`` on both paths; the plain version's
+    result does not depend on it."""
+    if chunk <= 0 or x.shape[1] % chunk:
+        raise ValueError(f"sequence length {x.shape[1]} must divide by "
+                         f"chunk={chunk}")
+    if _use_kernel(x, backend):
+        return _mamba_cuda(x, b, c, dt, da, chunk=chunk, out_dtype=out_dtype)
+    return ref.mamba_chunk_scan_ref(x, b, c, dt, da, out_dtype=out_dtype)

@@ -1,8 +1,9 @@
 """Plain PyTorch versions of the hand-written kernels (the ground truth).
 
 Counterparts of ``repro/kernels/ref.py``: quadratic attention with explicit
-masks and the elementwise norm. The CPU path of ``kernels.ops`` runs these,
-and ``chip_smoke.py`` holds each CUDA kernel against them on the card.
+masks, the elementwise norm and the exact per-step SSM recurrence. The CPU
+path of ``kernels.ops`` runs these, and ``chip_smoke.py`` holds each CUDA
+kernel against them on the card.
 """
 from __future__ import annotations
 
@@ -41,3 +42,24 @@ def rmsnorm_ref(x, w, *, eps: float = 1e-5):
     xf = x.to(F32)
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
     return (xf * torch.rsqrt(var + eps) * w.to(F32)).to(x.dtype)
+
+
+def mamba_chunk_scan_ref(x, b, c, dt, da, *, out_dtype=None):
+    """Exact per-timestep SSM recurrence, from h = 0.
+
+    x: [B,S,H,P]; b, c: [B,S,N]; dt, da: [B,S,H] (da = dt * A).
+    h_t = exp(da_t) h_{t-1} + dt_t x_t B_t^T;  y_t = C_t . h_t
+    Returns (y [B,S,H,P] in ``out_dtype`` (x's dtype by default), the final
+    h [B,H,P,N] in f32); all arithmetic in f32."""
+    bsz, s, nh, p = x.shape
+    n = b.shape[-1]
+    xf, bf, cf = x.to(F32), b.to(F32), c.to(F32)
+    dtf, dec = dt.to(F32), torch.exp(da.to(F32))
+    hs = torch.zeros((bsz, nh, p, n), dtype=F32, device=x.device)
+    ys = []
+    for t in range(s):
+        upd = (xf[:, t] * dtf[:, t, :, None])[..., None] * bf[:, t, None, None]
+        hs = hs * dec[:, t, :, None, None] + upd
+        ys.append(torch.einsum("bn,bhpn->bhp", cf[:, t], hs))
+    y = torch.stack(ys, dim=1)
+    return y.to(x.dtype if out_dtype is None else out_dtype), hs

@@ -1,8 +1,9 @@
 """Where the serving path's time goes on the card: a ``torch.profiler``
-trace of one prefill and of a few decode steps of full qwen3-8b (one
-slice, bf16, random weights from a seed).
+trace of one prefill and of a few decode steps of a full model (qwen3-8b
+by default, or ``--arch zamba2-7b``; one slice, bf16, random weights from
+a seed).
 
-    python -m repro_torch.launch.profile_serve
+    python -m repro_torch.launch.profile_serve [--arch zamba2-7b]
 
 Prints one JSON line per window: wall time, device busy time (the sum of
 kernel times; one stream, so kernels do not overlap), the device's idle
@@ -11,6 +12,7 @@ time. Needs CUDA.
 """
 from __future__ import annotations
 
+import argparse
 import json
 import subprocess
 import sys
@@ -28,8 +30,9 @@ from repro_torch.launch.serve import ReplicatedServer
 BATCH, PROMPT_LEN, DECODE_STEPS = 4, 512, 5
 # kernel-name fragments -> group (first match wins)
 GROUPS = (("rmsnorm", "rmsnorm kernel"), ("flash_fwd", "attention kernel"),
-          ("gemm", "matmul"), ("gemv", "matmul"), ("nvjet", "matmul"),
-          ("cutlass", "matmul"), ("xmma", "matmul"))
+          ("mamba_ssd_scan", "mamba scan kernel"), ("gemm", "matmul"),
+          ("gemv", "matmul"), ("nvjet", "matmul"), ("cutlass", "matmul"),
+          ("xmma", "matmul"))
 
 
 def _group(name: str) -> str:
@@ -72,19 +75,23 @@ def trace(label: str, fn, card: str) -> dict:
             "card": card}
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="qwen3-8b")
+    args = ap.parse_args(argv)
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
-    srv = ReplicatedServer("qwen3-8b", reduced=False, batch=BATCH,
+    srv = ReplicatedServer(args.arch, reduced=False, batch=BATCH,
                            prompt_len=PROMPT_LEN, device="cuda")
     prompts = np.random.default_rng(0).integers(
         0, srv.cfg.vocab_size, (BATCH, PROMPT_LEN), dtype=np.int32)
     wl = srv.workload(prompts)
     state = wl.init_state()                      # warm-up
     state, _ = wl.step(state, 0)
-    print(json.dumps(trace("prefill", wl.init_state, card)), flush=True)
+    print(json.dumps({"arch": args.arch, **trace("prefill", wl.init_state,
+                                                  card)}), flush=True)
 
     def decode():
         nonlocal state
@@ -92,7 +99,7 @@ def main() -> int:
             state, _ = wl.step(state, 1 + t)
 
     out = trace(f"decode x{DECODE_STEPS}", decode, card)
-    print(json.dumps(out), flush=True)
+    print(json.dumps({"arch": args.arch, **out}), flush=True)
     return 0
 
 

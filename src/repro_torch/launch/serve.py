@@ -9,12 +9,16 @@ given ``device="cpu"``.
 
 The JAX server routes each request batch to the serving rank over a
 replicated transport (``BatchFanout``). That transport is not ported yet
-(ROADMAP.md, Queue 1 item 2); the fan-out is an identity on the batch, so
+(ROADMAP.md, Queue 1 item 3); the fan-out is an identity on the batch, so
 ``generate`` hands the prompt batch to the workload directly and the token
 stream is the same.
 
+Any ported family serves through the same code: the dense qwen3-8b (the
+default) and the zamba2-7b hybrid, whose state carries a recurrent Mamba
+state per block beside the attention rings (cloned like the rings).
+
 Example:
-  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-8b \
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-7b \
       --batch 4 --prompt-len 32 --gen 16 --kill-at 8 --device cuda
 """
 from __future__ import annotations

@@ -1,11 +1,15 @@
 """Carry JAX-package weights into the port's model.
 
 ``params_from_jax`` takes the JAX parameter pytree as numpy arrays (what
-``jax.device_get`` returns) and gives the port's state dict: the stacked
-leading ``L`` axis of ``layers`` is split into per-layer tensors and every
-dtype is kept. numpy has no bfloat16 of its own, so bf16 leaves arrive as
-``ml_dtypes.bfloat16`` arrays or as their ``uint16`` bit views (the trick
-``repro/checkpoint/io.py`` uses); both become ``torch.bfloat16`` bit for bit.
+``jax.device_get`` returns) and gives the port's state dict: each stacked
+tree is split along its leading axes into per-block tensors, the indices
+after the stacked name (``layers/wq[3]`` -> ``layers.3.wq``; the hybrid's
+``mamba/in_x[g, j]`` -> ``mamba.g.j.in_x`` and ``mamba_tail/a_log[i]`` ->
+``mamba_tail.i.a_log``), and every dtype is kept (the hybrid's f32
+``a_log``, ``d_skip`` and ``dt_bias`` stay f32 in a bf16 model). numpy
+has no bfloat16 of its own, so bf16 leaves arrive as ``ml_dtypes.bfloat16``
+arrays or as their ``uint16`` bit views (the trick ``repro/checkpoint/io.py``
+uses); both become ``torch.bfloat16`` bit for bit.
 Nothing here imports jax.
 """
 from __future__ import annotations
@@ -37,19 +41,32 @@ def to_tensor(arr: np.ndarray, device=None) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(arr).copy()).to(device)
 
 
+def _stacked(cfg: ModelConfig) -> Dict[str, Tuple[int, ...]]:
+    """Stacked tree name -> its leading axes, for ``cfg``'s family."""
+    if cfg.family == "hybrid":
+        out = {"mamba": (cfg.n_layers // cfg.attn_every, cfg.attn_every)}
+        if cfg.n_layers % cfg.attn_every:
+            out["mamba_tail"] = (cfg.n_layers % cfg.attn_every,)
+        return out
+    return {"layers": (cfg.n_layers,)}
+
+
 def params_from_jax(tree: dict, cfg: ModelConfig, device=None
                     ) -> Dict[str, torch.Tensor]:
-    """JAX dense-transformer params (numpy leaves) -> the port's state
-    dict, for ``Transformer.load_state_dict``."""
+    """JAX params (numpy leaves) of the dense transformer or the hybrid ->
+    the port's state dict, for the model's ``load_state_dict``."""
+    stacked = _stacked(cfg)
     out: Dict[str, torch.Tensor] = OrderedDict()
     for name, arr in _leaves(tree):
-        if name.startswith("layers."):
-            if arr.shape[0] != cfg.n_layers:
-                raise ValueError(f"{name}: leading axis {arr.shape[0]} is "
-                                 f"not n_layers={cfg.n_layers}")
-            rest = name[len("layers."):]
-            for i in range(cfg.n_layers):
-                out[f"layers.{i}.{rest}"] = to_tensor(arr[i], device)
-        else:
+        head, _, rest = name.partition(".")
+        lead = stacked.get(head)
+        if lead is None:
             out[name] = to_tensor(arr, device)
+            continue
+        if arr.shape[:len(lead)] != lead:
+            raise ValueError(f"{name}: leading axes {arr.shape[:len(lead)]} "
+                             f"are not {lead}")
+        for idx in np.ndindex(*lead):
+            key = ".".join([head, *map(str, idx), rest])
+            out[key] = to_tensor(arr[idx], device)
     return out

@@ -8,7 +8,9 @@ has only PyTorch:
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 Tolerances: f32 2e-5 (summation order only); bf16 rtol 2e-2 / atol 3e-2
-(one bf16 rounding of an f32 result) — ``tests/test_kernels.py``'s.
+(one bf16 rounding of an f32 result) — ``tests/test_kernels.py``'s; the
+Mamba2 scan 3e-4 on f32 outputs (the chunked scan against the exact
+recurrence, that file's sweep tolerance).
 """
 import dataclasses
 
@@ -19,12 +21,15 @@ import torch
 from repro_torch.configs import get_arch
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.mamba_scan import mamba_chunk_scan
 from repro_torch.kernels.rmsnorm import rmsnorm
 from repro_torch.launch.serve import ReplicatedServer
 from repro_torch.models.transformer import Transformer
+from repro_torch.models.zamba import Zamba
 
 RTOL = {"float32": 2e-5, "bfloat16": 2e-2}
 ATOL = {"float32": 2e-5, "bfloat16": 3e-2}
+MAMBA_TOL = dict(rtol=3e-4, atol=3e-4)
 
 pytestmark = pytest.mark.cuda
 
@@ -61,6 +66,9 @@ def test_rmsnorm_kernel_matches_plain(cuda_device, shape, dtype):
     (1, 4, 2, 256, 64, True, 128),
     (1, 2, 2, 128, 64, False, 0),
     (1, 8, 2, 128, 32, True, 0),
+    (4, 32, 32, 512, 112, True, 0),
+    (1, 2, 2, 256, 112, True, 64),
+    (1, 2, 2, 128, 112, False, 0),
 ])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_attention_kernel_matches_plain(cuda_device, b, hq, hkv, s, d,
@@ -76,6 +84,64 @@ def test_attention_kernel_matches_plain(cuda_device, b, hq, hkv, s, d,
                                         window=window), dtype)
     assert torch.equal(got, ops.attention(q, k, v, causal=causal,
                                           window=window))   # bitwise rerun
+
+
+def _mamba_inputs(dev, b, s, h, p, n, dtype):
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+    x, bm, cm = (rand(*shape).to(dtype) for shape in
+                 ((b, s, h, p), (b, s, n), (b, s, n)))
+    dt = torch.nn.functional.softplus(rand(b, s, h))
+    da = -dt * torch.exp(rand(h) * 0.1)
+    return x, bm, cm, dt, da
+
+
+@pytest.mark.parametrize("b,s,h,p,n,chunk", [
+    (4, 512, 112, 64, 64, 128),     # zamba2-7b prefill
+    (1, 64, 2, 8, 4, 16),           # tests/test_kernels.py's sweep
+    (2, 128, 3, 16, 8, 32),
+    (1, 96, 1, 8, 16, 32),
+    (2, 40, 4, 64, 16, 40),         # T = S < 128, not a power of two
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_mamba_scan_kernel_matches_plain(cuda_device, b, s, h, p, n, chunk,
+                                         dtype):
+    args = _mamba_inputs(cuda_device, b, s, h, p, n, getattr(torch, dtype))
+    before = mamba_chunk_scan.launches
+    y, hf = ops.mamba_chunk_scan(*args, chunk=chunk, out_dtype=torch.float32)
+    assert mamba_chunk_scan.launches == before + 1
+    wy, wh = ref.mamba_chunk_scan_ref(*args, out_dtype=torch.float32)
+    torch.testing.assert_close(y, wy, **MAMBA_TOL)
+    torch.testing.assert_close(hf, wh, **MAMBA_TOL)
+    again = ops.mamba_chunk_scan(*args, chunk=chunk, out_dtype=torch.float32)
+    assert torch.equal(y, again[0]) and torch.equal(hf, again[1])
+    yb, _ = ops.mamba_chunk_scan(*args, chunk=chunk)     # y in x's dtype
+    assert yb.dtype == args[0].dtype
+    assert torch.equal(yb, y.to(yb.dtype))     # one rounding of the f32 y
+
+
+def test_mamba_scan_kernel_chunk_invariance(cuda_device):
+    args = _mamba_inputs(cuda_device, 1, 128, 2, 8, 8, torch.float32)
+    y32, h32 = ops.mamba_chunk_scan(*args, chunk=32)
+    y64, h64 = ops.mamba_chunk_scan(*args, chunk=64)
+    torch.testing.assert_close(y32, y64, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(h32, h64, rtol=1e-5, atol=1e-5)
+
+
+def test_mamba_scan_kernel_reads_strided_views(cuda_device):
+    """The model hands in split views of its conv output."""
+    b, s, h, p, n = 2, 64, 4, 64, 16
+    xbc = torch.randn(b, s, h * p + 2 * n, device=cuda_device)
+    x = xbc[..., :h * p].reshape(b, s, h, p)
+    bm, cm = xbc[..., h * p:h * p + n], xbc[..., h * p + n:]
+    _, _, _, dt, da = _mamba_inputs(cuda_device, b, s, h, p, n,
+                                    torch.float32)
+    got = ops.mamba_chunk_scan(x, bm, cm, dt, da, chunk=32)
+    want = ops.mamba_chunk_scan(x.contiguous(), bm.contiguous(),
+                                cm.contiguous(), dt, da, chunk=32)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
 def test_reduced_model_kernel_path_matches_cpu(cuda_device):
@@ -94,6 +160,39 @@ def test_serve_failover_identical_stream_on_card(cuda_device):
     prompts = np.random.default_rng(0).integers(0, 400, (2, 16),
                                                 dtype=np.int32)
     srv = ReplicatedServer("qwen3-8b", batch=2, prompt_len=16)
+    clean = srv.generate(prompts, 8)
+    faulty = srv.generate(prompts, 8, kill_at=3)
+    np.testing.assert_array_equal(clean, faulty)
+    assert srv.promotions == 1
+
+
+@pytest.mark.parametrize("s", [96, 32])
+def test_reduced_zamba_kernel_path_matches_cpu(cuda_device, s):
+    """Windowed prefill (96 > window 64) and the F3 ring overwrite (32),
+    then four greedy steps; f32, summation order only."""
+    cfg = dataclasses.replace(get_arch("zamba2-7b").reduced(),
+                              dtype="float32")
+    cpu = Zamba(cfg, device="cpu").init(torch.Generator().manual_seed(0))
+    gpu = Zamba(cfg, device=cuda_device)
+    gpu.load_state_dict(cpu.state_dict())
+    toks = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, s), dtype=np.int32))
+    lc, cc = cpu.prefill({"tokens": toks})
+    lg, cg = gpu.prefill({"tokens": toks.to(cuda_device)})
+    torch.testing.assert_close(lg.cpu(), lc, rtol=1e-3, atol=1e-3)
+    pos = torch.full((2, 1), s, dtype=torch.int32)
+    for _ in range(4):
+        tok = torch.argmax(lc[:, -1], -1)[:, None].to(torch.int32)
+        lc, cc = cpu.decode_step(cc, tok, pos)
+        lg, cg = gpu.decode_step(cg, tok.to(cuda_device), pos.to(cuda_device))
+        torch.testing.assert_close(lg.cpu(), lc, rtol=1e-3, atol=1e-3)
+        pos = pos + 1
+
+
+def test_zamba_serve_failover_identical_stream_on_card(cuda_device):
+    prompts = np.random.default_rng(0).integers(0, 400, (2, 16),
+                                                dtype=np.int32)
+    srv = ReplicatedServer("zamba2-7b", batch=2, prompt_len=16)
     clean = srv.generate(prompts, 8)
     faulty = srv.generate(prompts, 8, kill_at=3)
     np.testing.assert_array_equal(clean, faulty)

@@ -4,7 +4,8 @@ On the CPU the port's ``ops`` run the plain PyTorch versions; these are
 held against ``repro.kernels.ref`` and against the Pallas kernels in
 interpret mode over every shape of ``tests/test_kernels.py``, at that
 file's tolerances (f32: 2e-5, summation order only; bf16: rtol 2e-2 /
-atol 3e-2, one bf16 rounding of an f32 result). Inputs are made once with
+atol 3e-2, one bf16 rounding of an f32 result; the Mamba2 scan 3e-4, the
+chunked scan against the exact recurrence in f32). Inputs are made once with
 numpy and handed to both sides. The CUDA kernels themselves are compared
 with the plain versions in ``test_torch_cuda.py``, which runs on a card.
 """
@@ -17,6 +18,7 @@ from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro_torch.kernels import build, ops
 from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.mamba_scan import mamba_chunk_scan
 from repro_torch.kernels.rmsnorm import rmsnorm, row_view
 from repro_torch.models.convert import to_tensor
 
@@ -43,8 +45,10 @@ def _close(got, want, dtype):
 def _no_launches():
     """On the CPU the wrappers never launch: the counters stay at 0."""
     rmsnorm.launches = flash_attention.launches = 0
+    mamba_chunk_scan.launches = 0
     yield
     assert rmsnorm.launches == 0 and flash_attention.launches == 0
+    assert mamba_chunk_scan.launches == 0
 
 
 # ---------------------------------------------------------------- flash attn
@@ -100,6 +104,25 @@ def test_attention_matches_pallas_at_any_tiling(qb, kb):
                                backend="interpret"), "float32")
 
 
+@pytest.mark.parametrize("b,h,s,causal,window,dtype", [
+    (4, 32, 512, True, 0, "bfloat16"),     # zamba2-7b prefill, MHA
+    (1, 2, 256, True, 64, "float32"),      # window of 64
+    (1, 2, 128, False, 0, "float32"),      # non-causal
+])
+def test_attention_head_dim_112_matches_ref(b, h, s, causal, window, dtype):
+    """zamba2's shared attention has head dim 112; the serve shape is held
+    against the reference, the smaller ones against the Pallas kernel
+    too."""
+    got, (q, k, v) = _attention_case(7, b, h, h, s, 112, dtype,
+                                     causal=causal, window=window)
+    _close(got, jref.flash_attention_ref(q, k, v, causal=causal,
+                                         window=window), dtype)
+    if b * h * s <= 512:
+        _close(got, jops.attention(q, k, v, causal=causal, window=window,
+                                   q_block=64, kv_block=64,
+                                   backend="interpret"), dtype)
+
+
 def test_attention_strided_views_equal_contiguous():
     """The model hands [B, S, H, D] storage in as [B, H, S, D] views."""
     rng = np.random.default_rng(4)
@@ -109,6 +132,79 @@ def test_attention_strided_views_equal_contiguous():
     views = [t.transpose(1, 2) for t in (q, k, v)]
     want = ops.attention(*[t.contiguous() for t in views])
     torch.testing.assert_close(ops.attention(*views), want, rtol=0, atol=0)
+
+
+# --------------------------------------------------------------- mamba scan
+
+MAMBA_TOL = dict(rtol=3e-4, atol=3e-4)
+
+
+def _mamba_inputs(seed, b, s, h, p, n, dtype="float32"):
+    """x, B, C and dt, da (da = -dt * exp(noise), a negative log decay) as
+    jax arrays and torch tensors of the same values."""
+    rng = np.random.default_rng(seed)
+    x, bm, cm = (_pair(rng, shape, dtype) for shape in
+                 ((b, s, h, p), (b, s, n), (b, s, n)))
+    dt = np.log1p(np.exp(rng.standard_normal((b, s, h), dtype=np.float32)))
+    da = -dt * np.exp(rng.standard_normal((h,), dtype=np.float32) * 0.1)
+    f32 = [(jnp.asarray(a), torch.as_tensor(a)) for a in (dt, da)]
+    return [j for j, _ in (x, bm, cm, *f32)], [t for _, t in (x, bm, cm,
+                                                               *f32)]
+
+
+@pytest.mark.parametrize("b,s,h,p,n,chunk", [
+    (1, 64, 2, 8, 4, 16),
+    (2, 128, 3, 16, 8, 32),
+    (1, 96, 1, 8, 16, 32),
+])
+def test_mamba_chunk_scan_matches_ref_and_pallas(b, s, h, p, n, chunk):
+    jin, tin = _mamba_inputs(5, b, s, h, p, n)
+    y, hf = ops.mamba_chunk_scan(*tin, chunk=chunk)
+    assert y.shape == (b, s, h, p) and y.dtype == torch.float32
+    assert hf.shape == (b, h, p, n) and hf.dtype == torch.float32
+    for want_y, want_h in (jref.mamba_chunk_scan_ref(*jin),
+                           jops.mamba_chunk_scan(*jin, chunk=chunk,
+                                                 backend="interpret")):
+        np.testing.assert_allclose(y.numpy(), np.asarray(want_y),
+                                   **MAMBA_TOL)
+        np.testing.assert_allclose(hf.numpy(), np.asarray(want_h),
+                                   **MAMBA_TOL)
+
+
+def test_mamba_chunk_invariance():
+    """The plain version does not depend on the chunking, and equals the
+    Pallas kernel at each of two chunkings (tests/test_kernels.py's
+    chunk-invariance case and tolerance)."""
+    jin, tin = _mamba_inputs(6, 1, 128, 2, 8, 8)
+    y32, h32 = ops.mamba_chunk_scan(*tin, chunk=32)
+    y64, h64 = ops.mamba_chunk_scan(*tin, chunk=64)
+    torch.testing.assert_close(y32, y64, rtol=0, atol=0)
+    torch.testing.assert_close(h32, h64, rtol=0, atol=0)
+    for chunk in (32, 64):
+        wy, wh = jops.mamba_chunk_scan(*jin, chunk=chunk, backend="interpret")
+        np.testing.assert_allclose(y32.numpy(), np.asarray(wy), **MAMBA_TOL)
+        np.testing.assert_allclose(h32.numpy(), np.asarray(wh), **MAMBA_TOL)
+
+
+@pytest.mark.parametrize("out_dtype", [None, torch.float32])
+def test_mamba_chunk_scan_bf16_inputs_and_out_dtype(out_dtype):
+    """bf16 x, B, C: the plain version computes in f32 and writes y in
+    x's dtype (the TPU kernel's) or in ``out_dtype``; the state is f32."""
+    jin, tin = _mamba_inputs(8, 2, 64, 3, 16, 8, "bfloat16")
+    y, hf = ops.mamba_chunk_scan(*tin, chunk=16, out_dtype=out_dtype)
+    assert y.dtype == (out_dtype or torch.bfloat16)
+    assert hf.dtype == torch.float32
+    wy, wh = jref.mamba_chunk_scan_ref(*jin)
+    _close(y, wy, "bfloat16")
+    np.testing.assert_allclose(hf.numpy(), np.asarray(wh), **MAMBA_TOL)
+    wy, _ = jops.mamba_chunk_scan(*jin, chunk=16, backend="interpret")
+    _close(y, wy, "bfloat16")
+
+
+def test_mamba_chunk_scan_needs_a_dividing_chunk():
+    _, tin = _mamba_inputs(9, 1, 48, 1, 8, 4)
+    with pytest.raises(ValueError, match="chunk"):
+        ops.mamba_chunk_scan(*tin, chunk=32)
 
 
 # ------------------------------------------------------------------- rmsnorm
@@ -160,6 +256,9 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         rmsnorm(x, torch.ones(32))
     with pytest.raises(ValueError, match="CUDA"):
         flash_attention(x, x, x)
+    with pytest.raises(ValueError, match="CUDA"):
+        mamba_chunk_scan(x, x[..., 0, :], x[..., 0, :], x[..., 0],
+                         x[..., 0])
 
 
 @pytest.mark.parametrize("shape,index,want", [
@@ -190,7 +289,7 @@ def test_row_view_rejects_what_the_kernel_cannot_address():
 
 
 def test_build_keys_library_on_source_and_flags(monkeypatch):
-    assert build.sources() == ["flash_attention", "rmsnorm"]
+    assert build.sources() == ["flash_attention", "mamba_scan", "rmsnorm"]
     a = build.library_path("rmsnorm")
     assert a.name.startswith("rmsnorm-") and a.suffix == ".so"
     monkeypatch.setattr(build, "NVCC_FLAGS", build.NVCC_FLAGS + ["-G"])

@@ -146,7 +146,8 @@ def test_prefill_then_decode_equals_longer_prefill():
 
 
 @pytest.mark.parametrize("arch", ["qwen3-8b", "codeqwen1.5-7b",
-                                  "qwen1.5-110b", "command-r-35b"])
+                                  "qwen1.5-110b", "command-r-35b",
+                                  "zamba2-7b"])
 def test_param_count_equals_jax_at_full_size(arch):
     """Built on the meta device: no memory for 8-110 B parameters."""
     assert api.param_count(get_arch(arch)) == \
@@ -179,7 +180,7 @@ def test_init_matches_jax_distribution():
     assert torch.all(model.ln_f["scale"] == 1)
 
 
-@pytest.mark.parametrize("arch", ["mixtral-8x7b", "xlstm-350m", "zamba2-7b",
+@pytest.mark.parametrize("arch", ["mixtral-8x7b", "xlstm-350m",
                                   "whisper-tiny", "llama-3.2-vision-11b"])
 def test_other_families_not_ported_yet(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP"):

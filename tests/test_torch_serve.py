@@ -1,12 +1,14 @@
 """The port's serving path and FT core.
 
 * Ports of ``test_system.py::test_serve_failover_identical_stream`` and
-  ``test_serve_without_replication_fails`` on the CPU: a mid-stream kill
-  with replication gives the bitwise-identical token stream (one
-  promotion); without a replica it is fatal.
-* The replica's cache owns its storage after ``on_start`` and after a
-  promotion (the decode step writes its cache in place, so an aliased copy
-  would silently follow the computational slice).
+  ``test_serve_without_replication_fails`` on the CPU, for the dense
+  family and the zamba2 hybrid: a mid-stream kill with replication gives
+  the bitwise-identical token stream and final state (one promotion);
+  without a replica it is fatal.
+* The replica's state owns its storage after ``on_start`` and after a
+  promotion (the decode step writes its KV ring in place, so an aliased
+  copy would silently follow the computational slice), the hybrid's Mamba
+  ``h`` and ``conv`` states included.
 * The port's copy of the FT core (``FTSession``, strategies, injector,
   replica map, planner, clock) against ``repro``'s on one numpy workload
   and the same kill schedules: every ``RunReport`` field, the event list
@@ -24,7 +26,8 @@ from repro_torch.launch.serve import ReplicatedServer
 from repro_torch.tree import copy_tree, tree_map
 
 
-@pytest.mark.parametrize("arch", ["qwen3-8b", "codeqwen1.5-7b"])
+@pytest.mark.parametrize("arch", ["qwen3-8b", "codeqwen1.5-7b",
+                                  "zamba2-7b"])
 def test_serve_failover_identical_stream(arch):
     prompts = np.random.default_rng(0).integers(0, 400, (2, 16),
                                                 dtype=np.int32)
@@ -40,6 +43,42 @@ def test_serve_failover_identical_stream(arch):
 def test_serve_without_replication_fails():
     prompts = np.zeros((2, 16), dtype=np.int32)
     srv = ReplicatedServer("qwen3-8b", batch=2, prompt_len=16,
+                           replication=False, device="cpu")
+    with pytest.raises(RuntimeError):
+        srv.generate(prompts, 8, kill_at=2)
+    assert srv.failures == 1
+
+
+def _tensors(tree):
+    out = []
+    tree_map(lambda leaf: out.append(leaf)
+             if isinstance(leaf, torch.Tensor) else None, tree)
+    return out
+
+
+def test_zamba_failover_final_state_equals_clean():
+    """The FT theorem on the hybrid's whole state: after the promotion the
+    final attention rings and every Mamba ``h`` and ``conv`` equal the
+    clean run's bit for bit."""
+    prompts = np.random.default_rng(2).integers(0, 400, (2, 16),
+                                                dtype=np.int32)
+    srv = ReplicatedServer("zamba2-7b", batch=2, prompt_len=16,
+                           device="cpu")
+    clean = srv.generate(prompts, 8)
+    clean_state = srv.last_report.final_state["cache"]
+    faulty = srv.generate(prompts, 8, kill_at=3)
+    faulty_state = srv.last_report.final_state["cache"]
+    np.testing.assert_array_equal(clean, faulty)
+    assert srv.promotions == 1 and srv.failures == 1
+    assert set(clean_state) == {"attn", "mamba", "mamba_tail"}
+    a, b = _tensors(clean_state), _tensors(faulty_state)
+    assert len(a) == len(b) == 2 * 3 + 2 * 6 + 2   # k/v/pos, h/conv
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def test_zamba_serve_without_replication_fails():
+    prompts = np.zeros((2, 16), dtype=np.int32)
+    srv = ReplicatedServer("zamba2-7b", batch=2, prompt_len=16,
                            replication=False, device="cpu")
     with pytest.raises(RuntimeError):
         srv.generate(prompts, 8, kill_at=2)
@@ -93,6 +132,30 @@ def test_replica_cache_owns_its_storage():
     clean = srv.generate(prompts, 6)
     np.testing.assert_array_equal(DecodeWorkload.tokens(rep.final_state),
                                   clean)
+
+
+def test_zamba_replica_state_owns_its_storage():
+    """The hybrid's state: attention rings written in place, Mamba ``h``
+    and ``conv`` made anew each step — none shared between the slices,
+    before and after the promotion."""
+    srv = ReplicatedServer("zamba2-7b", batch=2, prompt_len=16,
+                           device="cpu")
+    prompts = np.random.default_rng(3).integers(0, 400, (2, 16),
+                                                dtype=np.int32)
+    session = FTSession(ft=FTConfig(mode="replication"), injector={3: [0]},
+                        n_logical_workers=2, workers_per_node=1,
+                        allow_restart=False)
+    probe = _StorageProbe(srv.workload(prompts), session)
+    rep = session.run(probe, 6)
+    assert rep.promotions == 1
+    assert [t for t, _ in probe.seen] == list(range(6))
+    assert all(not shared for _, shared in probe.seen)
+    state = rep.final_state["cache"]
+    # the probe looked at every state tensor: 2 rings x (k, v, pos) and
+    # 7 Mamba blocks x (h, conv), each with a storage of its own
+    assert len(_storage(state)) == len(_tensors(state)) == 2 * 3 + 7 * 2
+    np.testing.assert_array_equal(DecodeWorkload.tokens(rep.final_state),
+                                  srv.generate(prompts, 6))
 
 
 def test_copy_tree_clones_tensors_and_arrays():
