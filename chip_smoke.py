@@ -8,8 +8,10 @@ Phases (each a function; any failure exits non-zero):
      every kernel in ``src/repro_torch/kernels/csrc`` (one process per
      source, all at once);
   2. RMSNorm kernel against its plain PyTorch version on the card;
-  3. flash-attention kernel against its plain PyTorch version on the card
-     (head dims 32, 64, 112, 128);
+  3. flash-attention kernels against their plain PyTorch version on the
+     card (head dims 32, 64, 112, 128; bf16 runs the tensor-core kernel,
+     f32 the FMA kernel), ragged key tails, short prompts, windows and
+     non-causal cases included;
   4. Mamba2 SSD scan kernel against its plain PyTorch version (the exact
      recurrence) on the card;
   5. reference: the reduced qwen3-8b and zamba2-7b in f32, kernel path on
@@ -36,6 +38,7 @@ import dataclasses
 import gc
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -65,7 +68,8 @@ HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 BF16_FLOPS = 989e12                # dense bf16 tensor-core peak
 # |kernel - plain| <= atol + rtol * |plain| (tests/test_kernels.py's
 # tolerances): f32 differs only by summation order; bf16 by at most one
-# rounding of the f32 result
+# rounding of the f32 result (and, in the bf16 attention kernel, by the
+# softmax weights p rounded to bf16 before the PV product)
 TOL = {torch.float32: (2e-5, 2e-5), torch.bfloat16: (3e-2, 2e-2)}
 # the Mamba2 scan's f32 outputs: the chunked scan against the exact per-step
 # recurrence (tests/test_kernels.py's sweep tolerance)
@@ -118,6 +122,34 @@ def compare(name, got, want, dtype, tol=None, **shape):
 
 # ---------------------------------------------------------------- phase 1
 
+def _demangle(symbol):
+    tool = shutil.which("c++filt")
+    if tool is None:
+        return symbol
+    return subprocess.run([tool, symbol], capture_output=True,
+                          text=True).stdout.strip() or symbol
+
+
+def ptxas_report(name):
+    """What ``ptxas -v`` said of each kernel in ``name``'s library: its
+    registers, shared memory and spills, one dict per entry function."""
+    rows, function, spills = [], None, ""
+    for line in build.build_log(name).splitlines():
+        line = line.strip()
+        if "Compiling entry function" in line:
+            function = _demangle(line.split("'")[1])
+        elif "spill" in line:
+            spills = line
+        elif "Used" in line and "registers" in line and function:
+            rows.append({"ptxas": name, "function": function,
+                         "usage": line.split(":", 1)[1].strip(),
+                         "spills": spills})
+            function, spills = None, ""
+        elif "Performance Loss" in line:    # e.g. serialised wgmma
+            rows.append({"ptxas": name, "note": line.split(":", 1)[1]})
+    return rows
+
+
 def phase_device_and_build(state):
     state["card"] = card()
     print(state["card"], flush=True)
@@ -126,9 +158,8 @@ def phase_device_and_build(state):
     emit({"phase": "build", "kernels": sorted(libs),
           "seconds": time.perf_counter() - t0})
     for name in libs:
-        for line in build.build_log(name).splitlines():
-            if "registers" in line or "spill" in line:
-                emit({"ptxas": name, "line": line.strip()})
+        for row in ptxas_report(name):
+            emit(row)
 
 
 # ---------------------------------------------------------------- phase 2
@@ -198,6 +229,17 @@ def phase_attention(state):
              dtype=torch.float32),                       # D = 112, window
         dict(b=1, hq=2, hkv=2, s=128, d=112, causal=False, window=0,
              dtype=torch.bfloat16),                      # D = 112, full
+        # what the tensor-core kernel masks or pads: keys that end inside
+        # a 64-key tile, a prompt shorter than a tile with D 112's padded
+        # columns, a window edge inside a tile, no causal limit
+        dict(b=2, hq=8, hkv=2, s=200, d=128, causal=True, window=0,
+             dtype=torch.bfloat16),                      # ragged, GQA 4x
+        dict(b=1, hq=2, hkv=2, s=40, d=112, causal=True, window=0,
+             dtype=torch.bfloat16),                      # S < one tile
+        dict(b=1, hq=4, hkv=4, s=256, d=112, causal=True, window=100,
+             dtype=torch.bfloat16),                      # D = 112, window
+        dict(b=1, hq=4, hkv=2, s=192, d=128, causal=False, window=0,
+             dtype=torch.bfloat16),                      # non-causal
     ]
     worst = 0.0
     for c in cases:
@@ -520,25 +562,44 @@ def _rmsnorm_times(card_name, flush, calls, eps):
     return tot
 
 
+def _sdpa_ms(q, k, v, flush, deterministic):
+    """``scaled_dot_product_attention`` (causal, GQA) with PyTorch's
+    deterministic-algorithms switch set as asked: the serve phases run with
+    it on, which steers SDPA to another backend than the default."""
+    before = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(deterministic)
+    try:
+        return time_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True), flush)
+    finally:
+        torch.use_deterministic_algorithms(before)
+
+
 def _attention_times(card_name, flush, gen, hq, hkv, dh):
-    """K2 at the prefill shape [B, hq, S, dh] bf16, causal."""
+    """K2 (the bf16 tensor-core kernel) at the prefill shape
+    [B, hq, S, dh], causal, beside its plain version and
+    ``scaled_dot_product_attention`` (the yardstick, never called by the
+    port): ``library_ms`` with PyTorch's default settings and
+    ``library_deterministic_ms`` with the switch on, as the serve path
+    runs."""
     bf = torch.bfloat16
     q = _bshd(gen, B, S, hq, dh, bf)
     k = _bshd(gen, B, S, hkv, dh, bf)
     v = _bshd(gen, B, S, hkv, dh, bf)
     pairs = B * hq * S * (S + 1) // 2            # unmasked (q, k) pairs
     k2 = {
+        "shape": list(q.shape), "kv_heads": hkv,
         "ms": time_ms(lambda: flash_attention(q, k, v, causal=True), flush),
         "plain_ms": time_ms(
             lambda: ref.flash_attention_ref(q, k, v, causal=True), flush),
-        "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
-            q, k, v, is_causal=True, enable_gqa=True), flush),
+        "library_ms": _sdpa_ms(q, k, v, flush, deterministic=False),
+        "library_deterministic_ms": _sdpa_ms(q, k, v, flush,
+                                             deterministic=True),
         # q, k, v read once, o written once; QK and PV: 4 D per pair
         **bound((2 * q.numel() + k.numel() + v.numel()) * q.element_size(),
                 4 * dh * pairs),
     }
-    emit({"time": "flash_attention", "shape": list(q.shape), **k2,
-          "card": card_name})
+    emit({"time": "flash_attention", **k2, "card": card_name})
     return k2
 
 
@@ -676,10 +737,14 @@ ERRORS = {"rmsnorm": "rmsnorm_err", "flash_attention": "attention_err",
           "mamba_scan": "mamba_scan_err"}
 
 
+TIMED = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+
+
 def kernels_line(state):
-    """One row per kernel, with the launch counts and times of this
-    slice's path (zamba2-7b), the only one that runs all three; the
-    qwen3-8b path's are on its own serve and time lines."""
+    """One row per kernel, with the launch counts and times of the zamba2-7b
+    path, the only one that runs all three; the flash-attention row also
+    lists both prefill shapes (qwen3-8b's and zamba2-7b's) with each path's
+    launches."""
     rows = []
     for name, replaces in REPLACES.items():
         t = state["times"][ZAMBA.name][name]
@@ -688,9 +753,15 @@ def kernels_line(state):
             "source": f"src/repro_torch/kernels/csrc/{name}.cu",
             "replaces": replaces,
             "launches": state["launches"][ZAMBA.name][name],
-            "max_abs_err": state[ERRORS[name]], "ms": t["ms"],
-            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-            "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
+            "max_abs_err": state[ERRORS[name]],
+            **{key: t[key] for key in TIMED}})
+        if name == "flash_attention":
+            rows[-1]["by_shape"] = [
+                {"arch": arch, "shape": state["times"][arch][name]["shape"],
+                 "launches": state["launches"][arch][name],
+                 **{key: state["times"][arch][name][key] for key in
+                    TIMED + ("library_deterministic_ms",)}}
+                for arch in (QWEN.name, ZAMBA.name)]
     return {"kernels": rows}
 
 

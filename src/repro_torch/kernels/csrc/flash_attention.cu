@@ -8,69 +8,100 @@
 // positions from 0 on both sides; query head h reads KV head h / group; the
 // output is acc / max(l, 1e-30) in q's dtype.
 //
-// What bounds it on the H100: at the qwen3-8b prefill shape (S = 512,
-// D = 128) the causal work is ~8.6 GFLOP against ~42 MB moved, so the least
-// time is the 12.5 us of memory traffic; the tensor-core time is below it.
-// This first version computes both products with f32 FMAs on the SMs' FP32
-// pipes (no mma / wgmma yet), so it runs far above that bound; it is written
-// to be right and deterministic first.
+// Two kernels, chosen by dtype; neither is a fallback for the other.
 //
-// Design:
-// * One CTA of 256 threads per (batch, q head, 64-row query tile); four
-//   threads own each query row and split the head dimension between them in
-//   interleaved float4 chunks (thread c owns chunks c, c + 4, ...), so their
-//   shared-memory reads fall in distinct banks. Each thread keeps its slice
-//   of q and of the f32 accumulator in registers; the four partial dot
-//   products are summed with two xor shuffles, which gives all four threads
-//   the same score bit for bit.
-// * The KV loop runs over 32-key tiles from the first tile the window can
-//   reach to the last key the causal limit allows, instead of testing every
-//   tile; K and V tiles are staged in shared memory as f32 (32 KB at D = 128).
-// * q, k, v and o are addressed through explicit (batch, seq, head) strides,
-//   so the model's [B, S, H, D] tensors are read and written in place.
-// * Query tiles are scheduled last-first so the longest causal rows start
-//   first. No atomics, a launch configuration fixed by (dtype, D): reruns are
-//   bitwise identical.
+// bf16: flash_fwd_tc, on the tensor cores.
+//   What bounds it on the H100: at the qwen3-8b prefill shape (q [4, 32, 512,
+//   128], kv with 8 heads) the causal work is ~8.6 GFLOP against ~42 MB
+//   moved, so the least time is the 12.5 us of memory traffic (8.7 us of
+//   bf16 tensor-core work). In practice the copies of K/V tiles from L2 into
+//   shared memory come first: each query tile re-reads its keys, 151 MB at
+//   that shape for 64-row tiles. The design halves that and keeps the
+//   copies, the two products and the softmax off each other's path.
+//   Design:
+//   * Items: 64 query rows for each of two consumer warpgroups that read
+//     the same KV head — the same rows of q heads 2p and 2p + 1 when the
+//     GQA group is even (qwen3-8b), else rows q0 and q0 + 64 of one head
+//     (zamba2-7b) — so every K/V tile copied into shared memory serves 128
+//     query rows. The KV loop runs over 64-key tiles from the first tile
+//     the window can reach to the last key the causal limit allows; a
+//     warpgroup skips the tiles outside its own rows' range (a wholly
+//     masked tile changes no bit of the result), and only tiles that cross
+//     the diagonal, the window's edge or Skv apply the mask.
+//   * A persistent grid, one CTA an SM (288 threads, ~193 KB of shared
+//     memory): the CTA takes one item a round, forwards in even rounds and
+//     backwards in odd ones so that long and short causal items pair up.
+//     Which CTA computes an item does not change its arithmetic.
+//   * A producer warp issues every copy by TMA over a 4-D tensor map
+//     (D, H, S, B) of each strided [B, S, H, D] operand, built on the host
+//     with cuTensorMapEncodeTiled (taken from the driver through
+//     cudaGetDriverEntryPoint, so the library needs no link to libcuda).
+//     Boxes are 64 rows x 64 columns with the 128-byte swizzle that the
+//     wgmma descriptors name; D 112's second box has columns 112..127
+//     outside the tensor, which arrive as zeros, as do keys past Skv and
+//     rows past Sq. Q is double-buffered across items and K and V go
+//     through a 4-stage ring; each buffer has a full barrier (the copy's
+//     bytes) and an empty one (one arrival from each consumer warpgroup),
+//     so the warpgroups run on their own and the next item's Q and first
+//     tiles arrive during this item's tail.
+//   * S = Q K^T with wgmma.mma_async m64n64k16 (Q and the K tile both
+//     K-major in shared memory, D / 16 k-steps), f32 accumulators in
+//     registers. Row max and row sum are taken in f32, in a fixed tree over
+//     a thread's 16 columns and across the 4 threads of a quad with xor
+//     shuffles; p = 2^(s c - m c) with c = D^-1/2 log2(e), one FMA and one
+//     ex2 an element.
+//   * O += P V with wgmma m64nNk16, N = D padded to 64 or 128: P is
+//     converted to bf16 in registers and fed as the register A operand (the
+//     f32 accumulator layout of the first product is the A-fragment layout
+//     of the second), V is read from shared memory MN-major (transposed B).
+//     P in bf16 is this kernel's one departure from the TPU kernel's f32 p;
+//     it stays within the bf16 tolerance the kernel is held to.
+//   * The epilogue scales by 1 / max(l, 1e-30), writes bf16 into the
+//     warpgroup's Q tile in the swizzled box layout and stores it with TMA,
+//     which drops rows past Sq and D 112's padded columns.
+//   * The two warpgroups overlap each other's softmax and products; within
+//     one warpgroup the products wait for the softmax: a software pipeline
+//     of the two products made ptxas serialise every wgmma (its C7513
+//     "Potential Performance Loss" note, which chip_smoke.py would print).
+//
+// f32: flash_fwd, f32 FMAs on the FP32 pipes (the reduced card-vs-CPU checks
+//   hold the f32 kernel path to 1e-3 of the CPU path, which needs full-f32
+//   products). Four threads own each query row and split the head dimension
+//   in interleaved float4 chunks; partial dot products are summed with two
+//   xor shuffles; 32-key K and V tiles are staged in shared memory.
+//
+// Both: q, k, v and o are addressed through explicit (batch, seq, head)
+// strides, so the model's [B, S, H, D] tensors are read and written in
+// place. No atomics, and each output element is computed by a fixed
+// sequence of operations: reruns are bitwise identical.
 
+#include <cuda.h>  // CUtensorMap and its enums (types only; no libcuda link)
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
 
 namespace {
 
+constexpr float kNegInf = -1e30f;
+
+struct Strides {
+  int b, s, h;  // elements between batches, positions, heads
+};
+
+// ------------------------------------------------------- f32: FMA kernel
+
 constexpr int kThreads = 256;
 constexpr int kBlockM = 64;      // query rows per CTA
 constexpr int kBlockN = 32;      // keys per staged tile
 constexpr int kLanesPerRow = 4;  // threads sharing one query row
-constexpr float kNegInf = -1e30f;
 
 __device__ __forceinline__ float4 load4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
-}
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  const uint2 raw = *reinterpret_cast<const uint2*>(p);
-  const float2 a = __bfloat1622float2(
-      *reinterpret_cast<const __nv_bfloat162*>(&raw.x));
-  const float2 b = __bfloat1622float2(
-      *reinterpret_cast<const __nv_bfloat162*>(&raw.y));
-  return make_float4(a.x, a.y, b.x, b.y);
 }
 
 __device__ __forceinline__ void store4(float* p, float4 v) {
   *reinterpret_cast<float4*>(p) = v;
 }
-__device__ __forceinline__ void store4(__nv_bfloat16* p, float4 v) {
-  __nv_bfloat162 a = __floats2bfloat162_rn(v.x, v.y);
-  __nv_bfloat162 b = __floats2bfloat162_rn(v.z, v.w);
-  uint2 raw;
-  raw.x = *reinterpret_cast<unsigned int*>(&a);
-  raw.y = *reinterpret_cast<unsigned int*>(&b);
-  *reinterpret_cast<uint2*>(p) = raw;
-}
-
-struct Strides {
-  int b, s, h;  // elements between batches, positions, heads
-};
 
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
@@ -203,28 +234,717 @@ void launch(const void* q, const void* k, const void* v, void* o, int batch,
       vs, os, causal, window, scale);
 }
 
-template <typename T>
-int launch_d(int d, const void* q, const void* k, const void* v, void* o,
-             int batch, int hq, int sq, int skv, int group, Strides qs,
-             Strides ks, Strides vs, Strides os, int causal, int window,
-             float scale, cudaStream_t stream) {
+// ------------------------------------------- bf16: tensor-core kernel
+
+namespace tc {
+
+constexpr int kConsumers = 2;            // consumer warpgroups per CTA
+constexpr int kConsumerThreads = 128 * kConsumers;
+constexpr int kThreads = kConsumerThreads + 32;  // and one producer warp
+constexpr int kRows = 64;                // query rows per consumer (wgmma M)
+constexpr int kBlockN = 64;              // keys per tile
+constexpr int kStages = 4;               // K/V ring depth
+constexpr int kBox = 64;                 // TMA box: 64 rows x 64 columns
+constexpr int kBoxBytes = kBox * kBox * 2;
+constexpr int kRowBytes = kBox * 2;      // one swizzled 128-byte row
+constexpr int kAtomBytes = 8 * kRowBytes;  // 8 rows: one swizzle atom
+
+template <int D>
+struct Cfg {
+  static constexpr int kBoxes = D > 64 ? 2 : 1;     // 64-column boxes
+  static constexpr int kDP = kBox * kBoxes;         // D padded to the boxes
+  static constexpr int kAcc = kDP / 2;              // O floats per thread
+  static constexpr int kTile = kBoxes * kBoxBytes;  // 64 rows of Q, K or V
+  // Q[2][kConsumers], K[kStages], V[kStages]
+  static constexpr int kTiles = 2 * kConsumers + 2 * kStages;
+  // a full and an empty barrier for each Q buffer and each ring stage
+  static constexpr int kBars = 2 * (2 + 2 * kStages);
+  // 1024 bytes of slack to align the tiles to a swizzle atom
+  static constexpr int kSmem = 1024 + kTile * kTiles + 8 * kBars;
+};
+
+// The problem, and the work items of the persistent grid. An item gives
+// each consumer warpgroup c 64 query rows of one head that read the same KV
+// head: with GQA (an even group) the same rows of q heads 2p and 2p + 1,
+// otherwise rows q0 and q0 + 64 of one head. Items run the longest causal
+// rows first.
+struct Shape {
+  int sq, skv, hq, batch, group, causal, window;
+  int pair_heads;  // 1: consumers take two heads; 0: two row blocks
+  int n_qt, n_items;
+};
+
+struct Item {
+  int q0, h, b;    // first row and head of consumer 0, batch
+  int span;        // rows of the item: 64 (heads paired) or 128
+  int kv_lo, n;    // first key and 64-key tiles any row may see
+};
+
+__device__ __forceinline__ Item item_at(int w, const Shape& sh) {
+  const int heads = sh.pair_heads ? sh.hq / 2 : sh.hq;
+  const int per = heads * sh.batch;
+  Item it;
+  it.span = sh.pair_heads ? kRows : kRows * kConsumers;
+  it.q0 = (sh.n_qt - 1 - w / per) * it.span;
+  it.h = ((w % per) % heads) * (sh.pair_heads ? 2 : 1);
+  it.b = (w % per) / heads;
+  // keys any row of the item may see: [kv_lo, kv_hi), in 64-key tiles
+  const int kv_hi = sh.causal ? min(sh.skv, it.q0 + it.span) : sh.skv;
+  const int lo = sh.window > 0 ? max(0, it.q0 - sh.window + 1) : 0;
+  it.kv_lo = (lo / kBlockN) * kBlockN;
+  it.n = kv_hi > it.kv_lo ? (kv_hi - it.kv_lo + kBlockN - 1) / kBlockN : 0;
+  return it;
+}
+
+// Consumer c's first row and head within item ``it``.
+__device__ __forceinline__ int rows_of(const Item& it, const Shape& sh,
+                                       int c) {
+  return sh.pair_heads ? it.q0 : it.q0 + kRows * c;
+}
+__device__ __forceinline__ int head_of(const Item& it, const Shape& sh,
+                                       int c) {
+  return sh.pair_heads ? it.h + c : it.h;
+}
+
+// The CTA's item of round r: rounds of G items (G CTAs), taken forwards in
+// even rounds and backwards in odd ones, so long and short items pair up.
+__device__ __forceinline__ int item_of_round(int r) {
+  const int g = gridDim.x, c = blockIdx.x;
+  return r * g + ((r & 1) ? g - 1 - c : c);
+}
+
+// Which dimension (1..3) of a tensor map holds seq, head and batch: the
+// host orders them by stride.
+struct Perm {
+  int s, h, b;
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+               ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred done;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
+      "@!done bra WAIT;\n"
+      "}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
+}
+
+// The coordinate of tensor-map dimension d (1..3) for (seq, head, batch).
+__device__ __forceinline__ int coord(const Perm& p, int d, int s, int h,
+                                     int b) {
+  return p.s == d ? s : p.h == d ? h : b;
+}
+
+// One box of a 4-D tensor map into shared memory, completing on ``bar``.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int col, int s, int h,
+                                         int b, Perm p) {
+  const int c1 = coord(p, 1, s, h, b), c2 = coord(p, 2, s, h, b),
+            c3 = coord(p, 3, s, h, b);
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(col), "r"(c1),
+      "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// One box from shared memory to a 4-D tensor map, in the current bulk
+// group; rows and columns outside the tensor are not written.
+__device__ __forceinline__ void tma_store(const CUtensorMap* map,
+                                          uint32_t src, int col, int s,
+                                          int h, int b, Perm p) {
+  const int c1 = coord(p, 1, s, h, b), c2 = coord(p, 2, s, h, b),
+            c3 = coord(p, 3, s, h, b);
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group"
+      " [%0, {%2, %3, %4, %5}], [%1];" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(col), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor of a 128-byte-swizzled operand: start
+// address, leading and stride byte offsets (16-byte units), layout 1 = B128.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
+                                               uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wg_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+}
+
+// Keeps the compiler from moving reads or writes of accumulator registers
+// across the asynchronous wgmma that owns them.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+#define FA_D8(i)                                                        \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),          \
+      "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+
+// S[64 x 64] (+)= Q[64 x 16] K[64 x 16]^T, both K-major in shared memory.
+__device__ __forceinline__ void wgmma_qk(float (&d)[32], uint64_t da,
+                                         uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : FA_D8(0), FA_D8(8), FA_D8(16), FA_D8(24)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// O[64 x N] += P[64 x 16] V[16 x N]: P in registers (bf16 A fragment), V
+// MN-major in shared memory (transposed B).
+template <int N>
+__device__ __forceinline__ void wgmma_pv(float (&d)[N / 2],
+                                         const uint32_t* a, uint64_t db);
+
+template <>
+__device__ __forceinline__ void wgmma_pv<64>(float (&d)[32],
+                                             const uint32_t* a,
+                                             uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n"
+      "}\n"
+      : FA_D8(0), FA_D8(8), FA_D8(16), FA_D8(24)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_pv<128>(float (&d)[64],
+                                              const uint32_t* a,
+                                              uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n"
+      "}\n"
+      : FA_D8(0), FA_D8(8), FA_D8(16), FA_D8(24), FA_D8(32), FA_D8(40),
+        FA_D8(48), FA_D8(56)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+#undef FA_D8
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// Masks and the online softmax of one S tile (keys t0..t0+63) on the raw
+// scores in s: p = 2^(s c - m c), c = D^-1/2 log2(e). Updates the running
+// max m and sum l of the thread's two rows, sets the factor ``corr`` for
+// the accumulator, and writes P as bf16 A fragments to ``pf`` (k-step kk
+// covers the S columns of j = 2 kk and 2 kk + 1). Only a tile that crosses
+// the causal diagonal, the window's edge or Skv is masked.
+__device__ __forceinline__ void softmax_tile(
+    float (&s)[32], uint32_t (&pf)[16], float (&m_run)[2], float (&l_run)[2],
+    float (&corr)[2], int t0, int q0, int row, int col, int skv, int causal,
+    int window, float scale_log2) {
+  const bool edge = t0 + kBlockN > skv ||
+                    (causal && t0 + kBlockN - 1 > q0) ||
+                    (window > 0 && t0 <= q0 + kRows - 1 - window);
+  if (edge) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int qi = q0 + row + 8 * i, kj = t0 + 8 * j + col + c;
+          bool keep = kj < skv;
+          if (causal) keep = keep && kj <= qi;
+          if (window > 0) keep = keep && kj > qi - window;
+          if (!keep) s[4 * j + 2 * i + c] = kNegInf;
+        }
+  }
+  float neg[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    float mx[8];  // a pairwise tree over the thread's 16 columns
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      mx[j] = fmaxf(s[4 * j + 2 * i], s[4 * j + 2 * i + 1]);
+#pragma unroll
+    for (int w = 4; w >= 1; w /= 2)
+#pragma unroll
+      for (int j = 0; j < w; ++j) mx[j] = fmaxf(mx[j], mx[j + w]);
+    float m = fmaxf(mx[0], __shfl_xor_sync(0xffffffffu, mx[0], 1));
+    m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 2));
+    const float m_new = fmaxf(m_run[i], m);
+    corr[i] = ex2((m_run[i] - m_new) * scale_log2);
+    // a row that has seen no visible key yet: every p is 0 (2^(-1e30 c)),
+    // not 2^(s c - m c) with two roundings of -1e30 c that need not cancel
+    neg[i] = m_new == kNegInf ? 0.f : -m_new * scale_log2;
+    m_run[i] = m_new;
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    float ps[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      float& x0 = s[4 * j + 2 * i];
+      float& x1 = s[4 * j + 2 * i + 1];
+      x0 = ex2(fmaf(x0, scale_log2, neg[i]));
+      x1 = ex2(fmaf(x1, scale_log2, neg[i]));
+      ps[j] = x0 + x1;
+    }
+#pragma unroll
+    for (int w = 4; w >= 1; w /= 2)
+#pragma unroll
+      for (int j = 0; j < w; ++j) ps[j] += ps[j + w];
+    l_run[i] = l_run[i] * corr[i] + ps[0];
+  }
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    pf[4 * kk + 0] = pack_bf16(s[8 * kk + 0], s[8 * kk + 1]);
+    pf[4 * kk + 1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
+    pf[4 * kk + 2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
+    pf[4 * kk + 3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
+  }
+}
+
+// S = Q K^T over D / 16 k-steps of 32 bytes along the swizzled rows of the
+// Q tile and a K tile, issued and committed as one group (not waited for).
+template <int D>
+__device__ __forceinline__ void issue_qk(float (&s)[32], uint32_t q_tile,
+                                         uint32_t k_tile) {
+  fence_regs(s);
+  wg_fence();
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const uint32_t off = (kk / 4) * kBoxBytes + (kk % 4) * 32;
+    wgmma_qk(s, sw128_desc(q_tile + off, 16, kAtomBytes),
+             sw128_desc(k_tile + off, 16, kAtomBytes), kk > 0);
+  }
+  wg_commit();
+}
+
+// O += P V: 16 keys (two swizzle atoms of rows) a k-step; the second
+// 64-column box of V is the leading-dimension step. Issued and committed.
+template <int DP>
+__device__ __forceinline__ void issue_pv(float (&acc)[DP / 2],
+                                         const uint32_t (&pa)[16],
+                                         uint32_t v_tile) {
+  fence_regs(acc);
+  wg_fence();
+#pragma unroll
+  for (int kk = 0; kk < kBlockN / 16; ++kk)
+    wgmma_pv<DP>(acc, pa + 4 * kk,
+                 sw128_desc(v_tile + kk * 2 * kAtomBytes, kBoxBytes,
+                            kAtomBytes));
+  wg_commit();
+}
+
+// A persistent grid of G CTAs, as many as fit the card at once: CTA c takes
+// one item a round (item_of_round), so the loads of an item's Q and first
+// tiles overlap the previous item's products and epilogue. Which CTA
+// computes an item does not change its arithmetic, so the result does not
+// depend on G.
+//
+// Warp-specialised: one producer warp issues every TMA copy; two consumer
+// warpgroups, 64 query rows each, share each K/V tile. Every buffer has a
+// full barrier (the copy's bytes) and an empty one (one arrival from each
+// consumer warpgroup once it is done with it), so the two warpgroups run
+// on their own and the producer keeps kStages tiles in flight.
+//
+// Accumulator fragments (S and O) of thread t = 32 w + lane of a
+// warpgroup: rows 16 w + lane / 4 (+ 8 for i = 1) of its 64, columns
+// 8 j + 2 (lane % 4) + c, held in d[4 j + 2 i + c].
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_fwd_tc(const __grid_constant__ CUtensorMap tq,
+             const __grid_constant__ CUtensorMap tk,
+             const __grid_constant__ CUtensorMap tv,
+             const __grid_constant__ CUtensorMap to, Shape sh, Perm pq,
+             Perm pk, Perm pv, Perm po, float scale_log2) {
+  using C = Cfg<D>;
+  extern __shared__ uint8_t smem[];
+  const uint32_t base = (smem_u32(smem) + 1023) & ~1023u;
+  const uint32_t bars = base + C::kTile * C::kTiles;
+  auto q_tile = [&](int i, int c) {
+    return base + C::kTile * ((i & 1) * kConsumers + c);
+  };
+  auto k_tile = [&](int st) {
+    return base + C::kTile * (2 * kConsumers + st);
+  };
+  auto v_tile = [&](int st) {
+    return base + C::kTile * (2 * kConsumers + kStages + st);
+  };
+  // barriers: full then empty, for Q[2], K[kStages], V[kStages]
+  auto q_full = [&](int i) { return bars + 8 * (i & 1); };
+  auto k_full = [&](int st) { return bars + 8 * (2 + st); };
+  auto v_full = [&](int st) { return bars + 8 * (2 + kStages + st); };
+  constexpr int kEmpty = 8 * (2 + 2 * kStages);
+  auto parity = [](int g) { return (uint32_t)((g / kStages) & 1); };
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  if (tid == 0) {
+    for (int i = 0; i < C::kBars / 2; ++i) {
+      mbar_init(bars + 8 * i, 1);
+      mbar_init(bars + kEmpty + 8 * i, kConsumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == kConsumers * 4) {  // the producer warp: one thread copies
+    if (lane != 0) return;
+    int g = 0;
+    for (int i = 0; item_of_round(i) < sh.n_items; ++i) {
+      const Item it = item_at(item_of_round(i), sh);
+      const int hk = it.h / sh.group;
+      // the n-th refill of a buffer waits for the n-th release (a fresh
+      // barrier's "previous phase" counts as done)
+      mbar_wait(q_full(i) + kEmpty, ((i / 2) & 1) ^ 1);
+      mbar_expect(q_full(i), kConsumers * C::kTile);
+      for (int c = 0; c < kConsumers; ++c)
+#pragma unroll
+        for (int x = 0; x < C::kBoxes; ++x)
+          tma_load(q_tile(i, c) + x * kBoxBytes, &tq, q_full(i), x * kBox,
+                   rows_of(it, sh, c), head_of(it, sh, c), it.b, pq);
+      for (int t = 0; t < it.n; ++t, ++g) {
+        const int st = g % kStages, t0 = it.kv_lo + t * kBlockN;
+        mbar_wait(k_full(st) + kEmpty, parity(g) ^ 1);
+        mbar_expect(k_full(st), C::kTile);
+#pragma unroll
+        for (int x = 0; x < C::kBoxes; ++x)
+          tma_load(k_tile(st) + x * kBoxBytes, &tk, k_full(st), x * kBox, t0,
+                   hk, it.b, pk);
+        mbar_wait(v_full(st) + kEmpty, parity(g) ^ 1);
+        mbar_expect(v_full(st), C::kTile);
+#pragma unroll
+        for (int x = 0; x < C::kBoxes; ++x)
+          tma_load(v_tile(st) + x * kBoxBytes, &tv, v_full(st), x * kBox, t0,
+                   hk, it.b, pv);
+      }
+    }
+    return;
+  }
+
+  // a consumer warpgroup: rows kRows * wg .. of each item
+  const int wg = warp / 4;
+  float acc[C::kAcc];
+  float s[32];
+  float m_run[2], l_run[2], corr[2];
+  uint32_t pa[16];
+  const int row = 16 * (warp % 4) + lane / 4;  // rows row, row + 8
+  const int col = 2 * (lane % 4);              // columns col, col + 1 of 8
+#pragma unroll
+  for (int i = 0; i < 32; ++i) s[i] = 0.f;
+  // One thread of the warpgroup releases a buffer once the warpgroup's
+  // products that read it are done (a wgmma is one operation of the whole
+  // warpgroup, so its completion in this thread's warp covers all four).
+  const bool signal = tid % 128 == 0;
+  auto release = [&](uint32_t full_bar) {
+    if (signal) mbar_arrive(full_bar + kEmpty);
+  };
+  // a tile this warpgroup has no row for: wait for it, then release it
+  auto pass = [&](int g) {
+    const int st = g % kStages;
+    mbar_wait(k_full(st), parity(g));
+    release(k_full(st));
+    mbar_wait(v_full(st), parity(g));
+    release(v_full(st));
+  };
+
+  int g = 0;  // the CTA's K/V tiles consumed so far
+  for (int i = 0; item_of_round(i) < sh.n_items; ++i) {
+    const Item item = item_at(item_of_round(i), sh);
+    const int qw = rows_of(item, sh, wg), hw = head_of(item, sh, wg);
+    const int n = item.n;
+    // the tiles that meet this warpgroup's rows: [first, first + n_act)
+    const int lo = sh.window > 0 ? max(0, qw - sh.window + 1) : 0;
+    const int hi = qw >= sh.sq ? 0 : sh.causal ? min(sh.skv, qw + kRows)
+                                               : sh.skv;
+    const int first = min(n, (lo - item.kv_lo) / kBlockN);
+    const int last = min(n, (hi - item.kv_lo + kBlockN - 1) / kBlockN);
+    const int n_act = max(0, last - first);
+#pragma unroll
+    for (int j = 0; j < C::kAcc; ++j) acc[j] = 0.f;
+    m_run[0] = m_run[1] = kNegInf;
+    l_run[0] = l_run[1] = 0.f;
+    mbar_wait(q_full(i), (i / 2) & 1);
+    const uint32_t qt = q_tile(i, wg);
+
+    for (int t = 0; t < first; ++t) pass(g + t);
+    int gt = g + first;  // the global index of the next active tile
+    for (int t = 0; t < n_act; ++t, ++gt) {
+      mbar_wait(k_full(gt % kStages), parity(gt));
+      issue_qk<D>(s, qt, k_tile(gt % kStages));
+      wg_wait_all();
+      fence_regs(s);
+      release(k_full(gt % kStages));
+      softmax_tile(s, pa, m_run, l_run, corr,
+                   item.kv_lo + (first + t) * kBlockN, qw, row, col,
+                   sh.skv, sh.causal, sh.window, scale_log2);
+#pragma unroll
+      for (int j = 0; j < C::kDP / 8; ++j) {
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          acc[4 * j + 2 * r] *= corr[r];
+          acc[4 * j + 2 * r + 1] *= corr[r];
+        }
+      }
+      mbar_wait(v_full(gt % kStages), parity(gt));
+      issue_pv<C::kDP>(acc, pa, v_tile(gt % kStages));
+      wg_wait_all();
+      fence_regs(acc);
+      release(v_full(gt % kStages));
+    }
+    for (int t = first + n_act; t < n; ++t) pass(g + t);
+    g += n;
+
+    // epilogue: O / l in bf16 into this warpgroup's Q tile (no longer
+    // read), in the TMA box layout with the 128-byte swizzle (16-byte
+    // chunk k of row r at chunk k ^ (r % 8): the warp's stores hit 32
+    // distinct banks), then one thread stores the boxes with TMA, which
+    // drops rows past Sq and D 112's padded columns
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float l = l_run[r];
+      l += __shfl_xor_sync(0xffffffffu, l, 1);
+      l += __shfl_xor_sync(0xffffffffu, l, 2);
+      const float inv = 1.f / fmaxf(l, 1e-30f);
+      const int rr = row + 8 * r;
+#pragma unroll
+      for (int j = 0; j < C::kDP / 8; ++j) {
+        const uint32_t at = qt + (j / 8) * kBoxBytes + rr * kRowBytes +
+                            (((j % 8) ^ (rr % 8)) * 16) + col * 2;
+        const uint32_t v = pack_bf16(acc[4 * j + 2 * r] * inv,
+                                     acc[4 * j + 2 * r + 1] * inv);
+        asm volatile("st.shared.b32 [%0], %1;" ::"r"(at), "r"(v)
+                     : "memory");
+      }
+    }
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+    asm volatile("bar.sync %0, 128;" ::"r"(1 + wg) : "memory");
+    if (signal) {
+#pragma unroll
+      for (int x = 0; x < C::kBoxes; ++x)
+        tma_store(&to, qt + x * kBoxBytes, x * kBox, qw, hw, item.b, po);
+      asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+      asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
+      release(q_full(i));  // the tile may take the item after next's Q
+    }
+  }
+}
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType,
+                                cuuint32_t, void*, const cuuint64_t*,
+                                const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave,
+                                CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// The tensor map of a bf16 [B, S, H, D] operand given its (batch, seq,
+// head) element strides: dimension 0 is D (contiguous), dimensions 1..3 are
+// seq, head and batch ordered by stride; boxes of 64 columns x 64 positions.
+int make_map(CUtensorMap* map, Perm* perm, const void* ptr, int d, int n_s,
+             int n_h, int n_b, Strides st) {
+  EncodeTiled encode = encoder();
+  if (encode == nullptr) return (int)cudaErrorNotSupported;
+  struct Dim {
+    long long extent, stride;
+    int which;  // 0 seq, 1 head, 2 batch
+  } dims[3] = {{n_s, st.s, 0}, {n_h, st.h, 1}, {n_b, st.b, 2}};
+  for (int i = 1; i < 3; ++i)  // stable insertion sort by stride
+    for (int j = i; j > 0 && dims[j].stride < dims[j - 1].stride; --j) {
+      const Dim t = dims[j];
+      dims[j] = dims[j - 1];
+      dims[j - 1] = t;
+    }
+  cuuint64_t extent[4] = {(cuuint64_t)d, 0, 0, 0};
+  cuuint64_t stride[3];
+  cuuint32_t box[4] = {kBox, 1, 1, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  for (int i = 0; i < 3; ++i) {
+    extent[i + 1] = (cuuint64_t)dims[i].extent;
+    stride[i] = (cuuint64_t)dims[i].stride * sizeof(__nv_bfloat16);
+    if (dims[i].which == 0) {
+      box[i + 1] = kBox;
+      perm->s = i + 1;
+    } else if (dims[i].which == 1) {
+      perm->h = i + 1;
+    } else {
+      perm->b = i + 1;
+    }
+  }
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
+      extent, stride, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+template <int D>
+int launch(const void* q, const void* k, const void* v, void* o, int batch,
+           int hq, int hkv, int sq, int skv, Strides qs, Strides ks,
+           Strides vs, Strides os, int causal, int window, float scale,
+           cudaStream_t stream) {
+  using C = Cfg<D>;
+  CUtensorMap tq, tk, tv, to;
+  Perm pq, pk, pv, po;
+  int err = make_map(&tq, &pq, q, D, sq, hq, batch, qs);
+  if (!err) err = make_map(&tk, &pk, k, D, skv, hkv, batch, ks);
+  if (!err) err = make_map(&tv, &pv, v, D, skv, hkv, batch, vs);
+  if (!err) err = make_map(&to, &po, o, D, sq, hq, batch, os);
+  if (err) return err;
+  // the grid: as many CTAs as are resident on the card at once
+  static int resident = 0;
+  if (resident == 0) {
+    int dev, sms, per_sm;
+    cudaError_t e = cudaFuncSetAttribute(
+        flash_fwd_tc<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        C::kSmem);
+    if (e == cudaSuccess)  // all of L1 as shared memory
+      e = cudaFuncSetAttribute(flash_fwd_tc<D>,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               (int)cudaSharedmemCarveoutMaxShared);
+    if (e == cudaSuccess) e = cudaGetDevice(&dev);
+    if (e == cudaSuccess)
+      e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, flash_fwd_tc<D>, kThreads, C::kSmem);
+    if (e != cudaSuccess) return (int)e;
+    if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+    resident = sms * per_sm;
+  }
+  Shape sh{sq, skv, hq, batch, hq / hkv, causal, window,
+           (hq / hkv) % 2 == 0 ? 1 : 0, 0, 0};
+  const int span = sh.pair_heads ? kRows : kRows * kConsumers;
+  sh.n_qt = (sq + span - 1) / span;
+  sh.n_items = sh.n_qt * (sh.pair_heads ? hq / 2 : hq) * batch;
+  flash_fwd_tc<D><<<min(resident, sh.n_items), kThreads, C::kSmem, stream>>>(
+      tq, tk, tv, to, sh, pq, pk, pv, po, scale * 1.4426950408889634f);
+  return 0;
+}
+
+}  // namespace tc
+
+int launch_f32(int d, const void* q, const void* k, const void* v, void* o,
+               int batch, int hq, int sq, int skv, int group, Strides qs,
+               Strides ks, Strides vs, Strides os, int causal, int window,
+               float scale, cudaStream_t stream) {
   switch (d) {
     case 32:
-      launch<T, 32>(q, k, v, o, batch, hq, sq, skv, group, qs, ks, vs, os,
-                    causal, window, scale, stream);
+      launch<float, 32>(q, k, v, o, batch, hq, sq, skv, group, qs, ks, vs,
+                        os, causal, window, scale, stream);
       return 0;
     case 64:
-      launch<T, 64>(q, k, v, o, batch, hq, sq, skv, group, qs, ks, vs, os,
-                    causal, window, scale, stream);
+      launch<float, 64>(q, k, v, o, batch, hq, sq, skv, group, qs, ks, vs,
+                        os, causal, window, scale, stream);
       return 0;
     case 112:  // zamba2's shared attention: 28 float4 chunks, 7 a lane
-      launch<T, 112>(q, k, v, o, batch, hq, sq, skv, group, qs, ks, vs, os,
-                     causal, window, scale, stream);
+      launch<float, 112>(q, k, v, o, batch, hq, sq, skv, group, qs, ks, vs,
+                         os, causal, window, scale, stream);
       return 0;
     case 128:
-      launch<T, 128>(q, k, v, o, batch, hq, sq, skv, group, qs, ks, vs, os,
-                     causal, window, scale, stream);
+      launch<float, 128>(q, k, v, o, batch, hq, sq, skv, group, qs, ks, vs,
+                         os, causal, window, scale, stream);
       return 0;
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+int launch_bf16(int d, const void* q, const void* k, const void* v, void* o,
+                int batch, int hq, int hkv, int sq, int skv, Strides qs,
+                Strides ks, Strides vs, Strides os, int causal, int window,
+                float scale, cudaStream_t stream) {
+  switch (d) {
+    case 32:
+      return tc::launch<32>(q, k, v, o, batch, hq, hkv, sq, skv, qs, ks, vs,
+                            os, causal, window, scale, stream);
+    case 64:
+      return tc::launch<64>(q, k, v, o, batch, hq, hkv, sq, skv, qs, ks, vs,
+                            os, causal, window, scale, stream);
+    case 112:  // zamba2's shared attention: padded to two 64-column boxes
+      return tc::launch<112>(q, k, v, o, batch, hq, hkv, sq, skv, qs, ks, vs,
+                             os, causal, window, scale, stream);
+    case 128:
+      return tc::launch<128>(q, k, v, o, batch, hq, hkv, sq, skv, qs, ks, vs,
+                             os, causal, window, scale, stream);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -234,9 +954,12 @@ int launch_d(int d, const void* q, const void* k, const void* v, void* o,
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16; d in {32, 64, 112, 128}. Strides are in
-// elements, ordered (batch, seq, head) for each of q, k, v, o; the last
-// dimension is contiguous. Returns cudaGetLastError() after the launch.
+// dtype: 0 = float32 (FMA kernel), 1 = bfloat16 (tensor-core kernel); d in
+// {32, 64, 112, 128}. Strides are in elements, ordered (batch, seq, head)
+// for each of q, k, v, o; the last dimension is contiguous. For bf16 the
+// q, k, v base addresses are 16-byte aligned and their strides multiples
+// of 8 elements (the tensor maps' rule; the wrapper checks it). Returns
+// cudaGetLastError() after the launch.
 int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                         int dtype, int batch, int hq, int hkv, int sq,
                         int skv, int d, int q_sb, int q_ss, int q_sh,
@@ -248,15 +971,14 @@ int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
     return (int)cudaErrorInvalidValue;
   const Strides qs{q_sb, q_ss, q_sh}, ks{k_sb, k_ss, k_sh},
       vs{v_sb, v_ss, v_sh}, os{o_sb, o_ss, o_sh};
-  const int group = hq / hkv;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   int err;
   if (dtype == 0) {
-    err = launch_d<float>(d, q, k, v, o, batch, hq, sq, skv, group, qs, ks,
-                          vs, os, causal, window, scale, s);
+    err = launch_f32(d, q, k, v, o, batch, hq, sq, skv, hq / hkv, qs, ks, vs,
+                     os, causal, window, scale, s);
   } else if (dtype == 1) {
-    err = launch_d<__nv_bfloat16>(d, q, k, v, o, batch, hq, sq, skv, group,
-                                  qs, ks, vs, os, causal, window, scale, s);
+    err = launch_bf16(d, q, k, v, o, batch, hq, hkv, sq, skv, qs, ks, vs, os,
+                      causal, window, scale, s);
   } else {
     err = (int)cudaErrorInvalidValue;
   }

@@ -1,20 +1,22 @@
 """Flash attention forward on the card: wrapper of the hand-written CUDA
-kernel ``csrc/flash_attention.cu``.
+kernels in ``csrc/flash_attention.cu``.
 
 Replaces the Pallas TPU kernel
 ``repro/kernels/flash_attention.py::flash_attention`` (causal, sliding
 window, GQA; positions from 0). At the qwen3-8b prefill shape its least
 time on the H100 is set by memory traffic (q, k, v read once, o written
-once: ~42 MB, 12.5 us); this first kernel does both products with f32 FMAs
-and sits well above that bound (see ``PERF.md``). It reads q, k and v
-through their strides, so the model's [B, S, H, D] projections go in
-without a transposed copy, and writes its output in [B, S, H, D] storage.
-``ops.attention`` routes CUDA tensors here and CPU tensors to
-``ref.flash_attention_ref``.
+once: ~42 MB, 12.5 us). bf16 goes to the tensor-core kernel (TMA loads into
+a shared-memory ring, both products with ``wgmma``); f32 goes to the
+f32-FMA kernel, whose full-f32 products the reduced card-vs-CPU checks rely
+on. Both read q, k and v through their strides, so the model's
+[B, S, H, D] projections go in without a transposed copy, and write the
+output in [B, S, H, D] storage. ``ops.attention`` routes CUDA tensors here
+and CPU tensors to ``ref.flash_attention_ref``.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import Sequence
 
 import torch
 
@@ -22,9 +24,34 @@ from repro_torch.kernels import build
 from repro_torch.kernels.rmsnorm import DTYPE_CODES
 
 HEAD_DIMS = (32, 64, 112, 128)
+ALIGN_BYTES = 16        # base addresses and (batch, seq, head) strides
 _ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 21
              + [ctypes.c_float, ctypes.c_void_p])
 _INT_MAX = 2 ** 31 - 1
+
+
+def check_layout(shape: Sequence[int], stride: Sequence[int],
+                 dtype: torch.dtype, data_ptr: int) -> None:
+    """Raise ``ValueError`` unless the kernels can read a [B, H, S, D]
+    operand of this shape, element strides, dtype and base address: a
+    contiguous head dim, a 16-byte aligned base, and (batch, seq, head)
+    strides that are whole multiples of 16 bytes (8 bf16 or 4 f32
+    elements) and fit an int. The bf16 kernel's TMA tensor maps need the
+    16 bytes; the f32 kernel's float4 loads need the same. The model's
+    [B, S, H, D] views meet it (head stride 128 or 112 elements)."""
+    itemsize = dtype.itemsize
+    if len(shape) != 4 or len(stride) != 4:
+        raise ValueError(f"want a [B, H, S, D] operand, got shape "
+                         f"{tuple(shape)}")
+    if stride[3] != 1 or data_ptr % ALIGN_BYTES or \
+            any(s * itemsize % ALIGN_BYTES for s in stride[:3]) or \
+            max(stride) > _INT_MAX:
+        raise ValueError(
+            f"flash attention kernel needs a contiguous head dim, a "
+            f"{ALIGN_BYTES}-byte aligned base and (batch, head, seq) strides "
+            f"that are multiples of {ALIGN_BYTES // itemsize} {dtype} "
+            f"elements; got strides {tuple(stride)} at address "
+            f"{data_ptr:#x}")
 
 
 def _bsh_strides(t: torch.Tensor):
@@ -35,9 +62,9 @@ def _bsh_strides(t: torch.Tensor):
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0) -> torch.Tensor:
     """q: [B, Hq, Sq, D]; k, v: [B, Hkv, Skv, D] CUDA tensors of one dtype
-    (bf16 or f32), any strides with a contiguous last dimension that is a
-    multiple of 4 elements. Returns [B, Hq, Sq, D] in q's dtype, a view of
-    a new contiguous [B, Sq, Hq, D] tensor."""
+    (bf16 or f32) laid out as ``check_layout`` requires. Returns
+    [B, Hq, Sq, D] in q's dtype, a view of a new contiguous [B, Sq, Hq, D]
+    tensor."""
     dev = q.device
     if dev.type != "cuda" or k.device != dev or v.device != dev:
         raise ValueError("flash attention kernel needs q, k, v on one CUDA "
@@ -58,11 +85,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          f"k {tuple(k.shape)}: need equal B and D, D in "
                          f"{HEAD_DIMS}, Hq % Hkv == 0")
     for t in (q, k, v):
-        if t.stride(3) != 1 or any(s % 4 for s in t.stride()[:3]) or \
-                t.data_ptr() % 16 or max(t.stride()) > _INT_MAX:
-            raise ValueError(f"flash attention kernel needs a contiguous, "
-                             f"16-byte aligned head dim and strides that "
-                             f"are multiples of 4; got {t.stride()}")
+        check_layout(t.shape, t.stride(), t.dtype, t.data_ptr())
     if window < 0:
         raise ValueError(f"window must be >= 0, got {window}")
     o = torch.empty((b, sq, hq, d), dtype=q.dtype, device=dev).transpose(1, 2)

@@ -8,9 +8,10 @@ has only PyTorch:
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 Tolerances: f32 2e-5 (summation order only); bf16 rtol 2e-2 / atol 3e-2
-(one bf16 rounding of an f32 result) — ``tests/test_kernels.py``'s; the
-Mamba2 scan 3e-4 on f32 outputs (the chunked scan against the exact
-recurrence, that file's sweep tolerance).
+(one bf16 rounding of an f32 result; the bf16 attention kernel also
+rounds its softmax weights p to bf16 before the PV product) —
+``tests/test_kernels.py``'s; the Mamba2 scan 3e-4 on f32 outputs (the
+chunked scan against the exact recurrence, that file's sweep tolerance).
 """
 import dataclasses
 
@@ -69,6 +70,16 @@ def test_rmsnorm_kernel_matches_plain(cuda_device, shape, dtype):
     (4, 32, 32, 512, 112, True, 0),
     (1, 2, 2, 256, 112, True, 64),
     (1, 2, 2, 128, 112, False, 0),
+    # what the bf16 tensor-core kernel must mask or pad: a key tail that
+    # is no multiple of its 64-key tiles (GQA 4x), a prompt shorter than
+    # one tile at D 112 (columns 112..127 of the second box padded), a
+    # window that ends inside a tile, and no causal limit at all
+    (2, 8, 2, 200, 128, True, 0),
+    (1, 2, 2, 40, 112, True, 0),
+    (1, 4, 4, 256, 112, True, 100),
+    (1, 4, 2, 192, 128, False, 0),
+    # rows whose first 64-key tile lies wholly before their window
+    (3, 5, 5, 300, 64, True, 70),
 ])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_attention_kernel_matches_plain(cuda_device, b, hq, hkv, s, d,

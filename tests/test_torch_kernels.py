@@ -17,7 +17,7 @@ import torch
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro_torch.kernels import build, ops
-from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.flash_attention import check_layout, flash_attention
 from repro_torch.kernels.mamba_scan import mamba_chunk_scan
 from repro_torch.kernels.rmsnorm import rmsnorm, row_view
 from repro_torch.models.convert import to_tensor
@@ -121,6 +121,53 @@ def test_attention_head_dim_112_matches_ref(b, h, s, causal, window, dtype):
         _close(got, jops.attention(q, k, v, causal=causal, window=window,
                                    q_block=64, kv_block=64,
                                    backend="interpret"), dtype)
+
+
+_BASE = 0x7F00_0000_0000      # a 16-byte aligned device address
+
+
+def _bshd_view(b, s, h, d, dtype, width=None):
+    """The model's [B, H, S, D] view of [B, S, H, width] storage."""
+    return torch.empty((b, s, h, width or d), dtype=dtype)[..., :d] \
+        .transpose(1, 2)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,s,h,d", [
+    (4, 512, 32, 128),         # qwen3-8b prefill q
+    (4, 512, 8, 128),          # its k, v
+    (4, 512, 32, 112),         # zamba2-7b prefill, head dim 112
+    (1, 40, 2, 112),           # a short prompt
+])
+def test_attention_layout_accepts_the_models_views(dtype, b, s, h, d):
+    x = _bshd_view(b, s, h, d, dtype)
+    check_layout(x.shape, x.stride(), dtype, _BASE)
+    # a head slice of a fused [B, S, Hq + 2 Hkv, D] projection: its base
+    # lies whole heads (224 or 256 bytes at D 112, 128) past the storage's
+    fused = torch.empty((b, s, 3 * h, d), dtype=dtype)
+    v = fused[:, :, 2 * h:].transpose(1, 2)
+    check_layout(v.shape, v.stride(), dtype,
+                 _BASE + 2 * h * d * dtype.itemsize)
+
+
+def test_attention_layout_refuses_what_tma_cannot_map():
+    bf, f32 = torch.bfloat16, torch.float32
+    # rows padded to 132 elements: 264 bytes is no multiple of 16 in bf16,
+    # 528 bytes is in f32
+    x = _bshd_view(2, 64, 4, 128, bf, width=132)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        check_layout(x.shape, x.stride(), bf, _BASE)
+    y = _bshd_view(2, 64, 4, 128, f32, width=132)
+    check_layout(y.shape, y.stride(), f32, _BASE)
+    # a base 8 bytes off the 16-byte grid (a slice starting 4 bf16 in)
+    z = _bshd_view(2, 64, 4, 128, bf)
+    with pytest.raises(ValueError, match="aligned"):
+        check_layout(z.shape, z.stride(), bf, _BASE + 8)
+    with pytest.raises(ValueError, match="contiguous head dim"):
+        t = z.transpose(2, 3)
+        check_layout(t.shape, t.stride(), bf, _BASE)
+    with pytest.raises(ValueError, match=r"\[B, H, S, D\]"):
+        check_layout(z.shape[1:], z.stride()[1:], bf, _BASE)
 
 
 def test_attention_strided_views_equal_contiguous():
