@@ -12,8 +12,11 @@ Phases (each a function; any failure exits non-zero):
      card (head dims 32, 64, 112, 128; bf16 runs the tensor-core kernel,
      f32 the FMA kernel), ragged key tails, short prompts, windows and
      non-causal cases included;
-  4. Mamba2 SSD scan kernel against its plain PyTorch version (the exact
-     recurrence) on the card;
+  4. Mamba2 SSD scan kernels against their plain PyTorch version (the exact
+     recurrence) on the card (bf16 runs the tensor-core kernel, f32 the FMA
+     kernel, which a profiler trace confirms): the serve shape, chunks of
+     64 and 40, P and N below 64, an odd head count, reruns and strided
+     views bitwise;
   5. reference: the reduced qwen3-8b and zamba2-7b in f32, kernel path on
      the card against the plain path on the CPU;
   6. serve, for each model — qwen3-8b (slice 1) and zamba2-7b (slice 2), at
@@ -38,6 +41,7 @@ import dataclasses
 import gc
 import json
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -272,6 +276,16 @@ def _mamba_inputs(gen, b, s, h, p, n, dtype):
     return x, bm, cm, dt, da
 
 
+def _cuda_kernels(fn):
+    """Names of the CUDA kernels that ``fn`` launches."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {e.name for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA}
+
+
 def phase_mamba_scan(state):
     gen = torch.Generator(device="cuda").manual_seed(4)
     bf, f32 = torch.bfloat16, torch.float32
@@ -284,6 +298,12 @@ def phase_mamba_scan(state):
         (2, 128, 3, 16, 8, 32, f32, f32),
         (1, 96, 1, 8, 16, 32, f32, f32),
         (2, 40, 4, 64, 16, 40, bf, f32),                # T = S < 128
+        # what the tensor-core kernel tiles: chunk 64, P and N below 64,
+        # a ragged T of 40 over several chunks, an odd head count
+        (2, 256, 4, p, n, 64, bf, f32),
+        (2, 128, 3, 32, 16, 64, bf, f32),
+        (1, 120, 2, p, n, 40, bf, bf),
+        (1, 256, 5, p, n, ZAMBA.ssm_chunk, bf, f32),
     ]
     worst = 0.0
     for b, s, h, p_, n_, chunk, dtype, out in cases:
@@ -298,6 +318,16 @@ def phase_mamba_scan(state):
         again = mamba_chunk_scan(*args, chunk=chunk, out_dtype=out)
         if not (torch.equal(y, again[0]) and torch.equal(hf, again[1])):
             raise AssertionError(f"mamba scan rerun differs: {shape}")
+    # the route by dtype, from the kernels a profiler trace names
+    for dtype, tc in ((bf, True), (f32, False)):
+        args = _mamba_inputs(gen, 1, 128, 2, p, n, dtype)
+        names = [nm for nm in _cuda_kernels(lambda: mamba_chunk_scan(
+            *args, chunk=64, out_dtype=f32)) if "mamba_ssd_scan" in nm]
+        if len(names) != 1 or ("mamba_ssd_scan_tc" in names[0]) != tc:
+            raise AssertionError(f"mamba scan {dtype} ran {names}")
+        emit({"check": "mamba_scan.route", "dtype": str(dtype),
+              "kernel": re.search(r"mamba_ssd_scan\w*<[^>]*>", names[0])[0],
+              "ok": True})
     # the model's split views of its conv output, read through strides
     xbc = _rand(gen, (B, 128, nh * p + 2 * n), bf)
     x = xbc[..., :nh * p].reshape(B, 128, nh, p)

@@ -12,16 +12,54 @@
 // What bounds it on the H100: at the zamba2-7b serve shape (x [4, 512, 112,
 // 64] bf16, N = 64, T = 128, y in f32) it moves ~98 MB (x, B, C, dt, da read
 // once, y and h written once) against ~7.5 GFLOP of causal work, so the
-// least time is the ~29 us of memory traffic. This first version does all
-// products with f32 FMAs (no mma / wgmma yet), so it is bound by the SMs'
-// FP32 pipes and shared-memory reads rather than by HBM; it is written to
-// be right and deterministic first.
+// least time is the ~29 us of memory traffic.
 //
-// Design:
+// Two kernels, chosen by the input dtype; neither is a fallback for the
+// other.
+//
+// bf16: mamba_ssd_scan_tc, on the tensor cores.
+// * Numerics. Every product whose operands are both bf16 is one bf16 wgmma
+//   pass with f32 accumulation: S = C B^T is exact in its products. Each
+//   product with an f32 operand splits that operand into two bf16 terms,
+//   hi = bf16(a) and lo = bf16(a - hi), and accumulates both passes into
+//   one f32 accumulator: the decayed score tile in scores x, h in C h, and
+//   w_s B_s in the carry. One bf16 rounding of those operands would miss
+//   the 3e-4 tolerance on f32 y by two orders of magnitude; hi + lo carries
+//   them to ~2^-16 and stays inside it (tests/test_torch_kernels.py holds
+//   an emulation of this arithmetic against the exact recurrence). y is
+//   built in f32 and rounded once at the store.
+// * Work: one CTA of four warpgroups per (pair of heads, batch entry): 224
+//   CTAs at the serve shape, one an SM (~209 KB of shared memory). For
+//   each head, warpgroup r takes rows t = 64 r .. 64 r + 63 of a chunk and
+//   only the causal columns s < 64 (r + 1), 32 at a time: S = C B^T by
+//   wgmma m64n32k16 (both K-major in shared memory), the mask
+//   exp(ca_t - ca_s) dt_s (s <= t < T) applied to the accumulator in
+//   registers, split into hi and lo and fed as the register A operand of
+//   scores x (x MN-major, as V in the attention kernel), then C h with h
+//   hi and lo MN-major from shared memory. Warpgroup 0 of a head also
+//   runs the carry h^T <- exp(ca_T) h^T + (w B)^T x, M = N rows, K = T,
+//   A = w_s B[s][n] split in registers, x MN-major; it keeps h in f32 in
+//   shared memory and writes h hi and lo once a chunk. Two named barriers
+//   hand h between the head's warpgroups, so the other one computes its
+//   next scores while the carry runs.
+// * Copies: a 2-stage ring of chunk tiles, all bf16 (x of both heads, B,
+//   C: 128 rows x 64 columns, 128-byte swizzle), each with a full and an
+//   empty mbarrier. Warp 0 issues chunk k + 1's copies as chunk k begins:
+//   x, B, C by TMA over tensor maps of the strided inputs (box rows = T,
+//   so rows past T stay zero; columns past P or N arrive as zeros), dt and
+//   da by cp.async. The tiles' layout needs 16-byte aligned bases and
+//   strides in whole 16 bytes; the wrapper copies an input that is not.
+// * ca = cumsum(da) is a warp scan (4 steps a lane, then shuffles); the
+//   scan, the sums and the launch are fixed, there are no atomics, and
+//   reruns are bitwise equal.
+//
+// f32: mamba_ssd_scan, every product as f32 FMAs on the FP32 pipes (the
+//   reduced card-vs-CPU checks and the chunk-invariance check rest on
+//   full-f32 products).
 // * One CTA of 256 threads per (head, batch); the chunk loop runs inside the
 //   CTA, in order. That loop replaces the TPU kernel's sequential third grid
 //   axis: h [P, N] stays in f32 shared memory across chunks and is written
-//   to device memory once, at the end. The serve shape gives 448 CTAs.
+//   to device memory once, at the end.
 // * Per chunk, x [T, P], B^T and C^T [N, T] (transposed so that a thread
 //   reads 4 or 8 consecutive positions as float4s), dt and ca are staged in
 //   shared memory as f32; the [T, T] score tile is built there too (stored
@@ -31,13 +69,15 @@
 //   update 4 x 4. Padding rows and columns (T, P, N rounded up to the tile)
 //   are zero in shared memory and never stored, so T, P and N are taken at
 //   run time (T <= 128, P <= 64, N <= 64; T need not be a power of two).
-// * x, B, C, dt and da are read through (batch, seq, head) strides in
-//   elements, so the model's split views of its conv output go in without a
-//   copy; y [B, S, H, P] and h [B, H, P, N] are new contiguous tensors.
-// * The cumulative sum and every dot product run in a fixed order, there
-//   are no atomics and the launch configuration is fixed by the shapes:
-//   reruns are bitwise identical.
+//
+// Both: x, B, C, dt and da are read through (batch, seq, head) strides in
+// elements, so the model's split views of its conv output go in without a
+// copy; y [B, S, H, P] and h [B, H, P, N] are new contiguous tensors. The
+// cumulative sum and every dot product run in a fixed order, there are no
+// atomics and the launch configuration is fixed by the shapes: reruns are
+// bitwise identical.
 
+#include <cuda.h>  // CUtensorMap and its enums (types only; no libcuda link)
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
@@ -48,11 +88,6 @@ constexpr int kThreads = 256;
 constexpr int kMaxChunk = 128;
 constexpr int kMaxP = 64;
 constexpr int kMaxN = 64;
-
-__device__ __forceinline__ float to_float(float v) { return v; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
 
 template <typename T> __device__ __forceinline__ T from_float(float v);
 template <> __device__ __forceinline__ float from_float<float>(float v) {
@@ -90,10 +125,10 @@ __host__ __device__ inline size_t smem_floats(const Dims& d) {
          (size_t)d.tp * d.tp + (size_t)d.np * d.pp + 4 * (size_t)d.tp;
 }
 
-template <typename Tin, typename Tout>
+template <typename Tout>
 __global__ void __launch_bounds__(kThreads)
-mamba_ssd_scan(const Tin* __restrict__ x, const Tin* __restrict__ bm,
-               const Tin* __restrict__ cm, const float* __restrict__ dt,
+mamba_ssd_scan(const float* __restrict__ x, const float* __restrict__ bm,
+               const float* __restrict__ cm, const float* __restrict__ dt,
                const float* __restrict__ da, Tout* __restrict__ y,
                float* __restrict__ hout, Dims d, Strides st) {
   extern __shared__ __align__(16) float smem[];
@@ -117,9 +152,9 @@ mamba_ssd_scan(const Tin* __restrict__ x, const Tin* __restrict__ bm,
   const int total = (int)smem_floats(d);
   for (int e = tid; e < total; e += kThreads) smem[e] = 0.f;
 
-  const Tin* xb = x + (long long)bi * st.x_b + (long long)h * st.x_h;
-  const Tin* bb = bm + (long long)bi * st.b_b;
-  const Tin* cb = cm + (long long)bi * st.c_b;
+  const float* xb = x + (long long)bi * st.x_b + (long long)h * st.x_h;
+  const float* bb = bm + (long long)bi * st.b_b;
+  const float* cb = cm + (long long)bi * st.c_b;
   const float* dtb = dt + (long long)bi * st.dt_b + (long long)h * st.dt_h;
   const float* dab = da + (long long)bi * st.da_b + (long long)h * st.da_h;
 
@@ -130,12 +165,12 @@ mamba_ssd_scan(const Tin* __restrict__ x, const Tin* __restrict__ bm,
     // 1. stage the chunk as f32
     for (int e = tid; e < T * P; e += kThreads) {
       const int t = e / P, p = e % P;
-      xs[t * PP + p] = to_float(xb[(long long)(t0 + t) * st.x_s + p]);
+      xs[t * PP + p] = xb[(long long)(t0 + t) * st.x_s + p];
     }
     for (int e = tid; e < T * N; e += kThreads) {
       const int t = e / N, n = e % N;
-      bT[n * TP + t] = to_float(bb[(long long)(t0 + t) * st.b_s + n]);
-      cT[n * TP + t] = to_float(cb[(long long)(t0 + t) * st.c_s + n]);
+      bT[n * TP + t] = bb[(long long)(t0 + t) * st.b_s + n];
+      cT[n * TP + t] = cb[(long long)(t0 + t) * st.c_s + n];
     }
     for (int t = tid; t < T; t += kThreads) {
       dts[t] = dtb[(long long)(t0 + t) * st.dt_s];
@@ -306,34 +341,737 @@ mamba_ssd_scan(const Tin* __restrict__ x, const Tin* __restrict__ bm,
   }
 }
 
-template <typename Tin, typename Tout>
+template <typename Tout>
 int launch(const void* x, const void* b, const void* c, const float* dt,
            const float* da, void* y, float* hout, int batch, const Dims& d,
            const Strides& st, cudaStream_t stream) {
   const size_t bytes = smem_floats(d) * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
-      mamba_ssd_scan<Tin, Tout>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      mamba_ssd_scan<Tout>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)bytes);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(d.heads, batch);
-  mamba_ssd_scan<Tin, Tout><<<grid, kThreads, bytes, stream>>>(
-      static_cast<const Tin*>(x), static_cast<const Tin*>(b),
-      static_cast<const Tin*>(c), dt, da, static_cast<Tout*>(y), hout, d, st);
+  mamba_ssd_scan<Tout><<<grid, kThreads, bytes, stream>>>(
+      static_cast<const float*>(x), static_cast<const float*>(b),
+      static_cast<const float*>(c), dt, da, static_cast<Tout*>(y), hout, d,
+      st);
   return 0;
 }
 
-template <typename Tin>
-int launch_out(int out_dtype, const void* x, const void* b, const void* c,
-               const float* dt, const float* da, void* y, float* hout,
-               int batch, const Dims& d, const Strides& st,
-               cudaStream_t stream) {
-  if (out_dtype == 0)
-    return launch<Tin, float>(x, b, c, dt, da, y, hout, batch, d, st, stream);
-  if (out_dtype == 1)
-    return launch<Tin, __nv_bfloat16>(x, b, c, dt, da, y, hout, batch, d, st,
-                                      stream);
-  return (int)cudaErrorInvalidValue;
+// ------------------------------------------------- bf16: tensor-core kernel
+
+namespace tc {
+
+constexpr int kHeads = 2;                   // heads per CTA
+constexpr int kWarpgroups = 2 * kHeads;     // two 64-row halves per head
+constexpr int kThreads = 128 * kWarpgroups;
+constexpr int kStages = 2;                  // ring of chunk tiles
+constexpr int kRowBytes = 128;              // 64 bf16: one swizzled row
+constexpr int kAtomBytes = 8 * kRowBytes;   // 8 rows: one swizzle atom
+constexpr int kHalfBytes = 64 * kRowBytes;  // 64 rows of a tile
+constexpr int kTileBytes = 2 * kHalfBytes;  // 128 rows x 64 columns
+
+// Shared memory, from a 1024-byte aligned base: per stage the x tiles of
+// the CTA's heads, then the B and C tiles (each [128 rows][64 columns]
+// bf16, 128-byte swizzled as the TMA writes them); h hi and lo per head
+// ([n rows][p columns], the same layout); h in f32 per head, in the
+// accumulator layout of the warpgroup that carries it (element e of thread
+// i at e * 128 + i); per stage and head dt and da;
+// per stage and warpgroup ca, exp(ca_t) and w_s = exp(ca_T - ca_s) dt_s;
+// a full and an empty barrier per stage.
+struct Smem {
+  static constexpr int kStage = (kHeads + 2) * kTileBytes;
+  static constexpr int kH = kStages * kStage;
+  static constexpr int kHf = kH + kHeads * 2 * kHalfBytes;
+  static constexpr int kDt = kHf + kHeads * 32 * 128 * 4;
+  static constexpr int kScan = kDt + kStages * kHeads * 2 * 128 * 4;
+  static constexpr int kBars = kScan + kStages * kWarpgroups * 3 * 128 * 4;
+  static constexpr int kBytes = kBars + 8 * 2 * kStages;
+  static constexpr int kAlloc = kBytes + 1024;  // slack to align the base
+};
+
+struct Shape {
+  int seqlen, heads, p, n, chunk, nchunks;
+};
+
+// Which dimension (1..3) of a tensor map holds seq, head and batch: the
+// host orders them by stride (B and C have no head dimension: h = 0).
+struct Perm {
+  int s, h, b;
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+               ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred done;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
+      "@!done bra WAIT;\n"
+      "}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
+}
+
+// A 4-byte asynchronous copy into shared memory, and an arrival on an
+// mbarrier once this thread's copies so far have landed.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(smem_u32(dst)),
+               "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_arrive(uint32_t bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];" ::"r"(
+                   bar)
+               : "memory");
+}
+
+// Named barriers (id 0 is __syncthreads): a producer-consumer hand-off
+// between the two warpgroups of a head, and a barrier within a warpgroup.
+__device__ __forceinline__ void bar_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(threads) : "memory");
+}
+__device__ __forceinline__ void bar_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;" ::"r"(id), "r"(threads) : "memory");
+}
+
+__device__ __forceinline__ int coord(const Perm& p, int d, int s, int h,
+                                     int b) {
+  return p.s == d ? s : p.h == d ? h : b;
+}
+
+// One box of x's 4-D tensor map (P, then seq, head, batch by stride).
+__device__ __forceinline__ void tma_load4(uint32_t dst, const CUtensorMap* map,
+                                          uint32_t bar, int s, int h, int b,
+                                          Perm p) {
+  const int c1 = coord(p, 1, s, h, b), c2 = coord(p, 2, s, h, b),
+            c3 = coord(p, 3, s, h, b);
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(0), "r"(c1),
+      "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// One box of B's or C's 3-D tensor map (N, then seq, batch by stride).
+__device__ __forceinline__ void tma_load3(uint32_t dst, const CUtensorMap* map,
+                                          uint32_t bar, int s, int b,
+                                          Perm p) {
+  const int c1 = p.s == 1 ? s : b, c2 = p.s == 2 ? s : b;
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(0), "r"(c1),
+      "r"(c2)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor of a 128-byte-swizzled operand: start
+// address, leading and stride byte offsets (16-byte units), layout 1 = B128.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
+                                               uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
+}
+
+// A K-major operand (its 64 rows along M or N, K along the swizzled rows):
+// k-step kk starts 32 bytes further along the rows.
+__device__ __forceinline__ uint64_t kmajor(uint32_t tile, int kk) {
+  return sw128_desc(tile + kk * 32, 16, kAtomBytes);
+}
+
+// An MN-major operand (rows along K, 64 columns along M or N): k-step kk
+// starts 16 rows (two swizzle atoms) further down.
+__device__ __forceinline__ uint64_t mnmajor(uint32_t tile, int kk) {
+  return sw128_desc(tile + kk * 2 * kAtomBytes, kHalfBytes, kAtomBytes);
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wg_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+}
+
+// Keeps the compiler from moving reads or writes of accumulator registers
+// across the asynchronous wgmma that owns them.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+#define MS_D8(i)                                                        \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),          \
+      "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+
+// D[64 x 64] (+)= A[64 x 16] B[16 x 64], both from shared memory: A
+// K-major, B K-major (kTransB 0) or MN-major (kTransB 1).
+template <int kTransB>
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
+                                         uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31}, %32, %33, p, 1, 1, 0, %35;\n"
+      "}\n"
+      : MS_D8(0), MS_D8(8), MS_D8(16), MS_D8(24)
+      : "l"(da), "l"(db), "r"(accumulate), "n"(kTransB));
+}
+
+// D[64 x 32] (+)= A[64 x 16] B[32 x 16]^T, both K-major in shared memory.
+__device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t da,
+                                             uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15}, %16, %17, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : MS_D8(0), MS_D8(8)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// D[64 x 64] += A[64 x 16] B[16 x 64]: A in registers (bf16 fragments),
+// B MN-major in shared memory.
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t* a,
+                                         uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n"
+      "}\n"
+      : MS_D8(0), MS_D8(8), MS_D8(16), MS_D8(24)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+#undef MS_D8
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// The two bf16 terms of a pair of f32 values v: hi = bf16(v) and
+// lo = bf16(v - hi), so that hi + lo carries v to ~2^-16 of |v|.
+__device__ __forceinline__ void split2(float v0, float v1, uint32_t& hi,
+                                      uint32_t& lo) {
+  const float h0 = __bfloat162float(__float2bfloat16_rn(v0));
+  const float h1 = __bfloat162float(__float2bfloat16_rn(v1));
+  hi = pack_bf16(h0, h1);
+  lo = pack_bf16(v0 - h0, v1 - h1);
+}
+
+// Named barrier ids: for head hh, kRead(hh) (its carry warpgroup may
+// overwrite h: the other warpgroup has read it) and kWritten(hh) (h of the
+// next chunk is in shared memory); kOwn(wg) within one warpgroup.
+__device__ __forceinline__ int kRead(int hh) { return 1 + 2 * hh; }
+__device__ __forceinline__ int kWritten(int hh) { return 2 + 2 * hh; }
+__device__ __forceinline__ int kOwn(int wg) { return 1 + 2 * kHeads + wg; }
+
+// The byte offset of bf16 element (s, n) of a [rows][64] tile in the TMA's
+// 128-byte swizzle: 16-byte chunk c of row s sits at chunk c ^ (s % 8).
+__device__ __forceinline__ int swz(int s, int n) {
+  return s * kRowBytes + ((((n >> 3) ^ (s & 7)) << 4) | ((n & 7) * 2));
+}
+
+__device__ __forceinline__ float bf16_at(const uint8_t* p) {
+  return __bfloat162float(*reinterpret_cast<const __nv_bfloat16*>(p));
+}
+
+// This thread's index, read so that the compiler recomputes what depends
+// on it where it is used instead of keeping it live across the chunk loop.
+__device__ __forceinline__ int thread_index() {
+  int t;
+  asm volatile("mov.u32 %0, %%tid.x;" : "=r"(t));
+  return t;
+}
+
+template <typename Tout>
+__device__ __forceinline__ void store_pair(Tout* p, float v0, float v1,
+                                           bool pair);
+template <>
+__device__ __forceinline__ void store_pair<float>(float* p, float v0,
+                                                  float v1, bool pair) {
+  if (pair)
+    *reinterpret_cast<float2*>(p) = make_float2(v0, v1);
+  else
+    p[0] = v0;
+}
+template <>
+__device__ __forceinline__ void store_pair<__nv_bfloat16>(__nv_bfloat16* p,
+                                                          float v0, float v1,
+                                                          bool pair) {
+  if (pair)
+    *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(v0, v1);
+  else
+    p[0] = __float2bfloat16_rn(v0);
+}
+
+// One CTA per (pair of heads, batch entry); the chunk loop runs inside it,
+// in order. Its 16 warps are four warpgroups, wg = 2 hh + r: head hh of
+// the pair, rows t = 64 r .. 64 r + 63 of each chunk. Warp 0 also fills a
+// 2-stage ring (x of both heads, B and C by TMA; dt and da by cp.async),
+// issuing chunk k + 1's copies as chunk k begins.
+//
+// Accumulator fragments (m64n64) of thread t = 32 w + lane of a
+// warpgroup: rows 16 w + lane / 4 (+ 8 for i = 1), columns
+// 8 j + 2 (lane % 4) + c, held in d[4 j + 2 i + c]; they are also the
+// A-fragment layout of a following register-A wgmma (k-step kk covers
+// j = 2 kk, 2 kk + 1).
+template <typename Tout>
+__global__ void __launch_bounds__(kThreads, 1)
+mamba_ssd_scan_tc(const __grid_constant__ CUtensorMap tx,
+                  const __grid_constant__ CUtensorMap tb,
+                  const __grid_constant__ CUtensorMap tcm,
+                  const float* __restrict__ dt, const float* __restrict__ da,
+                  Tout* __restrict__ y, float* __restrict__ hout, Shape sh,
+                  Strides st, Perm px, Perm pb, Perm pc) {
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  uint8_t* gbase = smem_raw + (base - raw);  // the same bytes, generic
+  auto x_tile = [&](int s, int hh) {
+    return base + s * Smem::kStage + hh * kTileBytes;
+  };
+  auto b_tile = [&](int s) {
+    return base + s * Smem::kStage + kHeads * kTileBytes;
+  };
+  auto c_tile = [&](int s) { return b_tile(s) + kTileBytes; };
+  auto h_tile = [&](int hh, int part) {  // part 0: hi, 1: lo
+    return base + Smem::kH + (2 * hh + part) * kHalfBytes;
+  };
+  auto dts_of = [&](int s, int hh) {  // dt [128], then da [128]
+    return reinterpret_cast<float*>(gbase + Smem::kDt) +
+           (s * kHeads + hh) * 2 * 128;
+  };
+  auto scan_of = [&](int s, int wg) {  // ca, exp(ca_t), w_s: [128] each
+    return reinterpret_cast<float*>(gbase + Smem::kScan) +
+           (s * kWarpgroups + wg) * 3 * 128;
+  };
+  auto full = [&](int s) { return base + Smem::kBars + 8 * s; };
+  auto empty = [&](int s) { return base + Smem::kBars + 8 * (kStages + s); };
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int h0 = blockIdx.x * kHeads, bi = blockIdx.y;
+  const int T = sh.chunk;
+
+  // Zero the tiles, h and dt/da once: the copies write rows t < T only,
+  // so rows past T (and the state h = 0) stay zero for the whole run.
+  for (int e = tid; e < Smem::kBars / 16; e += kThreads)
+    reinterpret_cast<uint4*>(gbase)[e] = make_uint4(0, 0, 0, 0);
+  if (tid == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full(s), 33);  // 32 lanes' dt/da copies, the TMA's bytes
+      mbar_init(empty(s), kWarpgroups);  // one arrival per warpgroup
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+  __syncthreads();
+
+  // Chunk k's copies, issued by warp 0 into stage k % 2 once the four
+  // warpgroups have released it: x of both heads, B and C by TMA (the
+  // tx bytes), dt and da by the 32 lanes with cp.async (one arrival each
+  // when its copies land).
+  auto issue = [&](int k) {
+    const int s = k % kStages, t0 = k * T;
+    // the n-th refill of a stage waits for its n-th release (a fresh
+    // barrier's "previous phase" counts as done)
+    mbar_wait(empty(s), ((k / kStages) & 1) ^ 1);
+    for (int hh = 0; hh < kHeads; ++hh) {
+      const int hd = min(h0 + hh, sh.heads - 1);
+      float* d_s = dts_of(s, hh);
+      for (int t = lane; t < T; t += 32) {
+        const long long at = (long long)t0 + t;
+        cp_async4(d_s + t, dt + (long long)bi * st.dt_b + at * st.dt_s +
+                               (long long)hd * st.dt_h);
+        cp_async4(d_s + 128 + t, da + (long long)bi * st.da_b +
+                                     at * st.da_s + (long long)hd * st.da_h);
+      }
+    }
+    cp_async_arrive(full(s));
+    if (lane == 0) {
+      mbar_expect(full(s), (kHeads + 2) * T * kRowBytes);
+      for (int hh = 0; hh < kHeads; ++hh)
+        tma_load4(x_tile(s, hh), &tx, full(s), t0,
+                  min(h0 + hh, sh.heads - 1), bi, px);
+      tma_load3(b_tile(s), &tb, full(s), t0, bi, pb);
+      tma_load3(c_tile(s), &tcm, full(s), t0, bi, pc);
+    }
+  };
+  if (warp == 0)
+    for (int k = 0; k < min(kStages, sh.nchunks); ++k) issue(k);
+
+  const int wg = warp / 4, hh = wg / 2, r = wg % 2;
+  const int head = h0 + hh;
+  const bool live = head < sh.heads;  // not the spare of an odd head count
+  const bool signal = tid % 128 == 0;
+  // r == 0 carries h^T [n][p] of the head in f32 from chunk to chunk
+  float* hf = reinterpret_cast<float*>(gbase + Smem::kHf) + hh * 32 * 128 +
+              tid % 128;
+  if (r == 0) bar_arrive(kWritten(hh), 256);  // h = 0 is in shared memory
+
+  for (int k = 0; k < sh.nchunks; ++k) {
+    const int s = k % kStages, t0 = k * T;
+    if (warp == 0 && k > 0 && k + 1 < sh.nchunks) issue(k + 1);
+    const int me = thread_index() % 128;
+    const int row = 16 * (me / 32) + (me % 32) / 4;  // rows row, row + 8
+    const int col = 2 * (me % 4);                    // columns col, col + 1
+    mbar_wait(full(s), (k / kStages) & 1);
+    const float* dts = dts_of(s, hh);
+    float* ca = scan_of(s, wg);
+    float* ea = ca + 128;
+    float* ws = ca + 256;
+    if (warp % 4 == 0) {
+      // ca = cumsum(da): lane l sums t = 4 l .. 4 l + 3 in order, then a
+      // shuffle scan of the lane totals (positions past T add da = 0)
+      float v[4], run = 0.f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        run += dts[128 + 4 * lane + j];
+        v[j] = run;
+      }
+      float incl = run;
+#pragma unroll
+      for (int o = 1; o < 32; o *= 2) {
+        const float u = __shfl_up_sync(0xffffffffu, incl, o);
+        if (lane >= o) incl += u;
+      }
+      float excl = __shfl_up_sync(0xffffffffu, incl, 1);
+      if (lane == 0) excl = 0.f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) ca[4 * lane + j] = excl + v[j];
+      __syncwarp();
+      const float last = ca[T - 1];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int t = 4 * lane + j;
+        ea[t] = expf(ca[t]);
+        ws[t] = expf(last - ca[t]) * dts[t];  // dt = 0 past T
+      }
+    }
+    bar_sync(kOwn(wg), 128);
+
+    // y_intra = scores x over the causal columns s < 64 (r + 1), 32 at a
+    // time: S = C B^T (both K-major), the decay mask on S in registers,
+    // then S = hi + lo as two register A operands against x (MN-major)
+    float yacc[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) yacc[i] = 0.f;
+    float ca_row[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) ca_row[i] = ca[64 * r + row + 8 * i];
+    for (int sq = 0; sq < 2 * (r + 1); ++sq) {  // columns 32 sq ..
+      float sacc[16];
+      fence_regs(sacc);
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_ss_n32(sacc, kmajor(c_tile(s) + r * kHalfBytes, kk),
+                     kmajor(b_tile(s) + sq * 32 * kRowBytes, kk), kk > 0);
+      wg_commit();
+      wg_wait_all();
+      fence_regs(sacc);
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int sc = 32 * sq + 8 * j + col + c;
+          const float ca_s = ca[sc], dt_s = dts[sc];
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            const int t = 64 * r + row + 8 * i;
+            float& v = sacc[4 * j + 2 * i + c];
+            v = (sc <= t && t < T) ? v * (expf(ca_row[i] - ca_s) * dt_s)
+                                   : 0.f;
+          }
+        }
+      uint32_t ahi[8], alo[8];
+#pragma unroll
+      for (int q = 0; q < 8; ++q)
+        split2(sacc[2 * q], sacc[2 * q + 1], ahi[q], alo[q]);
+      fence_regs(yacc);
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < 2; ++kk) {
+        const uint64_t dx = mnmajor(x_tile(s, hh), 2 * sq + kk);
+        wgmma_rs(yacc, ahi + 4 * kk, dx);
+        wgmma_rs(yacc, alo + 4 * kk, dx);
+      }
+      wg_commit();
+      wg_wait_all();
+      fence_regs(yacc);
+    }
+
+    // y_inter = C h: C K-major, h = hi + lo MN-major, from shared memory
+    if (r == 1) bar_sync(kWritten(hh), 256);
+    float hy[32];
+    fence_regs(hy);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const uint64_t dc = kmajor(c_tile(s) + r * kHalfBytes, kk);
+      wgmma_ss<1>(hy, dc, mnmajor(h_tile(hh, 0), kk), kk > 0);
+      wgmma_ss<1>(hy, dc, mnmajor(h_tile(hh, 1), kk), 1);
+    }
+    wg_commit();
+    wg_wait_all();
+    fence_regs(hy);
+    if (r == 1) {
+      bar_arrive(kRead(hh), 256);
+      if (signal) mbar_arrive(empty(s));
+    }
+
+    // y = y_intra + exp(ca_t) y_inter, rounded once to Tout
+    if (live) {
+      const bool pairs = (sh.p & 1) == 0;
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int t = 64 * r + row + 8 * i;
+        if (t >= T) continue;
+        const float e = ea[t];
+        Tout* yp = y + (((long long)bi * sh.seqlen + t0 + t) * sh.heads +
+                        head) * sh.p;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int p = 8 * j + col;
+          if (p >= sh.p) continue;
+          const float v0 = fmaf(hy[4 * j + 2 * i], e, yacc[4 * j + 2 * i]);
+          const float v1 =
+              fmaf(hy[4 * j + 2 * i + 1], e, yacc[4 * j + 2 * i + 1]);
+          if (pairs) {
+            store_pair<Tout>(yp + p, v0, v1, true);
+          } else {
+            store_pair<Tout>(yp + p, v0, v1, false);
+            if (p + 1 < sh.p) store_pair<Tout>(yp + p + 1, v1, v1, false);
+          }
+        }
+      }
+    }
+
+    if (r == 0) {
+      // carry: h^T <- exp(ca_T) h^T + sum_s (w_s B_s)^T x_s, the f32
+      // factor w_s B[s][n] as hi + lo register A operands (rows n, K = s)
+      // against x (MN-major), in two batches of four k-steps
+      const float decay = expf(ca[T - 1]);
+      float hacc[32];
+#pragma unroll
+      for (int i = 0; i < 32; ++i) hacc[i] = hf[i * 128] * decay;
+      // B[s][n] for n = row + 8 i and s = col + c (+ multiples of 8)
+      const uint8_t* bt = gbase + (b_tile(s) - base);
+      const uint8_t* bq[2][2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) bq[i][c] = bt + swz(col + c, row + 8 * i);
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        if (64 * half >= T) break;
+        uint32_t bhi[16], blo[16];
+#pragma unroll
+        for (int kq = 0; kq < 4; ++kq)
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            const int step = 16 * (4 * half + kq) + 8 * (q >> 1);
+            const int s0 = step + col;
+            split2(ws[s0] * bf16_at(bq[q & 1][0] + step * kRowBytes),
+                   ws[s0 + 1] * bf16_at(bq[q & 1][1] + step * kRowBytes),
+                   bhi[4 * kq + q], blo[4 * kq + q]);
+          }
+        fence_regs(hacc);
+        wg_fence();
+#pragma unroll
+        for (int kq = 0; kq < 4; ++kq) {
+          const uint64_t dx = mnmajor(x_tile(s, hh), 4 * half + kq);
+          wgmma_rs(hacc, bhi + 4 * kq, dx);
+          wgmma_rs(hacc, blo + 4 * kq, dx);
+        }
+        wg_commit();
+        wg_wait_all();
+        fence_regs(hacc);
+      }
+      if (signal) mbar_arrive(empty(s));
+      bar_sync(kRead(hh), 256);  // the other warpgroup is done with h
+      if (k + 1 < sh.nchunks) {
+#pragma unroll
+        for (int i = 0; i < 32; ++i) hf[i * 128] = hacc[i];
+        // h^T = hi + lo into [n][p] tiles in the 128-byte swizzle
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const int n = row + 8 * i;
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            const uint32_t at =
+                n * kRowBytes + ((j ^ (n & 7)) << 4) + col * 2;
+            uint32_t hi, lo;
+            split2(hacc[4 * j + 2 * i], hacc[4 * j + 2 * i + 1], hi, lo);
+            asm volatile("st.shared.b32 [%0], %1;" ::"r"(h_tile(hh, 0) + at),
+                         "r"(hi)
+                         : "memory");
+            asm volatile("st.shared.b32 [%0], %1;" ::"r"(h_tile(hh, 1) + at),
+                         "r"(lo)
+                         : "memory");
+          }
+        }
+        asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+        bar_arrive(kWritten(hh), 256);
+      } else if (live) {  // the final state h [P, N] in f32
+        float* ho = hout + ((long long)bi * sh.heads + head) * sh.p * sh.n;
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+          for (int j = 0; j < 8; ++j)
+#pragma unroll
+            for (int c = 0; c < 2; ++c) {
+              const int n = row + 8 * i, p = 8 * j + col + c;
+              if (n < sh.n && p < sh.p)
+                ho[p * sh.n + n] = hacc[4 * j + 2 * i + c];
+            }
+      }
+    }
+  }
+}
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType,
+                                cuuint32_t, void*, const cuuint64_t*,
+                                const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave,
+                                CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// The tensor map of a bf16 operand with ``cols`` contiguous columns and
+// ``n_outer`` (2 or 3) outer dimensions {seq, head, batch} or {seq, batch}
+// given by extent and element stride; dimension 0 is the columns, the
+// outer ones follow ordered by stride. Boxes are 64 columns x ``rows``
+// positions (one chunk) with the 128-byte swizzle the wgmma descriptors
+// name; columns past ``cols`` arrive as zeros.
+int make_map(CUtensorMap* map, Perm* perm, const void* ptr, int cols,
+             int rows, int n_outer, const long long* extent,
+             const long long* stride) {
+  EncodeTiled encode = encoder();
+  if (encode == nullptr) return (int)cudaErrorNotSupported;
+  struct Dim {
+    long long extent, stride;
+    int which;  // 0 seq, 1 head, 2 batch
+  } dims[3];
+  for (int i = 0; i < n_outer; ++i)
+    dims[i] = {extent[i], stride[i], n_outer == 3 ? i : 2 * i};
+  for (int i = 1; i < n_outer; ++i)  // stable insertion sort by stride
+    for (int j = i; j > 0 && dims[j].stride < dims[j - 1].stride; --j) {
+      const Dim t = dims[j];
+      dims[j] = dims[j - 1];
+      dims[j - 1] = t;
+    }
+  cuuint64_t ext[4] = {(cuuint64_t)cols, 1, 1, 1};
+  cuuint64_t str[3];
+  cuuint32_t box[4] = {64, 1, 1, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  *perm = Perm{0, 0, 0};
+  for (int i = 0; i < n_outer; ++i) {
+    ext[i + 1] = (cuuint64_t)dims[i].extent;
+    str[i] = (cuuint64_t)dims[i].stride * sizeof(__nv_bfloat16);
+    if (dims[i].which == 0) {
+      box[i + 1] = (cuuint32_t)rows;
+      perm->s = i + 1;
+    } else if (dims[i].which == 1) {
+      perm->h = i + 1;
+    } else {
+      perm->b = i + 1;
+    }
+  }
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 1 + n_outer,
+      const_cast<void*>(ptr), ext, str, box, elem,
+      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+template <typename Tout>
+int launch(const void* x, const void* b, const void* c, const float* dt,
+           const float* da, void* y, float* hout, int batch, const Dims& d,
+           const Strides& st, cudaStream_t stream) {
+  CUtensorMap mx, mb, mc;
+  Perm px, pb, pc;
+  const long long x_ext[3] = {d.seqlen, d.heads, batch};
+  const long long x_str[3] = {st.x_s, st.x_h, st.x_b};
+  const long long bc_ext[2] = {d.seqlen, batch};
+  const long long b_str[2] = {st.b_s, st.b_b};
+  const long long c_str[2] = {st.c_s, st.c_b};
+  int err = make_map(&mx, &px, x, d.p, d.chunk, 3, x_ext, x_str);
+  if (!err) err = make_map(&mb, &pb, b, d.n, d.chunk, 2, bc_ext, b_str);
+  if (!err) err = make_map(&mc, &pc, c, d.n, d.chunk, 2, bc_ext, c_str);
+  if (err) return err;
+  static bool ready = false;  // one per instantiation
+  if (!ready) {
+    cudaError_t e = cudaFuncSetAttribute(
+        mamba_ssd_scan_tc<Tout>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        Smem::kAlloc);
+    if (e != cudaSuccess) return (int)e;
+    ready = true;
+  }
+  const Shape sh{d.seqlen, d.heads, d.p, d.n, d.chunk, d.seqlen / d.chunk};
+  const dim3 grid((d.heads + kHeads - 1) / kHeads, batch);
+  mamba_ssd_scan_tc<Tout><<<grid, kThreads, Smem::kAlloc, stream>>>(
+      mx, mb, mc, dt, da, static_cast<Tout*>(y), hout, sh, st, px, pb, pc);
+  return 0;
+}
+
+}  // namespace tc
 
 }  // namespace
 
@@ -344,7 +1082,10 @@ extern "C" {
 // float32, contiguous [B, H, P, N]. Strides are in elements: (batch, seq,
 // head) for x, dt and da, (batch, seq) for b and c; the last dimension of
 // x, b and c is contiguous. seqlen % chunk == 0, chunk <= 128, p <= 64,
-// n <= 64. Returns cudaGetLastError() after the launch.
+// n <= 64. bf16 (the tensor-core kernel) also needs 16-byte aligned x, b,
+// c base addresses and their strides in multiples of 8 elements (the
+// tensor maps' rule; the wrapper checks it). Returns cudaGetLastError()
+// after the launch.
 int mamba_scan_fwd(const void* x, const void* b, const void* c,
                    const void* dt, const void* da, void* y, void* hout,
                    int in_dtype, int out_dtype, int batch, int seqlen,
@@ -365,12 +1106,15 @@ int mamba_scan_fwd(const void* x, const void* b, const void* c,
   const float* daf = static_cast<const float*>(da);
   float* hf = static_cast<float*>(hout);
   int err;
-  if (in_dtype == 0) {
-    err = launch_out<float>(out_dtype, x, b, c, dtf, daf, y, hf, batch, d, st,
-                            s);
-  } else if (in_dtype == 1) {
-    err = launch_out<__nv_bfloat16>(out_dtype, x, b, c, dtf, daf, y, hf,
-                                    batch, d, st, s);
+  if (in_dtype == 0 && out_dtype == 0) {
+    err = launch<float>(x, b, c, dtf, daf, y, hf, batch, d, st, s);
+  } else if (in_dtype == 0 && out_dtype == 1) {
+    err = launch<__nv_bfloat16>(x, b, c, dtf, daf, y, hf, batch, d, st, s);
+  } else if (in_dtype == 1 && out_dtype == 0) {
+    err = tc::launch<float>(x, b, c, dtf, daf, y, hf, batch, d, st, s);
+  } else if (in_dtype == 1 && out_dtype == 1) {
+    err = tc::launch<__nv_bfloat16>(x, b, c, dtf, daf, y, hf, batch, d, st,
+                                    s);
   } else {
     err = (int)cudaErrorInvalidValue;
   }

@@ -1,15 +1,18 @@
 """Mamba2 SSD chunk scan on the card: wrapper of the hand-written CUDA
-kernel ``csrc/mamba_scan.cu``.
+kernels ``csrc/mamba_scan.cu``.
 
 Replaces the Pallas TPU kernel ``repro/kernels/mamba_scan.py::
 mamba_chunk_scan``. At the zamba2-7b prefill shape its least time on the
 H100 is set by memory traffic (x, B, C, dt, da read once, y and the final
-state written once: ~98 MB, ~29 us); this first kernel does its products
-with f32 FMAs, one CTA per (batch, head) with the chunk loop inside and the
-state in shared memory (see the source for the design). It reads its inputs
+state written once: ~98 MB, ~29 us). The C entry point routes by dtype:
+bf16 x, B, C go to a tensor-core kernel (TMA copies, ``wgmma`` for all
+four products, every f32 operand split into two bf16 terms), f32 to a
+kernel of f32 FMAs (see the source for both designs). It reads its inputs
 through their strides, so the model's split views of the conv output go in
-without a copy. ``ops.mamba_chunk_scan`` routes CUDA tensors here and CPU
-tensors to ``ref.mamba_chunk_scan_ref``.
+without a copy; for bf16 the strides must suit the TMA
+(:func:`tma_ready`), and an input that does not is first copied into a
+layout that does. ``ops.mamba_chunk_scan`` routes CUDA tensors here and
+CPU tensors to ``ref.mamba_chunk_scan_ref``.
 """
 from __future__ import annotations
 
@@ -31,6 +34,33 @@ def _check_last_dim(name: str, t: torch.Tensor) -> None:
     if t.shape[-1] > 1 and t.stride(-1) != 1:
         raise ValueError(f"mamba scan kernel needs a contiguous last "
                          f"dimension of {name}, got strides {t.stride()}")
+
+
+def tma_ready(t: torch.Tensor) -> bool:
+    """Whether the tensor maps of the bf16 kernel address ``t`` in place:
+    a 16-byte aligned base and, for every dimension but the last that has
+    more than one entry, a stride of whole 16 bytes."""
+    step = 16 // t.element_size()
+    return t.data_ptr() % 16 == 0 and all(
+        st % step == 0 for size, st in zip(t.shape[:-1], t.stride()[:-1])
+        if size > 1)
+
+
+def _tma_copy(t: torch.Tensor) -> torch.Tensor:
+    """``t``'s values in a new tensor whose rows are padded to whole 16
+    bytes (the padding is never read), returned as a view of t's shape."""
+    step = 16 // t.element_size()
+    width = -(-t.shape[-1] // step) * step
+    out = t.new_zeros((*t.shape[:-1], width))
+    out[..., :t.shape[-1]] = t
+    return out[..., :t.shape[-1]]
+
+
+def _outer_strides(t: torch.Tensor):
+    """The strides of all but the last dimension; a dimension of one entry
+    is never stepped over, so its stride is given as 8 elements."""
+    return [st if size > 1 else 8
+            for size, st in zip(t.shape[:-1], t.stride()[:-1])]
 
 
 def mamba_chunk_scan(x: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
@@ -76,7 +106,9 @@ def mamba_chunk_scan(x: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
                          f"chunk={chunk}, S={s}, P={p}, N={n}")
     for name, t in (("x", x), ("b", b), ("c", c)):
         _check_last_dim(name, t)
-    strides = (*x.stride()[:3], *b.stride()[:2], *c.stride()[:2],
+    if x.dtype == torch.bfloat16:
+        x, b, c = (t if tma_ready(t) else _tma_copy(t) for t in (x, b, c))
+    strides = (*_outer_strides(x), *_outer_strides(b), *_outer_strides(c),
                *dt.stride(), *da.stride())
     if max(strides) > _INT_MAX:
         raise ValueError("mamba scan kernel takes strides that fit in 32 "

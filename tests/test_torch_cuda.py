@@ -115,6 +115,13 @@ def _mamba_inputs(dev, b, s, h, p, n, dtype):
     (2, 128, 3, 16, 8, 32),
     (1, 96, 1, 8, 16, 32),
     (2, 40, 4, 64, 16, 40),         # T = S < 128, not a power of two
+    # what the bf16 tensor-core kernel tiles: chunk 64, P and N below 64
+    # (zero-filled columns), a ragged T of 40 at full P and N over several
+    # chunks, and an odd head count (a CTA's second head is spare)
+    (2, 256, 4, 64, 64, 64),
+    (2, 128, 3, 32, 16, 64),
+    (1, 120, 2, 64, 64, 40),
+    (1, 256, 5, 64, 64, 128),
 ])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_mamba_scan_kernel_matches_plain(cuda_device, b, s, h, p, n, chunk,
@@ -141,10 +148,13 @@ def test_mamba_scan_kernel_chunk_invariance(cuda_device):
     torch.testing.assert_close(h32, h64, rtol=1e-5, atol=1e-5)
 
 
-def test_mamba_scan_kernel_reads_strided_views(cuda_device):
-    """The model hands in split views of its conv output."""
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_mamba_scan_kernel_reads_strided_views(cuda_device, dtype):
+    """The model hands in split views of its conv output; the result is
+    bitwise that of contiguous inputs."""
     b, s, h, p, n = 2, 64, 4, 64, 16
-    xbc = torch.randn(b, s, h * p + 2 * n, device=cuda_device)
+    xbc = torch.randn(b, s, h * p + 2 * n, device=cuda_device).to(
+        getattr(torch, dtype))
     x = xbc[..., :h * p].reshape(b, s, h, p)
     bm, cm = xbc[..., h * p:h * p + n], xbc[..., h * p + n:]
     _, _, _, dt, da = _mamba_inputs(cuda_device, b, s, h, p, n,
@@ -153,6 +163,41 @@ def test_mamba_scan_kernel_reads_strided_views(cuda_device):
     want = ops.mamba_chunk_scan(x.contiguous(), bm.contiguous(),
                                 cm.contiguous(), dt, da, chunk=32)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def _cuda_kernels(fn):
+    """Names of the CUDA kernels that ``fn`` launches."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {e.name for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA}
+
+
+@pytest.mark.parametrize("dtype,tensor_cores", [("bfloat16", True),
+                                                ("float32", False)])
+def test_mamba_scan_routes_by_dtype(cuda_device, dtype, tensor_cores):
+    """bf16 runs the tensor-core kernel, f32 the FMA kernel."""
+    args = _mamba_inputs(cuda_device, 1, 128, 2, 64, 64,
+                         getattr(torch, dtype))
+    names = [nm for nm in _cuda_kernels(lambda: ops.mamba_chunk_scan(
+        *args, chunk=64, out_dtype=torch.float32)) if "mamba_ssd_scan" in nm]
+    assert len(names) == 1, names
+    assert ("mamba_ssd_scan_tc" in names[0]) == tensor_cores, names
+
+
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+def test_mamba_scan_tc_reruns_are_bitwise(cuda_device, out_dtype):
+    """The serve shape three times, other launches in between: fixed
+    scan, sums and launch, no atomics."""
+    args = _mamba_inputs(cuda_device, 4, 512, 112, 64, 64, torch.bfloat16)
+    first = ops.mamba_chunk_scan(*args, chunk=128, out_dtype=out_dtype)
+    for _ in range(2):
+        ops.mamba_chunk_scan(*args, chunk=64)
+        again = ops.mamba_chunk_scan(*args, chunk=128, out_dtype=out_dtype)
+        assert torch.equal(first[0], again[0])
+        assert torch.equal(first[1], again[1])
 
 
 def test_reduced_model_kernel_path_matches_cpu(cuda_device):

@@ -18,7 +18,8 @@ from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro_torch.kernels import build, ops
 from repro_torch.kernels.flash_attention import check_layout, flash_attention
-from repro_torch.kernels.mamba_scan import mamba_chunk_scan
+from repro_torch.kernels.mamba_scan import (_tma_copy, mamba_chunk_scan,
+                                            tma_ready)
 from repro_torch.kernels.rmsnorm import rmsnorm, row_view
 from repro_torch.models.convert import to_tensor
 
@@ -252,6 +253,118 @@ def test_mamba_chunk_scan_needs_a_dividing_chunk():
     _, tin = _mamba_inputs(9, 1, 48, 1, 8, 4)
     with pytest.raises(ValueError, match="chunk"):
         ops.mamba_chunk_scan(*tin, chunk=32)
+
+
+def _emulate_tc_scan(x, b, c, dt, da, chunk, terms):
+    """The bf16 tensor-core kernel's arithmetic, chunk by chunk, in
+    float64 sums rounded to f32 where the kernel keeps f32: S = C B^T exact;
+    each f32 operand of a product (the decayed scores, h in C h, w_s B_s
+    in the carry) as ``terms`` bf16 terms (2: hi + lo, the kernel's; 1: one
+    rounding); y = y_intra + exp(ca_t) y_inter. Test-local: the port does
+    not use it."""
+    f64, f32, bf = torch.float64, torch.float32, torch.bfloat16
+
+    def parts(v):
+        hi = v.to(bf).to(f32)
+        return [hi, (v - hi).to(bf).to(f32)][:terms]
+
+    def dot(spec, a, vs):  # sum of the bf16 terms' products, f64 -> f32
+        return sum(torch.einsum(spec, a.to(f64), v.to(f64))
+                   for v in vs).to(f32)
+
+    bsz, s, nh, p = x.shape
+    xf, bf_, cf = x.to(f32), b.to(f32), c.to(f32)
+    h = torch.zeros((bsz, nh, p, b.shape[-1]), dtype=f32)
+    tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool))
+    ys = []
+    for k in range(s // chunk):
+        sl = slice(k * chunk, (k + 1) * chunk)
+        xc, bc, cc, dtc = xf[:, sl], bf_[:, sl], cf[:, sl], dt[:, sl]
+        ca = torch.cumsum(da[:, sl], 1)                          # [B,T,H]
+        cb = torch.einsum("btn,bsn->bts", cc.to(f64), bc.to(f64)).to(f32)
+        w = torch.exp(ca[:, :, None] - ca[:, None]) * dtc[:, None]
+        scores = torch.where(tri[None, :, :, None], cb[..., None] * w, 0.0)
+        y_intra = dot("bshp,btsh->bthp", xc, parts(scores))
+        y_inter = dot("btn,bhpn->bthp", cc, parts(h))
+        ys.append(y_intra + torch.exp(ca)[..., None] * y_inter)
+        ca_t = ca[:, -1]                                         # [B,H]
+        wb = (torch.exp(ca_t[:, None] - ca) * dtc)[..., None] * \
+            bc[:, :, None]                                       # [B,T,H,N]
+        h = torch.exp(ca_t)[..., None, None] * h + dot(
+            "bshp,bshn->bhpn", xc, parts(wb))
+    return torch.cat(ys, 1), h
+
+
+def _zamba_scan_case():
+    """A reduced zamba2-7b scan (4 of 112 heads; P, N and the chunk as
+    served), bf16 x, B, C; the references get the same values in f32."""
+    jin, tin = _mamba_inputs(10, 2, 512, 4, 64, 64, "bfloat16")
+    return [jnp.asarray(a, jnp.float32) for a in jin], tin
+
+
+def _excess(got, want):
+    """max |got - want| / (atol + rtol |want|) at MAMBA_TOL: <= 1 passes."""
+    want = np.asarray(want, np.float64)
+    err = np.abs(np.asarray(got, np.float64) - want)
+    return float(np.max(err / (MAMBA_TOL["atol"] +
+                               MAMBA_TOL["rtol"] * np.abs(want))))
+
+
+@pytest.mark.parametrize("reference", ["ref", "pallas"])
+def test_mamba_two_term_bf16_products_keep_the_tolerance(reference):
+    """The tensor-core kernel's numerics: with each f32 operand as two bf16
+    terms the chunked scan stays within 3e-4 of the exact recurrence and
+    of the Pallas kernel, on f32 y and h."""
+    jin, tin = _zamba_scan_case()
+    y, h = _emulate_tc_scan(*tin, chunk=128, terms=2)
+    want_y, want_h = (jref.mamba_chunk_scan_ref(*jin) if reference == "ref"
+                      else jops.mamba_chunk_scan(*jin, chunk=128,
+                                                 backend="interpret"))
+    np.testing.assert_allclose(y.numpy(), np.asarray(want_y), **MAMBA_TOL)
+    np.testing.assert_allclose(h.numpy(), np.asarray(want_h), **MAMBA_TOL)
+
+
+def test_mamba_one_bf16_rounding_misses_the_tolerance():
+    """Why the kernel splits: one bf16 rounding of each f32 operand (the
+    JAX model's own cast of the score tile) misses 3e-4 many times over."""
+    jin, tin = _zamba_scan_case()
+    want_y, want_h = jref.mamba_chunk_scan_ref(*jin)
+    y1, h1 = _emulate_tc_scan(*tin, chunk=128, terms=1)
+    y2, h2 = _emulate_tc_scan(*tin, chunk=128, terms=2)
+    assert _excess(y1, want_y) > 10 and _excess(h1, want_h) > 1
+    assert _excess(y2, want_y) <= 1 and _excess(h2, want_h) <= 1
+
+
+def _bf16_strided(shape, strides, offset=0):
+    base = torch.zeros(offset + 1 + sum((n - 1) * st for n, st in
+                                        zip(shape, strides)),
+                       dtype=torch.bfloat16)
+    return base.as_strided(shape, strides, offset)
+
+
+def test_mamba_tma_layout_accepts_the_models_views():
+    """The zamba2 conv output split into x, B, C views (112 heads of 64, N
+    64) suits the tensor maps as it is: no copy on the serve path."""
+    xbc = torch.zeros((4, 512, 112 * 64 + 2 * 64), dtype=torch.bfloat16)
+    x = xbc[..., :112 * 64].reshape(4, 512, 112, 64)
+    b, c = xbc[..., 112 * 64:112 * 64 + 64], xbc[..., 112 * 64 + 64:]
+    assert all(tma_ready(t) for t in (x, b, c))
+    assert tma_ready(torch.zeros((2, 128, 3, 16), dtype=torch.bfloat16))
+
+
+@pytest.mark.parametrize("shape,strides,offset", [
+    ((1, 64, 4), (256, 4, 1), 0),        # N = 4: rows of 8 bytes
+    ((2, 64, 16), (1024, 16, 1), 3),     # base not 16-byte aligned
+    ((2, 64, 2, 8), (2048, 20, 8, 1), 0),  # seq stride of 40 bytes
+])
+def test_mamba_tma_layout_copies_what_the_maps_cannot_address(
+        shape, strides, offset):
+    t = _bf16_strided(shape, strides, offset)
+    t.copy_(torch.randn(shape).to(torch.bfloat16))
+    assert not tma_ready(t)
+    got = _tma_copy(t)
+    assert tma_ready(got) and got.shape == t.shape
+    assert torch.equal(got, t)
 
 
 # ------------------------------------------------------------------- rmsnorm
