@@ -7,16 +7,21 @@ Phases (each a function; any failure exits non-zero):
   1. device and build: the card's name and power limit, then nvcc builds
      every kernel in ``src/repro_torch/kernels/csrc`` (one process per
      source, all at once);
-  2. RMSNorm kernel against its plain PyTorch version on the card;
+  2. RMSNorm kernel against its plain PyTorch version on the card, at
+     every (rows, d) of the served paths (prefill and decode), ragged row
+     counts, other widths, the strided qk-norm view and the unaligned
+     scalar path, reruns bitwise; the fused residual add + norm
+     (``add_rmsnorm``): s bitwise ``x + r``, y bitwise the kernel's norm
+     of s;
   3. flash-attention kernels against their plain PyTorch version on the
      card (head dims 32, 64, 112, 128; bf16 runs the tensor-core kernel,
      f32 the FMA kernel), ragged key tails, short prompts, windows and
      non-causal cases included;
   4. Mamba2 SSD scan kernels against their plain PyTorch version (the exact
      recurrence) on the card (bf16 runs the tensor-core kernel, f32 the FMA
-     kernel, which a profiler trace confirms): the serve shape, chunks of
-     64 and 40, P and N below 64, an odd head count, reruns and strided
-     views bitwise;
+     kernel, which a profiler trace confirms): the serve shape on several
+     draws, chunks of 64 and 40, P and N below 64, an odd head count,
+     reruns and strided views bitwise;
   5. reference: the reduced qwen3-8b and zamba2-7b in f32, kernel path on
      the card against the plain path on the CPU;
   6. serve, for each model — qwen3-8b (slice 1) and zamba2-7b (slice 2), at
@@ -28,8 +33,10 @@ Phases (each a function; any failure exits non-zero):
      read just after, must equal the counts the path implies;
   7. times, after each serve phase: CUDA-event medians of each kernel, its
      plain version and the PyTorch library call (where one exists) at the
-     path's shapes, and the whole path's prefill and decode times. Each
-     model's servers are freed before the next model's serve phase.
+     path's shapes (the fused norm beside ``x + r`` and ``F.rms_norm``),
+     the launch floor (an empty kernel), and the whole path's prefill and
+     decode times. Each model's servers are freed before the next model's
+     serve phase.
 
 Prints JSON lines as it goes, then ``{"kernels": [...]}`` and, last,
 ``{"ok": true, "device": {...}}``. Exits non-zero without CUDA, and when run
@@ -61,7 +68,7 @@ from repro_torch.configs import get_arch  # noqa: E402
 from repro_torch.kernels import build, ref  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
 from repro_torch.kernels.mamba_scan import mamba_chunk_scan  # noqa: E402
-from repro_torch.kernels.rmsnorm import rmsnorm  # noqa: E402
+from repro_torch.kernels.rmsnorm import add_rmsnorm, rmsnorm  # noqa: E402
 from repro_torch.launch.serve import ReplicatedServer  # noqa: E402
 from repro_torch.models import api, mamba2  # noqa: E402
 from repro_torch.models.transformer import Transformer  # noqa: E402
@@ -83,8 +90,9 @@ B, S, GEN, KILL_AT = 4, 512, 32, 8
 SPIN_CYCLES = 2_000_000            # ~1 ms at the H100's clock
 QWEN = get_arch("qwen3-8b")
 ZAMBA = get_arch("zamba2-7b")
-KERNELS = {"rmsnorm": rmsnorm, "flash_attention": flash_attention,
-           "mamba_scan": mamba_chunk_scan}
+KERNELS = {"rmsnorm": rmsnorm, "add_rmsnorm": add_rmsnorm,
+           "flash_attention": flash_attention, "mamba_scan": mamba_chunk_scan}
+SERVE_DRAWS = (7, 8, 9)            # more serve-shape draws of K3
 
 
 def emit(obj) -> None:
@@ -117,7 +125,7 @@ def compare(name, got, want, dtype, tol=None, **shape):
     max_err = float(err.max())
     emit({"check": name, "dtype": str(dtype).replace("torch.", ""),
           **shape, "max_abs_err": max_err, "atol": atol, "rtol": rtol,
-          "ok": ok})
+          "share_of_tolerance": float((err / bound).max()), "ok": ok})
     if not ok:
         raise AssertionError(f"{name} {shape}: kernel disagrees with its "
                              f"plain version (max |err| {max_err})")
@@ -172,20 +180,48 @@ def _rand(gen, shape, dtype):
     return torch.randn(shape, generator=gen, device="cuda").to(dtype)
 
 
+def _k1_shapes():
+    """(rows, d) of every K1 call of the served paths, prefill (B x S
+    rows) and decode (B rows): the residual norms at d 4096 and 3584, the
+    Mamba out_norm at 7168, the qk-norm heads at 128."""
+    dq, dz, dh = QWEN.d_model, ZAMBA.d_model, QWEN.resolved_head_dim
+    di = mamba2.dims(ZAMBA)[0]
+    heads = (QWEN.n_heads, QWEN.n_kv_heads)
+    return [(rows * m, d) for rows in (B * S, B)
+            for m, d in [(1, dq), (1, dz), (1, di)] + [(h, dh) for h in heads]]
+
+
+def _fused_shapes():
+    """(rows, d) of the fused add + norm on the served paths."""
+    return [(rows, d) for rows in (B * S, B)
+            for d in (QWEN.d_model, ZAMBA.d_model)]
+
+
+def _unaligned(gen, rows, d, dtype):
+    """A [rows, d] view whose rows start one element past 16 bytes apart:
+    the kernels' scalar path."""
+    return _rand(gen, (rows, d + 1), dtype)[:, 1:]
+
+
 def phase_rmsnorm(state):
     gen = torch.Generator(device="cuda").manual_seed(1)
-    worst = 0.0
-    d, dh, hq, hkv = (QWEN.d_model, QWEN.resolved_head_dim, QWEN.n_heads,
-                      QWEN.n_kv_heads)
-    cases = [(B * S, d), (B * S * hq, dh), (B * S * hq + 5, dh),
-             (1000 + 3, d)]
+    worst = worst_add = 0.0
+    dq, dh, hq, hkv = (QWEN.d_model, QWEN.resolved_head_dim, QWEN.n_heads,
+                       QWEN.n_kv_heads)
+    # ragged row counts, widths of the generic kernels (a warp; 256
+    # threads of up to 8 chunks) and a row longer than registers hold
+    other = [(B * S * hq + 5, dh), (1000 + 3, dq), (37, 200), (9, 1000),
+             (3, 40960)]
     for dtype in (torch.bfloat16, torch.float32):
-        for rows, d in cases:
+        for rows, d in _k1_shapes() + other:
             x = _rand(gen, (rows, d), dtype)
             w = _rand(gen, (d,), dtype)
-            worst = max(worst, compare(
-                "rmsnorm", rmsnorm(x, w, eps=1e-5), ref.rmsnorm_ref(x, w),
-                dtype, rows=rows, d=d))
+            y = rmsnorm(x, w, eps=1e-5)
+            worst = max(worst, compare("rmsnorm", y, ref.rmsnorm_ref(x, w),
+                                       dtype, rows=rows, d=d))
+            # a fixed reduction order and no atomics: reruns are bitwise
+            if not torch.equal(y, rmsnorm(x, w, eps=1e-5)):
+                raise AssertionError(f"rmsnorm rerun differs: {rows}x{d}")
         # qk-norm heads sliced out of a fused [B, S, Hq + 2 Hkv, D] tensor:
         # a two-level strided row view, read without a copy
         fused = _rand(gen, (B, S, hq + 2 * hkv, dh), dtype)
@@ -194,7 +230,39 @@ def phase_rmsnorm(state):
         worst = max(worst, compare(
             "rmsnorm_strided_view", rmsnorm(qv, w), ref.rmsnorm_ref(qv, w),
             dtype, shape=list(qv.shape)))
+        for rows, d in ((64, dq), (33, 130)):     # the scalar path
+            x = _unaligned(gen, rows, d, dtype)
+            w = _rand(gen, (d,), dtype)
+            worst = max(worst, compare(
+                "rmsnorm_unaligned", rmsnorm(x, w), ref.rmsnorm_ref(x, w),
+                dtype, rows=rows, d=d))
+
+        # the fused add + norm: s is bitwise the separate add; on aligned
+        # rows y is bitwise the plain kernel's norm of s (the same
+        # reduction); on the scalar path y is held to the plain version
+        for rows, d in _fused_shapes() + other[1:]:   # no add at d 128
+            x, r = _rand(gen, (rows, d), dtype), _rand(gen, (rows, d), dtype)
+            w = _rand(gen, (d,), dtype)
+            s, y = add_rmsnorm(x, r, w)
+            if not torch.equal(s, x + r) or not torch.equal(y, rmsnorm(s, w)):
+                raise AssertionError(f"add_rmsnorm {rows}x{d}: s or y is not "
+                                     f"bitwise the unfused pair's")
+            worst_add = max(worst_add, compare(
+                "add_rmsnorm", y, ref.add_rmsnorm_ref(x, r, w)[1], dtype,
+                rows=rows, d=d))
+            again = add_rmsnorm(x, r, w)
+            if not (torch.equal(s, again[0]) and torch.equal(y, again[1])):
+                raise AssertionError(f"add_rmsnorm rerun differs: {rows}x{d}")
+        x, r = _unaligned(gen, 64, dq, dtype), _unaligned(gen, 64, dq, dtype)
+        w = _rand(gen, (dq,), dtype)
+        s, y = add_rmsnorm(x, r, w)
+        if not torch.equal(s, x + r):
+            raise AssertionError("add_rmsnorm (scalar path): s differs")
+        worst_add = max(worst_add, compare(
+            "add_rmsnorm_unaligned", y, ref.add_rmsnorm_ref(x, r, w)[1],
+            dtype, rows=64, d=dq))
     state["rmsnorm_err"] = worst
+    state["add_rmsnorm_err"] = worst_add
 
 
 # ---------------------------------------------------------------- phase 3
@@ -318,6 +386,18 @@ def phase_mamba_scan(state):
         again = mamba_chunk_scan(*args, chunk=chunk, out_dtype=out)
         if not (torch.equal(y, again[0]) and torch.equal(hf, again[1])):
             raise AssertionError(f"mamba scan rerun differs: {shape}")
+    # the serve shape on more draws, each from its own seed: the margin
+    # under the tolerance at this shape's 14.7M outputs (ROADMAP F4)
+    for seed in SERVE_DRAWS:
+        args = _mamba_inputs(torch.Generator(device="cuda").manual_seed(seed),
+                             B, S, nh, p, n, bf)
+        y, hf = mamba_chunk_scan(*args, chunk=ZAMBA.ssm_chunk, out_dtype=f32)
+        wy, wh = ref.mamba_chunk_scan_ref(*args, out_dtype=f32)
+        shape = dict(x=[B, S, nh, p], n=n, chunk=ZAMBA.ssm_chunk,
+                     out="float32", draw=seed)
+        worst = max(worst,
+                    compare("mamba_scan.y", y, wy, f32, MAMBA_TOL, **shape),
+                    compare("mamba_scan.h", hf, wh, f32, MAMBA_TOL, **shape))
     # the route by dtype, from the kernels a profiler trace names
     for dtype, tc in ((bf, True), (f32, False)):
         args = _mamba_inputs(gen, 1, 128, 2, p, n, dtype)
@@ -432,19 +512,24 @@ def _state_tensors(tree):
 def expected_launches(cfg):
     """Launches of each kernel in one serve phase: 3 prefills (clean,
     killed, unreplicated) and the decode steps (clean 2 x GEN, the replica
-    re-executing; killed 2 x KILL_AT + the rest; unreplicated KILL_AT)."""
-    prefills = 3
-    decodes = 2 * GEN + (2 * KILL_AT + GEN - KILL_AT) + KILL_AT
+    re-executing; killed 2 x KILL_AT + the rest; unreplicated KILL_AT).
+    Every norm after a residual add is the fused ``add_rmsnorm``; the
+    first norm of a forward and the norms inside a branch are plain."""
+    fwds = 3 + 2 * GEN + (2 * KILL_AT + GEN - KILL_AT) + KILL_AT
     if cfg.family == "hybrid":
         groups = cfg.n_layers // cfg.attn_every
-        # 2 norms per attention application and per Mamba block, and ln_f
-        per_fwd = 2 * groups + 2 * cfg.n_layers + 1
-        return {"rmsnorm": per_fwd * (prefills + decodes),
-                "flash_attention": groups * prefills,
-                "mamba_scan": cfg.n_layers * prefills}
-    per_fwd = 4 * cfg.n_layers + 1      # ln1, ln2, q_norm, k_norm; ln_f
-    return {"rmsnorm": per_fwd * (prefills + decodes),
-            "flash_attention": cfg.n_layers * prefills, "mamba_scan": 0}
+        # plain: the first attn_ln, each block's out_norm; fused: the
+        # other attn_ln, each attn_mlp_ln, each block's ln, ln_f (189 in
+        # all for zamba2-7b)
+        return {"rmsnorm": (1 + cfg.n_layers) * fwds,
+                "add_rmsnorm": (2 * groups + cfg.n_layers) * fwds,
+                "flash_attention": groups * 3,
+                "mamba_scan": cfg.n_layers * 3}
+    # plain: the first ln1, q_norm and k_norm; fused: the other ln1, ln2,
+    # ln_f (145 in all for qwen3-8b)
+    return {"rmsnorm": (1 + 2 * cfg.n_layers) * fwds,
+            "add_rmsnorm": 2 * cfg.n_layers * fwds,
+            "flash_attention": cfg.n_layers * 3, "mamba_scan": 0}
 
 
 def serve(state, cfg):
@@ -571,25 +656,46 @@ def bound(n_bytes, n_ops):
 
 def _rmsnorm_times(card_name, flush, calls, eps):
     """Kernel / plain / library times and bound of each call
-    [(name, x, w)], and their sums."""
+    [(name, x, r, w)], and their sums (with each call's row under
+    ``calls``). r None: ``rmsnorm(x)``, its library call ``F.rms_norm``;
+    else the fused ``add_rmsnorm(x, r)``, whose library time is the two
+    calls it replaces, ``x + r`` and ``F.rms_norm``."""
     tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
-    for name, x, w in calls:
-        row = {
-            "ms": time_ms(lambda: rmsnorm(x, w, eps=eps), flush),
-            "plain_ms": time_ms(lambda: ref.rmsnorm_ref(x, w, eps=eps),
-                                flush),
-            "library_ms": time_ms(
-                lambda: F.rms_norm(x, (x.shape[-1],), w, eps), flush),
+    rows = {}
+    for name, x, r, w in calls:
+        d = x.shape[-1]
+        if r is None:
+            fns = (lambda: rmsnorm(x, w, eps=eps),
+                   lambda: ref.rmsnorm_ref(x, w, eps=eps),
+                   lambda: F.rms_norm(x, (d,), w, eps))
             # x and w read once, y written once; ~4 operations an element
-            **bound((2 * x.numel() + w.numel()) * x.element_size(),
-                    4 * x.numel()),
-        }
-        emit({"time": "rmsnorm", "call": name, "shape": list(x.shape),
-              **row, "card": card_name})
+            work = ((2 * x.numel() + d) * x.element_size(), 4 * x.numel())
+        else:
+            fns = (lambda: add_rmsnorm(x, r, w, eps=eps),
+                   lambda: ref.add_rmsnorm_ref(x, r, w, eps=eps),
+                   lambda: F.rms_norm(x + r, (d,), w, eps))
+            # x, r and w read once, s and y written once
+            work = ((4 * x.numel() + d) * x.element_size(), 5 * x.numel())
+        row = {"ms": time_ms(fns[0], flush),
+               "plain_ms": time_ms(fns[1], flush),
+               "library_ms": time_ms(fns[2], flush), **bound(*work)}
+        emit({"time": "rmsnorm" if r is None else "add_rmsnorm",
+              "call": name, "shape": list(x.shape), **row,
+              "card": card_name})
+        rows[name] = row
         for key in tot:
             tot[key] += row[key]
     tot["bound_by"] = "bytes"
+    tot["calls"] = rows
     return tot
+
+
+def _launch_floor(card_name, flush):
+    """The card's floor for one launch: an empty kernel (a device spin of
+    0 cycles) timed as the kernels are."""
+    ms = time_ms(lambda: torch.cuda._sleep(0), flush)
+    emit({"time": "launch_floor", "ms": ms, "card": card_name})
+    return ms
 
 
 def _sdpa_ms(q, k, v, flush, deterministic):
@@ -678,21 +784,35 @@ def phase_times(state):
     d, hq, hkv, dh = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
                       cfg.resolved_head_dim)
     lp = state["server"].model.layers[0]
+    ln1, ln2 = lp["ln1"]["scale"], lp["ln2"]["scale"]
+    qn, kn = lp["attn"]["q_norm"]["scale"], lp["attn"]["k_norm"]["scale"]
+
+    def act(*shape):
+        return _rand(gen, shape, bf)
     k1 = _rmsnorm_times(card_name, flush, [
-        ("ln1", _rand(gen, (B, S, d), bf), lp["ln1"]["scale"]),
-        ("ln2", _rand(gen, (B, S, d), bf), lp["ln2"]["scale"]),
-        ("q_norm", _rand(gen, (B, S, hq, dh), bf),
-         lp["attn"]["q_norm"]["scale"]),
-        ("k_norm", _rand(gen, (B, S, hkv, dh), bf),
-         lp["attn"]["k_norm"]["scale"])], cfg.norm_eps)
+        ("ln1", act(B, S, d), None, ln1), ("ln2", act(B, S, d), None, ln2),
+        ("q_norm", act(B, S, hq, dh), None, qn),
+        ("k_norm", act(B, S, hkv, dh), None, kn)], cfg.norm_eps)
     emit({"time": "rmsnorm", "call": "one prefill layer: ln1+ln2+q+k",
           **k1, "card": card_name})
+    k1_fused = _rmsnorm_times(card_name, flush, [
+        ("add+ln1", act(B, S, d), act(B, S, d), ln1),
+        ("add+ln2", act(B, S, d), act(B, S, d), ln2),
+        ("q_norm", act(B, S, hq, dh), None, qn),
+        ("k_norm", act(B, S, hkv, dh), None, kn)], cfg.norm_eps)
+    emit({"time": "rmsnorm", "call": "one prefill layer as served: "
+          "add+ln1, add+ln2, q, k", **k1_fused, "card": card_name})
     k1_decode = _rmsnorm_times(card_name, flush, [
-        ("ln1_decode", _rand(gen, (B, 1, d), bf), lp["ln1"]["scale"]),
-        ("q_norm_decode", _rand(gen, (B, 1, hq, dh), bf),
-         lp["attn"]["q_norm"]["scale"])], cfg.norm_eps)
+        ("ln1_decode", act(B, 1, d), None, ln1),
+        ("q_norm_decode", act(B, 1, hq, dh), None, qn)], cfg.norm_eps)
     emit({"time": "rmsnorm", "call": "decode: ln1+q_norm", **k1_decode,
           "card": card_name})
+    k1_decode_fused = _rmsnorm_times(card_name, flush, [
+        ("add+ln1_decode", act(B, 1, d), act(B, 1, d), ln1),
+        ("q_norm_decode", act(B, 1, hq, dh), None, qn)], cfg.norm_eps)
+    emit({"time": "rmsnorm", "call": "decode as served: add+ln1, q_norm",
+          **k1_decode_fused, "card": card_name})
+    _launch_floor(card_name, flush)
     k2 = _attention_times(card_name, flush, gen, hq, hkv, dh)
     _path_times(state, cfg, flush)
     state.setdefault("times", {})[cfg.name] = {"rmsnorm": k1,
@@ -710,25 +830,48 @@ def phase_times_zamba(state):
     d_inner, nh, p, n = mamba2.dims(cfg)
     model = state["server"].model
     blk = model.mamba[0][0]
+    ln, on = blk["ln"]["scale"], blk["out_norm"]["scale"]
+    aln, mln = model.attn_ln["scale"], model.attn_mlp_ln["scale"]
+
+    def act(*shape):
+        return _rand(gen, shape, bf)
     k1 = _rmsnorm_times(card_name, flush, [
-        ("mamba.ln d=3584", _rand(gen, (B, S, d), bf), blk["ln"]["scale"]),
-        ("mamba.out_norm d=7168", _rand(gen, (B, S, d_inner), bf),
-         blk["out_norm"]["scale"])], cfg.norm_eps)
+        ("mamba.ln d=3584", act(B, S, d), None, ln),
+        ("mamba.out_norm d=7168", act(B, S, d_inner), None, on)],
+        cfg.norm_eps)
     emit({"time": "rmsnorm", "call": "one prefill Mamba block: ln+out_norm",
           **k1, "card": card_name})
+    k1_fused = _rmsnorm_times(card_name, flush, [
+        ("add+mamba.ln d=3584", act(B, S, d), act(B, S, d), ln),
+        ("mamba.out_norm d=7168", act(B, S, d_inner), None, on)],
+        cfg.norm_eps)
+    emit({"time": "rmsnorm", "call": "one prefill Mamba block as served: "
+          "add+ln, out_norm", **k1_fused, "card": card_name})
     k1_attn = _rmsnorm_times(card_name, flush, [
-        ("attn_ln d=3584", _rand(gen, (B, S, d), bf),
-         model.attn_ln["scale"]),
-        ("attn_mlp_ln d=3584", _rand(gen, (B, S, d), bf),
-         model.attn_mlp_ln["scale"])], cfg.norm_eps)
+        ("attn_ln d=3584", act(B, S, d), None, aln),
+        ("attn_mlp_ln d=3584", act(B, S, d), None, mln)], cfg.norm_eps)
     emit({"time": "rmsnorm", "call": "one attention application: "
           "attn_ln+attn_mlp_ln", **k1_attn, "card": card_name})
+    k1_attn_fused = _rmsnorm_times(card_name, flush, [
+        ("add+attn_ln d=3584", act(B, S, d), act(B, S, d), aln),
+        ("add+attn_mlp_ln d=3584", act(B, S, d), act(B, S, d), mln)],
+        cfg.norm_eps)
+    emit({"time": "rmsnorm", "call": "one attention application as "
+          "served: add+attn_ln, add+attn_mlp_ln", **k1_attn_fused,
+          "card": card_name})
     k1_decode = _rmsnorm_times(card_name, flush, [
-        ("mamba.ln_decode", _rand(gen, (B, 1, d), bf), blk["ln"]["scale"]),
-        ("mamba.out_norm_decode", _rand(gen, (B, 1, d_inner), bf),
-         blk["out_norm"]["scale"])], cfg.norm_eps)
+        ("mamba.ln_decode", act(B, 1, d), None, ln),
+        ("mamba.out_norm_decode", act(B, 1, d_inner), None, on)],
+        cfg.norm_eps)
     emit({"time": "rmsnorm", "call": "decode Mamba block: ln+out_norm",
           **k1_decode, "card": card_name})
+    k1_decode_fused = _rmsnorm_times(card_name, flush, [
+        ("add+mamba.ln_decode", act(B, 1, d), act(B, 1, d), ln),
+        ("mamba.out_norm_decode", act(B, 1, d_inner), None, on)],
+        cfg.norm_eps)
+    emit({"time": "rmsnorm", "call": "decode Mamba block as served: "
+          "add+ln, out_norm", **k1_decode_fused, "card": card_name})
+    floor = _launch_floor(card_name, flush)
     k2 = _attention_times(card_name, flush, gen, cfg.n_heads,
                           cfg.n_kv_heads, cfg.resolved_head_dim)
 
@@ -752,7 +895,8 @@ def phase_times_zamba(state):
           **k3, "card": card_name})
     _path_times(state, cfg, flush)
     state.setdefault("times", {})[cfg.name] = {
-        "rmsnorm": k1, "flash_attention": k2, "mamba_scan": k3}
+        "rmsnorm": k1, "add_rmsnorm": k1_fused["calls"]["add+mamba.ln d=3584"],
+        "flash_attention": k2, "mamba_scan": k3, "launch_floor_ms": floor}
     _free_server(state)
 
 
@@ -763,8 +907,8 @@ PHASES = [phase_device_and_build, phase_rmsnorm, phase_attention,
 REPLACES = {"rmsnorm": "src/repro/kernels/rmsnorm.py:31",
             "flash_attention": "src/repro/kernels/flash_attention.py:97",
             "mamba_scan": "src/repro/kernels/mamba_scan.py:79"}
-ERRORS = {"rmsnorm": "rmsnorm_err", "flash_attention": "attention_err",
-          "mamba_scan": "mamba_scan_err"}
+ERRORS = {"rmsnorm": "rmsnorm_err", "add_rmsnorm": "add_rmsnorm_err",
+          "flash_attention": "attention_err", "mamba_scan": "mamba_scan_err"}
 
 
 TIMED = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
@@ -772,19 +916,28 @@ TIMED = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
 
 def kernels_line(state):
     """One row per kernel, with the launch counts and times of the zamba2-7b
-    path, the only one that runs all three; the flash-attention row also
-    lists both prefill shapes (qwen3-8b's and zamba2-7b's) with each path's
+    path, the only one that runs all three; the RMSNorm row counts both of
+    its entries' launches and lists each entry (the fused one timed at the
+    Mamba block's add + ln); the flash-attention row also lists both
+    prefill shapes (qwen3-8b's and zamba2-7b's) with each path's
     launches."""
+    launches, times = state["launches"][ZAMBA.name], state["times"][ZAMBA.name]
     rows = []
     for name, replaces in REPLACES.items():
-        t = state["times"][ZAMBA.name][name]
+        t = times[name]
         rows.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{name}.cu",
-            "replaces": replaces,
-            "launches": state["launches"][ZAMBA.name][name],
+            "replaces": replaces, "launches": launches[name],
             "max_abs_err": state[ERRORS[name]],
             **{key: t[key] for key in TIMED}})
+        if name == "rmsnorm":
+            rows[-1]["launches"] += launches["add_rmsnorm"]
+            rows[-1]["entries"] = [
+                {"name": entry, "launches": launches[entry],
+                 "max_abs_err": state[ERRORS[entry]],
+                 **{key: times[entry][key] for key in TIMED}}
+                for entry in ("rmsnorm", "add_rmsnorm")]
         if name == "flash_attention":
             rows[-1]["by_shape"] = [
                 {"arch": arch, "shape": state["times"][arch][name]["shape"],

@@ -20,26 +20,32 @@
 // bf16: mamba_ssd_scan_tc, on the tensor cores.
 // * Numerics. Every product whose operands are both bf16 is one bf16 wgmma
 //   pass with f32 accumulation: S = C B^T is exact in its products. Each
-//   product with an f32 operand splits that operand into two bf16 terms,
-//   hi = bf16(a) and lo = bf16(a - hi), and accumulates both passes into
-//   one f32 accumulator: the decayed score tile in scores x, h in C h, and
-//   w_s B_s in the carry. One bf16 rounding of those operands would miss
-//   the 3e-4 tolerance on f32 y by two orders of magnitude; hi + lo carries
-//   them to ~2^-16 and stays inside it (tests/test_torch_kernels.py holds
-//   an emulation of this arithmetic against the exact recurrence). y is
-//   built in f32 and rounded once at the store.
+//   product with an f32 operand splits that operand into three bf16 terms,
+//   hi = bf16(a), mid = bf16(a - hi) and lo = bf16(a - hi - mid), which
+//   carry a to its last bit, and accumulates the three passes into one f32
+//   accumulator: the decayed score tile in scores x, h in C h, and w_s B_s
+//   in the carry. Every decay exponent (ca_t - ca_s, ca_T - ca_s, ca_t) is
+//   formed in float64 from a float64 cumulative sum and rounded to f32
+//   only as the argument of expf: |ca| reaches ~150 within a chunk, and the
+//   difference of two such f32 sums lost up to ~1e-5 of each decay. With
+//   two terms, or with f32 sums, f32 y used up to 1.1 of the 3e-4
+//   tolerance on some serve-shape draws; with both fixes ~0.02
+//   (tests/test_torch_kernels.py holds an emulation of this arithmetic
+//   against the exact recurrence). y is built in f32 and rounded once at
+//   the store.
 // * Work: one CTA of four warpgroups per (pair of heads, batch entry): 224
-//   CTAs at the serve shape, one an SM (~209 KB of shared memory). For
+//   CTAs at the serve shape, one an SM (~225 KB of shared memory). For
 //   each head, warpgroup r takes rows t = 64 r .. 64 r + 63 of a chunk and
 //   only the causal columns s < 64 (r + 1), 32 at a time: S = C B^T by
 //   wgmma m64n32k16 (both K-major in shared memory), the mask
 //   exp(ca_t - ca_s) dt_s (s <= t < T) applied to the accumulator in
-//   registers, split into hi and lo and fed as the register A operand of
-//   scores x (x MN-major, as V in the attention kernel), then C h with h
-//   hi and lo MN-major from shared memory. Warpgroup 0 of a head also
+//   registers, split into three terms and fed as the register A operand of
+//   scores x (x MN-major, as V in the attention kernel), then C h with
+//   h's three terms MN-major from shared memory. Warpgroup 0 of a head also
 //   runs the carry h^T <- exp(ca_T) h^T + (w B)^T x, M = N rows, K = T,
-//   A = w_s B[s][n] split in registers, x MN-major; it keeps h in f32 in
-//   shared memory and writes h hi and lo once a chunk. Two named barriers
+//   A = w_s B[s][n] split in registers one 16-step k-slice at a time,
+//   x MN-major; it keeps h in f32 in shared memory and writes h's three
+//   terms once a chunk. Two named barriers
 //   hand h between the head's warpgroups, so the other one computes its
 //   next scores while the carry runs.
 // * Copies: a 2-stage ring of chunk tiles, all bf16 (x of both heads, B,
@@ -49,9 +55,9 @@
 //   so rows past T stay zero; columns past P or N arrive as zeros), dt and
 //   da by cp.async. The tiles' layout needs 16-byte aligned bases and
 //   strides in whole 16 bytes; the wrapper copies an input that is not.
-// * ca = cumsum(da) is a warp scan (4 steps a lane, then shuffles); the
-//   scan, the sums and the launch are fixed, there are no atomics, and
-//   reruns are bitwise equal.
+// * ca = cumsum(da) is a float64 warp scan (4 steps a lane, then
+//   shuffles); the scan, the sums and the launch are fixed, there are no
+//   atomics, and reruns are bitwise equal.
 //
 // f32: mamba_ssd_scan, every product as f32 FMAs on the FP32 pipes (the
 //   reduced card-vs-CPU checks and the chunk-invariance check rest on
@@ -61,10 +67,12 @@
 //   axis: h [P, N] stays in f32 shared memory across chunks and is written
 //   to device memory once, at the end.
 // * Per chunk, x [T, P], B^T and C^T [N, T] (transposed so that a thread
-//   reads 4 or 8 consecutive positions as float4s), dt and ca are staged in
-//   shared memory as f32; the [T, T] score tile is built there too (stored
-//   as [s][t]). At T = 128, P = N = 64 this is 178 KiB of dynamic shared
-//   memory, allowed per launch with cudaFuncSetAttribute.
+//   reads 4 or 8 consecutive positions as float4s) and dt are staged in
+//   shared memory as f32, ca = cumsum(da) as float64 (every decay exponent
+//   is a float64 difference, as in the bf16 kernel); the [T, T] score tile
+//   is built there too (stored as [s][t]). At T = 128, P = N = 64 this is
+//   ~179 KiB of dynamic shared memory, allowed per launch with
+//   cudaFuncSetAttribute.
 // * Each stage is register-tiled: scores 8 x 8 per thread, y 4 x 8, the h
 //   update 4 x 4. Padding rows and columns (T, P, N rounded up to the tile)
 //   are zero in shared memory and never stored, so T, P and N are taken at
@@ -122,7 +130,7 @@ __host__ __device__ inline int round_up(int v, int m) {
 // Shared-memory floats for one CTA (see the layout in the kernel).
 __host__ __device__ inline size_t smem_floats(const Dims& d) {
   return (size_t)d.tp * d.pp + 2 * (size_t)d.np * d.tp +
-         (size_t)d.tp * d.tp + (size_t)d.np * d.pp + 4 * (size_t)d.tp;
+         (size_t)d.tp * d.tp + (size_t)d.np * d.pp + 5 * (size_t)d.tp;
 }
 
 template <typename Tout>
@@ -139,8 +147,10 @@ mamba_ssd_scan(const float* __restrict__ x, const float* __restrict__ bm,
   float* cT = bT + NP * TP;      // [NP][TP]   C[t][n] at cT[n * TP + t]
   float* sc = cT + NP * TP;      // [TP][TP]   score[t][s] at sc[s * TP + t]
   float* hT = sc + TP * TP;      // [NP][PP]   h[p][n] at hT[n * PP + p]
-  float* ca = hT + NP * PP;      // [TP]       cumulative log decay
-  float* ea = ca + TP;           // [TP]       exp(ca_t)
+  // [TP] cumulative log decay in float64 (hT + NP * PP is a multiple of 8
+  // floats from the base, so 8-byte aligned)
+  double* ca = reinterpret_cast<double*>(hT + NP * PP);
+  float* ea = reinterpret_cast<float*>(ca + TP);  // [TP] exp(ca_t)
   float* ws = ea + TP;           // [TP]       exp(ca_T - ca_s) dt_s
   float* dts = ws + TP;          // [TP]       dt_s
 
@@ -178,19 +188,20 @@ mamba_ssd_scan(const float* __restrict__ x, const float* __restrict__ bm,
     }
     __syncthreads();
 
-    // 2. cumulative log decay, in order, then the per-step factors
+    // 2. cumulative log decay in float64, in order, then the per-step
+    //    factors; each exponent is rounded to f32 only for expf
     if (tid == 0) {
-      float acc = 0.f;
+      double acc = 0.0;
       for (int t = 0; t < T; ++t) {
         acc += ca[t];
         ca[t] = acc;
       }
     }
     __syncthreads();
-    const float ca_last = ca[T - 1];
+    const double ca_last = ca[T - 1];
     for (int t = tid; t < T; t += kThreads) {
-      ea[t] = expf(ca[t]);
-      ws[t] = expf(ca_last - ca[t]) * dts[t];
+      ea[t] = expf((float)ca[t]);
+      ws[t] = expf((float)(ca_last - ca[t])) * dts[t];
     }
 
     // 3. scores[t][s] = (C_t . B_s) exp(ca_t - ca_s) dt_s for s <= t < T,
@@ -230,7 +241,8 @@ mamba_ssd_scan(const float* __restrict__ x, const float* __restrict__ bm,
           for (int i = 0; i < 8; ++i) {
             const int t = tr + i;
             out[i] = (s <= t && t < T)
-                         ? acc[i][j] * (expf(ca[t] - ca[s]) * dts[s])
+                         ? acc[i][j] * (expf((float)(ca[t] - ca[s])) *
+                                        dts[s])
                          : 0.f;
           }
           st4(sc + s * TP + tr, out[0], out[1], out[2], out[3]);
@@ -299,7 +311,7 @@ mamba_ssd_scan(const float* __restrict__ x, const float* __restrict__ bm,
     // 5. h[p][n] <- exp(ca_T) h[p][n] + sum_s (ws_s x[s][p]) B[s][n];
     //    4 (n) x 4 (p) per thread, each thread owns its h entries
     {
-      const float decay = expf(ca_last);
+      const float decay = expf((float)ca_last);
       const int np4 = PP / 4;
       const int ntile = (NP / 4) * np4;
       for (int tile = tid; tile < ntile; tile += kThreads) {
@@ -370,22 +382,25 @@ constexpr int kRowBytes = 128;              // 64 bf16: one swizzled row
 constexpr int kAtomBytes = 8 * kRowBytes;   // 8 rows: one swizzle atom
 constexpr int kHalfBytes = 64 * kRowBytes;  // 64 rows of a tile
 constexpr int kTileBytes = 2 * kHalfBytes;  // 128 rows x 64 columns
+constexpr int kTerms = 3;                    // bf16 terms of an f32 operand
 
 // Shared memory, from a 1024-byte aligned base: per stage the x tiles of
 // the CTA's heads, then the B and C tiles (each [128 rows][64 columns]
-// bf16, 128-byte swizzled as the TMA writes them); h hi and lo per head
-// ([n rows][p columns], the same layout); h in f32 per head, in the
-// accumulator layout of the warpgroup that carries it (element e of thread
-// i at e * 128 + i); per stage and head dt and da;
-// per stage and warpgroup ca, exp(ca_t) and w_s = exp(ca_T - ca_s) dt_s;
-// a full and an empty barrier per stage.
+// bf16, 128-byte swizzled as the TMA writes them); h's three bf16 terms
+// per head ([n rows][p columns], the same layout); h in f32 per head, in
+// the accumulator layout of the warpgroup that carries it (element e of
+// thread i at e * 128 + i); per stage and head dt and da; per stage and
+// warpgroup ca in float64 and w_s = exp(ca_T - ca_s) dt_s in f32 (230,432
+// bytes allocated, under the 232,448 a block may have); a full and an
+// empty barrier per stage.
 struct Smem {
   static constexpr int kStage = (kHeads + 2) * kTileBytes;
   static constexpr int kH = kStages * kStage;
-  static constexpr int kHf = kH + kHeads * 2 * kHalfBytes;
+  static constexpr int kHf = kH + kHeads * kTerms * kHalfBytes;
   static constexpr int kDt = kHf + kHeads * 32 * 128 * 4;
   static constexpr int kScan = kDt + kStages * kHeads * 2 * 128 * 4;
-  static constexpr int kBars = kScan + kStages * kWarpgroups * 3 * 128 * 4;
+  static constexpr int kScanBytes = 128 * (8 + 4);  // ca f64, w_s f32
+  static constexpr int kBars = kScan + kStages * kWarpgroups * kScanBytes;
   static constexpr int kBytes = kBars + 8 * 2 * kStages;
   static constexpr int kAlloc = kBytes + 1024;  // slack to align the base
 };
@@ -587,14 +602,21 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// The two bf16 terms of a pair of f32 values v: hi = bf16(v) and
-// lo = bf16(v - hi), so that hi + lo carries v to ~2^-16 of |v|.
-__device__ __forceinline__ void split2(float v0, float v1, uint32_t& hi,
-                                      uint32_t& lo) {
-  const float h0 = __bfloat162float(__float2bfloat16_rn(v0));
-  const float h1 = __bfloat162float(__float2bfloat16_rn(v1));
-  hi = pack_bf16(h0, h1);
-  lo = pack_bf16(v0 - h0, v1 - h1);
+__device__ __forceinline__ float bf16_round(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+// The three bf16 terms of a pair of f32 values v: hi = bf16(v),
+// mid = bf16(v - hi) and lo = bf16(v - hi - mid). Each difference is exact
+// in f32 and each term takes 8 of v's 24 significant bits, so
+// hi + mid + lo is v (outside the subnormal range). t[0..2] = hi, mid, lo.
+__device__ __forceinline__ void split3(float v0, float v1, uint32_t* t) {
+  const float h0 = bf16_round(v0), h1 = bf16_round(v1);
+  const float r0 = v0 - h0, r1 = v1 - h1;
+  const float m0 = bf16_round(r0), m1 = bf16_round(r1);
+  t[0] = pack_bf16(h0, h1);
+  t[1] = pack_bf16(m0, m1);
+  t[2] = pack_bf16(r0 - m0, r1 - m1);
 }
 
 // Named barrier ids: for head hh, kRead(hh) (its carry warpgroup may
@@ -610,9 +632,13 @@ __device__ __forceinline__ int swz(int s, int n) {
   return s * kRowBytes + ((((n >> 3) ^ (s & 7)) << 4) | ((n & 7) * 2));
 }
 
-__device__ __forceinline__ float bf16_at(const uint8_t* p) {
-  return __bfloat162float(*reinterpret_cast<const __nv_bfloat16*>(p));
+// The bf16 element at a shared-memory address, as f32.
+__device__ __forceinline__ float bf16_smem(uint32_t addr) {
+  unsigned short v;
+  asm volatile("ld.shared.b16 %0, [%1];" : "=h"(v) : "r"(addr));
+  return __bfloat162float(__ushort_as_bfloat16(v));
 }
+
 
 // This thread's index, read so that the compiler recomputes what depends
 // on it where it is used instead of keeping it live across the chunk loop.
@@ -673,16 +699,17 @@ mamba_ssd_scan_tc(const __grid_constant__ CUtensorMap tx,
     return base + s * Smem::kStage + kHeads * kTileBytes;
   };
   auto c_tile = [&](int s) { return b_tile(s) + kTileBytes; };
-  auto h_tile = [&](int hh, int part) {  // part 0: hi, 1: lo
-    return base + Smem::kH + (2 * hh + part) * kHalfBytes;
+  auto h_tile = [&](int hh, int part) {  // part 0: hi, 1: mid, 2: lo
+    return base + Smem::kH + (kTerms * hh + part) * kHalfBytes;
   };
   auto dts_of = [&](int s, int hh) {  // dt [128], then da [128]
     return reinterpret_cast<float*>(gbase + Smem::kDt) +
            (s * kHeads + hh) * 2 * 128;
   };
-  auto scan_of = [&](int s, int wg) {  // ca, exp(ca_t), w_s: [128] each
-    return reinterpret_cast<float*>(gbase + Smem::kScan) +
-           (s * kWarpgroups + wg) * 3 * 128;
+  auto scan_of = [&](int s, int wg) {  // ca [128] f64, then w_s [128] f32
+    return reinterpret_cast<double*>(gbase + Smem::kScan +
+                                     (s * kWarpgroups + wg) *
+                                         Smem::kScanBytes);
   };
   auto full = [&](int s) { return base + Smem::kBars + 8 * s; };
   auto empty = [&](int s) { return base + Smem::kBars + 8 * (kStages + s); };
@@ -755,48 +782,45 @@ mamba_ssd_scan_tc(const __grid_constant__ CUtensorMap tx,
     const int col = 2 * (me % 4);                    // columns col, col + 1
     mbar_wait(full(s), (k / kStages) & 1);
     const float* dts = dts_of(s, hh);
-    float* ca = scan_of(s, wg);
-    float* ea = ca + 128;
-    float* ws = ca + 256;
+    double* ca = scan_of(s, wg);
+    float* ws = reinterpret_cast<float*>(ca + 128);
     if (warp % 4 == 0) {
-      // ca = cumsum(da): lane l sums t = 4 l .. 4 l + 3 in order, then a
-      // shuffle scan of the lane totals (positions past T add da = 0)
-      float v[4], run = 0.f;
+      // ca = cumsum(da) in float64: lane l sums t = 4 l .. 4 l + 3 in
+      // order, then a shuffle scan of the lane totals (positions past T
+      // add da = 0)
+      double v[4], run = 0.0;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         run += dts[128 + 4 * lane + j];
         v[j] = run;
       }
-      float incl = run;
+      double incl = run;
 #pragma unroll
       for (int o = 1; o < 32; o *= 2) {
-        const float u = __shfl_up_sync(0xffffffffu, incl, o);
+        const double u = __shfl_up_sync(0xffffffffu, incl, o);
         if (lane >= o) incl += u;
       }
-      float excl = __shfl_up_sync(0xffffffffu, incl, 1);
-      if (lane == 0) excl = 0.f;
+      double excl = __shfl_up_sync(0xffffffffu, incl, 1);
+      if (lane == 0) excl = 0.0;
 #pragma unroll
       for (int j = 0; j < 4; ++j) ca[4 * lane + j] = excl + v[j];
       __syncwarp();
-      const float last = ca[T - 1];
+      const double last = ca[T - 1];
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int t = 4 * lane + j;
-        ea[t] = expf(ca[t]);
-        ws[t] = expf(last - ca[t]) * dts[t];  // dt = 0 past T
+        ws[t] = expf((float)(last - ca[t])) * dts[t];  // dt = 0 past T
       }
     }
     bar_sync(kOwn(wg), 128);
 
     // y_intra = scores x over the causal columns s < 64 (r + 1), 32 at a
     // time: S = C B^T (both K-major), the decay mask on S in registers,
-    // then S = hi + lo as two register A operands against x (MN-major)
+    // then S = hi + mid + lo as three register A operands against x
+    // (MN-major)
     float yacc[32];
 #pragma unroll
     for (int i = 0; i < 32; ++i) yacc[i] = 0.f;
-    float ca_row[2];
-#pragma unroll
-    for (int i = 0; i < 2; ++i) ca_row[i] = ca[64 * r + row + 8 * i];
     for (int sq = 0; sq < 2 * (r + 1); ++sq) {  // columns 32 sq ..
       float sacc[16];
       fence_regs(sacc);
@@ -808,38 +832,49 @@ mamba_ssd_scan_tc(const __grid_constant__ CUtensorMap tx,
       wg_commit();
       wg_wait_all();
       fence_regs(sacc);
+      double ca_row[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) ca_row[i] = ca[64 * r + row + 8 * i];
 #pragma unroll
       for (int j = 0; j < 4; ++j)
 #pragma unroll
         for (int c = 0; c < 2; ++c) {
           const int sc = 32 * sq + 8 * j + col + c;
-          const float ca_s = ca[sc], dt_s = dts[sc];
+          const double ca_s = ca[sc];
+          const float dt_s = dts[sc];
 #pragma unroll
           for (int i = 0; i < 2; ++i) {
             const int t = 64 * r + row + 8 * i;
             float& v = sacc[4 * j + 2 * i + c];
-            v = (sc <= t && t < T) ? v * (expf(ca_row[i] - ca_s) * dt_s)
-                                   : 0.f;
+            v = (sc <= t && t < T)
+                    ? v * (expf((float)(ca_row[i] - ca_s)) * dt_s)
+                    : 0.f;
           }
         }
-      uint32_t ahi[8], alo[8];
+      // a[kk][term]: the A fragments of k-step kk (columns 32 sq + 16 kk ..)
+      uint32_t a[2][kTerms][4];
 #pragma unroll
-      for (int q = 0; q < 8; ++q)
-        split2(sacc[2 * q], sacc[2 * q + 1], ahi[q], alo[q]);
+      for (int q = 0; q < 8; ++q) {
+        uint32_t t3[kTerms];
+        split3(sacc[2 * q], sacc[2 * q + 1], t3);
+#pragma unroll
+        for (int e = 0; e < kTerms; ++e) a[q / 4][e][q % 4] = t3[e];
+      }
       fence_regs(yacc);
       wg_fence();
 #pragma unroll
       for (int kk = 0; kk < 2; ++kk) {
         const uint64_t dx = mnmajor(x_tile(s, hh), 2 * sq + kk);
-        wgmma_rs(yacc, ahi + 4 * kk, dx);
-        wgmma_rs(yacc, alo + 4 * kk, dx);
+#pragma unroll
+        for (int e = 0; e < kTerms; ++e) wgmma_rs(yacc, a[kk][e], dx);
       }
       wg_commit();
       wg_wait_all();
       fence_regs(yacc);
     }
 
-    // y_inter = C h: C K-major, h = hi + lo MN-major, from shared memory
+    // y_inter = C h: C K-major, h = hi + mid + lo MN-major, from shared
+    // memory
     if (r == 1) bar_sync(kWritten(hh), 256);
     float hy[32];
     fence_regs(hy);
@@ -847,8 +882,9 @@ mamba_ssd_scan_tc(const __grid_constant__ CUtensorMap tx,
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) {
       const uint64_t dc = kmajor(c_tile(s) + r * kHalfBytes, kk);
-      wgmma_ss<1>(hy, dc, mnmajor(h_tile(hh, 0), kk), kk > 0);
-      wgmma_ss<1>(hy, dc, mnmajor(h_tile(hh, 1), kk), 1);
+#pragma unroll
+      for (int e = 0; e < kTerms; ++e)
+        wgmma_ss<1>(hy, dc, mnmajor(h_tile(hh, e), kk), kk > 0 || e > 0);
     }
     wg_commit();
     wg_wait_all();
@@ -865,7 +901,7 @@ mamba_ssd_scan_tc(const __grid_constant__ CUtensorMap tx,
       for (int i = 0; i < 2; ++i) {
         const int t = 64 * r + row + 8 * i;
         if (t >= T) continue;
-        const float e = ea[t];
+        const float e = expf((float)ca[t]);
         Tout* yp = y + (((long long)bi * sh.seqlen + t0 + t) * sh.heads +
                         head) * sh.p;
 #pragma unroll
@@ -887,51 +923,51 @@ mamba_ssd_scan_tc(const __grid_constant__ CUtensorMap tx,
 
     if (r == 0) {
       // carry: h^T <- exp(ca_T) h^T + sum_s (w_s B_s)^T x_s, the f32
-      // factor w_s B[s][n] as hi + lo register A operands (rows n, K = s)
-      // against x (MN-major), in two batches of four k-steps
-      const float decay = expf(ca[T - 1]);
+      // factor w_s B[s][n] as three bf16 register A operands (rows n,
+      // K = s) against x (MN-major), one k-step of 16 positions at a
+      // time, each retired before the next is built: the fragments of one
+      // step are all the registers the carry adds (a second step in
+      // flight spilled)
+      const float decay = expf((float)ca[T - 1]);
       float hacc[32];
 #pragma unroll
       for (int i = 0; i < 32; ++i) hacc[i] = hf[i * 128] * decay;
       // B[s][n] for n = row + 8 i and s = col + c (+ multiples of 8)
-      const uint8_t* bt = gbase + (b_tile(s) - base);
-      const uint8_t* bq[2][2];
+      uint32_t bq[2][2];
 #pragma unroll
       for (int i = 0; i < 2; ++i)
 #pragma unroll
-        for (int c = 0; c < 2; ++c) bq[i][c] = bt + swz(col + c, row + 8 * i);
+        for (int c = 0; c < 2; ++c)
+          bq[i][c] = b_tile(s) + swz(col + c, row + 8 * i);
+      fence_regs(hacc);
 #pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        if (64 * half >= T) break;
-        uint32_t bhi[16], blo[16];
+      for (int kq = 0; kq < 8; ++kq) {
+        if (16 * kq >= T) break;
+        uint32_t b[kTerms][4];
 #pragma unroll
-        for (int kq = 0; kq < 4; ++kq)
+        for (int q = 0; q < 4; ++q) {
+          const int step = 16 * kq + 8 * (q >> 1);
+          const int s0 = step + col;
+          uint32_t t3[kTerms];
+          split3(ws[s0] * bf16_smem(bq[q & 1][0] + step * kRowBytes),
+                 ws[s0 + 1] * bf16_smem(bq[q & 1][1] + step * kRowBytes), t3);
 #pragma unroll
-          for (int q = 0; q < 4; ++q) {
-            const int step = 16 * (4 * half + kq) + 8 * (q >> 1);
-            const int s0 = step + col;
-            split2(ws[s0] * bf16_at(bq[q & 1][0] + step * kRowBytes),
-                   ws[s0 + 1] * bf16_at(bq[q & 1][1] + step * kRowBytes),
-                   bhi[4 * kq + q], blo[4 * kq + q]);
-          }
-        fence_regs(hacc);
-        wg_fence();
-#pragma unroll
-        for (int kq = 0; kq < 4; ++kq) {
-          const uint64_t dx = mnmajor(x_tile(s, hh), 4 * half + kq);
-          wgmma_rs(hacc, bhi + 4 * kq, dx);
-          wgmma_rs(hacc, blo + 4 * kq, dx);
+          for (int e = 0; e < kTerms; ++e) b[e][q] = t3[e];
         }
+        wg_fence();
+        const uint64_t dx = mnmajor(x_tile(s, hh), kq);
+#pragma unroll
+        for (int e = 0; e < kTerms; ++e) wgmma_rs(hacc, b[e], dx);
         wg_commit();
         wg_wait_all();
-        fence_regs(hacc);
       }
+      fence_regs(hacc);
       if (signal) mbar_arrive(empty(s));
       bar_sync(kRead(hh), 256);  // the other warpgroup is done with h
       if (k + 1 < sh.nchunks) {
 #pragma unroll
         for (int i = 0; i < 32; ++i) hf[i * 128] = hacc[i];
-        // h^T = hi + lo into [n][p] tiles in the 128-byte swizzle
+        // h^T = hi + mid + lo into [n][p] tiles in the 128-byte swizzle
 #pragma unroll
         for (int i = 0; i < 2; ++i) {
           const int n = row + 8 * i;
@@ -939,14 +975,13 @@ mamba_ssd_scan_tc(const __grid_constant__ CUtensorMap tx,
           for (int j = 0; j < 8; ++j) {
             const uint32_t at =
                 n * kRowBytes + ((j ^ (n & 7)) << 4) + col * 2;
-            uint32_t hi, lo;
-            split2(hacc[4 * j + 2 * i], hacc[4 * j + 2 * i + 1], hi, lo);
-            asm volatile("st.shared.b32 [%0], %1;" ::"r"(h_tile(hh, 0) + at),
-                         "r"(hi)
-                         : "memory");
-            asm volatile("st.shared.b32 [%0], %1;" ::"r"(h_tile(hh, 1) + at),
-                         "r"(lo)
-                         : "memory");
+            uint32_t t3[kTerms];
+            split3(hacc[4 * j + 2 * i], hacc[4 * j + 2 * i + 1], t3);
+#pragma unroll
+            for (int e = 0; e < kTerms; ++e)
+              asm volatile("st.shared.b32 [%0], %1;"
+                           ::"r"(h_tile(hh, e) + at), "r"(t3[e])
+                           : "memory");
           }
         }
         asm volatile("fence.proxy.async.shared::cta;" ::: "memory");

@@ -13,6 +13,7 @@ import torch
 from repro_torch.kernels import ref
 from repro_torch.kernels.flash_attention import flash_attention as _flash_cuda
 from repro_torch.kernels.mamba_scan import mamba_chunk_scan as _mamba_cuda
+from repro_torch.kernels.rmsnorm import add_rmsnorm as _add_rmsnorm_cuda
 from repro_torch.kernels.rmsnorm import rmsnorm as _rmsnorm_cuda
 
 BACKENDS = ("auto", "ref")
@@ -42,6 +43,14 @@ def rmsnorm(x, w, *, eps: float = 1e-5, backend: str = "auto"):
     if _use_kernel(x, backend):
         return _rmsnorm_cuda(x, w, eps=eps)
     return ref.rmsnorm_ref(x, w, eps=eps)
+
+
+def add_rmsnorm(x, r, w, *, eps: float = 1e-5, backend: str = "auto"):
+    """The residual add and the RMSNorm after it: (s = x + r in x's dtype,
+    rmsnorm(s, w)), one launch on the card."""
+    if _use_kernel(x, backend):
+        return _add_rmsnorm_cuda(x, r, w, eps=eps)
+    return ref.add_rmsnorm_ref(x, r, w, eps=eps)
 
 
 def mamba_chunk_scan(x, b, c, dt, da, *, chunk: int = 128, out_dtype=None,

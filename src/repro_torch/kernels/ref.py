@@ -1,9 +1,9 @@
 """Plain PyTorch versions of the hand-written kernels (the ground truth).
 
 Counterparts of ``repro/kernels/ref.py``: quadratic attention with explicit
-masks, the elementwise norm and the exact per-step SSM recurrence. The CPU
-path of ``kernels.ops`` runs these, and ``chip_smoke.py`` holds each CUDA
-kernel against them on the card.
+masks, the elementwise norm (alone, and after the residual add) and the
+exact per-step SSM recurrence. The CPU path of ``kernels.ops`` runs these,
+and ``chip_smoke.py`` holds each CUDA kernel against them on the card.
 """
 from __future__ import annotations
 
@@ -42,6 +42,13 @@ def rmsnorm_ref(x, w, *, eps: float = 1e-5):
     xf = x.to(F32)
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
     return (xf * torch.rsqrt(var + eps) * w.to(F32)).to(x.dtype)
+
+
+def add_rmsnorm_ref(x, r, w, *, eps: float = 1e-5):
+    """The residual add, then the norm: (s = x + r in x's dtype,
+    rmsnorm_ref(s, w))."""
+    s = x + r
+    return s, rmsnorm_ref(s, w, eps=eps)
 
 
 def mamba_chunk_scan_ref(x, b, c, dt, da, *, out_dtype=None):

@@ -1,12 +1,14 @@
-"""RMSNorm on the card: wrapper of the hand-written CUDA kernel
+"""RMSNorm on the card: wrappers of the hand-written CUDA kernel
 ``csrc/rmsnorm.cu``.
 
 Replaces the Pallas TPU kernel ``repro/kernels/rmsnorm.py::rmsnorm``. It is
-memory-bound on the H100 (about 3 flops per element against two accesses),
-so its least time is 2 * rows * d * bytes / 3.35 TB/s; the kernel reads
-each row once with 16-byte loads, reduces in f32 registers and writes once
-(see the source for the design). ``ops.rmsnorm`` routes CUDA tensors here
-and CPU tensors to ``ref.rmsnorm_ref``.
+memory-bound on the H100 (about 4 flops per element against two accesses),
+so its least time is (2 * rows * d + d) * bytes / 3.35 TB/s; the kernel
+reads each row once with 16-byte loads into registers, reduces in f32 and
+writes once (see the source for the design). ``add_rmsnorm`` is the same
+kernel with the residual add before the norm fused in: s = x + r rounded
+to x's dtype, y = rmsnorm(s), one launch. ``ops.rmsnorm`` and
+``ops.add_rmsnorm`` route CUDA tensors here and CPU tensors to ``ref``.
 """
 from __future__ import annotations
 
@@ -18,9 +20,10 @@ import torch
 from repro_torch.kernels import build
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-             ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_ARGTYPES = [_P, _P, _P, _I, _I, _I, _I, _I, _I, ctypes.c_float, _P]
+_ADD_ARGTYPES = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                 ctypes.c_float, _P]
 _INT_MAX = 2 ** 31 - 1
 
 
@@ -52,29 +55,40 @@ def row_view(x: torch.Tensor) -> Tuple[int, int, int, int]:
                      f"got shape {tuple(x.shape)} strides {x.stride()}")
 
 
-def rmsnorm(x: torch.Tensor, w: torch.Tensor, *, eps: float = 1e-5
-            ) -> torch.Tensor:
-    """x: [..., d] CUDA tensor (bf16 or f32, last dimension contiguous);
-    w: [d] of x's dtype. Returns a new contiguous tensor of x's shape."""
-    if x.device.type != "cuda" or w.device != x.device:
-        raise ValueError("rmsnorm kernel needs x and w on one CUDA device")
-    if x.dtype not in DTYPE_CODES or w.dtype != x.dtype:
-        raise TypeError(f"rmsnorm kernel takes bf16 or f32 with w of x's "
-                        f"dtype, got {x.dtype} and {w.dtype}")
+def _check(name: str, x: torch.Tensor, w: torch.Tensor, *others):
+    """Raise unless x (and ``others``) and w are what the kernel takes;
+    returns x's row view."""
+    if x.device.type != "cuda" or any(t.device != x.device
+                                      for t in (w, *others)):
+        raise ValueError(f"{name} kernel needs its tensors on one CUDA "
+                         f"device")
+    if x.dtype not in DTYPE_CODES or any(t.dtype != x.dtype
+                                         for t in (w, *others)):
+        raise TypeError(f"{name} kernel takes bf16 or f32 with every "
+                        f"tensor of x's dtype, got {x.dtype} and "
+                        f"{[t.dtype for t in (w, *others)]}")
     d = x.shape[-1]
     if w.shape != (d,) or not w.is_contiguous():
         raise ValueError(f"w must be a contiguous [{d}], got "
                          f"{tuple(w.shape)}")
-    rows, inner_n, outer_stride, inner_stride = row_view(x)
-    if max(rows, d, outer_stride, inner_stride) > _INT_MAX:
-        raise ValueError("rmsnorm kernel takes sizes and strides that fit "
+    view = row_view(x)
+    if max(*view, d) > _INT_MAX:
+        raise ValueError(f"{name} kernel takes sizes and strides that fit "
                          "in 32 bits")
+    return view
+
+
+def rmsnorm(x: torch.Tensor, w: torch.Tensor, *, eps: float = 1e-5
+            ) -> torch.Tensor:
+    """x: [..., d] CUDA tensor (bf16 or f32, last dimension contiguous);
+    w: [d] of x's dtype. Returns a new contiguous tensor of x's shape."""
+    rows, inner_n, outer_stride, inner_stride = _check("rmsnorm", x, w)
     y = torch.empty(x.shape, dtype=x.dtype, device=x.device)
-    if rows == 0 or d == 0:
+    if rows == 0 or x.shape[-1] == 0:
         return y
     fn = build.load_function("rmsnorm", "rmsnorm_fwd", _ARGTYPES)
     err = fn(x.data_ptr(), w.data_ptr(), y.data_ptr(), DTYPE_CODES[x.dtype],
-             rows, d, inner_n, outer_stride, inner_stride, eps,
+             rows, x.shape[-1], inner_n, outer_stride, inner_stride, eps,
              torch.cuda.current_stream(x.device).cuda_stream)
     build.check("rmsnorm", err)
     rmsnorm.launches += 1
@@ -82,3 +96,32 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor, *, eps: float = 1e-5
 
 
 rmsnorm.launches = 0
+
+
+def add_rmsnorm(x: torch.Tensor, r: torch.Tensor, w: torch.Tensor, *,
+                eps: float = 1e-5) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The residual add and the norm after it in one launch. x, r:
+    [..., d] CUDA tensors of one shape and dtype (bf16 or f32, last
+    dimension contiguous); w: [d]. Returns (s, y), new contiguous tensors:
+    s = x + r rounded to x's dtype (bitwise what ``x + r`` gives) and
+    y = rmsnorm(s, w)."""
+    if r.shape != x.shape:
+        raise ValueError(f"add_rmsnorm needs x and r of one shape, got "
+                         f"{tuple(x.shape)} and {tuple(r.shape)}")
+    rows, x_n, x_outer, x_inner = _check("add_rmsnorm", x, w, r)
+    _, r_n, r_outer, r_inner = _check("add_rmsnorm", r, w)
+    s = torch.empty(x.shape, dtype=x.dtype, device=x.device)
+    y = torch.empty_like(s)
+    if rows == 0 or x.shape[-1] == 0:
+        return s, y
+    fn = build.load_function("rmsnorm", "add_rmsnorm_fwd", _ADD_ARGTYPES)
+    err = fn(x.data_ptr(), r.data_ptr(), w.data_ptr(), s.data_ptr(),
+             y.data_ptr(), DTYPE_CODES[x.dtype], rows, x.shape[-1], x_n,
+             x_outer, x_inner, r_n, r_outer, r_inner, eps,
+             torch.cuda.current_stream(x.device).cuda_stream)
+    build.check("rmsnorm", err)
+    add_rmsnorm.launches += 1
+    return s, y
+
+
+add_rmsnorm.launches = 0

@@ -96,6 +96,17 @@ def rmsnorm(p, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     return ops.rmsnorm(x, p["scale"], eps=eps)
 
 
+def add_rmsnorm(p, x: torch.Tensor, r: Optional[torch.Tensor],
+                eps: float = 1e-5):
+    """The residual add before a norm, fused with it: (x + r, rmsnorm of
+    it), the sum rounded to x's dtype as a separate ``x + r`` rounds it.
+    ``r`` is the previous branch's output, or None where no branch output
+    is pending (the first norm of a forward): then (x, rmsnorm(x))."""
+    if r is None:
+        return x, rmsnorm(p, x, eps)
+    return ops.add_rmsnorm(x, r, p["scale"], eps=eps)
+
+
 def rope(x: torch.Tensor, positions: torch.Tensor, theta: float
          ) -> torch.Tensor:
     """x: [B, S, H, Dh]; positions: [B, S] absolute token positions."""

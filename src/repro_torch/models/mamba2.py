@@ -14,6 +14,13 @@ One deliberate difference: the JAX model casts the intra-chunk score tile
 and x to bf16 before their product (``mamba2.py:138-140``), even in an f32
 model; the port follows the TPU kernel and ``kernels/ref.py`` and keeps the
 scan in f32.
+
+In a model the residual add of a block is left to the next norm, which
+fuses it (``layers.add_rmsnorm``): ``mamba2_block`` and
+``mamba2_decode_block`` take the stream as (x, r), r being the previous
+branch's output, and return this block's output unadded. ``mamba2_apply``
+and ``mamba2_decode`` are one block with the add done: x + out, bitwise
+the same sum.
 """
 from __future__ import annotations
 
@@ -105,21 +112,30 @@ def _split(cfg: ModelConfig, xbc):
 
 
 def _gate_out(cfg: ModelConfig, prm, x, y, z):
-    """out_norm, the SiLU(z) gate and the residual out-projection."""
+    """out_norm, the SiLU(z) gate and the out-projection (the block's
+    branch output, before the residual add)."""
     y = L.rmsnorm(prm["out_norm"], y, cfg.norm_eps)
     y = y * F.silu(z.to(F32)).to(x.dtype)
-    return x + y @ prm["out_proj"]
+    return y @ prm["out_proj"]
 
 
 def mamba2_apply(cfg: ModelConfig, prm, x, *, return_state: bool = False):
-    """x: [B,S,d]. The scan starts from h = 0 (no caller passes a state).
-    With ``return_state`` also returns {"h": [B,H,P,N] f32, "conv":
-    [B,K-1,conv_dim]}."""
+    """x: [B,S,d] -> x + the block's output. The scan starts from h = 0
+    (no caller passes a state). With ``return_state`` also returns {"h":
+    [B,H,P,N] f32, "conv": [B,K-1,conv_dim]}."""
+    x, out, state = mamba2_block(cfg, prm, x)
+    return (x + out, state) if return_state else x + out
+
+
+def mamba2_block(cfg: ModelConfig, prm, x, r=None):
+    """Prefill of one block on the stream (x, r). Returns (x + r, out,
+    state): the stream, this block's output (not yet added) and the state
+    as ``mamba2_apply`` returns it."""
     bsz, s, _ = x.shape
     d_inner, nh, p, n = dims(cfg)
     chunk = min(cfg.ssm_chunk, s)
 
-    xn = L.rmsnorm(prm["ln"], x, cfg.norm_eps)
+    x, xn = L.add_rmsnorm(prm["ln"], x, r, cfg.norm_eps)
     z, xbc, dt_raw = _project(prm, xn)
     xbc, conv_state = _causal_conv(xbc, prm["conv_w"], prm["conv_b"])
     xs, bmat, cmat = _split(cfg, xbc)
@@ -141,18 +157,24 @@ def mamba2_apply(cfg: ModelConfig, prm, x, *, return_state: bool = False):
     y = y[:, :s] + xs.to(F32) * prm["d_skip"][None, None, :, None]
     y = y.reshape(bsz, s, d_inner).to(x.dtype)
     out = _gate_out(cfg, prm, x, y, z)
-    if return_state:
-        # a copy, so the state does not keep the whole padded input alive
-        return out, {"h": h_f, "conv": conv_state.to(x.dtype).clone()}
-    return out
+    # a copy, so the state does not keep the whole padded input alive
+    return x, out, {"h": h_f, "conv": conv_state.to(x.dtype).clone()}
 
 
 def mamba2_decode(cfg: ModelConfig, prm, x, state: dict):
     """One-token recurrence. x: [B,1,d]; state as ``mamba2_apply`` returns
-    it. Returns (out, new_state); the state tensors are new."""
+    it. Returns (x + the block's output, new_state); the state tensors are
+    new."""
+    x, out, state = mamba2_decode_block(cfg, prm, x, None, state)
+    return x + out, state
+
+
+def mamba2_decode_block(cfg: ModelConfig, prm, x, r, state: dict):
+    """``mamba2_decode`` on the stream (x, r): returns (x + r, out,
+    new_state), the block's output not yet added."""
     bsz = x.shape[0]
     d_inner, nh, p, _ = dims(cfg)
-    xn = L.rmsnorm(prm["ln"], x, cfg.norm_eps)
+    x, xn = L.add_rmsnorm(prm["ln"], x, r, cfg.norm_eps)
     z, xbc, dt_raw = _project(prm, xn)
     xbc, conv_state = _causal_conv(xbc, prm["conv_w"], prm["conv_b"],
                                    state["conv"])
@@ -168,7 +190,7 @@ def mamba2_decode(cfg: ModelConfig, prm, x, state: dict):
     y = y + xt * prm["d_skip"][None, :, None]
     y = y.reshape(bsz, 1, d_inner).to(x.dtype)
     out = _gate_out(cfg, prm, x, y, z)
-    return out, {"h": h, "conv": conv_state.to(x.dtype)}
+    return x, out, {"h": h, "conv": conv_state.to(x.dtype)}
 
 
 def empty_state(cfg: ModelConfig, batch: int, dtype, device) -> dict:

@@ -7,6 +7,11 @@ loops over them in Python. Parameter names mirror the JAX tree, with the
 layer index after ``layers`` (``layers.3.attn.wq`` <-> ``layers/attn/wq[3]``),
 so ``models.convert`` carries JAX weights across by name. The KV cache is a
 list of per-layer dicts instead of one dict of stacked arrays.
+
+The residual stream is carried as (x, r): r is the last branch output not
+yet added, and the next norm adds it (``layers.add_rmsnorm``, one launch on
+the card). The sums and their order are the JAX model's: x + attention,
+then x + MLP, each rounded to the model dtype before its norm.
 """
 from __future__ import annotations
 
@@ -53,13 +58,14 @@ def _layer_params(cfg: ModelConfig, dtype, dev) -> dict:
     }
 
 
-def _layer_apply(cfg: ModelConfig, lp, x, positions, *, cache=None):
-    h, new_cache = L.attention_apply(
-        cfg, lp["attn"], L.rmsnorm(lp["ln1"], x, cfg.norm_eps), positions,
-        cache=cache)
-    x = x + h
-    x = x + L.mlp_apply(lp["ffn"], L.rmsnorm(lp["ln2"], x, cfg.norm_eps))
-    return x, new_cache
+def _layer_apply(cfg: ModelConfig, lp, x, r, positions, *, cache=None):
+    """One decode layer on the stream (x, r). Returns (x, r, new_cache),
+    r being this layer's MLP output."""
+    x, h = L.add_rmsnorm(lp["ln1"], x, r, cfg.norm_eps)
+    h, new_cache = L.attention_apply(cfg, lp["attn"], h, positions,
+                                     cache=cache)
+    x, h = L.add_rmsnorm(lp["ln2"], x, h, cfg.norm_eps)
+    return x, L.mlp_apply(lp["ffn"], h), new_cache
 
 
 class Transformer(nn.Module):
@@ -122,19 +128,20 @@ class Transformer(nn.Module):
         b, s = tokens.shape
         positions = torch.arange(s, dtype=torch.int32,
                                  device=tokens.device).expand(b, s)
-        x = L.embed_lookup(self.embed, tokens)
+        x, r = L.embed_lookup(self.embed, tokens), None
         cache = []
         for lp in self.layers:
-            h_in = L.rmsnorm(lp["ln1"], x, cfg.norm_eps)
-            q, k, v = L._project_qkv(cfg, lp["attn"], h_in, positions,
+            x, h = L.add_rmsnorm(lp["ln1"], x, r, cfg.norm_eps)
+            q, k, v = L._project_qkv(cfg, lp["attn"], h, positions,
                                      cfg.rope_theta)
             out = L.prefill_attention(q, k, v, window=cfg.sliding_window)
-            x = x + L.attention_out(lp["attn"], out)
-            x = x + L.mlp_apply(lp["ffn"],
-                                L.rmsnorm(lp["ln2"], x, cfg.norm_eps))
+            x, h = L.add_rmsnorm(lp["ln2"], x,
+                                 L.attention_out(lp["attn"], out),
+                                 cfg.norm_eps)
+            r = L.mlp_apply(lp["ffn"], h)
             cache.append(L.init_cache_from(cfg, k, v, positions,
                                            cfg.sliding_window))
-        x = L.rmsnorm(self.ln_f, x, cfg.norm_eps)
+        _, x = L.add_rmsnorm(self.ln_f, x, r, cfg.norm_eps)
         logits = L.unembed(cfg, self.embed, x[:, -1:, :])
         return logits, cache
 
@@ -143,11 +150,11 @@ class Transformer(nn.Module):
         """tokens: [B, 1]; pos: [B, 1] absolute positions. Writes each
         layer's ring cache in place (see ``layers.attention_apply``)."""
         cfg = self.cfg
-        x = L.embed_lookup(self.embed, tokens)
+        x, r = L.embed_lookup(self.embed, tokens), None
         new_cache = []
         for lp, ci in zip(self.layers, cache):
-            x, nc = _layer_apply(cfg, lp, x, pos, cache=ci)
+            x, r, nc = _layer_apply(cfg, lp, x, r, pos, cache=ci)
             new_cache.append(nc)
-        x = L.rmsnorm(self.ln_f, x, cfg.norm_eps)
+        _, x = L.add_rmsnorm(self.ln_f, x, r, cfg.norm_eps)
         logits = L.unembed(cfg, self.embed, x)
         return logits, new_cache

@@ -19,6 +19,11 @@ a ring of ``min(S, sliding_window)`` slots, as in the reference: for a
 prompt no longer than the window the first decode step overwrites the key
 of position 0 (ROADMAP.md, F3 — reference behaviour, kept for parity).
 Training (``backbone``, ``loss_fn``) comes with the training slice.
+
+As in the dense model the residual stream is carried as (x, r), r being
+the last branch output not yet added: every norm that follows a residual
+add (attention's two, each Mamba block's ``ln``, ``ln_f``) fuses the add
+(``layers.add_rmsnorm``), in the JAX model's order of operations.
 """
 from __future__ import annotations
 
@@ -101,10 +106,13 @@ class Zamba(nn.Module):
             out["mamba_tail"] = [state() for _ in self.mamba_tail]
         return out
 
-    def _shared_mlp(self, x):
-        cfg = self.cfg
-        return x + L.mlp_apply(self.attn_mlp,
-                               L.rmsnorm(self.attn_mlp_ln, x, cfg.norm_eps))
+    
+
+    def _mlp(self, x, h):
+        """The shared block's MLP after attention's output h: returns the
+        stream x + h and the MLP's output, not yet added."""
+        x, h = L.add_rmsnorm(self.attn_mlp_ln, x, h, self.cfg.norm_eps)
+        return x, L.mlp_apply(self.attn_mlp, h)
 
     @torch.no_grad()
     def prefill(self, batch: dict):
@@ -114,28 +122,27 @@ class Zamba(nn.Module):
         b, s = tokens.shape
         pos = torch.arange(s, dtype=torch.int32,
                            device=tokens.device).expand(b, s)
-        x = L.embed_lookup(self.embed, tokens)
+        x, r = L.embed_lookup(self.embed, tokens), None
         win = cfg.sliding_window if s > cfg.sliding_window else 0
         attn, mamba = [], []
         for group in self.mamba:
-            h_in = L.rmsnorm(self.attn_ln, x, cfg.norm_eps)
-            q, k, v = L._project_qkv(cfg, self.attn, h_in, pos,
-                                     cfg.rope_theta)
+            x, h = L.add_rmsnorm(self.attn_ln, x, r, cfg.norm_eps)
+            q, k, v = L._project_qkv(cfg, self.attn, h, pos, cfg.rope_theta)
             out = L.prefill_attention(q, k, v, window=win)
-            x = self._shared_mlp(x + L.attention_out(self.attn, out))
+            x, r = self._mlp(x, L.attention_out(self.attn, out))
             attn.append(L.init_cache_from(cfg, k, v, pos, cfg.sliding_window))
             states = []
             for mp in group:
-                x, st = M2.mamba2_apply(cfg, mp, x, return_state=True)
+                x, r, st = M2.mamba2_block(cfg, mp, x, r)
                 states.append(st)
             mamba.append(states)
         cache = {"attn": attn, "mamba": mamba}
         if self.tail:
             cache["mamba_tail"] = []
             for mp in self.mamba_tail:
-                x, st = M2.mamba2_apply(cfg, mp, x, return_state=True)
+                x, r, st = M2.mamba2_block(cfg, mp, x, r)
                 cache["mamba_tail"].append(st)
-        x = L.rmsnorm(self.ln_f, x, cfg.norm_eps)
+        _, x = L.add_rmsnorm(self.ln_f, x, r, cfg.norm_eps)
         return L.unembed(cfg, self.embed, x[:, -1:, :]), cache
 
     @torch.no_grad()
@@ -144,24 +151,24 @@ class Zamba(nn.Module):
         attention application's ring cache in place (see
         ``layers.attention_apply``); the Mamba states are new tensors."""
         cfg = self.cfg
-        x = L.embed_lookup(self.embed, tokens)
+        x, r = L.embed_lookup(self.embed, tokens), None
         new = {"attn": [], "mamba": []}
         for group, ac, states in zip(self.mamba, cache["attn"],
                                      cache["mamba"]):
-            h, nac = L.attention_apply(
-                cfg, self.attn, L.rmsnorm(self.attn_ln, x, cfg.norm_eps),
-                pos, cache=ac, window=cfg.sliding_window)
-            x = self._shared_mlp(x + h)
+            x, h = L.add_rmsnorm(self.attn_ln, x, r, cfg.norm_eps)
+            h, nac = L.attention_apply(cfg, self.attn, h, pos, cache=ac,
+                                       window=cfg.sliding_window)
+            x, r = self._mlp(x, h)
             new["attn"].append(nac)
             new_states = []
             for mp, st in zip(group, states):
-                x, st = M2.mamba2_decode(cfg, mp, x, st)
+                x, r, st = M2.mamba2_decode_block(cfg, mp, x, r, st)
                 new_states.append(st)
             new["mamba"].append(new_states)
         if self.tail:
             new["mamba_tail"] = []
             for mp, st in zip(self.mamba_tail, cache["mamba_tail"]):
-                x, st = M2.mamba2_decode(cfg, mp, x, st)
+                x, r, st = M2.mamba2_decode_block(cfg, mp, x, r, st)
                 new["mamba_tail"].append(st)
-        x = L.rmsnorm(self.ln_f, x, cfg.norm_eps)
+        _, x = L.add_rmsnorm(self.ln_f, x, r, cfg.norm_eps)
         return L.unembed(cfg, self.embed, x), new

@@ -23,7 +23,7 @@ from repro_torch.configs import get_arch
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.mamba_scan import mamba_chunk_scan
-from repro_torch.kernels.rmsnorm import rmsnorm
+from repro_torch.kernels.rmsnorm import add_rmsnorm, rmsnorm
 from repro_torch.launch.serve import ReplicatedServer
 from repro_torch.models.transformer import Transformer
 from repro_torch.models.zamba import Zamba
@@ -47,18 +47,80 @@ def _close(got, want, dtype):
                                rtol=RTOL[dtype], atol=ATOL[dtype])
 
 
-@pytest.mark.parametrize("shape", [(2048, 4096), (4, 512, 32, 128),
-                                   (1003, 128), (3, 5, 256)])
+# (rows, d) of every K1 call of the served paths (qwen3-8b and zamba2-7b,
+# prefill at 4 x 512 rows and decode at 4), then ragged row counts, other
+# widths (the generic kernels) and a row longer than registers hold
+K1_SHAPES = [(2048, 4096), (4, 512, 32, 128), (16384, 128), (2048, 3584),
+             (2048, 7168), (4, 4096), (4, 3584), (4, 7168), (4, 1, 32, 128),
+             (32, 128), (1003, 128), (3, 5, 256), (65541, 128), (1003, 4096),
+             (37, 200), (9, 1000), (3, 40960)]
+
+
+def _rand(gen, shape, dtype):
+    return torch.randn(shape, generator=gen, device=gen.device).to(
+        getattr(torch, dtype))
+
+
+@pytest.mark.parametrize("shape", K1_SHAPES)
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_rmsnorm_kernel_matches_plain(cuda_device, shape, dtype):
     gen = torch.Generator(device=cuda_device).manual_seed(0)
-    x = torch.randn(shape, generator=gen, device=cuda_device).to(
-        getattr(torch, dtype))
-    w = torch.randn(shape[-1:], generator=gen, device=cuda_device).to(x.dtype)
+    x = _rand(gen, shape, dtype)
+    w = _rand(gen, shape[-1:], dtype)
     before = rmsnorm.launches
     got = ops.rmsnorm(x, w)
     assert rmsnorm.launches == before + 1
     _close(got, ref.rmsnorm_ref(x, w), dtype)
+    assert torch.equal(got, ops.rmsnorm(x, w))         # bitwise rerun
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rmsnorm_kernel_reads_strided_and_unaligned_views(cuda_device,
+                                                          dtype):
+    """The qk-norm heads sliced out of a fused [B, S, Hq + 2 Hkv, D]
+    projection (a two-level row view, no copy), and rows one element off
+    the 16-byte grid (the scalar path)."""
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    fused = _rand(gen, (4, 512, 48, 128), dtype)
+    unaligned = _rand(gen, (64, 4097), dtype)[:, 1:]
+    for x in (fused[:, :, :32], fused[:, :, 32:40], unaligned,
+              _rand(gen, (33, 131), dtype)):
+        w = _rand(gen, x.shape[-1:], dtype)
+        _close(ops.rmsnorm(x, w), ref.rmsnorm_ref(x, w), dtype)
+
+
+@pytest.mark.parametrize("shape", [(4, 512, 4096), (4, 512, 3584),
+                                   (4, 1, 4096), (4, 1, 3584), (1003, 4096),
+                                   (37, 200), (3, 40960)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_add_rmsnorm_is_bitwise_the_unfused_pair(cuda_device, shape, dtype):
+    """The fused residual add + norm: s is bitwise ``x + r`` and y bitwise
+    the plain kernel's norm of s (the same reduction); y also within the
+    tolerance of the plain version; one launch, reruns bitwise."""
+    gen = torch.Generator(device=cuda_device).manual_seed(2)
+    x, r = _rand(gen, shape, dtype), _rand(gen, shape, dtype)
+    w = _rand(gen, shape[-1:], dtype)
+    before = add_rmsnorm.launches
+    s, y = ops.add_rmsnorm(x, r, w)
+    assert add_rmsnorm.launches == before + 1
+    assert torch.equal(s, torch.add(x, r))
+    assert torch.equal(y, ops.rmsnorm(s, w))
+    _close(y, ref.add_rmsnorm_ref(x, r, w)[1], dtype)
+    again = ops.add_rmsnorm(x, r, w)
+    assert torch.equal(s, again[0]) and torch.equal(y, again[1])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_add_rmsnorm_scalar_path(cuda_device, dtype):
+    """Unaligned x and r: s is still bitwise the add; y is held to the
+    plain version (the scalar path reduces in another order than the
+    vector path that s, a new tensor, takes)."""
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    x, r = (_rand(gen, (64, 4097), dtype)[:, 1:] for _ in range(2))
+    w = _rand(gen, (4096,), dtype)
+    s, y = ops.add_rmsnorm(x, r, w)
+    assert torch.equal(s, x + r)
+    _close(y, ref.add_rmsnorm_ref(x, r, w)[1], dtype)
 
 
 @pytest.mark.parametrize("b,hq,hkv,s,d,causal,window", [
@@ -97,8 +159,8 @@ def test_attention_kernel_matches_plain(cuda_device, b, hq, hkv, s, d,
                                           window=window))   # bitwise rerun
 
 
-def _mamba_inputs(dev, b, s, h, p, n, dtype):
-    gen = torch.Generator(device=dev).manual_seed(0)
+def _mamba_inputs(dev, b, s, h, p, n, dtype, seed=0):
+    gen = torch.Generator(device=dev).manual_seed(seed)
 
     def rand(*shape):
         return torch.randn(shape, generator=gen, device=dev)
@@ -138,6 +200,20 @@ def test_mamba_scan_kernel_matches_plain(cuda_device, b, s, h, p, n, chunk,
     yb, _ = ops.mamba_chunk_scan(*args, chunk=chunk)     # y in x's dtype
     assert yb.dtype == args[0].dtype
     assert torch.equal(yb, y.to(yb.dtype))     # one rounding of the f32 y
+
+
+@pytest.mark.parametrize("seed", [1, 2, 3, 5, 6, 7])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_mamba_scan_serve_shape_on_more_draws(cuda_device, seed, dtype):
+    """The zamba2-7b serve shape on more draws, at the unchanged 3e-4: the
+    worst of its 14.7M outputs is where the kernels' arithmetic shows
+    (ROADMAP F4)."""
+    args = _mamba_inputs(cuda_device, 4, 512, 112, 64, 64,
+                         getattr(torch, dtype), seed)
+    y, hf = ops.mamba_chunk_scan(*args, chunk=128, out_dtype=torch.float32)
+    wy, wh = ref.mamba_chunk_scan_ref(*args, out_dtype=torch.float32)
+    torch.testing.assert_close(y, wy, **MAMBA_TOL)
+    torch.testing.assert_close(hf, wh, **MAMBA_TOL)
 
 
 def test_mamba_scan_kernel_chunk_invariance(cuda_device):

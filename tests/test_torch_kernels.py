@@ -20,7 +20,7 @@ from repro_torch.kernels import build, ops
 from repro_torch.kernels.flash_attention import check_layout, flash_attention
 from repro_torch.kernels.mamba_scan import (_tma_copy, mamba_chunk_scan,
                                             tma_ready)
-from repro_torch.kernels.rmsnorm import rmsnorm, row_view
+from repro_torch.kernels.rmsnorm import add_rmsnorm, rmsnorm, row_view
 from repro_torch.models.convert import to_tensor
 
 RTOL = {"float32": 2e-5, "bfloat16": 2e-2}
@@ -46,10 +46,10 @@ def _close(got, want, dtype):
 def _no_launches():
     """On the CPU the wrappers never launch: the counters stay at 0."""
     rmsnorm.launches = flash_attention.launches = 0
-    mamba_chunk_scan.launches = 0
+    mamba_chunk_scan.launches = add_rmsnorm.launches = 0
     yield
     assert rmsnorm.launches == 0 and flash_attention.launches == 0
-    assert mamba_chunk_scan.launches == 0
+    assert mamba_chunk_scan.launches == 0 and add_rmsnorm.launches == 0
 
 
 # ---------------------------------------------------------------- flash attn
@@ -255,22 +255,32 @@ def test_mamba_chunk_scan_needs_a_dividing_chunk():
         ops.mamba_chunk_scan(*tin, chunk=32)
 
 
-def _emulate_tc_scan(x, b, c, dt, da, chunk, terms):
+def _emulate_tc_scan(x, b, c, dt, da, chunk, terms=3, f64_exponent=True):
     """The bf16 tensor-core kernel's arithmetic, chunk by chunk, in
     float64 sums rounded to f32 where the kernel keeps f32: S = C B^T exact;
     each f32 operand of a product (the decayed scores, h in C h, w_s B_s
-    in the carry) as ``terms`` bf16 terms (2: hi + lo, the kernel's; 1: one
-    rounding); y = y_intra + exp(ca_t) y_inter. Test-local: the port does
-    not use it."""
+    in the carry) as ``terms`` bf16 terms (3: hi + mid + lo, the kernel's;
+    2: hi + lo, its earlier two-term design; 1: one rounding); y =
+    y_intra + exp(ca_t) y_inter. The decay exponents ca_t - ca_s, ca_T -
+    ca_s and ca_t are float64 differences of a float64 cumsum, rounded to
+    f32 for exp (the kernel's), or with ``f64_exponent=False`` taken from
+    an f32 cumsum (the earlier design's). Test-local: the port does not
+    use it."""
     f64, f32, bf = torch.float64, torch.float32, torch.bfloat16
 
     def parts(v):
-        hi = v.to(bf).to(f32)
-        return [hi, (v - hi).to(bf).to(f32)][:terms]
+        out, rest = [], v
+        for _ in range(terms):
+            out.append(rest.to(bf).to(f32))
+            rest = rest - out[-1]
+        return out
 
     def dot(spec, a, vs):  # sum of the bf16 terms' products, f64 -> f32
         return sum(torch.einsum(spec, a.to(f64), v.to(f64))
                    for v in vs).to(f32)
+
+    def expo(v):  # exp of an exponent formed in the cumsum's precision
+        return torch.exp(v.to(f32))
 
     bsz, s, nh, p = x.shape
     xf, bf_, cf = x.to(f32), b.to(f32), c.to(f32)
@@ -280,18 +290,42 @@ def _emulate_tc_scan(x, b, c, dt, da, chunk, terms):
     for k in range(s // chunk):
         sl = slice(k * chunk, (k + 1) * chunk)
         xc, bc, cc, dtc = xf[:, sl], bf_[:, sl], cf[:, sl], dt[:, sl]
-        ca = torch.cumsum(da[:, sl], 1)                          # [B,T,H]
+        ca = torch.cumsum(da[:, sl].to(f64 if f64_exponent else f32), 1)
         cb = torch.einsum("btn,bsn->bts", cc.to(f64), bc.to(f64)).to(f32)
-        w = torch.exp(ca[:, :, None] - ca[:, None]) * dtc[:, None]
+        w = expo(ca[:, :, None] - ca[:, None]) * dtc[:, None]   # [B,T,S,H]
         scores = torch.where(tri[None, :, :, None], cb[..., None] * w, 0.0)
         y_intra = dot("bshp,btsh->bthp", xc, parts(scores))
         y_inter = dot("btn,bhpn->bthp", cc, parts(h))
-        ys.append(y_intra + torch.exp(ca)[..., None] * y_inter)
+        ys.append(y_intra + expo(ca)[..., None] * y_inter)
         ca_t = ca[:, -1]                                         # [B,H]
-        wb = (torch.exp(ca_t[:, None] - ca) * dtc)[..., None] * \
+        wb = (expo(ca_t[:, None] - ca) * dtc)[..., None] * \
             bc[:, :, None]                                       # [B,T,H,N]
-        h = torch.exp(ca_t)[..., None, None] * h + dot(
+        h = expo(ca_t)[..., None, None] * h + dot(
             "bshp,bshn->bhpn", xc, parts(wb))
+    return torch.cat(ys, 1), h
+
+
+def _chunked_f64(x, b, c, dt, da, chunk):
+    """The chunked scan (the TPU kernel's algorithm) with every operation
+    in float64: the yardstick of the kernel's arithmetic."""
+    x, b, c, dt, da = (t.to(torch.float64) for t in (x, b, c, dt, da))
+    h = torch.zeros((x.shape[0], x.shape[2], x.shape[3], b.shape[-1]),
+                    dtype=torch.float64)
+    tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool))
+    ys = []
+    for k in range(x.shape[1] // chunk):
+        sl = slice(k * chunk, (k + 1) * chunk)
+        xc, bc, cc, dtc = x[:, sl], b[:, sl], c[:, sl], dt[:, sl]
+        ca = torch.cumsum(da[:, sl], 1)
+        w = torch.exp(ca[:, :, None] - ca[:, None]) * dtc[:, None]
+        scores = torch.where(tri[None, :, :, None], torch.einsum(
+            "btn,bsn->bts", cc, bc)[..., None] * w, 0.0)
+        ys.append(torch.einsum("btsh,bshp->bthp", scores, xc)
+                  + torch.exp(ca)[..., None]
+                  * torch.einsum("btn,bhpn->bthp", cc, h))
+        ca_t = ca[:, -1]
+        h = torch.exp(ca_t)[..., None, None] * h + torch.einsum(
+            "bshp,bsn,bsh->bhpn", xc, bc, torch.exp(ca_t[:, None] - ca) * dtc)
     return torch.cat(ys, 1), h
 
 
@@ -312,16 +346,22 @@ def _excess(got, want):
 
 @pytest.mark.parametrize("reference", ["ref", "pallas"])
 def test_mamba_two_term_bf16_products_keep_the_tolerance(reference):
-    """The tensor-core kernel's numerics: with each f32 operand as two bf16
-    terms the chunked scan stays within 3e-4 of the exact recurrence and
-    of the Pallas kernel, on f32 y and h."""
+    """On a reduced draw both the kernel's earlier two-term design (two
+    bf16 terms for each f32 operand, an f32 cumsum) and its arithmetic
+    now (three terms, float64 exponents) stay within 3e-4 of the exact
+    recurrence and of the Pallas kernel, on f32 y and h (the serve-shape
+    draws below are where the two-term design failed)."""
     jin, tin = _zamba_scan_case()
-    y, h = _emulate_tc_scan(*tin, chunk=128, terms=2)
     want_y, want_h = (jref.mamba_chunk_scan_ref(*jin) if reference == "ref"
                       else jops.mamba_chunk_scan(*jin, chunk=128,
                                                  backend="interpret"))
-    np.testing.assert_allclose(y.numpy(), np.asarray(want_y), **MAMBA_TOL)
-    np.testing.assert_allclose(h.numpy(), np.asarray(want_h), **MAMBA_TOL)
+    for y, h in (_emulate_tc_scan(*tin, chunk=128, terms=2,
+                                  f64_exponent=False),
+                 _emulate_tc_scan(*tin, chunk=128)):
+        np.testing.assert_allclose(y.numpy(), np.asarray(want_y),
+                                   **MAMBA_TOL)
+        np.testing.assert_allclose(h.numpy(), np.asarray(want_h),
+                                   **MAMBA_TOL)
 
 
 def test_mamba_one_bf16_rounding_misses_the_tolerance():
@@ -329,10 +369,46 @@ def test_mamba_one_bf16_rounding_misses_the_tolerance():
     JAX model's own cast of the score tile) misses 3e-4 many times over."""
     jin, tin = _zamba_scan_case()
     want_y, want_h = jref.mamba_chunk_scan_ref(*jin)
-    y1, h1 = _emulate_tc_scan(*tin, chunk=128, terms=1)
-    y2, h2 = _emulate_tc_scan(*tin, chunk=128, terms=2)
+    y1, h1 = _emulate_tc_scan(*tin, chunk=128, terms=1, f64_exponent=False)
+    y2, h2 = _emulate_tc_scan(*tin, chunk=128, terms=2, f64_exponent=False)
     assert _excess(y1, want_y) > 10 and _excess(h1, want_h) > 1
     assert _excess(y2, want_y) <= 1 and _excess(h2, want_h) <= 1
+
+
+def _serve_draw(seed):
+    """The zamba2-7b serve shape (x [4, 512, 112, 64] bf16, B and C
+    [4, 512, 64] bf16, dt and da f32) drawn as ``chip_smoke.py`` draws its
+    K3 inputs, from a CPU generator."""
+    gen = torch.Generator().manual_seed(seed)
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen)
+    x, bm, cm = (rand(*shape).to(torch.bfloat16) for shape in
+                 ((4, 512, 112, 64), (4, 512, 64), (4, 512, 64)))
+    dt = torch.nn.functional.softplus(rand(4, 512, 112))
+    da = -dt * torch.exp(rand(112) * 0.1)
+    return x, bm, cm, dt, da
+
+
+@pytest.mark.parametrize("seed", [10, 23])
+def test_mamba_kernel_numerics_keep_a_margin_at_the_serve_shape(seed):
+    """ROADMAP F4: on these serve-shape draws the earlier arithmetic (f32
+    cumsum, two bf16 terms) used more than the whole 3e-4 tolerance on
+    f32 y; the kernel's (float64 exponents, three terms) stays within a
+    tenth of it on y and h, against the chunked scan in float64 and
+    against the JAX reference (the exact f32 recurrence)."""
+    tin = _serve_draw(seed)
+    want_y, want_h = _chunked_f64(*tin, 128)
+    old_y, _ = _emulate_tc_scan(*tin, chunk=128, terms=2,
+                                f64_exponent=False)
+    assert _excess(old_y, want_y) > 1
+    del old_y
+    y, h = _emulate_tc_scan(*tin, chunk=128)
+    assert _excess(y, want_y) <= 0.1 and _excess(h, want_h) <= 0.1
+    del want_y, want_h
+    jy, jh = jref.mamba_chunk_scan_ref(*(jnp.asarray(t.float().numpy())
+                                         for t in tin))
+    assert _excess(y, jy) <= 0.1 and _excess(h, jh) <= 0.1
 
 
 def _bf16_strided(shape, strides, offset=0):
@@ -391,6 +467,48 @@ def test_rmsnorm_eps_reaches_plain_version(eps):
            jref.rmsnorm_ref(jx * 1e-3, jw, eps=eps), "float32")
 
 
+@pytest.mark.parametrize("shape", [(8, 128), (2, 3, 256), (4, 1, 96)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_add_rmsnorm_cpu_route_is_the_add_then_the_norm(shape, dtype):
+    """The plain route of the fused entry is bitwise the pair the models
+    ran before: ``x + r``, then ``rmsnorm_ref`` of the sum."""
+    gen = torch.Generator().manual_seed(7)
+    x, r = (torch.randn(shape, generator=gen).to(dtype) for _ in range(2))
+    w = torch.randn(shape[-1:], generator=gen).to(dtype)
+    s, y = ops.add_rmsnorm(x, r, w, eps=1e-6)
+    assert s.dtype == y.dtype == dtype and s.shape == y.shape == shape
+    torch.testing.assert_close(s, x + r, rtol=0, atol=0)
+    torch.testing.assert_close(y, ops.rmsnorm(x + r, w, eps=1e-6), rtol=0,
+                               atol=0)
+
+
+@pytest.mark.parametrize("shape", [(8, 128), (3, 5, 256), (1, 1, 64)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_add_rmsnorm_matches_jax_add_and_pallas(shape, dtype):
+    """Against JAX's ``x + h`` (the same rounding of the sum, bitwise) and
+    the Pallas kernel on that sum in interpret mode."""
+    rng = np.random.default_rng(8)
+    (jx, tx), (jr, tr) = (_pair(rng, shape, dtype) for _ in range(2))
+    jw, tw = _pair(rng, shape[-1:], dtype)
+    s, y = ops.add_rmsnorm(tx, tr, tw)
+    js = jx + jr
+    np.testing.assert_array_equal(np.asarray(s.float()),
+                                  np.asarray(js, np.float32))
+    _close(y, jref.rmsnorm_ref(js, jw), dtype)
+    _close(y, jops.rmsnorm(js, jw, backend="interpret", block_rows=4),
+           dtype)
+
+
+def test_layers_add_rmsnorm_without_a_pending_branch_is_the_norm():
+    """The first norm of a forward has nothing to add: the stream comes
+    back as it is and the norm is the plain one."""
+    from repro_torch.models import layers as L
+    x, w = torch.randn(2, 3, 16), torch.randn(16)
+    s, y = L.add_rmsnorm({"scale": w}, x, None)
+    assert s is x
+    torch.testing.assert_close(y, ops.rmsnorm(x, w), rtol=0, atol=0)
+
+
 # -------------------------------------------------------------- dispatch
 
 def test_ops_ref_backend_equals_auto_on_cpu():
@@ -414,6 +532,10 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     x = torch.randn(2, 2, 8, 32)
     with pytest.raises(ValueError, match="CUDA"):
         rmsnorm(x, torch.ones(32))
+    with pytest.raises(ValueError, match="CUDA"):
+        add_rmsnorm(x, x, torch.ones(32))
+    with pytest.raises(ValueError, match="one shape"):
+        add_rmsnorm(x, x[0], torch.ones(32))
     with pytest.raises(ValueError, match="CUDA"):
         flash_attention(x, x, x)
     with pytest.raises(ValueError, match="CUDA"):

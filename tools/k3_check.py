@@ -8,10 +8,14 @@ entry function, then for a sweep of bf16 shapes holds y (f32) and the final
 h against the exact recurrence: the largest error, the share of the
 tolerance ``3e-4 + 3e-4 |want|`` that the worst point uses (<= 1 passes),
 bitwise reruns and the bf16 y as one rounding of the f32 y. At the serve
-shape (x [4, 512, 112, 64], N 64, chunk 128) it also measures the kernel
-and the plain recurrence against the chunked scan computed in float64, on
-the inputs that ``chip_smoke.py`` and ``tests/test_torch_cuda.py`` draw,
-and times the kernel as ``chip_smoke.py`` does. One JSON object a line.
+shape (x [4, 512, 112, 64], N 64, chunk 128) it then sweeps 24 draws
+(seeds 0-23, drawn as ``chip_smoke.py`` draws its K3 inputs; seed 0 is
+``tests/test_torch_cuda.py``'s draw, seed 4 ``chip_smoke.py``'s first):
+for each, the share that the bf16 tensor-core kernel and the f32 FMA
+kernel (on the same values in f32) use against the plain recurrence and
+against the chunked scan computed in float64, then the maximum over the
+draws. Last it times the bf16 kernel as ``chip_smoke.py`` does. One JSON
+object a line.
 """
 from __future__ import annotations
 
@@ -34,6 +38,7 @@ SERVE = (4, 512, 112, 64, 64, 128)        # b, s, h, p, n, chunk
 SWEEP = [(1, 128, 2, 64, 64, 128), (1, 256, 2, 64, 64, 128),
          (2, 40, 4, 64, 16, 40), (1, 64, 2, 8, 4, 16), (2, 128, 3, 16, 8, 32),
          (1, 96, 1, 8, 16, 32), (2, 256, 3, 32, 16, 64), SERVE]
+DRAWS = 24                                # serve-shape draws of the sweep
 
 
 def share(got, want):
@@ -68,17 +73,30 @@ def chunked_f64(x, b, c, dt, da, chunk):
     return torch.cat(ys, 1), h
 
 
-def card_test_inputs(b, s, h, p, n):
-    """``tests/test_torch_cuda.py``'s draw (seed 0)."""
-    gen = torch.Generator(device="cuda").manual_seed(0)
-
-    def rand(*shape):
-        return torch.randn(shape, generator=gen, device="cuda")
-    x, bm, cm = (rand(*shape).to(BF) for shape in
-                 ((b, s, h, p), (b, s, n), (b, s, n)))
-    dt = torch.nn.functional.softplus(rand(b, s, h))
-    da = -dt * torch.exp(rand(h) * 0.1)
-    return x, bm, cm, dt, da
+def serve_sweep():
+    """Each draw's shares of the tolerance ([y, h]) at the serve shape, for
+    both kernels against the plain recurrence and the float64 chunked
+    scan; then the maximum of each over the draws."""
+    worst = {}
+    for seed in range(DRAWS):
+        args = cs._mamba_inputs(torch.Generator(device="cuda")
+                                .manual_seed(seed), *SERVE[:5], BF)
+        wy, wh = ref.mamba_chunk_scan_ref(*args, out_dtype=F32)
+        ey, eh = chunked_f64(*args, SERVE[5])
+        row = {"draw": seed, "plain_vs_f64": [share(wy, ey), share(wh, eh)]}
+        for kernel, dtype in (("tc_bf16", BF), ("fma_f32", F32)):
+            x, b, c = (t.to(dtype) for t in args[:3])
+            y, hf = mamba_chunk_scan(x, b, c, *args[3:], chunk=SERVE[5],
+                                     out_dtype=F32)
+            row[kernel] = {"vs_plain": [share(y, wy), share(hf, wh)],
+                           "vs_f64": [share(y, ey), share(hf, eh)]}
+            for against, pair in row[kernel].items():
+                key = f"{kernel}.{against}"
+                worst[key] = [max(a, b) for a, b in
+                              zip(worst.get(key, [0.0, 0.0]), pair)]
+        cs.emit(row)
+    cs.emit({"sweep": "serve", "shape": list(SERVE), "draws": DRAWS,
+             "max_share_y_h": worst})
 
 
 def main() -> int:
@@ -102,18 +120,9 @@ def main() -> int:
                  "rerun_bitwise": bool(torch.equal(y, again[0])
                                        and torch.equal(hf, again[1])),
                  "bf16_y_is_rounded_f32_y": bool(torch.equal(yb, y.to(BF)))})
-    draws = {"chip_smoke": cs._mamba_inputs(
-        torch.Generator(device="cuda").manual_seed(4), *SERVE[:5], BF),
-             "test_torch_cuda": card_test_inputs(*SERVE[:5])}
-    for name, args in draws.items():
-        y, hf = mamba_chunk_scan(*args, chunk=SERVE[5], out_dtype=F32)
-        wy, wh = ref.mamba_chunk_scan_ref(*args, out_dtype=F32)
-        ey, eh = chunked_f64(*args, SERVE[5])
-        cs.emit({"draw": name, "kernel_vs_plain": [share(y, wy),
-                                                   share(hf, wh)],
-                 "kernel_vs_f64": [share(y, ey), share(hf, eh)],
-                 "plain_vs_f64": [share(wy, ey), share(wh, eh)]})
-    x, bm, cm, dt, da = draws["chip_smoke"]
+    serve_sweep()
+    x, bm, cm, dt, da = cs._mamba_inputs(
+        torch.Generator(device="cuda").manual_seed(4), *SERVE[:5], BF)
     ms = cs.time_ms(lambda: mamba_chunk_scan(x, bm, cm, dt, da,
                                              chunk=SERVE[5], out_dtype=F32),
                     cs._L2Flush())
