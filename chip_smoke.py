@@ -7,6 +7,12 @@ Phases (each a function; any failure exits non-zero):
   1. device and build: the card's name and power limit, then nvcc builds
      every kernel in ``src/repro_torch/kernels/csrc`` (one process per
      source, all at once);
+  1b. comm: every collective of the replica-aware fabric on card tensors
+     (5 ranks, 2 replicated, f32, bf16 and int64, sum and max), a
+     computational worker killed mid-collective and repaired by drain and
+     replay, then again under the fattree registry with α‑β pricing:
+     results, sender logs, recovery counts and priced seconds bitwise the
+     same run's on CPU tensors, results bitwise ``reference_result``'s;
   2. RMSNorm kernel against its plain PyTorch version on the card, at
      every (rows, d) of the served paths (prefill and decode), ragged row
      counts, other widths, the strided qk-norm view and the unaligned
@@ -30,7 +36,11 @@ Phases (each a function; any failure exits non-zero):
      mid-stream (the token streams and the whole final state must be
      bitwise equal, one promotion), and an unreplicated kill that must
      raise; the kernels' launch counters, zeroed just before each path and
-     read just after, must equal the counts the path implies;
+     read just after, must equal the counts the path implies; every
+     request batch reaches the model through ``BatchFanout`` (a ``fanout``
+     line: the server's log, one send-ID per ``generate`` in order, then a
+     priced fan-out of the device batch timed on the host, its copies
+     equal);
   7. times, after each serve phase: CUDA-event medians of each kernel, its
      plain version and the PyTorch library call (where one exists) at the
      path's shapes (the fused norm beside ``x + r`` and ``F.rms_norm``),
@@ -38,7 +48,8 @@ Phases (each a function; any failure exits non-zero):
      decode times. Each model's servers are freed before the next model's
      serve phase.
 
-Prints JSON lines as it goes, then ``{"kernels": [...]}`` and, last,
+Prints JSON lines as it goes (``comm``, ``fanout`` and ``serve`` lines
+among them), then ``{"kernels": [...]}`` and, last,
 ``{"ok": true, "device": {...}}``. Exits non-zero without CUDA, and when run
 outside the repository (the port's package must be beside it in ``src``).
 """
@@ -64,12 +75,18 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
+from repro_torch import comm as comm_lib  # noqa: E402
+from repro_torch.comm.collectives import TAG_BCAST  # noqa: E402
+from repro_torch.comm.worlds import (  # noqa: E402
+    PORT_FABRIC, CommZoo, canon, run_world, tensor_maker)
 from repro_torch.configs import get_arch  # noqa: E402
+from repro_torch.configs.base import FTConfig  # noqa: E402
 from repro_torch.kernels import build, ref  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
 from repro_torch.kernels.mamba_scan import mamba_chunk_scan  # noqa: E402
 from repro_torch.kernels.rmsnorm import add_rmsnorm, rmsnorm  # noqa: E402
-from repro_torch.launch.serve import ReplicatedServer  # noqa: E402
+from repro_torch.launch.serve import (  # noqa: E402
+    BatchFanout, ReplicatedServer)
 from repro_torch.models import api, mamba2  # noqa: E402
 from repro_torch.models.transformer import Transformer  # noqa: E402
 from repro_torch.models.zamba import Zamba  # noqa: E402
@@ -172,6 +189,93 @@ def phase_device_and_build(state):
     for name in libs:
         for row in ptxas_report(name):
             emit(row)
+
+
+# ------------------------------------------------------------ phase 1b: comm
+#
+# The replica-aware fabric on card tensors, driven by the port's step
+# scheduler (``repro_torch.comm.worlds.run_world``).
+
+COMM_N, COMM_M, COMM_STEPS = 5, 2, 3      # ranks, replicated ranks, steps
+# rank 1's computational worker dies after the second round of step 1,
+# with the step's transport collectives in flight
+COMM_KILL = (1, 2, 1)
+COMM_SHAPE = (6,)
+# below the 24 bytes of a (6,) f32 payload, so the priced run takes the
+# ring allreduce and ring reduce_scatter beside the trees
+COMM_SMALL_MSG = 16
+COMM_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+               "int64": torch.int64}
+
+
+def comm_case(device, dtype_name, redop, topology=None):
+    """One world of the comm phase on ``device``: the zoo under a kill."""
+    app = CommZoo(COMM_N, tensor_maker(COMM_DTYPES[dtype_name], device),
+                  redop=redop, integer=dtype_name == "int64",
+                  shape=COMM_SHAPE)
+    return app, run_world(PORT_FABRIC, app, COMM_N, COMM_M, COMM_STEPS,
+                          kills=[COMM_KILL], topology=topology,
+                          small_msg=COMM_SMALL_MSG)
+
+
+def _exact(dtype_name, redop):
+    """Whether every order of the reduction gives the same bits (then a
+    ring or tree result equals the rank-order fold of reference_result)."""
+    return redop == "max" or dtype_name == "int64"
+
+
+def phase_comm(state):
+    """Every collective on card tensors, n = 5 ranks of which 2 replicated,
+    rank 1's computational worker killed mid-collective and repaired
+    (drain, replay): results, sender logs, recovery counts and priced
+    seconds bitwise equal to the same run on CPU tensors, and results
+    bitwise equal to reference_result; then again with the fattree
+    registry (trees, rings) and α‑β pricing."""
+    t0 = time.perf_counter()
+    counts = {"worlds": 0, "results": 0, "messages": 0, "promotions": 0,
+              "replays": 0, "duplicates_skipped": 0}
+    comm_s = {}
+    for topology in (None, "fattree"):
+        for dtype_name in COMM_DTYPES:
+            for redop in ("sum", "max"):
+                app, card = comm_case("cuda", dtype_name, redop, topology)
+                _, cpu = comm_case("cpu", dtype_name, redop, topology)
+                where = f"{topology} {dtype_name} {redop}"
+                for key in ("states", "logs", "comm_s", "promotions",
+                            "replays", "duplicates_skipped"):
+                    a, b = card[key], cpu[key]
+                    if key == "states":
+                        a, b = canon(a), canon(b)
+                    if a != b:
+                        raise AssertionError(f"comm {where}: {key} differs "
+                                             f"between card and CPU")
+                if card["promotions"] != 1 or card["replays"] == 0:
+                    raise AssertionError(f"comm {where}: no repair "
+                                         f"({card['promotions']} promotions, "
+                                         f"{card['replays']} replays)")
+                if topology is None or _exact(dtype_name, redop):
+                    for r, st in card["states"].items():
+                        want = [x for t in range(COMM_STEPS)
+                                for x in app.expected(
+                                    comm_lib.reference_result, r, t)]
+                        if canon(st["outs"]) != canon(want):
+                            raise AssertionError(f"comm {where}: rank {r} "
+                                                 f"differs from "
+                                                 f"reference_result")
+                        counts["results"] += len(want)
+                counts["worlds"] += 1
+                for key in ("messages", "promotions", "replays",
+                            "duplicates_skipped"):
+                    counts[key] += card[key]
+                if topology is not None:
+                    comm_s[f"{dtype_name}.{redop}"] = sum(card["comm_s"])
+    emit({"phase": "comm", "ranks": COMM_N, "replicated": COMM_M,
+          "steps": COMM_STEPS, "ops": sorted(comm_lib.COLLECTIVE_OPS),
+          "dtypes": sorted(COMM_DTYPES), "redops": ["sum", "max"],
+          "kill": dict(zip(("step", "round", "worker"), COMM_KILL)),
+          **counts, "card_equals_cpu": True,
+          "priced_comm_s_fattree_model": comm_s,
+          "seconds": time.perf_counter() - t0})
 
 
 # ---------------------------------------------------------------- phase 2
@@ -532,6 +636,63 @@ def expected_launches(cfg):
             "flash_attention": cfg.n_layers * 3, "mamba_scan": 0}
 
 
+FANOUT_CALLS = 7
+
+
+def fanout_line(card_name, arch, srv, prompts, device="cuda"):
+    """The request-batch fan-out: the server's own log (one bcast per
+    ``generate``, send-IDs 0, 1, ... in order, each entry for the serving
+    rank), then ``FANOUT_CALLS`` more fan-outs of the device batch through
+    a fattree-priced ``BatchFanout``: both received copies equal, each in
+    storage of its own (apart from each other and from the logged copy),
+    the cmp copy equal to the batch, the median host ms of a call (to the
+    device's end) and the priced comm seconds of one (the α‑β model's, not
+    a measurement)."""
+    log = srv.fanout.transport.send_logs[BatchFanout.FRONTEND_RANK]
+    entries = [(m.dst, m.tag, m.send_id, m.step) for m in log.log]
+    want = [(BatchFanout.SERVE_RANK, TAG_BCAST, i, i)
+            for i in range(len(entries))]
+    if not entries or entries != want:
+        raise AssertionError(f"fan-out log out of order: {entries}")
+    batch = torch.as_tensor(prompts, device=device)
+    fan = BatchFanout(True, FTConfig(mode="none", topology="fattree"))
+    sync = torch.cuda.synchronize if batch.is_cuda else (lambda: None)
+    host_ms, equal, own = [], True, True
+    for _ in range(FANOUT_CALLS):
+        sync()
+        t0 = time.perf_counter()
+        got = fan.fan_out(batch)
+        sync()
+        host_ms.append(1e3 * (time.perf_counter() - t0))
+        cmp_copy = fan.received[fan.rmap.cmp[BatchFanout.SERVE_RANK]]
+        rep_copy = fan.received[fan.rmap.rep[BatchFanout.SERVE_RANK]]
+        equal &= bool(torch.equal(cmp_copy, rep_copy)) and \
+            bool(torch.equal(got, batch)) and got.device == batch.device
+        logged = fan.transport.send_logs[BatchFanout.FRONTEND_RANK].log[-1]
+        own &= len({x.untyped_storage().data_ptr()
+                    for x in (cmp_copy, rep_copy, logged.payload)}) == 3
+    if not equal:
+        raise AssertionError("fan-out copies differ")
+    if not own:
+        raise AssertionError("fan-out copies share storage")
+    sids = [m.send_id for m in
+            fan.transport.send_logs[BatchFanout.FRONTEND_RANK].log]
+    if sids != list(range(FANOUT_CALLS)):
+        raise AssertionError(f"fan-out send-IDs out of order: {sids}")
+    emit({"fanout": arch, "server_sends": log.recorded_msgs,
+          "server_bytes": log.recorded_bytes,
+          "server_send_ids": [e[2] for e in entries],
+          "batch": list(batch.shape), "dtype": str(batch.dtype),
+          "device": str(got.device), "copies_equal": equal,
+          "copies_own_storage": own,
+          "priced_sends": FANOUT_CALLS, "send_ids": sids,
+          "bytes_per_send": log.log[0].nbytes(),
+          "priced_comm_s_per_fanout_model": fan.clock.breakdown.comm
+          / FANOUT_CALLS,
+          "host_ms": statistics.median(host_ms), "host_ms_all": host_ms,
+          "card": card_name})
+
+
 def serve(state, cfg):
     """The replicated serving path of ``cfg`` at full size; leaves the
     server in ``state`` for the times that follow."""
@@ -594,6 +755,7 @@ def serve(state, cfg):
           "card": state["card"]})
     if counts != want:
         raise AssertionError(f"launch counts {counts}, expected {want}")
+    fanout_line(state["card"], cfg.name, srv, prompts)
     state.setdefault("launches", {})[cfg.name] = counts
     state["server"] = srv
     state["prompts"] = prompts
@@ -900,7 +1062,7 @@ def phase_times_zamba(state):
     _free_server(state)
 
 
-PHASES = [phase_device_and_build, phase_rmsnorm, phase_attention,
+PHASES = [phase_device_and_build, phase_comm, phase_rmsnorm, phase_attention,
           phase_mamba_scan, phase_reference, phase_reference_zamba,
           phase_serve, phase_times, phase_serve_zamba, phase_times_zamba]
 

@@ -8,6 +8,9 @@ the obs port; see ROADMAP.md).
   * ``charge(component, seconds)`` books time into the ledger and, by
     default, advances the schedule clock with it; ``advance=False`` books
     a ledger-only charge (FTSession's repair and replica share);
+  * ``charge_comm(transport)`` drains a priced ``ReplicaTransport``: the
+    max per-sender α‑β message time accrued since the last take is charged
+    to ``comm``;
   * ``injection_horizon`` is the failure-injection horizon with slack.
 """
 from __future__ import annotations
@@ -26,11 +29,16 @@ def injection_horizon(n_steps: int, step_time_s: float,
 
 
 class VirtualClock:
-    """Schedule clock + TimeBreakdown ledger."""
+    """Schedule clock + TimeBreakdown ledger. ``cost_model`` is the
+    optional ``topo.TopoCostModel`` the owning runtime priced its
+    transports with, kept so other layers can price through the same
+    model."""
 
-    def __init__(self, breakdown: Optional[TimeBreakdown] = None):
+    def __init__(self, breakdown: Optional[TimeBreakdown] = None,
+                 cost_model=None):
         self.breakdown = breakdown if breakdown is not None \
             else TimeBreakdown()
+        self.cost_model = cost_model
         self.now = 0.0
 
     def charge(self, component: str, seconds: float, *,
@@ -50,3 +58,14 @@ class VirtualClock:
         if advance:
             self.now += seconds
         return seconds
+
+    # -- priced-transport draining -------------------------------------------
+
+    def charge_comm(self, transport, *, component: str = "comm",
+                    advance: bool = True) -> float:
+        """Drain the transport's accrued α‑β message time and charge it
+        (to ``comm`` by default)."""
+        dt = transport.take_comm_time()
+        if dt:
+            self.charge(component, dt, advance=advance)
+        return dt

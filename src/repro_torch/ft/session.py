@@ -83,8 +83,10 @@ class FTSession:
         self.topology = ClusterTopology(self.rmap.world_size,
                                         self.workers_per_node)
         self.coords = CoordinatorSet(self.topology, float("inf"))
-        pricing_from_ft(self.ft, self.topology)      # raises if priced
-        self.clock = VirtualClock()
+        # cost-model injection (clock.pricing): with FTConfig.topology set
+        # the session's clock carries the topology's cost model
+        self.pricing = pricing_from_ft(self.ft, self.topology)
+        self.clock = VirtualClock(cost_model=self.pricing.cost_model)
 
     # -- main loop -----------------------------------------------------------
 
@@ -92,7 +94,8 @@ class FTSession:
         rep = RunReport()
         wall0 = time.perf_counter()
         self._init_fabric()                       # re-entrant sessions
-        clock = self.clock = VirtualClock(breakdown=rep.time)
+        clock = self.clock = VirtualClock(breakdown=rep.time,
+                                          cost_model=self.pricing.cost_model)
         state = workload.init_state()
         strat = self.strategy
         strat.on_start(workload, state, rep)

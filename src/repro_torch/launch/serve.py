@@ -1,5 +1,5 @@
 """Serving driver: batched prefill + greedy decode with replication
-failover (port of ``repro/launch/serve.py:114-238``).
+failover (port of ``repro/launch/serve.py``).
 
 The decode loop is a ``DecodeWorkload`` whose state carries the KV cache;
 ``FTSession`` owns replica management, so when the computational slice
@@ -7,11 +7,12 @@ fails mid-generation the replica's cache is CURRENT and failover costs one
 promotion (no prefill replay). The server runs on the card unless it is
 given ``device="cpu"``.
 
-The JAX server routes each request batch to the serving rank over a
-replicated transport (``BatchFanout``). That transport is not ported yet
-(ROADMAP.md, Queue 1 item 3); the fan-out is an identity on the batch, so
-``generate`` hands the prompt batch to the workload directly and the token
-stream is the same.
+Request batches reach the serving rank through ``BatchFanout``: a
+``ReplicaTransport`` bcast from an unreplicated frontend rank, so the
+computational copy arrives cmp→cmp and the replica copy over the §5
+intercomm fill-in, logged with send-IDs like any other message. On the
+card the bcast carries the device tensor of the batch; the batch is never
+copied to the host for it.
 
 Any ported family serves through the same code: the dense qwen3-8b (the
 default) and the zamba2-7b hybrid, whose state carries a recurrent Mamba
@@ -31,10 +32,79 @@ import numpy as np
 import torch
 
 from repro_torch import device as device_lib
+from repro_torch.clock import VirtualClock, pricing_from_ft
+from repro_torch.comm import NOTHING, CollectiveEngine, ReplicaTransport
 from repro_torch.configs import RunConfig, get_arch
 from repro_torch.configs.base import FTConfig, ShapeConfig
+from repro_torch.core.coordinator import ClusterTopology
+from repro_torch.core.replica_map import ReplicaMap
 from repro_torch.ft import DecodeWorkload, FTSession, StepKillInjector
 from repro_torch.launch.step_fns import make_decode_step, make_prefill_step
+
+
+class BatchFanout:
+    """Routes each request batch over a ReplicaTransport bcast.
+
+    Two logical ranks: rank 0 is the serving rank (replicated when the
+    server replicates), rank 1 the unreplicated frontend holding the
+    batch.  A ``bcast`` rooted at the frontend delivers the batch cmp→cmp
+    to the serving computational worker and — because the destination is
+    replicated and the source is not — over the intercomm fill-in to the
+    replica worker, logged with send-IDs like any training message.  Each
+    worker receives a tensor of its own (a clone of the logged one); both
+    must be bitwise identical, and the cmp copy feeds the workload.
+
+    With ``ft.topology`` set the fan-out traffic is α‑β-priced and charged
+    into the fan-out's ``VirtualClock``; ``generate`` merges it into the
+    run's ``RunReport.time.comm``.
+    """
+
+    SERVE_RANK, FRONTEND_RANK = 0, 1
+
+    def __init__(self, replication: bool, ft: FTConfig = None):
+        self.rmap = ReplicaMap(2, 1 if replication else 0)
+        cluster = ClusterTopology(self.rmap.world_size, 1)
+        pricing = pricing_from_ft(ft or FTConfig(), cluster)
+        self.clock = VirtualClock(cost_model=pricing.cost_model)
+        self.transport = ReplicaTransport(self.rmap, 2,
+                                          cost_model=pricing.cost_model)
+        self.engine = CollectiveEngine(self.transport)
+        self.eps = {w: self.transport.register(w) for w in self.rmap.alive()}
+        self.fanouts = 0
+        self.received = {}               # worker -> its copy, last round
+
+    def fan_out(self, batch: torch.Tensor) -> torch.Tensor:
+        """One bcast round; returns the batch as received by the serving
+        computational worker."""
+        self.engine.begin_step()
+        step = self.fanouts
+        pend = {
+            w: self.engine.post(
+                ep,
+                ("bcast",
+                 batch if self.rmap.role_of(w)[1] == self.FRONTEND_RANK
+                 else None,
+                 self.FRONTEND_RANK),
+                step)
+            for w, ep in self.eps.items()}
+        got = {}
+        while len(got) < len(pend):
+            for w, ep in self.eps.items():
+                if w in got:
+                    continue
+                out = self.engine.resolve(ep, pend[w])
+                if out is not NOTHING:
+                    got[w] = out
+        self.received = got
+        cmp_w = self.rmap.cmp[self.SERVE_RANK]
+        rep_w = self.rmap.rep[self.SERVE_RANK]
+        if rep_w is not None and not torch.equal(got[cmp_w], got[rep_w]):
+            raise RuntimeError("the replica received another batch than "
+                               "the computational worker")
+        self.fanouts += 1
+        # priced fan-out traffic -> the clock's comm ledger (0.0 unpriced)
+        self.clock.charge_comm(self.transport)
+        return got[cmp_w]
 
 
 class ReplicatedServer:
@@ -43,7 +113,7 @@ class ReplicatedServer:
 
     def __init__(self, arch: str, *, reduced: bool = True, batch: int = 4,
                  prompt_len: int = 32, replication: bool = True,
-                 seed: int = 0, device=None):
+                 seed: int = 0, device=None, topology: str = None):
         dev = device_lib.resolve(device)
         cfg = get_arch(arch)
         if reduced:
@@ -60,13 +130,18 @@ class ReplicatedServer:
         self.replication = replication
         self.batch = batch
         self.prompt_len = prompt_len
+        self.topology = topology
+        self.fanout = BatchFanout(replication,
+                                  ft=FTConfig(mode="none", topology=topology))
         self.failures = 0
         self.promotions = 0
         self.last_report = None
 
-    def workload(self, prompt_tokens: np.ndarray) -> DecodeWorkload:
-        """The decode loop as a Workload (also used by tests directly)."""
-        tokens = torch.as_tensor(np.asarray(prompt_tokens), device=self.device)
+    def workload(self, prompt_tokens) -> DecodeWorkload:
+        """The decode loop as a Workload (also used by tests directly);
+        ``prompt_tokens`` is an ndarray or a tensor, moved to the server's
+        device once."""
+        tokens = torch.as_tensor(prompt_tokens, device=self.device)
         return DecodeWorkload(params=self.model, prefill=self.prefill,
                               decode=self.decode, batch={"tokens": tokens},
                               prompt_len=self.prompt_len)
@@ -77,21 +152,29 @@ class ReplicatedServer:
         death is fatal (a restart would need a prefill replay)."""
         mode = "replication" if self.replication else "none"
         injector = StepKillInjector({kill_at: [0]}) if kill_at >= 0 else None
-        return FTSession(ft=FTConfig(mode=mode), injector=injector,
-                         n_logical_workers=1, workers_per_node=1,
-                         allow_restart=False)
+        return FTSession(ft=FTConfig(mode=mode, topology=self.topology),
+                         injector=injector, n_logical_workers=1,
+                         workers_per_node=1, allow_restart=False)
 
     def generate(self, prompt_tokens: np.ndarray, n_gen: int,
                  kill_at: int = -1) -> np.ndarray:
         """Greedy decode; kill_at k kills the computational slice after k
-        generated tokens (replication failover or abort)."""
+        generated tokens (replication failover or abort). The batch, int32
+        as given, reaches the serving rank over the transport bcast
+        (logged, deduped) as a tensor on the server's device."""
         session = self.session(kill_at)
+        comm0 = self.fanout.clock.breakdown.comm
+        tokens = self.fanout.fan_out(
+            torch.as_tensor(prompt_tokens, device=self.device))
         try:
-            rep = session.run(self.workload(prompt_tokens), n_gen)
+            rep = session.run(self.workload(tokens), n_gen)
         except RuntimeError:
             # fatal (unrecoverable) kill: still record the failure
             self.failures += 1
             raise
+        # the batch fan-out's priced traffic lands in the same ledger as
+        # the run's own time (0.0 without a topology)
+        rep.time.comm += self.fanout.clock.breakdown.comm - comm0
         self.last_report = rep
         self.failures += rep.failures
         self.promotions += rep.promotions
@@ -110,12 +193,15 @@ def main(argv=None):
     ap.add_argument("--kill-at", type=int, default=-1)
     ap.add_argument("--no-replication", action="store_true")
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--topology", default=None,
+                    help="price fan-out + session time over this topo graph "
+                         "(flat|fattree|dragonfly|torus3d)")
     args = ap.parse_args(argv)
 
     srv = ReplicatedServer(args.arch, reduced=args.reduced, batch=args.batch,
                            prompt_len=args.prompt_len,
                            replication=not args.no_replication,
-                           device=args.device)
+                           device=args.device, topology=args.topology)
     prompts = np.random.default_rng(0).integers(
         0, srv.cfg.vocab_size, (args.batch, args.prompt_len), dtype=np.int32)
     t0 = time.perf_counter()
@@ -123,6 +209,7 @@ def main(argv=None):
     dt = time.perf_counter() - t0
     print(f"arch={args.arch} device={srv.device} generated={toks.shape} "
           f"failures={srv.failures} promotions={srv.promotions} "
+          f"comm_s={srv.last_report.time.comm} "
           f"wall={dt:.3f}s tok/s={toks.size / dt:.1f}")
     return 0
 

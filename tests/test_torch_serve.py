@@ -13,6 +13,10 @@
   replica map, planner, clock) against ``repro``'s on one numpy workload
   and the same kill schedules: every ``RunReport`` field, the event list
   and the final state are equal (exact: the same arithmetic on the host).
+* Topology pricing and the request-batch fan-out (``BatchFanout``)
+  against ``repro``'s: the same priced seconds, received batch and log
+  entries (exact: integer bookkeeping and the same float arithmetic).
+  The ``cuda`` case skips without a card.
 """
 import numpy as np
 import pytest
@@ -22,7 +26,7 @@ from repro.configs.base import FTConfig as JaxFTConfig
 from repro.ft import FTSession as JaxFTSession
 from repro_torch.configs.base import FTConfig
 from repro_torch.ft import DecodeWorkload, FTSession, make_strategy
-from repro_torch.launch.serve import ReplicatedServer
+from repro_torch.launch.serve import BatchFanout, ReplicatedServer
 from repro_torch.tree import copy_tree, tree_map
 
 
@@ -220,6 +224,114 @@ def test_checkpoint_modes_not_ported_yet(mode):
         make_strategy(FTConfig(mode=mode))
 
 
-def test_topology_pricing_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        FTSession(ft=FTConfig(mode="replication", topology="fattree"))
+TOPOLOGIES = ("flat", "fattree", "dragonfly", "torus3d")
+
+
+@pytest.mark.parametrize("topology", TOPOLOGIES)
+def test_session_prices_like_the_reference(topology):
+    """An FTSession with a topology builds, and its cost model prices
+    every worker pair and message size as the reference session's does."""
+    def prices(session_cls, ft_cls):
+        session = session_cls(ft=ft_cls(mode="replication", topology=topology,
+                                        topo_alpha=7e-6, topo_gamma=1e-11),
+                              n_logical_workers=6, workers_per_node=2)
+        cm = session.pricing.cost_model
+        assert session.clock.cost_model is cm and session.pricing.priced
+        assert session.pricing.graph.kind == topology
+        ws = range(session.rmap.world_size)
+        return [cm.msg_cost_workers(a, b, nbytes) for a in ws for b in ws
+                for nbytes in (0, 8192, 4 * 512 * 4, 1 << 24)]
+
+    assert prices(FTSession, FTConfig) == prices(JaxFTSession, JaxFTConfig)
+
+
+# ------------------------------------------------- the request-batch fan-out
+
+def _log_entries(fanout):
+    log = fanout.transport.send_logs[fanout.FRONTEND_RANK]
+    return [(m.dst, m.tag, m.send_id, m.step, m.nbytes()) for m in log.log]
+
+
+@pytest.mark.parametrize("replication", [True, False])
+@pytest.mark.parametrize("topology", [None, "fattree"])
+def test_fanout_matches_the_reference(replication, topology):
+    """The port's BatchFanout on a CPU tensor against the JAX package's on
+    the same int32 ndarray, over two rounds: the same received batch, log
+    entries (dst, tag, send-ID, step, bytes) and priced comm seconds."""
+    from repro.launch.serve import BatchFanout as JaxBatchFanout
+    batch = np.random.default_rng(4).integers(0, 400, (4, 512),
+                                              dtype=np.int32)
+    ours = BatchFanout(replication, FTConfig(mode="none", topology=topology))
+    theirs = JaxBatchFanout(replication,
+                            JaxFTConfig(mode="none", topology=topology))
+    for _ in range(2):
+        got = ours.fan_out(torch.from_numpy(batch.copy()))
+        want = theirs.fan_out(batch.copy())
+        assert got.dtype == torch.int32
+        np.testing.assert_array_equal(got.numpy(), want)
+        assert ours.clock.breakdown.comm == theirs.clock.breakdown.comm
+    assert _log_entries(ours) == _log_entries(theirs)
+    assert len(_log_entries(ours)) == 2
+    assert (ours.clock.breakdown.comm > 0) == (topology is not None)
+    if replication:
+        cmp_copy, rep_copy = (ours.received[ours.rmap.cmp[0]],
+                              ours.received[ours.rmap.rep[0]])
+        assert torch.equal(cmp_copy, rep_copy)
+        # each worker's copy is its own: the equality check compares two
+        # tensors, and the workload's writes reach neither the replica
+        # nor the frontend's log
+        logged = ours.transport.send_logs[ours.FRONTEND_RANK].log[-1].payload
+        ptrs = {x.untyped_storage().data_ptr()
+                for x in (cmp_copy, rep_copy, logged)}
+        assert len(ptrs) == 3
+        cmp_copy.fill_(-1)
+        assert np.array_equal(rep_copy.numpy(), batch)
+        assert np.array_equal(logged.numpy(), batch)
+
+
+def test_generate_prices_the_fanout_like_the_reference():
+    """The reduced qwen3-8b served with topology="fattree" and a kill: the
+    run's comm seconds are the JAX server's for the same config, batch and
+    prompt length; the tokens are the unpriced clean run's; one
+    promotion; one logged fan-out per generate."""
+    from repro.launch.serve import ReplicatedServer as JaxServer
+    prompts = np.random.default_rng(5).integers(0, 400, (2, 16),
+                                                dtype=np.int32)
+    clean = ReplicatedServer("qwen3-8b", batch=2, prompt_len=16,
+                             device="cpu").generate(prompts, 4)
+    ours = ReplicatedServer("qwen3-8b", batch=2, prompt_len=16, device="cpu",
+                            topology="fattree")
+    toks = ours.generate(prompts, 4, kill_at=2)
+    theirs = JaxServer("qwen3-8b", batch=2, prompt_len=16,
+                       topology="fattree")
+    theirs.generate(prompts.copy(), 4, kill_at=2)   # freezes its batch
+    np.testing.assert_array_equal(toks, clean)
+    assert ours.promotions == 1
+    assert ours.last_report.time.comm == theirs.last_report.time.comm > 0
+    assert ours.last_report.time.as_dict() == \
+        theirs.last_report.time.as_dict()
+    ours.generate(prompts, 4)
+    assert [e[2] for e in _log_entries(ours.fanout)] == [0, 1]
+
+
+@pytest.mark.cuda
+def test_fanout_of_a_device_batch_stays_on_the_card():
+    """On the card the bcast carries the device tensor: both received
+    copies are on the card, equal to the batch and to each other, and the
+    priced seconds are the CPU fan-out's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with CUDA")
+    batch = torch.from_numpy(np.random.default_rng(6).integers(
+        0, 400, (4, 512), dtype=np.int32))
+    fans = [BatchFanout(True, FTConfig(mode="none", topology="fattree"))
+            for _ in range(2)]
+    card = fans[0].fan_out(batch.cuda())
+    cpu = fans[1].fan_out(batch)
+    assert card.is_cuda and torch.equal(card.cpu(), batch)
+    copies = list(fans[0].received.values())
+    assert all(c.is_cuda and torch.equal(c, copies[0]) for c in copies)
+    # the frontend's, the computational worker's and the replica's
+    assert len({c.untyped_storage().data_ptr() for c in copies}) == \
+        len(copies) == 3
+    assert fans[0].clock.breakdown.comm == fans[1].clock.breakdown.comm
+    assert _log_entries(fans[0]) == _log_entries(fans[1])
