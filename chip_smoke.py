@@ -41,6 +41,25 @@ Phases (each a function; any failure exits non-zero):
      line: the server's log, one send-ID per ``generate`` in order, then a
      priced fan-out of the device batch timed on the host, its copies
      equal);
+  6b. serve.ckpt, for each model: the server's decode loop (batch 4,
+     512-token prompt, GEN steps) under an ``FTSession`` of 8 logical
+     ranks (4 a node) with replicated in-memory checkpoints (``store``):
+     combined mode with a promotion then a pair death, checkpoint mode
+     with an unreplicated death; each restart restores the state from
+     partner memory onto the card, and the stream equals the clean one
+     bitwise; prints the state's bytes, the host bytes each generation's
+     bands hold (shared frozen arrays, one copy per generation), save and
+     restore wall ms and the kernels' launches;
+  6c. obs (qwen3-8b): a second full-size server with a recorder
+     (``obs=True``, fattree pricing) serves the killed stream: spans closed
+     and nested, one kill, a promote arc, the fan-out's counted bytes
+     equal to what it sent, measured link heat, a Chrome trace that loads;
+     kernel launches equal with the recorder on and off; host ms a decode
+     step on and off;
+  6d. store (qwen3-8b): one ``MemStore`` world (4 ranks, 4 replicas, 2 a
+     node, k = 2) over the card's KV rings: every f <= k node or pair
+     death restores bitwise onto the card, a death mid-commit restores the
+     previous generation, more than k failure domains lost raises;
   7. times, after each serve phase: CUDA-event medians of each kernel, its
      plain version and the PyTorch library call (where one exists) at the
      path's shapes (the fused norm beside ``x + r`` and ``F.rms_norm``),
@@ -48,18 +67,22 @@ Phases (each a function; any failure exits non-zero):
      decode times. Each model's servers are freed before the next model's
      serve phase.
 
-Prints JSON lines as it goes (``comm``, ``fanout`` and ``serve`` lines
-among them), then ``{"kernels": [...]}`` and, last,
+Prints JSON lines as it goes (``comm``, ``fanout``, ``serve``,
+``serve.ckpt``, ``obs`` and ``store`` lines among them), then ``{"kernels": [...]}`` and, last,
 ``{"ok": true, "device": {...}}``. Exits non-zero without CUDA, and when run
 outside the repository (the port's package must be beside it in ``src``).
 """
 from __future__ import annotations
 
+import contextlib
+import copy
 import dataclasses
 import gc
+import itertools
 import json
 import os
 import re
+import resource
 import shutil
 import statistics
 import subprocess
@@ -81,6 +104,10 @@ from repro_torch.comm.worlds import (  # noqa: E402
     PORT_FABRIC, CommZoo, canon, run_world, tensor_maker)
 from repro_torch.configs import get_arch  # noqa: E402
 from repro_torch.configs.base import FTConfig  # noqa: E402
+from repro_torch.core.coordinator import ClusterTopology  # noqa: E402
+from repro_torch.core.replica_map import (  # noqa: E402
+    ApplicationDead, ReplicaMap)
+from repro_torch.ft import DecodeWorkload, FTSession  # noqa: E402
 from repro_torch.kernels import build, ref  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
 from repro_torch.kernels.mamba_scan import mamba_chunk_scan  # noqa: E402
@@ -90,7 +117,11 @@ from repro_torch.launch.serve import (  # noqa: E402
 from repro_torch.models import api, mamba2  # noqa: E402
 from repro_torch.models.transformer import Transformer  # noqa: E402
 from repro_torch.models.zamba import Zamba  # noqa: E402
-from repro_torch.tree import tree_map  # noqa: E402
+from repro_torch.obs import write_chrome_trace  # noqa: E402
+from repro_torch.store import MemStore, StoreUnrecoverable  # noqa: E402
+from repro_torch.store.backend import (  # noqa: E402
+    MemBackend, from_host, to_host)
+from repro_torch.tree import copy_tree, tree_map  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 BF16_FLOPS = 989e12                # dense bf16 tensor-core peak
@@ -759,6 +790,7 @@ def serve(state, cfg):
     state.setdefault("launches", {})[cfg.name] = counts
     state["server"] = srv
     state["prompts"] = prompts
+    state.setdefault("clean_tokens", {})[cfg.name] = clean
     state.setdefault("generate_tok_per_s", {})[cfg.name] = clean.size / wall
 
 
@@ -768,6 +800,397 @@ def phase_serve(state):
 
 def phase_serve_zamba(state):
     serve(state, ZAMBA)
+
+
+# ------------------------------------------------------ phase 6b: serve.ckpt
+
+# (mode, kills, checkpoint interval): the reference's own store tests
+# (tests/test_store.py::test_session_pair_death_memory_backend_bitwise and
+# ::test_session_checkpoint_only_memory_backend); 8 logical ranks, 4 a node
+CKPT_RUNS = (("combined", {4: [1], 8: [9]}, 4.0),     # promote, pair death
+             ("checkpoint", {7: [2]}, 3.0))           # unreplicated death
+CKPT_RANKS, CKPT_PER_NODE = 8, 4
+
+
+@contextlib.contextmanager
+def _backend_timer():
+    """Wall ms of every ``MemBackend`` save and restore in the block (the
+    card synchronised around each), and the devices of each restored
+    state's tensors at the moment it is restored."""
+    saves, restores = [], []
+    save, restore = MemBackend.save, MemBackend.restore
+
+    def timed_save(self, *args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = save(self, *args, **kw)
+        saves.append(1e3 * (time.perf_counter() - t0))
+        return out
+
+    def timed_restore(self, *args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = restore(self, *args, **kw)
+        torch.cuda.synchronize()
+        restores.append({"ms": 1e3 * (time.perf_counter() - t0),
+                         "devices": sorted({t.device.type for t in
+                                            _state_tensors(out[0])})})
+        return out
+
+    MemBackend.save, MemBackend.restore = timed_save, timed_restore
+    try:
+        yield saves, restores
+    finally:
+        MemBackend.save, MemBackend.restore = save, restore
+
+
+def _held_bytes(store):
+    """Host bytes of the distinct band arrays the store holds, by
+    generation, and how many references (owner-local and partner copies)
+    point at them: a band is one frozen array however many workers keep
+    it."""
+    arrays, refs = {}, {}
+    for ws in store.stores.values():
+        for (_owner, gen), ss in ws.items():
+            for band in ss.bands.values():
+                arrays.setdefault(gen, {})[id(band)] = band.nbytes
+                refs[gen] = refs.get(gen, 0) + 1
+    return ({str(g): sum(a.values()) for g, a in sorted(arrays.items())},
+            {str(g): refs[g] for g in sorted(refs)},
+            {str(g): len(a) for g, a in sorted(arrays.items())})
+
+
+def _state_nbytes(state):
+    return sum(t.numel() * t.element_size() for t in _state_tensors(state))
+
+
+def serve_ckpt(state, cfg):
+    """The served decode loop of ``cfg`` at full size under the checkpoint
+    strategies (CKPT_RUNS): each restart restores from partner memory onto
+    the card and the stream equals the clean one bitwise."""
+    srv, prompts = state["server"], state["prompts"]
+    clean = state["clean_tokens"][cfg.name]
+    runs = []
+    for mode, kills, interval in CKPT_RUNS:
+        session = FTSession(ft=FTConfig(mode=mode, ckpt_backend="memory",
+                                        ckpt_interval_s=interval),
+                            injector=dict(kills),
+                            n_logical_workers=CKPT_RANKS,
+                            workers_per_node=CKPT_PER_NODE)
+        reset_launches()
+        t0 = time.perf_counter()
+        with _backend_timer() as (saves, restores):
+            rep = session.run(srv.workload(prompts), GEN)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_launches()
+        toks = DecodeWorkload.tokens(rep.final_state)
+        restart = [e.detail["restore_backend"] for e in rep.events
+                   if e.kind == "restart_elastic"]
+        store = session.strategy.backend.store
+        held, refs, arrays = _held_bytes(store)
+        row = {"mode": mode, "kills": {str(k): v for k, v in kills.items()},
+               "ckpt_interval_s": interval, "promotions": rep.promotions,
+               "restarts": rep.restarts, "failures": rep.failures,
+               "rolled_back_steps": rep.rolled_back_steps,
+               "ckpt_writes": rep.ckpt_writes, "restore_backend": restart,
+               "tokens_equal": bool(np.array_equal(toks, clean)),
+               "restored_devices": [r["devices"] for r in restores],
+               "state_tensor_bytes": _state_nbytes(rep.final_state),
+               "store_committed_bytes": store.committed_bytes,
+               "host_bytes_by_generation": held,
+               "band_arrays_by_generation": arrays,
+               "band_references_by_generation": refs,
+               "save_ms": statistics.median(saves), "save_ms_all": saves,
+               "restore_ms": [r["ms"] for r in restores],
+               "ledger_ckpt_write_s_model": rep.time.ckpt_write,
+               "ledger_restore_s_model": rep.time.restore,
+               "launches": launches, "wall_s": wall,
+               "host_max_rss_gb": resource.getrusage(
+                   resource.RUSAGE_SELF).ru_maxrss / 2 ** 20}
+        runs.append(row)
+        if rep.restarts != 1 or restart != ["memory"]:
+            raise AssertionError(f"{cfg.name} {mode}: restarts "
+                                 f"{rep.restarts}, restore {restart}")
+        if not row["tokens_equal"]:
+            raise AssertionError(f"{cfg.name} {mode}: the stream after the "
+                                 f"restart differs from the clean one")
+        if [r["devices"] for r in restores] != [["cuda"]]:
+            raise AssertionError(f"{cfg.name} {mode}: restored state on "
+                                 f"{row['restored_devices']}")
+        if mode == "combined" and (rep.promotions != 1
+                                   or rep.rolled_back_steps <= 0):
+            raise AssertionError(f"{cfg.name} combined: promotions "
+                                 f"{rep.promotions}, rolled back "
+                                 f"{rep.rolled_back_steps}")
+        if min(launches[k] for k in ("rmsnorm", "flash_attention")) == 0 or \
+                (cfg.family == "hybrid" and launches["mamba_scan"] == 0):
+            raise AssertionError(f"{cfg.name} {mode}: a kernel of the path "
+                                 f"was not launched: {launches}")
+        del session, rep, store
+        gc.collect()
+    emit({"serve.ckpt": cfg.name, "ranks": CKPT_RANKS,
+          "workers_per_node": CKPT_PER_NODE, "batch": B, "prompt_len": S,
+          "gen": GEN, "runs": runs, "card": state["card"]})
+
+
+def phase_serve_ckpt(state):
+    serve_ckpt(state, QWEN)
+
+
+def phase_serve_ckpt_zamba(state):
+    serve_ckpt(state, ZAMBA)
+
+
+# ------------------------------------------------------------ phase 6c: obs
+
+TRACE_DIR = os.path.join(ROOT, "build", "traces")   # build/ is gitignored
+
+
+class _TimedSteps:
+    """A workload whose decode steps are each timed on the host, the card
+    synchronised around each."""
+
+    def __init__(self, inner):
+        self.inner, self.ms = inner, []
+
+    def init_state(self):
+        return self.inner.init_state()
+
+    def step(self, st, t):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = self.inner.step(st, t)
+        torch.cuda.synchronize()
+        self.ms.append(1e3 * (time.perf_counter() - t0))
+        return out
+
+
+def _nested_and_closed(tracer):
+    if tracer.open_spans():
+        return False
+    for s in tracer.spans:
+        if not s.instant and s.dur is None:
+            return False
+        if s.parent >= 0:
+            p = tracer.spans[s.parent]
+            if p.tid != s.tid or s.ts < p.ts - 1e-9 or (
+                    s.dur is not None and p.dur is not None
+                    and s.ts + s.dur > p.ts + p.dur + 1e-9):
+                return False
+    return True
+
+
+def phase_obs(state):
+    """The full-width qwen3-8b replicated generate with a kill, served by a
+    second server with a recorder and fattree pricing; the same generate
+    on the server without one; then each server's decode steps timed,
+    off and on in turns."""
+    off = state["server"]
+    prompts = state["prompts"]
+    on = ReplicatedServer(QWEN.name, reduced=False, batch=B, prompt_len=S,
+                          device="cuda", topology="fattree", obs=True)
+    launches = {}
+    for name, srv in (("off", off), ("on", on)):
+        reset_launches()
+        toks = srv.generate(prompts, GEN, kill_at=KILL_AT)
+        torch.cuda.synchronize()
+        launches[name] = read_launches()
+        if not np.array_equal(toks, state["clean_tokens"][QWEN.name]):
+            raise AssertionError(f"obs {name}: the stream differs")
+    snap = on.last_report.obs_metrics
+    tracer = on.obs.tracer
+    c = snap["counters"]
+    log = on.fanout.transport.send_logs[BatchFanout.FRONTEND_RANK]
+    sent_bytes = log.log[-1].nbytes()
+    os.makedirs(TRACE_DIR, exist_ok=True)
+    path = os.path.join(TRACE_DIR, "obs_serve_trace.json")
+    write_chrome_trace(path, tracer, snap)
+    with open(path) as f:
+        events = len(json.load(f)["traceEvents"])
+    promote_arcs = [s for s in tracer.spans if s.name == "recovery.promote"]
+    checks = {
+        "spans_closed_and_nested": _nested_and_closed(tracer),
+        "kills": c.get("failures.kills.worker") == 1,
+        "promote_arc": len(promote_arcs) == 1
+        and promote_arcs[0].dur is not None,
+        "fanout_bytes": c.get("comm.bytes.coll.cmp") == log.recorded_bytes
+        == sent_bytes == B * S * 4,
+        "fanout_msgs": c.get("comm.msgs.coll.cmp") == log.recorded_msgs == 1,
+        "link_heat": snap.get("links", {}).get("max_contended", {})
+        .get("busy_s", 0) > 0,
+        "launches_equal": launches["on"] == launches["off"],
+    }
+    timed = {"off": [], "on": []}
+    for name in ("off", "on", "off", "on"):
+        srv = off if name == "off" else on
+        wl = _TimedSteps(srv.workload(prompts))
+        srv.session(KILL_AT).run(wl, GEN)
+        timed[name] += wl.ms
+    emit({"obs": QWEN.name, "topology": "fattree", "checks": checks,
+          "counters": {k: c[k] for k in sorted(c) if k.startswith(
+              ("comm.", "failures.", "steps.", "collectives."))},
+          "spans": len(tracer.spans), "trace_events": events,
+          "trace": os.path.relpath(path, ROOT),
+          "max_contended_link": snap["links"]["max_contended"],
+          "launches_on": launches["on"], "launches_off": launches["off"],
+          "decode_host_ms_on": statistics.median(timed["on"]),
+          "decode_host_ms_off": statistics.median(timed["off"]),
+          "decode_steps_timed": {k: len(v) for k, v in timed.items()},
+          "card": state["card"]})
+    if not all(checks.values()):
+        raise AssertionError(f"obs checks failed: {checks}")
+    del on
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------- phase 6d: store
+
+STORE_N, STORE_PER_NODE, STORE_K = 4, 2, 2
+
+
+def _store_world():
+    rmap = ReplicaMap(STORE_N, STORE_N)
+    topo = ClusterTopology(rmap.world_size, STORE_PER_NODE)
+    t = comm_lib.ReplicaTransport(rmap, STORE_N)
+    for w in rmap.alive():
+        t.register(w)
+    return topo, MemStore(t, topo, k_partners=STORE_K, n_bands=4)
+
+
+def _store_kill(store, workers):
+    try:
+        store.transport.rmap.fail_many(list(workers))
+    except ApplicationDead:
+        pass
+    for w in workers:
+        store.lose_worker(w)
+
+
+def _store_respawn(store, topo):
+    rmap = store.transport.rmap.restart_map(store.transport.rmap.world_size)
+    t = comm_lib.ReplicaTransport(rmap, STORE_N)
+    for w in rmap.alive():
+        t.register(w)
+    store.rebind(topology=topo, transport=t)
+
+
+def _encode_ranks(cache):
+    """Rank r's payload: the host form of layers r, r + n, ... of the
+    cache (one device-to-host copy per tensor), and its manifest."""
+    out = {r: to_host(cache[r::STORE_N]) for r in range(STORE_N)}
+    return ({r: host for r, (host, _) in out.items()},
+            {r: man for r, (_, man) in out.items()})
+
+
+def _restore_equal(store, manifests, want, like):
+    """Restore the store's durable generation onto the card and compare
+    every tensor with ``want``'s bitwise; returns (step, equal, ms)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got, step = store.restore()
+    tensors = [from_host(got[r], manifests[r], like[r::STORE_N])
+               for r in range(STORE_N)]
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0)
+    a = [t for r in range(STORE_N) for t in _state_tensors(tensors[r])]
+    b = [t for r in range(STORE_N) for t in _state_tensors(want[r::STORE_N])]
+    equal = len(a) == len(b) and all(
+        x.is_cuda and x.dtype == y.dtype and torch.equal(x, y)
+        for x, y in zip(a, b))
+    return step, equal, ms
+
+
+def phase_store(state):
+    """One MemStore world over qwen3-8b's prefill KV rings on the card."""
+    srv, prompts = state["server"], state["prompts"]
+    wl = srv.workload(prompts)
+    st = wl.init_state()
+    cache_a = copy_tree(st["cache"])            # generation 1's state
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    host_a, man_a = _encode_ranks(cache_a)
+    encode_ms = 1e3 * (time.perf_counter() - t0)
+    topo, base = _store_world()
+    # the save's three phases: encode + CRC + push, partner intake (CRC
+    # of every received band set) + acks, commit
+    save_ms = {}
+    t0 = time.perf_counter()
+    gen = base.begin_save(5, host_a)
+    save_ms["begin_save"] = 1e3 * (time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    base.pump()
+    save_ms["pump"] = 1e3 * (time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    if not base.try_commit(gen):
+        raise AssertionError("store: the first generation did not commit")
+    save_ms["try_commit"] = 1e3 * (time.perf_counter() - t0)
+    held, refs, _ = _held_bytes(base)
+    # every combination of f <= k node or pair deaths
+    rmap = base.transport.rmap
+    units = [tuple(topo.workers_on(nd)) for nd in range(topo.n_nodes)]
+    units += [(rmap.cmp[r], rmap.rep[r]) for r in range(STORE_N)]
+    combos, restore_ms = 0, []
+    for f in range(1, STORE_K + 1):
+        for combo in itertools.combinations(units, f):
+            store = copy.deepcopy(base)          # host bands only
+            dead = sorted(set(itertools.chain.from_iterable(combo)))
+            _store_kill(store, dead)
+            _store_respawn(store, topo)
+            step, equal, ms = _restore_equal(store, man_a, cache_a,
+                                             st["cache"])
+            if step != 5 or not equal:
+                raise AssertionError(f"store: {combo} restored step {step}, "
+                                     f"bitwise {equal}")
+            combos += 1
+            restore_ms.append(ms)
+    # a pair death mid-commit: generation 2 is abandoned, 1 restores
+    st, _ = wl.step(st, 0)                       # writes the ring in place
+    host_b, _ = _encode_ranks(st["cache"])
+    topo, store = _store_world()
+    store.save(4, host_a)
+    gen2 = store.begin_save(8, host_b)
+    partner = store.placement.partners_of(0)[0]
+    _store_kill(store, [partner, partner + STORE_N])
+    store.pump()
+    committed = store.try_commit(gen2)
+    _store_respawn(store, topo)
+    step, mid_equal, _ = _restore_equal(store, man_a, cache_a, st["cache"])
+    if committed or step != 4 or not mid_equal:
+        raise AssertionError(f"store mid-commit: committed {committed}, "
+                             f"step {step}, bitwise {mid_equal}")
+    # more than k failure domains: rank 0's pair and its partners' pairs
+    topo, store = _store_world()
+    store.save(1, host_a)
+    victims = [w for r in (0,) + store.placement.partners_of(0)
+               for w in (r, r + STORE_N)]
+    _store_kill(store, victims)
+    _store_respawn(store, topo)
+    try:
+        store.restore()
+    except StoreUnrecoverable:
+        unrecoverable = True
+    else:
+        unrecoverable = False
+    emit({"phase": "store", "ranks": STORE_N, "replicated": STORE_N,
+          "workers_per_node": STORE_PER_NODE, "k": STORE_K,
+          "state": f"{QWEN.name} prefill KV rings, layers r::{STORE_N}",
+          "state_tensor_bytes": _state_nbytes(cache_a),
+          "store_bytes": base.committed_bytes,
+          "host_bytes_by_generation": held,
+          "band_references_by_generation": refs,
+          "f_le_k_combos_bitwise": combos, "mid_commit_restored_step": step,
+          "mid_commit_bitwise": mid_equal,
+          "more_than_k_raises": unrecoverable,
+          "encode_ms": encode_ms, "save_ms": save_ms,
+          "restore_ms_median": statistics.median(restore_ms),
+          "card": state["card"]})
+    if not unrecoverable:
+        raise AssertionError("store: more than k domains lost did not raise")
+    del cache_a, st, host_a, host_b, base, store
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------- phase 7
@@ -1064,7 +1487,8 @@ def phase_times_zamba(state):
 
 PHASES = [phase_device_and_build, phase_comm, phase_rmsnorm, phase_attention,
           phase_mamba_scan, phase_reference, phase_reference_zamba,
-          phase_serve, phase_times, phase_serve_zamba, phase_times_zamba]
+          phase_serve, phase_serve_ckpt, phase_obs, phase_store, phase_times,
+          phase_serve_zamba, phase_serve_ckpt_zamba, phase_times_zamba]
 
 REPLACES = {"rmsnorm": "src/repro/kernels/rmsnorm.py:31",
             "flash_attention": "src/repro/kernels/flash_attention.py:97",

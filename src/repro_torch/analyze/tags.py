@@ -1,0 +1,46 @@
+"""The reserved message-tag space, in one queryable place (port of
+``repro/analyze/tags.py``).
+
+Transport collectives, the in-memory checkpoint store, and the topology
+collective algorithms each own a band of negative tags; applications must
+use tags >= 0.  The observability layer labels each message's traffic
+class from this table, so a new subsystem claiming tags updates exactly
+one registry.  The task pool's band is reserved here already; its tags
+join ``reserved_tags`` when ``pool/`` is ported.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+# (owner, lowest tag, highest tag) — inclusive bands, all negative.
+RESERVED_BANDS: Tuple[Tuple[str, int, int], ...] = (
+    ("repro_torch.comm.collectives", -18, -11),
+    ("repro_torch.store.memstore", -24, -21),
+    ("repro_torch.topo.algorithms", -38, -31),
+    ("repro_torch.pool.master", -44, -41),
+)
+
+
+def band_owner(tag: int) -> Optional[str]:
+    """The subsystem owning ``tag``'s reserved band, or None."""
+    for owner, lo, hi in RESERVED_BANDS:
+        if lo <= tag <= hi:
+            return owner
+    return None
+
+
+def reserved_tags() -> Dict[int, str]:
+    """tag value -> "owner.TAG_NAME" for every tag the port registers
+    today (imported from the owning modules, so this cannot drift from the
+    implementation)."""
+    from repro_torch.comm import collectives
+    from repro_torch.store import memstore
+    from repro_torch.topo import algorithms
+
+    out: Dict[int, str] = {}
+    for mod in (collectives, memstore, algorithms):
+        for name in dir(mod):
+            if name.startswith("TAG_") and isinstance(
+                    getattr(mod, name), int):
+                out[getattr(mod, name)] = f"{mod.__name__}.{name}"
+    return out

@@ -1,6 +1,5 @@
 """VirtualClock: schedule clock + priced ledger (port of
-``repro/clock/clock.py`` without the observability hook, which waits for
-the obs port; see ROADMAP.md).
+``repro/clock/clock.py``).
 
   * ``now`` is the schedule clock — the value failure injectors and the
     coordinator checkpoint timer read;
@@ -11,7 +10,10 @@ the obs port; see ROADMAP.md).
   * ``charge_comm(transport)`` drains a priced ``ReplicaTransport``: the
     max per-sender α‑β message time accrued since the last take is charged
     to ``comm``;
-  * ``injection_horizon`` is the failure-injection horizon with slack.
+  * ``injection_horizon`` is the failure-injection horizon with slack;
+  * ``obs`` (``obs.ObsRecorder.bind_clock``) mirrors every charge, with
+    its ``label``, to ``obs.on_charge``; None (the default) costs one
+    check per charge.
 """
 from __future__ import annotations
 
@@ -40,14 +42,19 @@ class VirtualClock:
             else TimeBreakdown()
         self.cost_model = cost_model
         self.now = 0.0
+        # optional observability hook (obs.ObsRecorder.bind_clock): every
+        # charge is mirrored to obs.on_charge(component, seconds, label).
+        # None (default) keeps charge() allocation-free.
+        self.obs = None
 
     def charge(self, component: str, seconds: float, *,
                advance: bool = True,
                label: Optional[str] = None) -> float:
         """Book ``seconds`` of ``component`` time into the ledger;
         ``advance`` also moves the schedule clock. ``label`` names what the
-        charge was for; the ledger ignores it. Returns ``seconds``."""
-        del label
+        charge was for (e.g. which recovery arc a ``repair`` charge belongs
+        to); the ledger ignores it, only the mirrored ``obs.on_charge``
+        call carries it. Returns ``seconds``."""
         if component not in COMPONENTS:
             raise ValueError(f"unknown time component {component!r}; "
                              f"expected one of {COMPONENTS}")
@@ -57,6 +64,8 @@ class VirtualClock:
                 getattr(self.breakdown, component) + seconds)
         if advance:
             self.now += seconds
+        if self.obs is not None:
+            self.obs.on_charge(component, seconds, label)
         return seconds
 
     # -- priced-transport draining -------------------------------------------

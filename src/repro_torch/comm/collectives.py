@@ -59,7 +59,7 @@ reduction folds the rows explicitly in rank order, as numpy's outer-axis
 ``ufunc.reduce`` does, so an allreduce gives the reference's bits on CPU
 tensors and the same bits on the card; numpy's reduction quirks are kept
 (``combine_stacked``).  Numpy payloads take the reference's code
-unchanged.  The engine's observability hook comes with the obs port.
+unchanged.
 """
 from __future__ import annotations
 
@@ -704,6 +704,12 @@ class CollectiveEngine:
         self._role_views: Dict[str, Tuple] = {}
         self._view_masks: Dict[str, np.ndarray] = {}
         self._view_keys: Dict[str, str] = {}
+        # optional observability hook (obs.ObsRecorder): transport
+        # collectives mirror every post() as on_collective(kind, role,
+        # rank, step, idx) with idx the endpoint's pre-post op_index;
+        # switchboard instances instead emit one batch summary at
+        # completion (on_collective_batch).  None (default) is one check.
+        self.obs = None
         # batched resolution: keys of switchboard instances completed
         # since the last drain.  The scheduler drains take_completions()
         # after every switchboard post and wakes exactly those keys'
@@ -779,12 +785,20 @@ class CollectiveEngine:
                store: bool) -> None:
         """Post one contribution into the instance's SoA table; the vote
         that completes the union queues the key for the scheduler's
-        batched wake."""
+        batched wake and emits the obs batch summary."""
         table = self.tables.get(key)
         if table is None:
             table = self.tables[key] = _SwitchTable(self.n)
         if table.post(role, rank, value, store):
             self._completions.append(key)
+            if self.obs is not None:
+                cmask = table.masks.get("cmp")
+                rmask = table.masks.get("rep")
+                self.obs.on_collective_batch(
+                    key[0], key[1], key[2],
+                    np.nonzero(cmask)[0].tolist()
+                    if cmask is not None else (),
+                    int(rmask.sum()) if rmask is not None else 0)
 
     def take_completions(self) -> list:
         """Drain the completed-instance keys queued since the last call."""
@@ -859,7 +873,16 @@ class CollectiveEngine:
         if handler is None:
             raise ValueError(f"unknown collective {op[0]!r}")
         role, rank = self.transport.role_of(ep)
-        return handler.post(self, ep, role, rank, op, step)
+        # capture op_index BEFORE the handler advances it: this is the
+        # instance index the collective is keyed by
+        idx = ep.op_index
+        pend = handler.post(self, ep, role, rank, op, step)
+        if self.obs is not None and pend[0] != "collective":
+            # transport collectives mirror per post; switchboard
+            # instances ("collective" head) report once, at completion
+            # (on_collective_batch via intake) — not 2N per-post calls
+            self.obs.on_collective(op[0], role, rank, step, idx)
+        return pend
 
     def resolve(self, ep: Endpoint, pend: tuple):
         head = pend[0]

@@ -17,9 +17,7 @@ drain, which workers were promoted) stays with the runtime.
 
 The PyTorch port's copy of ``repro/comm/recovery.py``.  A replayed
 message carries a clone of each tensor of the logged one, as every
-delivery does, so the log stays the sender's own.  ``store`` stays
-optional: the port's checkpoint store comes with training, and until then
-callers pass ``None``.
+delivery does, so the log stays the sender's own.
 """
 from __future__ import annotations
 
@@ -29,10 +27,9 @@ from repro_torch.core.message_log import LoggedMessage, payload_nbytes
 
 
 class RecoveryManager:
-    """``store`` optionally attaches an in-memory checkpoint store (anything
-    with ``lose_worker``): worker deaths reported through ``note_dead``
-    then also kill that worker's in-memory shard copies (partner memory
-    dies with its host process).
+    """``store`` optionally attaches a ``store.MemStore``: worker deaths
+    reported through ``note_dead`` then also kill that worker's in-memory
+    shard copies (partner memory dies with its host process).
 
     ``price_replay=True`` accrues each replayed message's α‑β cost on the
     surviving sender through the transport's cost model (no-op without

@@ -42,9 +42,10 @@ clone ``comm.payload`` captures at the send stays in the sender log, and
 every delivery — the computational copy, the intercomm fill-in, a replay —
 carries a clone of its own (``own_tensors``), so a receiver's in-place
 write reaches neither the log nor its twin.  Routing, matching, send-IDs
-and pricing are the reference's line for line.  The per-link utilization
-accumulator, the scheduler's wake hook and elastic rebinding come with
-the ports that use them; the observer list is here.
+and pricing are the reference's line for line, and so are the observer
+list and the per-link utilization accumulator (``link_usage``).  The
+scheduler's wake hook and elastic rebinding come with the ports that use
+them.
 """
 from __future__ import annotations
 
@@ -194,8 +195,8 @@ class ReplicaTransport:
         # with msg_cost_workers); None keeps the transport cost-free
         self.cost_model = cost_model
         self.comm_time: Dict[int, float] = {}   # sender wid -> accrued s
-        # ordered send observers (the divergence detector, the obs
-        # recorder of the JAX package; their ports come later): each is called once per logical send
+        # ordered send observers (obs.ObsRecorder; the divergence detector
+        # comes with the analyze port): each is called once per logical send
         # with (role, src, dst, tag, send_id, payload, step) BEFORE role
         # routing, so replica-side skipped sends are still observed.
         # Ordering contract (docs/comm_api.md): the divergence detector
@@ -203,6 +204,10 @@ class ReplicaTransport:
         # tripwire fires before any metrics/tracing observer counts the
         # send it is about to reject.
         self.observers: List[Any] = []
+        # per-link utilization accumulator (obs.LinkUsage) fed by _charge
+        # alongside the α‑β pricing; None (default) adds one attribute
+        # check per priced message
+        self.link_usage = None
 
     # ------------------------------------------------------------ lifecycle
 
@@ -246,11 +251,12 @@ class ReplicaTransport:
         """Accrue the priced cost of one physical message on the sender
         (port model: the sender's NIC serializes its own messages; senders
         run in parallel, so a step's comm time is the max over workers).
-        ``tag`` labels the traffic class (None: switchboard phantom
-        pricing) for the per-link accounting of the observability port."""
-        del tag
+        ``tag`` labels the traffic class for the optional per-link
+        utilization accumulator (None: switchboard phantom pricing)."""
         cost = self.cost_model.msg_cost_workers(src_wid, dst_wid, nbytes)
         self.comm_time[src_wid] = self.comm_time.get(src_wid, 0.0) + cost
+        if self.link_usage is not None:
+            self.link_usage.record(src_wid, dst_wid, tag, nbytes)
 
     def take_comm_time(self) -> float:
         """Max accrued per-worker comm time since the last take (0.0 with

@@ -1,2 +1,2 @@
-"""The FT core the serving path needs: replica map, coordinators and the
-recovery planner (copies of their ``repro.core`` counterparts)."""
+"""The FT core: replica map, coordinators, the recovery planner and the
+checkpoint-interval policy (copies of their ``repro.core`` counterparts)."""

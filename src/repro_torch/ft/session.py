@@ -1,15 +1,22 @@
 """FTSession: the workload-agnostic FT driver (port of
-``repro/ft/session.py`` for the serving path).
+``repro/ft/session.py``).
 
-One loop: failure intake (injector -> coordinators -> plan_recovery),
-strategy-owned step execution (replica double execution under
-replication), O(1) promotion and restart, producing a ``RunReport`` with a
-typed event stream and the ``TimeBreakdown`` ledger. The schedule clock
-advances exactly ``step_time_s`` per executed step; repair and the replica
-share are ledger-only charges.
+One loop: failure intake (injector -> coordinators -> plan_recovery, which
+consults the strategy's in-memory store), strategy-owned step execution
+(replica double execution under replication), Young-Daly checkpointing,
+O(1) promotion and elastic restart, producing a ``RunReport`` with a typed
+event stream and the ``TimeBreakdown`` ledger. The schedule clock advances
+exactly ``step_time_s`` per executed step; checkpoint writes, restores,
+repair and the replica share are ledger-only charges.
 
-Left for later slices (ROADMAP.md): the observability hooks, checkpoints,
-and the hooks the task pool's self-repairing workloads use.
+``obs=True`` (or an ``obs.ObsRecorder``) records the run: failure marks,
+recovery and checkpoint spans, per-step spans, every clock charge, and the
+store's counters at the end (``RunReport.obs_metrics``).  With ``obs=None``
+every hook is one falsy check.
+
+Left for the task pool's port (ROADMAP.md, Queue 1 item 9): the hooks its
+self-repairing workloads use (``absorb_failures``, ``apply_plan``,
+``repair_transport``, ``bind_session``, ``replicable_ranks``).
 """
 from __future__ import annotations
 
@@ -25,6 +32,7 @@ from repro_torch.core.replica_map import ReplicaMap
 from repro_torch.core.shrink import plan_recovery
 from repro_torch.ft.injector import FailureInjector, as_injector
 from repro_torch.ft.strategy import FTStrategy, make_strategy
+from repro_torch.obs import ObsRecorder
 
 
 @dataclass
@@ -44,10 +52,20 @@ class RunReport:
     failures: int = 0
     promotions: int = 0
     restarts: int = 0
+    ckpt_writes: int = 0
     rolled_back_steps: int = 0
     wall_s: float = 0.0
+    ckpt_s: float = 0.0
+    restore_s: float = 0.0
     final_state: Any = None
+    # useful/rollback from the step loop, ckpt_write/restore at the
+    # backend's priced cost, repair from the recovery plans, comm from
+    # priced fan-out traffic
     time: TimeBreakdown = field(default_factory=TimeBreakdown)
+    # observability (sessions built with obs=...): the run's recorder and
+    # its end-of-run snapshot — not the per-step workload ``metrics``
+    obs: Any = None
+    obs_metrics: Optional[dict] = None
 
 
 class FTSession:
@@ -64,9 +82,11 @@ class FTSession:
     def __init__(self, *, ft: Optional[FTConfig] = None,
                  strategy: Optional[FTStrategy] = None,
                  injector=None,
+                 ckpt_dir: Optional[str] = None,
                  n_logical_workers: int = 8,
                  workers_per_node: int = 4,
-                 allow_restart: bool = True):
+                 allow_restart: bool = True,
+                 obs=None):
         if strategy is None:
             strategy = make_strategy(ft or FTConfig())
         self.strategy = strategy.bind(self)
@@ -75,6 +95,14 @@ class FTSession:
         self.n_logical_workers = n_logical_workers
         self.workers_per_node = workers_per_node
         self.allow_restart = allow_restart
+        # a directory selects the disk backend, which comes with training
+        # (store.make_backend raises where it would pick it)
+        self.ckpt_dir = ckpt_dir
+        # observability: obs=True builds a recorder, or pass one in;
+        # obs=None (default) keeps every hook a falsy check
+        self.obs = None
+        if obs is not None:
+            self.obs = ObsRecorder() if obs is True else obs
         self._init_fabric()
 
     def _init_fabric(self):
@@ -84,7 +112,8 @@ class FTSession:
                                         self.workers_per_node)
         self.coords = CoordinatorSet(self.topology, float("inf"))
         # cost-model injection (clock.pricing): with FTConfig.topology set
-        # the session's clock carries the topology's cost model
+        # the checkpoint backend's transport prices every push/fetch
+        # message, so C and R are measured, not assumed
         self.pricing = pricing_from_ft(self.ft, self.topology)
         self.clock = VirtualClock(cost_model=self.pricing.cost_model)
 
@@ -96,6 +125,11 @@ class FTSession:
         self._init_fabric()                       # re-entrant sessions
         clock = self.clock = VirtualClock(breakdown=rep.time,
                                           cost_model=self.pricing.cost_model)
+        obs = self.obs
+        if obs is not None:
+            obs.bind_clock(clock)
+            obs.set_world(self.rmap.n, self.rmap.m,
+                          injector_kind=type(self.injector).__name__)
         state = workload.init_state()
         strat = self.strategy
         strat.on_start(workload, state, rep)
@@ -114,9 +148,16 @@ class FTSession:
                 if not fresh:
                     continue
                 rep.failures += len(fresh)
+                if obs is not None:
+                    obs.metrics.inc("failures.kills.worker", len(fresh))
+                    obs.mark("failure", "failure", workers=tuple(fresh),
+                             step=step)
                 self.rmap, plan = plan_recovery(
                     self.rmap, fresh,
-                    last_ckpt_step=strat.last_ckpt_step, current_step=step)
+                    last_ckpt_step=strat.last_ckpt_step, current_step=step,
+                    store=strat.recovery_store())
+                if obs is not None:
+                    obs.span(f"recovery.{plan.kind}", "recovery", step=step)
                 rep.events.append(StepEvent(step, plan.kind,
                                             {"failed": list(fresh),
                                              "promotions": plan.promotions,
@@ -128,6 +169,8 @@ class FTSession:
                 # ledger-only: the step-indexed schedule clock ignores it
                 clock.charge("repair", plan.repair_cost_s, advance=False,
                              label=plan.kind)
+                if obs is not None:
+                    obs.end_span(resumed_step=step)
 
             # --- one workload step (strategy may double-execute) -----------
             component = "rollback" if step < done_through else "useful"
@@ -144,7 +187,23 @@ class FTSession:
                              self.step_time_s * n_redundant / self.rmap.n,
                              advance=False)
             rep.steps = step
+            if obs is not None:
+                obs.on_step(step - 1, clock.now - self.step_time_s,
+                            self.step_time_s, component == "rollback",
+                            self.rmap.n)
+
+            # --- coordinated checkpoint (primary timer) --------------------
+            strat.maybe_checkpoint(workload, state, step, clock.now, rep)
 
         rep.final_state = state
         rep.wall_s = time.perf_counter() - wall0
+        if obs is not None:
+            store = strat.recovery_store()
+            if store is not None:
+                obs.sample_store(store)
+                obs.sample_transport(store.transport)
+            if obs.tracer is not None:
+                obs.tracer.finish()
+            rep.obs = obs
+            rep.obs_metrics = obs.snapshot()
         return rep

@@ -1,11 +1,14 @@
-"""FT strategies (port of ``repro/ft/strategy.py``: ``NoFT`` and
-``ReplicationStrategy``; the checkpoint strategies wait for the training
-slice, ROADMAP.md).
+"""FT strategies (port of ``repro/ft/strategy.py``).
 
   NoFT                 native step loop (the "EMPI direct" baseline)
+  CheckpointStrategy   coordinated checkpoint/restart at the Young-Daly
+                       interval through a CheckpointBackend (``store``):
+                       shards replicated into partner memory (the ReStore
+                       idea); the disk backend comes with training
   ReplicationStrategy  a replica redundantly executes every step; on
                        computational failure the replica is promoted in O(1)
                        (state already current — no restore, no rollback)
+  CombinedStrategy     both (checkpoints guard against pair deaths)
 
 A strategy is bound to one FTSession, which owns the coordinators, the
 replica map and the recovery planner; the strategy decides what to do with
@@ -13,20 +16,29 @@ each RecoveryPlan.
 """
 from __future__ import annotations
 
+import time
 from typing import Any, Optional, Tuple
 
 from repro_torch.configs.base import FTConfig
+from repro_torch.core import ckpt_policy
+from repro_torch.store import StoreUnrecoverable, make_backend
 from repro_torch.tree import copy_tree
 
 
 class FTStrategy:
     mode = "none"
     wants_replica = False
+    backend = None                       # CheckpointBackend (store)
 
     def __init__(self, ft: Optional[FTConfig] = None):
         self.ft = ft or FTConfig(mode=self.mode)
         self.session = None
         self.last_ckpt_step = 0
+
+    def recovery_store(self):
+        """The in-memory store backing this strategy's checkpoints, if any
+        (consulted by plan_recovery for restore-cost planning)."""
+        return None
 
     def bind(self, session) -> "FTStrategy":
         self.session = session
@@ -42,6 +54,9 @@ class FTStrategy:
 
     def step(self, workload, state, t) -> Tuple[Any, Any]:
         return workload.step(state, t)
+
+    def maybe_checkpoint(self, workload, state, step, vtime, rep) -> None:
+        pass
 
     def handle_plan(self, workload, state, plan, step, rep):
         """Execute a RecoveryPlan; returns (state, step)."""
@@ -108,23 +123,132 @@ class _ReplicaMixin:
         return state, step
 
 
+class _CheckpointMixin:
+    """Coordinated checkpoint/restart on the primary coordinator's
+    Young-Daly timer, through whichever CheckpointBackend the FTConfig
+    selects (``store.make_backend``) — the strategy is backend-agnostic."""
+
+    def on_start(self, workload, state, rep) -> None:
+        super().on_start(workload, state, rep)
+        self._interval_set = False
+        self.backend = make_backend(self.ft, self.session, workload)
+        self.backend.save(0, state, workload=workload, baseline=True,
+                          extra={"mode": self.ft.mode})
+
+    def recovery_store(self):
+        return getattr(self.backend, "store", None)
+
+    def handle_plan(self, workload, state, plan, step, rep):
+        if self.backend is not None:
+            # the dead workers' shard memory dies with them
+            self.backend.on_failure(plan.failed_workers)
+        return super().handle_plan(workload, state, plan, step, rep)
+
+    def _effective_c(self) -> float:
+        """The effective checkpoint cost C feeding Young-Daly: the
+        configured constant, else the backend's last (priced or modeled)
+        write cost."""
+        measured = self.backend.last_write_s or 0.05
+        return self.ft.ckpt_cost_s or max(measured, 1e-6)
+
+    def _auto_interval(self) -> bool:
+        return not self.ft.ckpt_interval_s and not self.ft.ckpt_cost_s
+
+    def maybe_checkpoint(self, workload, state, step, vtime, rep) -> None:
+        sess = self.session
+        if not self._interval_set:
+            interval = self.ft.ckpt_interval_s or \
+                ckpt_policy.young_daly_interval(self.ft.mtbf_s,
+                                                self._effective_c())
+            sess.coords.set_interval(interval, vtime)
+            self._interval_set = True
+        if sess.coords.due_checkpoint(vtime):
+            obs = sess.obs
+            if obs is not None:
+                obs.span("ckpt.write", "ckpt", step=step)
+                obs.metrics.inc("ckpt.writes")
+            t0 = time.perf_counter()
+            self.backend.save(step, state, workload=workload)
+            rep.ckpt_s += time.perf_counter() - t0
+            rep.ckpt_writes += 1
+            self.last_ckpt_step = step
+            # the write's cost enters the shared ledger (ledger-only: the
+            # session's schedule clock stays step-indexed).  A configured
+            # ft.ckpt_cost_s is the modeled C and wins, else the backend's
+            # priced/modeled write cost
+            sess.clock.charge("ckpt_write",
+                              self.ft.ckpt_cost_s
+                              or self.backend.last_write_s or 0.0,
+                              advance=False,
+                              label=type(self.backend).__name__)
+            if obs is not None:
+                obs.end_span()
+            if self._auto_interval() and getattr(self.backend,
+                                                 "modeled_cost", False):
+                # Young-Daly recomputed from the *effective* priced C: a
+                # priced store measures C from its actual push traffic,
+                # which can drift as the state grows
+                sess.coords.set_interval(
+                    ckpt_policy.young_daly_interval(self.ft.mtbf_s,
+                                                    self._effective_c()),
+                    vtime)
+            else:
+                sess.coords.restart_timer(vtime)
+
+    def _restore(self, workload, state, rep):
+        if self.backend is None or not self.backend.has_checkpoint():
+            return super()._restore(workload, state, rep)
+        obs = self.session.obs
+        if obs is not None:
+            obs.span("ckpt.restore", "recovery")
+        t0 = time.perf_counter()
+        try:
+            state, ck_step = self.backend.restore(state, workload=workload)
+        except StoreUnrecoverable:
+            # more failure domains lost than the placement tolerates:
+            # restart from scratch like the no-checkpoint baseline
+            if obs is not None:
+                obs.end_span(outcome="unrecoverable")
+            return super()._restore(workload, state, rep)
+        dt = time.perf_counter() - t0
+        rep.restore_s += dt
+        # priced/modeled R when the backend reports one (a measured 0.0
+        # is a legitimate cost: all shards served owner-locally); wall
+        # time only when the backend has no notion of restore cost
+        cost = getattr(self.backend, "last_restore_s", None)
+        self.session.clock.charge("restore", dt if cost is None else cost,
+                                  advance=False,
+                                  label=type(self.backend).__name__)
+        if obs is not None:
+            obs.end_span(to_step=ck_step)
+        return state, ck_step
+
+
 class NoFT(FTStrategy):
     mode = "none"
+
+
+class CheckpointStrategy(_CheckpointMixin, FTStrategy):
+    mode = "checkpoint"
 
 
 class ReplicationStrategy(_ReplicaMixin, FTStrategy):
     mode = "replication"
 
 
-_STRATEGIES = {"none": NoFT, "replication": ReplicationStrategy}
-_NOT_PORTED = ("checkpoint", "combined")
+class CombinedStrategy(_ReplicaMixin, _CheckpointMixin, FTStrategy):
+    mode = "combined"
+
+
+_STRATEGIES = {
+    "none": NoFT,
+    "checkpoint": CheckpointStrategy,
+    "replication": ReplicationStrategy,
+    "combined": CombinedStrategy,
+}
 
 
 def make_strategy(ft: FTConfig) -> FTStrategy:
-    if ft.mode in _NOT_PORTED:
-        raise NotImplementedError(
-            f"FT mode {ft.mode!r} needs the checkpoint strategies, which "
-            f"are not ported to PyTorch yet (ROADMAP.md, Queue 1 item 5)")
     try:
         return _STRATEGIES[ft.mode](ft)
     except KeyError:

@@ -47,7 +47,11 @@ class DecodeWorkload:
     ``step`` writes the KV cache of the state it is given in place (the
     decode step's ring write); everything else in the returned state is
     new. The replica's state is a clone (``copy_tree``), so the two slices
-    never share a cache buffer."""
+    never share a cache buffer.  The checkpoint strategies keep its state
+    in the replicated in-memory store: ``out`` grows every step, so it is
+    no disk checkpoint."""
+
+    disk_checkpointable = False
 
     def __init__(self, *, params, prefill: Callable, decode: Callable,
                  batch: dict, prompt_len: int):

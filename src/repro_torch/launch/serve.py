@@ -14,13 +14,21 @@ intercomm fill-in, logged with send-IDs like any other message. On the
 card the bcast carries the device tensor of the batch; the batch is never
 copied to the host for it.
 
+With ``obs=True`` (or an ``obs.ObsRecorder``) one recorder counts the
+fan-out's traffic and every serving session's steps, failures and
+recovery arcs (host-side bookkeeping: it launches nothing on the card).
+
 Any ported family serves through the same code: the dense qwen3-8b (the
 default) and the zamba2-7b hybrid, whose state carries a recurrent Mamba
 state per block beside the attention rings (cloned like the rings).
 
-Example:
+Examples:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-7b \
       --batch 4 --prompt-len 32 --gen 16 --kill-at 8 --device cuda
+  # replicated in-memory checkpoints: promote, then a pair death restored
+  # from partner memory (8 logical ranks, 4 a node)
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+      --ckpt-mode combined --kill 4:1 --kill 8:9
 """
 from __future__ import annotations
 
@@ -40,6 +48,7 @@ from repro_torch.core.coordinator import ClusterTopology
 from repro_torch.core.replica_map import ReplicaMap
 from repro_torch.ft import DecodeWorkload, FTSession, StepKillInjector
 from repro_torch.launch.step_fns import make_decode_step, make_prefill_step
+from repro_torch.obs import ObsRecorder
 
 
 class BatchFanout:
@@ -56,12 +65,14 @@ class BatchFanout:
 
     With ``ft.topology`` set the fan-out traffic is α‑β-priced and charged
     into the fan-out's ``VirtualClock``; ``generate`` merges it into the
-    run's ``RunReport.time.comm``.
+    run's ``RunReport.time.comm``.  With a recorder (``obs``) the fan-out
+    traffic counts into the per-band counters and, when priced, the
+    per-link heat of the same recorder the serving sessions use.
     """
 
     SERVE_RANK, FRONTEND_RANK = 0, 1
 
-    def __init__(self, replication: bool, ft: FTConfig = None):
+    def __init__(self, replication: bool, ft: FTConfig = None, obs=None):
         self.rmap = ReplicaMap(2, 1 if replication else 0)
         cluster = ClusterTopology(self.rmap.world_size, 1)
         pricing = pricing_from_ft(ft or FTConfig(), cluster)
@@ -69,6 +80,13 @@ class BatchFanout:
         self.transport = ReplicaTransport(self.rmap, 2,
                                           cost_model=pricing.cost_model)
         self.engine = CollectiveEngine(self.transport)
+        self.obs = obs
+        if obs is not None:
+            self.transport.add_observer(obs)
+            self.engine.obs = obs
+            if pricing.cost_model is not None and obs.links is None:
+                self.transport.link_usage = \
+                    obs.attach_links(pricing.cost_model)
         self.eps = {w: self.transport.register(w) for w in self.rmap.alive()}
         self.fanouts = 0
         self.received = {}               # worker -> its copy, last round
@@ -113,7 +131,8 @@ class ReplicatedServer:
 
     def __init__(self, arch: str, *, reduced: bool = True, batch: int = 4,
                  prompt_len: int = 32, replication: bool = True,
-                 seed: int = 0, device=None, topology: str = None):
+                 seed: int = 0, device=None, topology: str = None,
+                 obs=None):
         dev = device_lib.resolve(device)
         cfg = get_arch(arch)
         if reduced:
@@ -131,8 +150,14 @@ class ReplicatedServer:
         self.batch = batch
         self.prompt_len = prompt_len
         self.topology = topology
+        # one recorder shared by the fan-out transport and every serving
+        # session (obs=True builds it; None keeps everything unwired)
+        self.obs = None
+        if obs is not None:
+            self.obs = ObsRecorder() if obs is True else obs
         self.fanout = BatchFanout(replication,
-                                  ft=FTConfig(mode="none", topology=topology))
+                                  ft=FTConfig(mode="none", topology=topology),
+                                  obs=self.obs)
         self.failures = 0
         self.promotions = 0
         self.last_report = None
@@ -154,7 +179,8 @@ class ReplicatedServer:
         injector = StepKillInjector({kill_at: [0]}) if kill_at >= 0 else None
         return FTSession(ft=FTConfig(mode=mode, topology=self.topology),
                          injector=injector, n_logical_workers=1,
-                         workers_per_node=1, allow_restart=False)
+                         workers_per_node=1, allow_restart=False,
+                         obs=self.obs)
 
     def generate(self, prompt_tokens: np.ndarray, n_gen: int,
                  kill_at: int = -1) -> np.ndarray:
@@ -196,6 +222,13 @@ def main(argv=None):
     ap.add_argument("--topology", default=None,
                     help="price fan-out + session time over this topo graph "
                          "(flat|fattree|dragonfly|torus3d)")
+    ap.add_argument("--ckpt-mode", choices=("checkpoint", "combined"),
+                    help="decode under an FTSession of 8 logical ranks (4 a "
+                         "node) with replicated in-memory checkpoints every "
+                         "4 steps; workers die by --kill")
+    ap.add_argument("--kill", action="append", default=[],
+                    metavar="STEP:WORKER",
+                    help="with --ckpt-mode: kill WORKER before STEP")
     args = ap.parse_args(argv)
 
     srv = ReplicatedServer(args.arch, reduced=args.reduced, batch=args.batch,
@@ -205,11 +238,31 @@ def main(argv=None):
     prompts = np.random.default_rng(0).integers(
         0, srv.cfg.vocab_size, (args.batch, args.prompt_len), dtype=np.int32)
     t0 = time.perf_counter()
-    toks = srv.generate(prompts, args.gen, kill_at=args.kill_at)
+    if args.ckpt_mode:
+        kills = {}
+        for spec in args.kill:
+            step, worker = (int(v) for v in spec.split(":"))
+            kills.setdefault(step, []).append(worker)
+        session = FTSession(
+            ft=FTConfig(mode=args.ckpt_mode, ckpt_backend="memory",
+                        ckpt_interval_s=4.0, topology=args.topology),
+            injector=kills, n_logical_workers=8, workers_per_node=4)
+        rep = session.run(srv.workload(prompts), args.gen)
+        toks = DecodeWorkload.tokens(rep.final_state)
+        restores = [e.detail["restore_backend"] for e in rep.events
+                    if e.kind == "restart_elastic"]
+        summary = (f"mode={args.ckpt_mode} restarts={rep.restarts} "
+                   f"ckpt_writes={rep.ckpt_writes} "
+                   f"rolled_back_steps={rep.rolled_back_steps} "
+                   f"restore_backend={','.join(restores) or '-'} "
+                   f"failures={rep.failures} promotions={rep.promotions}")
+    else:
+        toks = srv.generate(prompts, args.gen, kill_at=args.kill_at)
+        rep = srv.last_report
+        summary = f"failures={srv.failures} promotions={srv.promotions}"
     dt = time.perf_counter() - t0
     print(f"arch={args.arch} device={srv.device} generated={toks.shape} "
-          f"failures={srv.failures} promotions={srv.promotions} "
-          f"comm_s={srv.last_report.time.comm} "
+          f"{summary} comm_s={rep.time.comm} "
           f"wall={dt:.3f}s tok/s={toks.size / dt:.1f}")
     return 0
 

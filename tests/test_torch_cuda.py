@@ -1,5 +1,6 @@
 """The port on the card: each CUDA kernel against its plain PyTorch
-version, and the kernel path of the reduced model against its CPU path.
+version, the kernel path of the reduced model against its CPU path, and
+the in-memory checkpoint store and the recorder on card state.
 
 Every test here carries the ``cuda`` marker and skips without a card. The
 file imports neither jax nor the JAX package, so it runs on a machine that
@@ -20,6 +21,8 @@ import pytest
 import torch
 
 from repro_torch.configs import get_arch
+from repro_torch.configs.base import FTConfig
+from repro_torch.ft import FTSession
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.mamba_scan import mamba_chunk_scan
@@ -27,6 +30,7 @@ from repro_torch.kernels.rmsnorm import add_rmsnorm, rmsnorm
 from repro_torch.launch.serve import ReplicatedServer
 from repro_torch.models.transformer import Transformer
 from repro_torch.models.zamba import Zamba
+from repro_torch.store.backend import MemBackend
 
 RTOL = {"float32": 2e-5, "bfloat16": 2e-2}
 ATOL = {"float32": 2e-5, "bfloat16": 3e-2}
@@ -329,3 +333,91 @@ def test_zamba_serve_failover_identical_stream_on_card(cuda_device):
     faulty = srv.generate(prompts, 8, kill_at=3)
     np.testing.assert_array_equal(clean, faulty)
     assert srv.promotions == 1
+
+
+def _tensors(tree):
+    out = []
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if isinstance(tree, dict):
+        tree = list(tree.values())
+    if isinstance(tree, (list, tuple)):
+        for v in tree:
+            out += _tensors(v)
+    return out
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32,
+                                   torch.int64, torch.bool])
+def test_memory_backend_round_trips_card_state(cuda_device, dtype):
+    """Card tensors through the store: bands are host arrays, and the
+    restore puts every tensor back on the card, bitwise, each in storage
+    of its own; a strided view stores only its elements."""
+    g = torch.Generator(device="cuda").manual_seed(3)
+    base = torch.randn((6, 64, 32), generator=g, device="cuda") * 50
+    state = {"k": base.to(dtype), "v": base[:, ::4, 1:9].to(dtype)
+             if dtype != torch.bool else base[:, ::4, 1:9] > 0,
+             "pos": torch.arange(6, device="cuda", dtype=torch.int32)}
+    session = FTSession(ft=FTConfig(mode="combined"), n_logical_workers=8,
+                        workers_per_node=4)
+    backend = MemBackend(session)
+    backend.save(3, state)
+    for ws in backend.store.stores.values():
+        for ss in ws.values():
+            assert all(isinstance(b, np.ndarray) and not b.flags.writeable
+                       for b in ss.bands.values())
+    like = {k: torch.zeros_like(v) for k, v in state.items()}
+    got, step = backend.restore(like)
+    assert step == 3
+    for key, want in state.items():
+        assert got[key].is_cuda and got[key].dtype == want.dtype
+        assert torch.equal(got[key], want)
+    ptrs = {t.untyped_storage().data_ptr() for t in _tensors(got)}
+    assert len(ptrs) == 3
+
+
+@pytest.mark.parametrize("mode,kills,interval", [
+    ("combined", {4: [1], 8: [9]}, 4.0), ("checkpoint", {7: [2]}, 3.0)])
+def test_served_restart_from_partner_memory_on_card(cuda_device, mode, kills,
+                                                    interval):
+    """The reduced qwen3-8b decode loop on the card under the checkpoint
+    strategies: the restart restores the rings onto the card, and the
+    stream and the final state equal the clean run's bit for bit."""
+    prompts = np.random.default_rng(0).integers(0, 400, (2, 16),
+                                                dtype=np.int32)
+    srv = ReplicatedServer("qwen3-8b", batch=2, prompt_len=16)
+    clean = srv.generate(prompts, 12)
+    clean_state = _tensors(srv.last_report.final_state["cache"])
+    session = FTSession(ft=FTConfig(mode=mode, ckpt_backend="memory",
+                                    ckpt_interval_s=interval),
+                        injector=dict(kills), n_logical_workers=8,
+                        workers_per_node=4)
+    rep = session.run(srv.workload(prompts), 12)
+    assert rep.restarts == 1
+    assert [e.detail["restore_backend"] for e in rep.events
+            if e.kind == "restart_elastic"] == ["memory"]
+    np.testing.assert_array_equal(
+        np.concatenate(rep.final_state["out"], axis=1), clean)
+    state = _tensors(rep.final_state["cache"])
+    assert all(t.is_cuda for t in state)
+    assert all(torch.equal(a, b) for a, b in zip(state, clean_state))
+
+
+def test_recorder_launches_nothing_on_the_card(cuda_device):
+    """A served run with the recorder attached launches the same kernels
+    as one without it, and its fan-out counters carry the batch bytes."""
+    prompts = np.random.default_rng(0).integers(0, 400, (2, 16),
+                                                dtype=np.int32)
+    launches = []
+    for obs in (None, True):
+        srv = ReplicatedServer("qwen3-8b", batch=2, prompt_len=16,
+                               topology="fattree", obs=obs)
+        for fn in (rmsnorm, add_rmsnorm, flash_attention):
+            fn.launches = 0
+        srv.generate(prompts, 6, kill_at=2)
+        launches.append([fn.launches for fn in (rmsnorm, add_rmsnorm,
+                                                flash_attention)])
+    assert launches[0] == launches[1] and min(launches[0]) > 0
+    c = srv.last_report.obs_metrics["counters"]
+    assert c["comm.bytes.coll.cmp"] == 2 * 16 * 4
+    assert srv.last_report.obs_metrics["links"]["max_contended"]["busy_s"] > 0

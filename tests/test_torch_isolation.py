@@ -37,6 +37,16 @@ def test_no_jax_or_reference_imports(path):
     assert not set(_imported_roots(path)) & FORBIDDEN
 
 
+@pytest.mark.parametrize("package", ["analyze", "obs", "store", "ft",
+                                     "core", "comm", "clock"])
+def test_scan_covers_the_package(package):
+    """The AST scan and the blocked import walk every module of each
+    package of the port, the observability layer and the checkpoint store
+    included."""
+    files = sorted((ROOT / "src" / "repro_torch" / package).glob("*.py"))
+    assert files and all(f in PORT_FILES for f in files)
+
+
 def test_port_imports_with_jax_and_repro_blocked():
     code = (
         "import sys, pkgutil, importlib\n"

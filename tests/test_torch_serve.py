@@ -10,9 +10,10 @@
   copy would silently follow the computational slice), the hybrid's Mamba
   ``h`` and ``conv`` states included.
 * The port's copy of the FT core (``FTSession``, strategies, injector,
-  replica map, planner, clock) against ``repro``'s on one numpy workload
-  and the same kill schedules: every ``RunReport`` field, the event list
-  and the final state are equal (exact: the same arithmetic on the host).
+  replica map, planner, clock, the in-memory checkpoint store) against
+  ``repro``'s on one numpy workload and the same kill schedules, in all
+  four FT modes: every ``RunReport`` field, the event list and the final
+  state are equal (exact: the same arithmetic on the host).
 * Topology pricing and the request-batch fan-out (``BatchFanout``)
   against ``repro``'s: the same priced seconds, received batch and log
   entries (exact: integer bookkeeping and the same float arithmetic).
@@ -25,7 +26,7 @@ import torch
 from repro.configs.base import FTConfig as JaxFTConfig
 from repro.ft import FTSession as JaxFTSession
 from repro_torch.configs.base import FTConfig
-from repro_torch.ft import DecodeWorkload, FTSession, make_strategy
+from repro_torch.ft import DecodeWorkload, FTSession
 from repro_torch.launch.serve import BatchFanout, ReplicatedServer
 from repro_torch.tree import copy_tree, tree_map
 
@@ -194,6 +195,9 @@ SCHEDULES = [
     ("replication", 3, {2: [1], 5: [0, 4]}, True),
     ("none", 2, {3: [1]}, True),                  # restart from scratch
     ("none", 1, {}, False),                       # clean
+    ("checkpoint", 2, {3: [1]}, True),            # restart from memory
+    ("combined", 2, {1: [0], 4: [2]}, True),      # promote, then restore
+    ("combined", 3, {2: [1], 5: [0, 4]}, True),
 ]
 
 
@@ -207,7 +211,7 @@ def test_ft_core_matches_repro(mode, n, kills, allow_restart):
 
     ours, theirs = run(FTSession, FTConfig), run(JaxFTSession, JaxFTConfig)
     for field in ("steps", "metrics", "failures", "promotions", "restarts",
-                  "rolled_back_steps"):
+                  "ckpt_writes", "rolled_back_steps"):
         assert getattr(ours, field) == getattr(theirs, field), field
     assert [(e.step, e.kind, e.detail) for e in ours.events] == \
         [(e.step, e.kind, e.detail) for e in theirs.events]
@@ -216,12 +220,6 @@ def test_ft_core_matches_repro(mode, n, kills, allow_restart):
                                   theirs.final_state["x"])
     assert ours.final_state["hist"] == theirs.final_state["hist"]
     assert ours.final_state["n"] == theirs.final_state["n"]
-
-
-@pytest.mark.parametrize("mode", ["checkpoint", "combined"])
-def test_checkpoint_modes_not_ported_yet(mode):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_strategy(FTConfig(mode=mode))
 
 
 TOPOLOGIES = ("flat", "fattree", "dragonfly", "torus3d")
