@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving path on one NVIDIA H100 and check it.
+"""Drive the PyTorch port's serving and training paths on one NVIDIA H100
+and check them.
 
     python3 chip_smoke.py
 
@@ -65,10 +66,24 @@ Phases (each a function; any failure exits non-zero):
      path's shapes (the fused norm beside ``x + r`` and ``F.rms_norm``),
      the launch floor (an empty kernel), and the whole path's prefill and
      decode times. Each model's servers are freed before the next model's
-     serve phase.
+     serve phase;
+  8. train: the backward kernels of K1 (``rmsnorm_bwd``, ``add_rmsnorm_bwd``)
+     and K2 (``flash_attention_bwd``) against autograd of their plain
+     versions at the train shapes (qwen3-8b's and zamba2-7b's), reruns
+     bitwise, their ptxas lines (no spills) and times (a
+     ``train.kernels`` line); then qwen3-8b at full width, depth cut to 2
+     layers, trained 12 steps at batch 4 x 512 through ``launch.train``:
+     clean, and under replication (a promotion), combined (a promotion,
+     then a pair death restored from the on-disk checkpoint) and
+     checkpoint (a death restored from disk), each final state (params,
+     m, v) bitwise the clean run's and each kernel's launches the count
+     the executed steps imply (a ``train`` line per run). The disk runs
+     write their checkpoints (16.3 GB each) under ``build/train_ckpt``
+     and keep at most two there at a time.
 
 Prints JSON lines as it goes (``comm``, ``fanout``, ``serve``,
-``serve.ckpt``, ``obs`` and ``store`` lines among them), then ``{"kernels": [...]}`` and, last,
+``serve.ckpt``, ``obs``, ``store``, ``train.kernels`` and ``train`` lines
+among them), then ``{"kernels": [...]}`` and, last,
 ``{"ok": true, "device": {...}}``. Exits non-zero without CUDA, and when run
 outside the repository (the port's package must be beside it in ``src``).
 """
@@ -80,6 +95,7 @@ import dataclasses
 import gc
 import itertools
 import json
+import math
 import os
 import re
 import resource
@@ -109,9 +125,12 @@ from repro_torch.core.replica_map import (  # noqa: E402
     ApplicationDead, ReplicaMap)
 from repro_torch.ft import DecodeWorkload, FTSession  # noqa: E402
 from repro_torch.kernels import build, ref  # noqa: E402
-from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
+from repro_torch.kernels.flash_attention import (  # noqa: E402
+    flash_attention, flash_attention_bwd)
 from repro_torch.kernels.mamba_scan import mamba_chunk_scan  # noqa: E402
-from repro_torch.kernels.rmsnorm import add_rmsnorm, rmsnorm  # noqa: E402
+from repro_torch.kernels.rmsnorm import (  # noqa: E402
+    add_rmsnorm, add_rmsnorm_bwd, rmsnorm, rmsnorm_bwd)
+from repro_torch.launch import train as train_lib  # noqa: E402
 from repro_torch.launch.serve import (  # noqa: E402
     BatchFanout, ReplicatedServer)
 from repro_torch.models import api, mamba2  # noqa: E402
@@ -125,6 +144,7 @@ from repro_torch.tree import copy_tree, tree_map  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 BF16_FLOPS = 989e12                # dense bf16 tensor-core peak
+F32_FLOPS = 67e12                  # f32 outside the tensor cores
 # |kernel - plain| <= atol + rtol * |plain| (tests/test_kernels.py's
 # tolerances): f32 differs only by summation order; bf16 by at most one
 # rounding of the f32 result (and, in the bf16 attention kernel, by the
@@ -1230,11 +1250,13 @@ def time_ms(fn, flush, reps=25, warmup=3):
     return statistics.median(times)
 
 
-def bound(n_bytes, n_ops):
+def bound(n_bytes, n_ops, dtype=torch.bfloat16):
     """Least time (ms) for work that moves ``n_bytes`` once and does
-    ``n_ops`` bf16 operations, and which of the two sets it."""
+    ``n_ops`` operations of ``dtype`` (bf16 on the tensor cores, f32 on
+    the FMA units), and which of the two sets it."""
     by_bytes = 1e3 * n_bytes / HBM_BYTES_PER_S
-    by_ops = 1e3 * n_ops / BF16_FLOPS
+    by_ops = 1e3 * n_ops / (BF16_FLOPS if dtype == torch.bfloat16
+                            else F32_FLOPS)
     return {"bound_ms": max(by_bytes, by_ops),
             "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
 
@@ -1485,10 +1507,419 @@ def phase_times_zamba(state):
     _free_server(state)
 
 
+# --------------------------------------------------------- phase 8: train
+# The backward kernels of K1 and K2 (no TPU counterpart: the JAX package
+# differentiates its jnp model), then qwen3-8b trained at full width.
+
+BWD_KERNELS = {"rmsnorm_bwd": rmsnorm_bwd, "add_rmsnorm_bwd": add_rmsnorm_bwd,
+               "flash_attention_bwd": flash_attention_bwd}
+
+
+def _k1_bwd_cases(gen, dtype):
+    """(name, dy, x, ds, w) of the K1 backward checks: the train shape's
+    qk-norm heads (d 128) and residual norms (d 4096), zamba2-7b's d 3584,
+    a strided head view, unaligned rows and a ragged row count."""
+    dq, dz, dh = QWEN.d_model, ZAMBA.d_model, QWEN.resolved_head_dim
+    hq, hkv = QWEN.n_heads, QWEN.n_kv_heads
+    cases = []
+    for shape in [(B, S, hq, dh), (B, S, hkv, dh), (B, S, dq), (B, S, dz),
+                  (1000 + 3, dq), (37, 200)]:
+        d = shape[-1]
+        cases.append((shape, _rand(gen, shape, dtype), _rand(gen, shape, dtype),
+                      _rand(gen, (d,), dtype)))
+    fused = _rand(gen, (B, S, hq + 2 * hkv, dh), dtype)
+    cases.append(("strided", _rand(gen, (B, S, hq, dh), dtype),
+                  fused[:, :, :hq], _rand(gen, (dh,), dtype)))
+    cases.append(("unaligned", _unaligned(gen, 64, dq, dtype),
+                  _unaligned(gen, 64, dq, dtype), _rand(gen, (dq,), dtype)))
+    return cases
+
+
+def _k2_bwd_cases():
+    cases = [
+        dict(b=B, hq=QWEN.n_heads, hkv=QWEN.n_kv_heads, s=S,
+             d=QWEN.resolved_head_dim, causal=True, window=0),  # qwen3-8b
+        dict(b=B, hq=ZAMBA.n_heads, hkv=ZAMBA.n_kv_heads, s=S,
+             d=ZAMBA.resolved_head_dim, causal=True, window=0),  # zamba2-7b
+        dict(b=2, hq=8, hkv=2, s=200, d=128, causal=True, window=0),
+        dict(b=1, hq=4, hkv=2, s=256, d=64, causal=True, window=100),
+        dict(b=1, hq=2, hkv=2, s=130, d=112, causal=False, window=0),
+        dict(b=1, hq=8, hkv=2, s=40, d=32, causal=True, window=0),
+    ]
+    return [dict(c, dtype=dt) for c in cases
+            for dt in (torch.bfloat16, torch.float32)]
+
+
+def phase_train_kernels(state):
+    """K1's two backward entries and K2's backward against autograd of
+    their plain versions on the card, reruns bitwise; their ptxas lines
+    (no spills); their times at the train shapes."""
+    card_name = state["card"]
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    checks, worst = [], {name: 0.0 for name in BWD_KERNELS}
+
+    def held(name, got, want, dtype, **shape):
+        share = []
+        for i, (g, w_) in enumerate(zip(got, want)):
+            atol, rtol = TOL[dtype]
+            if name != "flash_attention_bwd" and i == 1 and \
+                    dtype == torch.float32:
+                # K1's dw sums every row; each term carries its row's f32
+                # rstd (2^-23 relative), so f32 errors grow as sqrt(rows)
+                atol *= math.sqrt(got[0].numel() // got[0].shape[-1])
+            err = compare(name, g, w_, dtype, tol=(atol, rtol), **shape)
+            worst[name] = max(worst[name], err)
+            share.append(float(((g.float() - w_.float()).abs()
+                                / (atol + rtol * w_.float().abs())).max()))
+        checks.append({"kernel": name, "dtype": str(dtype)[6:], **shape,
+                       "share_of_tolerance": max(share)})
+
+    for dtype in (torch.bfloat16, torch.float32):
+        for shape, dy, x, w in _k1_bwd_cases(gen, dtype):
+            tag = {"shape": shape if isinstance(shape, str)
+                   else list(shape)}
+            got = rmsnorm_bwd(dy, x, w)
+            held("rmsnorm_bwd", got, ref.rmsnorm_bwd_ref(dy, x, w), dtype,
+                 **tag)
+            again = rmsnorm_bwd(dy, x, w)
+            if not all(torch.equal(a, b_) for a, b_ in zip(got, again)):
+                raise AssertionError(f"rmsnorm_bwd rerun differs: {tag}")
+            if x.shape[-1] == 128 and isinstance(shape, tuple):
+                continue                 # no fused add at the head norms
+            for ds in (_rand(gen, x.shape, dtype), None):
+                got = add_rmsnorm_bwd(dy, ds, x, w)
+                held("add_rmsnorm_bwd", got,
+                     ref.add_rmsnorm_bwd_ref(dy, ds, x, w), dtype,
+                     **tag, ds=ds is not None)
+                again = add_rmsnorm_bwd(dy, ds, x, w)
+                if not all(torch.equal(a, b_) for a, b_ in zip(got, again)):
+                    raise AssertionError(f"add_rmsnorm_bwd rerun differs: "
+                                         f"{tag}")
+        torch.cuda.empty_cache()
+    for c in _k2_bwd_cases():
+        dtype = c["dtype"]
+        q = _bshd(gen, c["b"], c["s"], c["hq"], c["d"], dtype)
+        k = _bshd(gen, c["b"], c["s"], c["hkv"], c["d"], dtype)
+        v = _bshd(gen, c["b"], c["s"], c["hkv"], c["d"], dtype)
+        do = _bshd(gen, c["b"], c["s"], c["hq"], c["d"], dtype)
+        o = flash_attention(q, k, v, causal=c["causal"], window=c["window"])
+        got = flash_attention_bwd(q, k, v, o, do, causal=c["causal"],
+                                  window=c["window"])
+        want = ref.flash_attention_bwd_ref(q, k, v, do, causal=c["causal"],
+                                           window=c["window"])
+        shape = {k_: v_ for k_, v_ in c.items() if k_ != "dtype"}
+        held("flash_attention_bwd", got, want, dtype, **shape)
+        again = flash_attention_bwd(q, k, v, o, do, causal=c["causal"],
+                                    window=c["window"])
+        if not all(torch.equal(a, b_) for a, b_ in zip(got, again)):
+            raise AssertionError(f"flash_attention_bwd rerun differs: {shape}")
+        del q, k, v, do, o, got, want, again
+        torch.cuda.empty_cache()
+    ptxas = [row for name in ("rmsnorm_bwd", "flash_attention_bwd")
+             for row in ptxas_report(name)]
+    spilled = [row for row in ptxas
+               if "spills" in row and not re.search(
+                   r"0 bytes spill stores, 0 bytes spill loads",
+                   row["spills"])]
+    if spilled:
+        raise AssertionError(f"ptxas spilled in a backward kernel: {spilled}")
+    times = _train_kernel_times(card_name, gen)
+    state["train_kernels"] = {"worst": worst, "times": times}
+    emit({"phase": "train.kernels", "checks": checks,
+          "reruns_bitwise": True, "max_abs_err": worst, "ptxas": ptxas,
+          "times": times, "card": card_name})
+
+
+def _grad_ms(outputs, inputs, grads, flush):
+    """Time of autograd's backward of a graph built once (the library
+    yardstick of a backward kernel)."""
+    return time_ms(lambda: torch.autograd.grad(outputs, inputs, grads,
+                                               retain_graph=True), flush)
+
+
+def _sdpa_bwd_ms(q, k, v, do, flush, deterministic):
+    """Backward of ``scaled_dot_product_attention`` (causal, GQA) with the
+    deterministic-algorithms switch as asked; None with PyTorch's reason
+    where it refuses the combination."""
+    before = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(deterministic)
+    try:
+        leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+        o = F.scaled_dot_product_attention(*leaves, is_causal=True,
+                                           enable_gqa=True)
+        return _grad_ms([o], leaves, [do], flush), None
+    except RuntimeError as e:
+        return None, str(e).splitlines()[0]
+    finally:
+        torch.use_deterministic_algorithms(before)
+
+
+def _train_kernel_times(card_name, gen):
+    """CUDA-event medians (L2 flushed) of the backward kernels at the
+    qwen3-8b train shapes, beside their plain versions (autograd of the
+    plain forward), their bounds and the PyTorch library backward."""
+    flush = _L2Flush()
+    bf = torch.bfloat16
+    d, dh, hq, hkv = (QWEN.d_model, QWEN.resolved_head_dim, QWEN.n_heads,
+                      QWEN.n_kv_heads)
+    eps = QWEN.norm_eps
+    rows = {}
+    for call, shape, fused in [("add+ln", (B, S, d), True),
+                               ("q_norm", (B, S, hq, dh), False),
+                               ("k_norm", (B, S, hkv, dh), False)]:
+        x, dy = _rand(gen, shape, bf), _rand(gen, shape, bf)
+        w = _rand(gen, (shape[-1],), bf)
+        n = x.numel()
+        if fused:
+            ds = _rand(gen, shape, bf)
+            r = _rand(gen, shape, bf)
+            lx, lr, lw = (t.detach().requires_grad_(True) for t in (x, r, w))
+            ls = lx + lr
+            ly = F.rms_norm(ls, (shape[-1],), lw, eps)
+            row = {"ms": time_ms(lambda: add_rmsnorm_bwd(dy, ds, x, w,
+                                                         eps=eps), flush),
+                   "plain_ms": time_ms(lambda: ref.add_rmsnorm_bwd_ref(
+                       dy, ds, x, w, eps=eps), flush),
+                   "library_ms": _grad_ms([ls, ly], [lx, lr, lw], [ds, dy],
+                                          flush),
+                   # s, dy, ds and w read once, dsum and dw written once
+                   **bound((4 * n + 2 * shape[-1]) * 2, 8 * n, bf)}
+            name = "add_rmsnorm_bwd"
+        else:
+            lx, lw = (t.detach().requires_grad_(True) for t in (x, w))
+            ly = F.rms_norm(lx, (shape[-1],), lw, eps)
+            row = {"ms": time_ms(lambda: rmsnorm_bwd(dy, x, w, eps=eps),
+                                 flush),
+                   "plain_ms": time_ms(lambda: ref.rmsnorm_bwd_ref(
+                       dy, x, w, eps=eps), flush),
+                   "library_ms": _grad_ms([ly], [lx, lw], [dy], flush),
+                   # x, dy and w read once, dx and dw written once
+                   **bound((3 * n + 2 * shape[-1]) * 2, 7 * n, bf)}
+            name = "rmsnorm_bwd"
+        row.update(kernel=name, call=call, shape=list(shape))
+        emit({"time": name, **row, "card": card_name})
+        rows[call] = row
+    q, k, v, do = (_bshd(gen, B, S, h, dh, bf) for h in (hq, hkv, hkv, hq))
+    o = flash_attention(q, k, v, causal=True)
+    pairs = B * hq * S * (S + 1) // 2            # unmasked (q, k) pairs
+    lib, lib_note = _sdpa_bwd_ms(q, k, v, do, flush, deterministic=False)
+    lib_det, det_note = _sdpa_bwd_ms(q, k, v, do, flush, deterministic=True)
+    row = {"kernel": "flash_attention_bwd", "shape": list(q.shape),
+           "kv_heads": hkv,
+           "ms": time_ms(lambda: flash_attention_bwd(q, k, v, o, do), flush),
+           "plain_ms": time_ms(lambda: ref.flash_attention_bwd_ref(
+               q, k, v, do), flush),
+           "library_ms": lib, "library_deterministic_ms": lib_det,
+           "library_notes": [lib_note, det_note],
+           # q, k, v, o, dO read once, dq, dk, dv written once; S, dP, dV,
+           # dQ and dK: five products of 2 D flops per visible pair
+           **bound((3 * q.numel() + 2 * k.numel()) * 2
+                         + (q.numel() + 2 * k.numel()) * 2,
+                         10 * dh * pairs, bf)}
+    emit({"time": "flash_attention_bwd", **row, "card": card_name})
+    rows["attention"] = row
+    return rows
+
+
+
+TRAIN_LAYERS, TRAIN_STEPS, TRAIN_LR, TRAIN_SEED = 2, 12, 1e-3, 0
+# the disk runs' checkpoint directory (gitignored), emptied before and
+# after the phase
+TRAIN_CKPT = os.path.join(ROOT, "build", "train_ckpt")
+# (mode, FTConfig fields, kills {step: [workers]}, checkpoints on disk):
+# the reference's FT-theorem schedules (tests/test_ft_trainer.py:31-66)
+TRAIN_RUNS = [
+    ("none", dict(mode="none"), {}, False),
+    ("replication", dict(mode="replication"), {5: [0]}, False),
+    ("combined", dict(mode="combined", ckpt_interval_s=4.0),
+     {4: [1], 8: [9]}, True),
+    ("checkpoint", dict(mode="checkpoint", ckpt_interval_s=3.0),
+     {7: [2]}, True),
+]
+
+
+def train_config():
+    """qwen3-8b at full width (d 4096, 32 q / 8 KV heads of 128, d_ff
+    12288, vocab 151936, bf16), depth cut from 36 to 2 layers: 1.63 B
+    parameters, a 16.3 GB train state (two copies under replication)."""
+    return dataclasses.replace(QWEN, n_layers=TRAIN_LAYERS)
+
+
+def train_launches_per_step(cfg):
+    """Kernel launches of one train step (forward and backward) of the
+    dense model: each layer's qk-norms and, in layer 0, ln1 are plain
+    norms (2 L + 1); ln2, the later ln1s and ln_f fuse the residual add
+    (2 L); one attention a layer; each backward once per forward."""
+    n = cfg.n_layers
+    fwd = {"rmsnorm": 2 * n + 1, "add_rmsnorm": 2 * n,
+           "flash_attention": n, "mamba_scan": 0}
+    return {**fwd, "rmsnorm_bwd": fwd["rmsnorm"],
+            "add_rmsnorm_bwd": fwd["add_rmsnorm"],
+            "flash_attention_bwd": fwd["flash_attention"]}
+
+
+def _train_state_tensors(state):
+    opt = state["opt"]
+    return ([("opt/.step", opt.step)]
+            + [(f"params/{k}", v) for k, v in state["params"].items()]
+            + [(f"opt/.m/{k}", v) for k, v in opt.m.items()]
+            + [(f"opt/.v/{k}", v) for k, v in opt.v.items()])
+
+
+def _prune_to_latest(ckpt_dir):
+    """Delete every checkpoint in ``ckpt_dir`` but the one ``LATEST``
+    names, the baseline included (a session restores only from LATEST and
+    restarts from its init without one); returns the bytes the directory
+    held before. A checkpoint of the train state is 16.3 GB and the card's
+    machine holds at most 45 GiB on its disk, so the disk runs prune before
+    each step: at most two checkpoints, the newest and the one being
+    written, are ever on disk."""
+    held = sum(os.path.getsize(os.path.join(root, f))
+               for root, _, files in os.walk(ckpt_dir) for f in files)
+    latest = os.path.join(ckpt_dir, "LATEST")
+    if os.path.exists(latest):
+        with open(latest) as f:
+            keep = f.read().strip()
+        for tag in os.listdir(ckpt_dir):
+            if tag != keep and (tag == "baseline" or tag.startswith("step_")):
+                shutil.rmtree(os.path.join(ckpt_dir, tag))
+    return held
+
+
+def _timed_steps(workload, ckpt_dir=None):
+    """Wrap the workload's train step: count its calls (the cmp's and the
+    replica's) and time each on the host with the card synchronised; with
+    ``ckpt_dir``, prune the checkpoints there before each step (untimed)
+    and keep the most bytes the directory held in ``held``."""
+    inner, times, held = workload.train_step, [], [0]
+
+    def step(st, b):
+        if ckpt_dir is not None:
+            held[0] = max(held[0], _prune_to_latest(ckpt_dir))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = inner(st, b)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        return out
+    workload.train_step = step
+    return times, held
+
+
+def phase_train(state):
+    """qwen3-8b trained at full width for TRAIN_STEPS steps, batch 4 x 512,
+    clean and under replication (a promotion), combined (a promotion then
+    a pair death, restarted from disk) and checkpoint (restarted from
+    disk); each run's final params and moments bitwise the clean run's."""
+    shutil.rmtree(TRAIN_CKPT, ignore_errors=True)     # a killed run's
+    try:
+        _train_runs(state)
+    finally:
+        shutil.rmtree(TRAIN_CKPT, ignore_errors=True)
+
+
+def _train_runs(state):
+    card_name = state["card"]
+    cfg = train_config()
+    per_step = train_launches_per_step(cfg)
+    counters = {**KERNELS, **BWD_KERNELS}
+    n_params = api.param_count(cfg)
+    emit({"phase": "train.build", "arch": cfg.name, "n_layers": cfg.n_layers,
+          "d_model": cfg.d_model, "vocab": cfg.vocab_size, "params": n_params,
+          "state_bytes": n_params * (2 + 4 + 4) + 4, "batch": B, "seq": S,
+          "steps": TRAIN_STEPS, "lr": TRAIN_LR, "card": card_name})
+    clean = None
+    totals = dict.fromkeys(counters, 0)
+    for mode, ft, kills, disk in TRAIN_RUNS:
+        ckpt_dir = os.path.join(TRAIN_CKPT, mode) if disk else None
+        if ckpt_dir:
+            shutil.rmtree(ckpt_dir, ignore_errors=True)
+        tr = train_lib.build_trainer(
+            cfg, batch=B, seq=S, seed=TRAIN_SEED, lr=TRAIN_LR, device="cuda",
+            ft=FTConfig(**ft), ckpt_dir=ckpt_dir,
+            kill_schedule=kills)
+        times, held = _timed_steps(tr.workload, ckpt_dir)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        for fn in counters.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        rep = tr.run(TRAIN_STEPS)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k: fn.launches for k, fn in counters.items()}
+        expected = {k: v * len(times) for k, v in per_step.items()}
+        backend = tr.session.strategy.backend
+        losses = rep.losses
+        if len(losses) != TRAIN_STEPS + rep.rolled_back_steps or \
+                not np.isfinite(losses).all():
+            raise AssertionError(f"train {mode}: losses {losses}")
+        if launches != expected:
+            raise AssertionError(f"train {mode}: launches {launches} != "
+                                 f"{expected}")
+        final = _train_state_tensors(rep.final_state)
+        if clean is None:
+            clean = [(k, t.cpu()) for k, t in final]   # one host copy
+            equal = True
+        else:
+            equal = all(k == kc and t.dtype == c.dtype
+                        and torch.equal(t.cpu(), c)
+                        for (k, t), (kc, c) in zip(final, clean))
+        want = {"none": (0, 0), "replication": (1, 0), "combined": (1, 1),
+                "checkpoint": (0, 1)}[mode]
+        line = {
+            "phase": "train", "mode": mode, "arch": cfg.name,
+            "n_layers": cfg.n_layers, "steps": rep.steps,
+            "executed_steps": len(times), "loss_first": losses[0],
+            "loss_last": losses[-1], "failures": rep.failures,
+            "promotions": rep.promotions, "restarts": rep.restarts,
+            "rolled_back_steps": rep.rolled_back_steps,
+            "ckpt_writes": rep.ckpt_writes,
+            "restore_backend": getattr(backend, "kind", None),
+            "final_state_equal": equal, "launches": launches,
+            "launches_expected": expected,
+            "step_ms_median": 1e3 * statistics.median(times),
+            "wall_s": wall,
+            "max_memory_allocated": torch.cuda.max_memory_allocated(),
+            "host_rss_peak_bytes":
+                resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024,
+            "card": card_name}
+        if disk:
+            ck = backend.ckpt
+            line.update({
+                "ckpt_save_s_total": rep.ckpt_s,
+                "ckpt_save_s_mean": rep.ckpt_s / max(rep.ckpt_writes, 1),
+                "ckpt_restore_s": rep.restore_s,
+                "ckpt_bytes_each": ck.last_bytes,
+                "ckpt_bytes_written": ck.last_bytes * (rep.ckpt_writes + 1),
+                "ckpt_dir_peak_bytes": max(held[0],
+                                           _prune_to_latest(ckpt_dir))})
+        emit(line)
+        if not equal:
+            raise AssertionError(f"train {mode}: final state differs from "
+                                 f"the clean run's")
+        if (rep.promotions, rep.restarts) != want:
+            raise AssertionError(f"train {mode}: promotions, restarts "
+                                 f"{(rep.promotions, rep.restarts)} != "
+                                 f"{want}")
+        if disk and (backend.kind != "disk" or rep.restore_s <= 0 or (
+                mode == "combined" and rep.rolled_back_steps <= 0)):
+            raise AssertionError(f"train {mode}: not restarted from disk")
+        for k in totals:
+            totals[k] += launches[k]
+        del tr, rep, final, backend
+        gc.collect()
+        torch.cuda.empty_cache()
+        if ckpt_dir:
+            shutil.rmtree(ckpt_dir)
+    state["train_launches"] = totals
+
 PHASES = [phase_device_and_build, phase_comm, phase_rmsnorm, phase_attention,
           phase_mamba_scan, phase_reference, phase_reference_zamba,
           phase_serve, phase_serve_ckpt, phase_obs, phase_store, phase_times,
-          phase_serve_zamba, phase_serve_ckpt_zamba, phase_times_zamba]
+          phase_serve_zamba, phase_serve_ckpt_zamba, phase_times_zamba,
+          phase_train_kernels, phase_train]
 
 REPLACES = {"rmsnorm": "src/repro/kernels/rmsnorm.py:31",
             "flash_attention": "src/repro/kernels/flash_attention.py:97",
@@ -1531,7 +1962,45 @@ def kernels_line(state):
                  **{key: state["times"][arch][name][key] for key in
                     TIMED + ("library_deterministic_ms",)}}
                 for arch in (QWEN.name, ZAMBA.name)]
+    rows += _backward_rows(state)
     return {"kernels": rows}
+
+
+def _backward_rows(state):
+    """The backward kernels (port only: the JAX package differentiates its
+    jnp model): launches over the four train runs, the worst error of the
+    train.kernels checks, times at qwen3-8b's train shapes. ``replaces``
+    names the TPU kernel whose function they differentiate. The K1 row
+    sums one call of each timed entry (q_norm, k_norm, add+ln)."""
+    launches = state["train_launches"]
+    tk = state["train_kernels"]
+    times, worst = tk["times"], tk["worst"]
+    k1_calls = [times[c] for c in ("q_norm", "k_norm", "add+ln")]
+    k1 = {key: sum(t[key] for t in k1_calls)
+          for key in ("ms", "plain_ms", "bound_ms", "library_ms")}
+    k1["bound_by"] = "bytes"
+    att = times["attention"]
+    return [
+        {"name": "rmsnorm_bwd", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/rmsnorm_bwd.cu",
+         "replaces": REPLACES["rmsnorm"], "backward_of": "rmsnorm",
+         "launches": launches["rmsnorm_bwd"] + launches["add_rmsnorm_bwd"],
+         "max_abs_err": max(worst["rmsnorm_bwd"], worst["add_rmsnorm_bwd"]),
+         **k1, "call": "q_norm + k_norm + add+ln",
+         "entries": [
+             {"name": name, "launches": launches[name],
+              "max_abs_err": worst[name],
+              **{key: times[call][key] for key in TIMED}}
+             for name, call in (("rmsnorm_bwd", "q_norm"),
+                                ("add_rmsnorm_bwd", "add+ln"))]},
+        {"name": "flash_attention_bwd", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+         "replaces": REPLACES["flash_attention"],
+         "backward_of": "flash_attention",
+         "launches": launches["flash_attention_bwd"],
+         "max_abs_err": worst["flash_attention_bwd"],
+         **{key: att[key] for key in TIMED + ("library_deterministic_ms",)},
+         "shape": att["shape"]}]
 
 
 def main() -> int:

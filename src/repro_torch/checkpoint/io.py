@@ -1,0 +1,354 @@
+"""Checkpoint I/O in the reference's on-disk format (port of
+``repro/checkpoint/io.py``), for trees of torch tensors.
+
+Format: one ``manifest.json`` plus one ``band_<i>.npz`` per band. Every
+leaf is split on its axis-0 range across the bands; a scalar, or a leaf
+with fewer rows than bands, is written whole by band 0. bf16 is stored as
+its ``uint16`` bits with dtype ``"bfloat16"`` in the manifest. Writes go
+to a temporary directory that is fsync'd and then renamed, and the
+``LATEST`` pointer is replaced last, so a failure mid-checkpoint never
+corrupts the previous one.
+
+Keys are the reference's: the path of each leaf joined by ``/``, a dict
+key as itself, a NamedTuple field as ``.name`` (``opt/.step``,
+``opt/.m/...``), a list index as its number. A dict whose keys hold dots
+is a state dict of per-block tensors (``layers.3.attn.wq``): it is written
+as the reference's layer-stacked tree (``layers/attn/wq`` of shape
+[L, ...]; ``models.convert.stack_plan``), so a train state of the port and
+one of the reference write the same keys, shapes, dtypes and bands, and
+each side restores the other's checkpoints.
+
+Each tensor is copied to the host once per save (stacked blocks straight
+into their slot of the stacked array). ``restore(like)`` puts each tensor
+on the device of ``like``'s tensor at the same place, as
+``store.backend.from_host`` does, and checks its dtype and shape.
+"""
+from __future__ import annotations
+
+import json
+import os
+import shutil
+import time
+from typing import Any, Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.models.convert import stack_plan
+
+_NATIVE = {np.dtype(t) for t in
+           ("bool", "int8", "uint8", "int16", "uint16", "int32", "uint32",
+            "int64", "uint64", "float16", "float32", "float64",
+            "complex64", "complex128")}
+BF16 = "bfloat16"
+
+Key = str
+
+
+def _fsync_path(path: str) -> None:
+    """fsync a file or directory by path (a directory's fsync publishes
+    the entries a rename made; best effort where unsupported)."""
+    try:
+        fd = os.open(path, os.O_RDONLY)
+    except OSError:
+        return
+    try:
+        os.fsync(fd)
+    except OSError:
+        pass
+    finally:
+        os.close(fd)
+
+
+def _np_dtype(dtype: torch.dtype) -> Tuple[np.dtype, str]:
+    """(the host array's dtype, the manifest's dtype name) of a tensor
+    dtype: bf16 travels as uint16 bits."""
+    if dtype == torch.bfloat16:
+        return np.dtype(np.uint16), BF16
+    try:
+        nd = torch.empty(0, dtype=dtype).numpy().dtype
+    except TypeError as e:
+        raise TypeError(f"a checkpoint cannot hold {dtype}") from e
+    return nd, str(nd)
+
+
+def _host_view(arr: np.ndarray, dtype: torch.dtype) -> torch.Tensor:
+    """A CPU tensor of ``dtype`` over ``arr``'s memory."""
+    if dtype == torch.bfloat16:
+        return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(arr)
+
+
+def _is_state_dict(tree) -> bool:
+    return isinstance(tree, dict) and any("." in str(k) for k in tree)
+
+
+def _leaves(tree, prefix: Tuple[str, ...] = ()):
+    """(key, leaf) pairs of ``tree`` in the reference's flatten order,
+    where a leaf is a tensor, an array or a stack [(index, tensor)] of a
+    state dict's blocks."""
+    if _is_state_dict(tree):
+        for path, members in sorted(stack_plan(tree).items()):
+            key = "/".join(prefix + path)
+            if members[0][0]:
+                yield key, [(ix, tree[name]) for ix, name in members]
+            else:
+                yield key, tree[members[0][1]]
+    elif isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _leaves(tree[k], prefix + (str(k),))
+    elif isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        for name, v in zip(tree._fields, tree):
+            yield from _leaves(v, prefix + (f".{name}",))
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from _leaves(v, prefix + (str(i),))
+    else:
+        yield "/".join(prefix), tree
+
+
+def _meta(leaf) -> Tuple[Tuple[int, ...], np.dtype, str]:
+    """(shape, host dtype, the manifest's dtype name) of a leaf."""
+    if isinstance(leaf, list):                       # a stack of blocks
+        nd, name = _np_dtype(leaf[0][1].dtype)
+        lead = tuple(i + 1 for i in leaf[-1][0])
+        return lead + tuple(leaf[0][1].shape), nd, name
+    if isinstance(leaf, torch.Tensor):
+        nd, name = _np_dtype(leaf.dtype)
+        return tuple(leaf.shape), nd, name
+    arr = np.asarray(leaf)
+    return arr.shape, arr.dtype, str(arr.dtype)
+
+
+def _rows_to_host(leaf, lo: int, hi: int) -> np.ndarray:
+    """One host copy of rows [lo, hi) of a leaf's axis 0 (all of a 0-d
+    leaf when lo == hi == 0 and it has no rows)."""
+    shape, nd, _ = _meta(leaf)
+    if not shape:
+        out = np.empty((), dtype=nd)
+        if isinstance(leaf, torch.Tensor):
+            _host_view(out, leaf.dtype).copy_(leaf.detach())
+            return out
+        return np.asarray(leaf).copy()
+    n = max(0, hi - lo)
+    if isinstance(leaf, list):
+        out = np.empty((n,) + shape[1:], dtype=nd)
+        for ix, t in leaf:
+            if lo <= ix[0] < hi:
+                _host_view(out[(ix[0] - lo,) + ix[1:]], t.dtype).copy_(
+                    t.detach())
+        return out
+    if isinstance(leaf, torch.Tensor):
+        out = np.empty((n,) + shape[1:], dtype=nd)
+        _host_view(out, leaf.dtype).copy_(leaf.detach()[lo:lo + n])
+        return out
+    return np.asarray(leaf)[lo:lo + n].copy()
+
+
+def _to_storable(arr: np.ndarray) -> np.ndarray:
+    """npz holds native dtypes only: view anything else as uint bits."""
+    if arr.dtype in _NATIVE:
+        return arr
+    return arr.view(np.dtype(f"u{arr.dtype.itemsize}"))
+
+
+def _empty_like(tree, prefix: Tuple[str, ...] = ()):
+    """(``tree`` with each tensor replaced by an empty one of its dtype
+    and shape on its device, {key: the new leaf, or the stack [(index,
+    tensor)] of a state dict's blocks})."""
+    targets: Dict[Key, Any] = {}
+
+    def walk(node, pre):
+        if _is_state_dict(node):
+            out = {name: torch.empty_like(t) for name, t in node.items()}
+            for path, members in stack_plan(node).items():
+                key = "/".join(pre + path)
+                targets[key] = ([(ix, out[name]) for ix, name in members]
+                                if members[0][0] else out[members[0][1]])
+            return out
+        if isinstance(node, dict):
+            return {k: walk(v, pre + (str(k),)) for k, v in node.items()}
+        if isinstance(node, tuple) and hasattr(node, "_fields"):
+            return type(node)(*(walk(v, pre + (f".{n}",))
+                                for n, v in zip(node._fields, node)))
+        if isinstance(node, (list, tuple)):
+            items = [walk(v, pre + (str(i),)) for i, v in enumerate(node)]
+            return items if isinstance(node, list) else tuple(items)
+        if isinstance(node, torch.Tensor):
+            targets["/".join(pre)] = out = torch.empty_like(node)
+            return out
+        targets["/".join(pre)] = out = np.array(node, copy=True)
+        return out
+
+    return walk(tree, prefix), targets
+
+
+def _fill(target, arr: np.ndarray, lo: int, stored: Tuple[int, ...],
+          meta: dict, key: Key) -> None:
+    """Copy a band's rows [lo, lo + len(arr)) of leaf ``key`` into the
+    restored tensors, checking the manifest's dtype and the ``stored``
+    shape (its rows in the bands read) against the state's."""
+    first = target[0][1] if isinstance(target, list) else target
+    if isinstance(first, torch.Tensor):
+        want = _np_dtype(first.dtype)[1]
+        shape = (tuple(i + 1 for i in target[-1][0]) + tuple(first.shape)
+                 if isinstance(target, list) else tuple(first.shape))
+    else:
+        want, shape = str(first.dtype), first.shape
+    if meta["dtype"] != want or stored != shape:
+        raise ValueError(f"checkpoint leaf {key} is {meta['dtype']} "
+                         f"{stored}, the state wants {want} {shape}")
+    if isinstance(target, list):
+        n = arr.shape[0]
+        for ix, t in target:
+            if lo <= ix[0] < lo + n:
+                t.copy_(_host_view(np.ascontiguousarray(
+                    arr[(ix[0] - lo,) + ix[1:]]), t.dtype))
+    elif isinstance(target, torch.Tensor):
+        src = _host_view(arr if arr.flags.c_contiguous else arr.copy(),
+                         target.dtype)
+        if target.dim():
+            target[lo:lo + arr.shape[0]].copy_(src)
+        else:
+            target.copy_(src.reshape(()))
+    elif target.ndim:
+        target[lo:lo + arr.shape[0]] = arr
+    else:
+        target[...] = arr
+
+
+class Checkpointer:
+    def __init__(self, directory: str, n_bands: int = 4):
+        self.dir = directory
+        self.n_bands = n_bands
+        os.makedirs(directory, exist_ok=True)
+        self.last_write_s = 0.0
+        self.last_bytes = 0
+
+    # -- write ----------------------------------------------------------------
+
+    def _band_slices(self, n_rows: int) -> List[Tuple[int, int]]:
+        per = -(-n_rows // self.n_bands)
+        return [(i * per, min((i + 1) * per, n_rows))
+                for i in range(self.n_bands)]
+
+    def save(self, step: int, state, *, baseline: bool = False,
+             extra: Optional[dict] = None) -> float:
+        """Returns the measured write time (seconds on the host clock)."""
+        t0 = time.perf_counter()
+        tag = "baseline" if baseline else f"step_{step:08d}"
+        tmp = os.path.join(self.dir, f".tmp_{tag}")
+        final = os.path.join(self.dir, tag)
+        shutil.rmtree(tmp, ignore_errors=True)
+        os.makedirs(tmp)
+
+        manifest = {"step": step, "baseline": baseline,
+                    "n_bands": self.n_bands, "extra": extra or {},
+                    "leaves": {}}
+        leaves = list(_leaves(state))
+        for key, leaf in leaves:
+            shape, _, dtype = _meta(leaf)
+            if not shape or shape[0] < self.n_bands:
+                manifest["leaves"][key] = {
+                    "shape": list(shape), "dtype": dtype, "banded": False}
+            else:
+                manifest["leaves"][key] = {
+                    "shape": list(shape), "dtype": dtype, "banded": True,
+                    "slices": self._band_slices(shape[0])}
+        # one band at a time: each leaf's rows of the band are copied to
+        # the host once, written, and dropped before the next band
+        nbytes = 0
+        for i in range(self.n_bands):
+            band = {}
+            for key, leaf in leaves:
+                meta = manifest["leaves"][key]
+                if meta["banded"]:
+                    band[key] = _rows_to_host(leaf, *meta["slices"][i])
+                elif i == 0:
+                    band[key] = _rows_to_host(leaf, 0, meta["shape"][0]
+                                              if meta["shape"] else 0)
+            nbytes += sum(a.nbytes for a in band.values())
+            path = os.path.join(tmp, f"band_{i}.npz")
+            np.savez(path, **{k.replace("/", "|"): _to_storable(v)
+                              for k, v in band.items()})
+            _fsync_path(path)
+            del band
+        with open(os.path.join(tmp, "manifest.json"), "w") as f:
+            json.dump(manifest, f)
+            f.flush()
+            os.fsync(f.fileno())
+        # durability before visibility: contents and the tmp directory's
+        # entries reach stable storage before the rename publishes them
+        _fsync_path(tmp)
+        shutil.rmtree(final, ignore_errors=True)
+        os.rename(tmp, final)
+        _fsync_path(self.dir)
+        if not baseline:
+            with open(os.path.join(self.dir, "LATEST.tmp"), "w") as f:
+                f.write(tag)
+                f.flush()
+                os.fsync(f.fileno())
+            os.replace(os.path.join(self.dir, "LATEST.tmp"),
+                       os.path.join(self.dir, "LATEST"))
+            _fsync_path(self.dir)
+        self.last_bytes = nbytes
+        self.last_write_s = time.perf_counter() - t0
+        return self.last_write_s
+
+    # -- read -----------------------------------------------------------------
+
+    def latest_tag(self) -> Optional[str]:
+        p = os.path.join(self.dir, "LATEST")
+        if not os.path.exists(p):
+            return None
+        with open(p) as f:
+            return f.read().strip()
+
+    def latest_step(self) -> Optional[int]:
+        tag = self.latest_tag()
+        return int(tag.split("_")[1]) if tag else None
+
+    def restore(self, like, *, tag: Optional[str] = None,
+                bands: Optional[List[int]] = None):
+        """Restore into the structure of ``like``: (state, step, extra).
+        Band files are read one at a time, each straight into tensors on
+        ``like``'s devices, so the host holds one band file at most.
+        ``bands`` restricts which are read (None: all); a banded leaf then
+        holds the rows of those bands, in band order (elastic restore)."""
+        root = os.path.join(self.dir, tag or self.latest_tag() or "baseline")
+        with open(os.path.join(root, "manifest.json")) as f:
+            manifest = json.load(f)
+        want = sorted(range(manifest["n_bands"]) if bands is None else bands)
+        state, targets = _empty_like(like)
+        seen = set()
+        for i in want:
+            with np.load(os.path.join(root, f"band_{i}.npz")) as z:
+                for name in z.files:
+                    key = name.replace("|", "/")
+                    meta = manifest["leaves"][key]
+                    stored, lo = tuple(meta["shape"]), 0
+                    if meta["banded"]:
+                        rows = [max(0, hi - lo_) for lo_, hi in
+                                (meta["slices"][j] for j in want)]
+                        lo = sum(rows[:want.index(i)])
+                        stored = (sum(rows),) + stored[1:]
+                    _fill(targets[key], z[name], lo, stored, meta, key)
+                    seen.add(key)
+        if seen != set(targets):
+            raise FileNotFoundError(f"leaves missing from the bands read "
+                                    f"or the state: "
+                                    f"{sorted(seen ^ set(targets))}")
+        return state, manifest["step"], manifest["extra"]
+
+    def exists(self, tag: str) -> bool:
+        return os.path.isdir(os.path.join(self.dir, tag))
+
+    def gc(self, keep: int = 2):
+        """Drop all but the newest ``keep`` incremental checkpoints."""
+        tags = sorted(t for t in os.listdir(self.dir)
+                      if t.startswith("step_"))
+        for t in tags[:-keep]:
+            shutil.rmtree(os.path.join(self.dir, t), ignore_errors=True)
+
+
+__all__ = ["Checkpointer"]

@@ -67,6 +67,15 @@ class RunReport:
     obs: Any = None
     obs_metrics: Optional[dict] = None
 
+    @property
+    def losses(self) -> List[float]:
+        """Scalar metrics as floats (train workloads emit the loss)."""
+        return [float(m) for m in self.metrics if m is not None]
+
+
+# the reference's old name for the train-specific report
+TrainReport = RunReport
+
 
 class FTSession:
     """Drives a Workload under an FTStrategy with failure injection.
@@ -95,8 +104,8 @@ class FTSession:
         self.n_logical_workers = n_logical_workers
         self.workers_per_node = workers_per_node
         self.allow_restart = allow_restart
-        # a directory selects the disk backend, which comes with training
-        # (store.make_backend raises where it would pick it)
+        # a directory selects the disk backend for a disk-checkpointable
+        # workload (store.make_backend)
         self.ckpt_dir = ckpt_dir
         # observability: obs=True builds a recorder, or pass one in;
         # obs=None (default) keeps every hook a falsy check

@@ -3,8 +3,8 @@
   NoFT                 native step loop (the "EMPI direct" baseline)
   CheckpointStrategy   coordinated checkpoint/restart at the Young-Daly
                        interval through a CheckpointBackend (``store``):
-                       shards replicated into partner memory (the ReStore
-                       idea); the disk backend comes with training
+                       on disk, or shards replicated into partner memory
+                       (the ReStore idea)
   ReplicationStrategy  a replica redundantly executes every step; on
                        computational failure the replica is promoted in O(1)
                        (state already current — no restore, no rollback)
@@ -118,6 +118,9 @@ class _ReplicaMixin:
         return state, step
 
     def _on_restart(self, workload, state, step, rep):
+        # the replica died with its pair: free its state before the
+        # restore brings a new one onto the device
+        self.replica_state = None
         state, step = super()._on_restart(workload, state, step, rep)
         self.replica_state = copy_tree(state)
         return state, step

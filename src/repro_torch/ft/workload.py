@@ -1,6 +1,6 @@
-"""Workload protocol and the decode-loop adapter (port of
-``repro/ft/workload.py``: ``DecodeWorkload``; the train adapter comes with
-the training slice, ROADMAP.md).
+"""Workload protocol and its adapters (port of ``repro/ft/workload.py``:
+``TrainWorkload`` and ``DecodeWorkload``; ``SimAppWorkload`` comes with
+the simulated runtime, ROADMAP.md Queue 1 item 9).
 
 A workload is anything that can be driven step by step over an explicit
 state tree:
@@ -22,7 +22,7 @@ import torch
 
 from repro_torch.tree import copy_tree
 
-__all__ = ["Workload", "DecodeWorkload", "copy_tree"]
+__all__ = ["Workload", "TrainWorkload", "DecodeWorkload", "copy_tree"]
 
 
 @runtime_checkable
@@ -30,6 +30,32 @@ class Workload(Protocol):
     def init_state(self) -> Any: ...
 
     def step(self, state: Any, t: int) -> Tuple[Any, Any]: ...
+
+
+class TrainWorkload:
+    """The train step as a Workload. ``batch_fn(t)`` must be a pure
+    function of the step index (the deterministic data cursor).
+
+    ``train_step(state, batch) -> (state, loss)`` may write the state it
+    is given in place (the port's AdamW does): the replica's state is a
+    ``copy_tree`` clone and every checkpoint a copy, so nothing else holds
+    those tensors. The state is {"params", "opt"}, written to disk by
+    ``checkpoint.Checkpointer`` in the reference's format."""
+
+    disk_checkpointable = True
+
+    def __init__(self, *, train_step: Callable, init_state: Callable,
+                 batch_fn: Callable[[int], dict]):
+        self.train_step = train_step
+        self.init_state_fn = init_state
+        self.batch_fn = batch_fn
+
+    def init_state(self):
+        return self.init_state_fn()
+
+    def step(self, state, t):
+        state, loss = self.train_step(state, self.batch_fn(t))
+        return state, loss
 
 
 def _greedy(logits: torch.Tensor) -> torch.Tensor:

@@ -1,0 +1,80 @@
+"""``torch.autograd.Function``s around the CUDA kernels, for training on
+the card.
+
+The forward of each calls the existing forward kernel and saves what the
+backward kernel reads; the backward calls the hand-written backward kernel
+(``rmsnorm_bwd``, ``add_rmsnorm_bwd``, ``flash_attention_bwd``). The JAX
+package has no backward kernels (its model differentiates jnp code); these
+exist so that no plain PyTorch version runs on the card's training path.
+``kernels.ops`` routes a CUDA call here only when grad mode is on and an
+input requires grad; otherwise it calls the forward kernel directly, so
+inference launches nothing more. CPU tensors never come here: ``ops``
+sends them to ``ref``, whose autograd gives the gradient.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import rmsnorm as rn
+
+
+class RMSNorm(torch.autograd.Function):
+    """y = rmsnorm(x, w); saves x and w."""
+
+    @staticmethod
+    def forward(ctx, x, w, eps):
+        ctx.eps = eps
+        ctx.save_for_backward(x, w)
+        return rn.rmsnorm(x, w, eps=eps)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        dx, dw = rn.rmsnorm_bwd(dy, x, w, eps=ctx.eps)
+        return dx, dw, None
+
+
+class AddRMSNorm(torch.autograd.Function):
+    """(s, y) = (x + r, rmsnorm(x + r, w)); saves s and w. The backward
+    gets (ds, dy) and gives x and r the same gradient."""
+
+    @staticmethod
+    def forward(ctx, x, r, w, eps):
+        ctx.eps = eps
+        ctx.set_materialize_grads(False)
+        s, y = rn.add_rmsnorm(x, r, w, eps=eps)
+        ctx.save_for_backward(s, w)
+        return s, y
+
+    @staticmethod
+    def backward(ctx, ds, dy):
+        s, w = ctx.saved_tensors
+        if dy is None:                  # only s was used downstream
+            return ds, ds, None, None
+        dsum, dw = rn.add_rmsnorm_bwd(dy, ds, s, w, eps=ctx.eps)
+        return dsum, dsum, dw, None
+
+
+class FlashAttention(torch.autograd.Function):
+    """o = flash_attention(q, k, v); saves q, k, v and o."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window):
+        ctx.causal, ctx.window = causal, window
+        o = fa.flash_attention(q, k, v, causal=causal, window=window)
+        ctx.save_for_backward(q, k, v, o)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o = ctx.saved_tensors
+        try:
+            fa.check_layout(do.shape, do.stride(), do.dtype, do.data_ptr())
+        except ValueError:
+            # autograd handed dO in another layout: the kernel's own
+            do = do.transpose(1, 2).contiguous().transpose(1, 2)
+        dq, dk, dv = fa.flash_attention_bwd(q, k, v, o, do,
+                                            causal=ctx.causal,
+                                            window=ctx.window)
+        return dq, dk, dv, None, None

@@ -12,6 +12,11 @@ on. Both read q, k and v through their strides, so the model's
 [B, S, H, D] projections go in without a transposed copy, and write the
 output in [B, S, H, D] storage. ``ops.attention`` routes CUDA tensors here
 and CPU tensors to ``ref.flash_attention_ref``.
+
+``flash_attention_bwd`` wraps the backward kernels of
+``csrc/flash_attention_bwd.cu`` (f32 FMAs for both dtypes, no atomics);
+``kernels.autograd`` calls it from the backward of its
+``torch.autograd.Function``.
 """
 from __future__ import annotations
 
@@ -106,3 +111,69 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 flash_attention.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# backward (csrc/flash_attention_bwd.cu)
+# ---------------------------------------------------------------------------
+
+_BWD_ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 33
+                 + [ctypes.c_float, ctypes.c_void_p])
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        o: torch.Tensor, do: torch.Tensor, *,
+                        causal: bool = True, window: int = 0):
+    """Gradient of ``flash_attention(q, k, v)`` = o given dO: (dq, dk, dv)
+    in the inputs' dtype, each a [B, H, S, D] view of new [B, S, H, D]
+    storage (the forward output's layout). q, o, dO: [B, Hq, Sq, D]; k, v:
+    [B, Hkv, Skv, D]; every operand laid out as ``check_layout`` requires.
+    No atomics: the dk/dv kernel sums over the group's q heads and q tiles
+    in a fixed order."""
+    dev = q.device
+    ops_ = (q, k, v, o, do)
+    if dev.type != "cuda" or any(t.device != dev for t in ops_):
+        raise ValueError("flash attention backward needs its tensors on one "
+                         "CUDA device")
+    if q.dtype not in DTYPE_CODES or any(t.dtype != q.dtype for t in ops_):
+        raise TypeError(f"flash attention backward takes one dtype of "
+                        f"{list(DTYPE_CODES)}, got "
+                        f"{[t.dtype for t in ops_]}")
+    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape or \
+            o.shape != q.shape or do.shape != q.shape:
+        raise ValueError(f"want q, o, dO [B,Hq,Sq,D] and k, v [B,Hkv,Skv,D], "
+                         f"got {[tuple(t.shape) for t in ops_]}")
+    b, hq, sq, d = q.shape
+    _, hkv, skv, dk_ = k.shape
+    if k.shape[0] != b or dk_ != d or d not in HEAD_DIMS or hq % hkv:
+        raise ValueError(f"unsupported shapes q {tuple(q.shape)}, "
+                         f"k {tuple(k.shape)}: need equal B and D, D in "
+                         f"{HEAD_DIMS}, Hq % Hkv == 0")
+    for t in ops_:
+        check_layout(t.shape, t.stride(), t.dtype, t.data_ptr())
+    if window < 0:
+        raise ValueError(f"window must be >= 0, got {window}")
+    dq = torch.empty((b, sq, hq, d), dtype=q.dtype, device=dev).transpose(1, 2)
+    dk = torch.empty((b, skv, hkv, d), dtype=q.dtype,
+                     device=dev).transpose(1, 2)
+    dv = torch.empty_like(dk)
+    if b == 0 or sq == 0 or hq == 0:
+        return dq, dk.zero_(), dv.zero_()
+    if skv == 0:
+        raise ValueError("flash attention backward needs at least one key")
+    scratch = torch.empty(2 * b * hq * sq, dtype=torch.float32, device=dev)
+    fn = build.load_function("flash_attention_bwd", "flash_attention_bwd",
+                             _BWD_ARGTYPES)
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+             do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+             scratch.data_ptr(), DTYPE_CODES[q.dtype], b, hq, hkv, sq, skv,
+             d, *(s for t in (q, k, v, o, do, dq, dk, dv)
+                  for s in _bsh_strides(t)),
+             int(causal), int(window), d ** -0.5,
+             torch.cuda.current_stream(dev).cuda_stream)
+    build.check("flash_attention_bwd", err)
+    flash_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+flash_attention_bwd.launches = 0

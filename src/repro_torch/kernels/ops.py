@@ -4,13 +4,16 @@ Counterpart of ``repro/kernels/ops.py``. A tensor on the CPU, or
 ``backend="ref"``, goes to the plain PyTorch version in ``ref``; a CUDA
 tensor goes to the hand-written kernel, which raises on what it does not
 take. There is no fallback from the kernel to the plain version: a build or
-launch failure surfaces.
+launch failure surfaces. A CUDA call that autograd must differentiate
+(grad mode on and an input that requires grad) goes through the
+``kernels.autograd`` Function, whose backward is a kernel too; any other
+CUDA call launches the forward kernel alone.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import ref
+from repro_torch.kernels import autograd, ref
 from repro_torch.kernels.flash_attention import flash_attention as _flash_cuda
 from repro_torch.kernels.mamba_scan import mamba_chunk_scan as _mamba_cuda
 from repro_torch.kernels.rmsnorm import add_rmsnorm as _add_rmsnorm_cuda
@@ -30,10 +33,16 @@ def _use_kernel(x: torch.Tensor, backend: str) -> bool:
     raise ValueError(f"no kernel for tensors on {x.device}")
 
 
+def _needs_grad(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
 def attention(q, k, v, *, causal: bool = True, window: int = 0,
               backend: str = "auto"):
     """Flash attention. q: [B,Hq,S,D]; k, v: [B,Hkv,S,D] (any strides)."""
     if _use_kernel(q, backend):
+        if _needs_grad(q, k, v):
+            return autograd.FlashAttention.apply(q, k, v, causal, window)
         return _flash_cuda(q, k, v, causal=causal, window=window)
     return ref.flash_attention_ref(q, k, v, causal=causal, window=window)
 
@@ -41,6 +50,8 @@ def attention(q, k, v, *, causal: bool = True, window: int = 0,
 def rmsnorm(x, w, *, eps: float = 1e-5, backend: str = "auto"):
     """RMSNorm over the last dimension of x with weight w."""
     if _use_kernel(x, backend):
+        if _needs_grad(x, w):
+            return autograd.RMSNorm.apply(x, w, eps)
         return _rmsnorm_cuda(x, w, eps=eps)
     return ref.rmsnorm_ref(x, w, eps=eps)
 
@@ -49,6 +60,8 @@ def add_rmsnorm(x, r, w, *, eps: float = 1e-5, backend: str = "auto"):
     """The residual add and the RMSNorm after it: (s = x + r in x's dtype,
     rmsnorm(s, w)), one launch on the card."""
     if _use_kernel(x, backend):
+        if _needs_grad(x, r, w):
+            return autograd.AddRMSNorm.apply(x, r, w, eps)
         return _add_rmsnorm_cuda(x, r, w, eps=eps)
     return ref.add_rmsnorm_ref(x, r, w, eps=eps)
 

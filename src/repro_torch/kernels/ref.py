@@ -70,3 +70,42 @@ def mamba_chunk_scan_ref(x, b, c, dt, da, *, out_dtype=None):
         ys.append(torch.einsum("bn,bhpn->bhp", cf[:, t], hs))
     y = torch.stack(ys, dim=1)
     return y.to(x.dtype if out_dtype is None else out_dtype), hs
+
+
+# ---------------------------------------------------------------------------
+# plain backward versions: autograd of the plain forwards above
+# ---------------------------------------------------------------------------
+
+def _grad(fn, inputs, outputs_grads):
+    """Gradients of ``fn(*inputs)`` (a tensor or a tuple of tensors) with
+    respect to every input, given the gradients of its outputs (None: no
+    gradient reaches that output)."""
+    leaves = [t.detach().requires_grad_(True) for t in inputs]
+    with torch.enable_grad():
+        out = fn(*leaves)
+        out = out if isinstance(out, tuple) else (out,)
+        pairs = [(o, g) for o, g in zip(out, outputs_grads) if g is not None]
+        return torch.autograd.grad([o for o, _ in pairs],
+                                   leaves, [g for _, g in pairs])
+
+
+def rmsnorm_bwd_ref(dy, x, w, *, eps: float = 1e-5):
+    """(dx, dw) of ``rmsnorm_ref(x, w)`` given dy."""
+    return _grad(lambda x_, w_: rmsnorm_ref(x_, w_, eps=eps), (x, w), (dy,))
+
+
+def add_rmsnorm_bwd_ref(dy, ds, s, w, *, eps: float = 1e-5):
+    """(dsum, dw) of ``add_rmsnorm_ref`` given the gradients of its outputs
+    (ds of s, None for none; dy of y), from the sum s: dsum is the gradient
+    of both x and r."""
+    def fn(s_, w_):
+        return s_, rmsnorm_ref(s_, w_, eps=eps)
+    dsum, dw = _grad(fn, (s, w), (ds, dy))
+    return dsum, dw
+
+
+def flash_attention_bwd_ref(q, k, v, do, *, causal: bool = True,
+                            window: int = 0):
+    """(dq, dk, dv) of ``flash_attention_ref(q, k, v)`` given dO."""
+    return _grad(lambda q_, k_, v_: flash_attention_ref(
+        q_, k_, v_, causal=causal, window=window), (q, k, v), (do,))

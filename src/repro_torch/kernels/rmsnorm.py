@@ -9,11 +9,16 @@ writes once (see the source for the design). ``add_rmsnorm`` is the same
 kernel with the residual add before the norm fused in: s = x + r rounded
 to x's dtype, y = rmsnorm(s), one launch. ``ops.rmsnorm`` and
 ``ops.add_rmsnorm`` route CUDA tensors here and CPU tensors to ``ref``.
+
+``rmsnorm_bwd`` and ``add_rmsnorm_bwd`` wrap the backward kernels of
+``csrc/rmsnorm_bwd.cu`` (a library of their own, so the tuned forward
+library is untouched); ``kernels.autograd`` calls them from the backward of
+its ``torch.autograd.Function``s.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -125,3 +130,75 @@ def add_rmsnorm(x: torch.Tensor, r: torch.Tensor, w: torch.Tensor, *,
 
 
 add_rmsnorm.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# backward (csrc/rmsnorm_bwd.cu)
+# ---------------------------------------------------------------------------
+
+_BWD_ARGTYPES = [_P] * 7 + [_I] * 12 + [ctypes.c_float, _P]
+
+
+def _bwd(name: str, dy, x, ds, w, eps: float):
+    """Launch ``rmsnorm_bwd`` on the row views of dy, x (and ds). Returns
+    (dx, dw): dx a new contiguous tensor of x's shape (ds added), dw [d]."""
+    if dy.shape != x.shape or (ds is not None and ds.shape != x.shape):
+        raise ValueError(f"{name} needs dy (and ds) of x's shape "
+                         f"{tuple(x.shape)}")
+    rows, x_n, x_outer, x_inner = _check(name, x, w, dy,
+                                         *(() if ds is None else (ds,)))
+    _, dy_n, dy_outer, dy_inner = row_view(dy)
+    ds_view = (1, 0, 0) if ds is None else row_view(ds)[1:]
+    if max(*ds_view, dy_n, dy_outer, dy_inner) > _INT_MAX:
+        raise ValueError(f"{name} kernel takes sizes and strides that fit "
+                         "in 32 bits")
+    d = x.shape[-1]
+    dx = torch.empty(x.shape, dtype=x.dtype, device=x.device)
+    if rows == 0 or d == 0:
+        return dx, torch.zeros_like(w)
+    dw = torch.empty_like(w)
+    rpc = build.load_function("rmsnorm_bwd", "rmsnorm_bwd_rows_per_chunk",
+                              [_I, _I])(rows, d)
+    n_chunks = -(-rows // rpc)
+    # n_chunks x d float64 partials of dw, then rows f32 rstd
+    scratch = torch.empty(2 * n_chunks * d + rows, dtype=torch.float32,
+                          device=x.device)
+    fn = build.load_function("rmsnorm_bwd", "rmsnorm_bwd", _BWD_ARGTYPES)
+    err = fn(dy.data_ptr(), x.data_ptr(),
+             None if ds is None else ds.data_ptr(), w.data_ptr(),
+             dx.data_ptr(), dw.data_ptr(), scratch.data_ptr(),
+             DTYPE_CODES[x.dtype], rows, d, dy_n, dy_outer, dy_inner, x_n,
+             x_outer, x_inner, *ds_view, eps,
+             torch.cuda.current_stream(x.device).cuda_stream)
+    build.check("rmsnorm_bwd", err)
+    return dx, dw
+
+
+def rmsnorm_bwd(dy: torch.Tensor, x: torch.Tensor, w: torch.Tensor, *,
+                eps: float = 1e-5) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Gradient of ``rmsnorm(x, w)`` given dy: (dx in x's dtype, dw in w's
+    dtype), rstd recomputed per row in f32, dw reduced without atomics.
+    dy and x: [..., d] CUDA tensors of one dtype with contiguous last
+    dimensions (any two-level row view, as the forward takes)."""
+    out = _bwd("rmsnorm_bwd", dy, x, None, w, eps)
+    rmsnorm_bwd.launches += 1
+    return out
+
+
+rmsnorm_bwd.launches = 0
+
+
+def add_rmsnorm_bwd(dy: torch.Tensor, ds: Optional[torch.Tensor],
+                    s: torch.Tensor, w: torch.Tensor, *, eps: float = 1e-5
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Gradient of ``add_rmsnorm(x, r, w)`` = (s, y) given (ds, dy), from
+    the saved sum s: (dsum, dw), where dsum, the gradient of both x and
+    r, is ds plus the norm's input gradient, summed in f32 and rounded once
+    to s's dtype. ``ds`` None
+    means no gradient reaches s from elsewhere."""
+    out = _bwd("add_rmsnorm_bwd", dy, s, ds, w, eps)
+    add_rmsnorm_bwd.launches += 1
+    return out
+
+
+add_rmsnorm_bwd.launches = 0

@@ -1,15 +1,57 @@
-"""Prefill and decode step functions (port of
-``repro/launch/step_fns.py:39-54``; the train step comes with the training
-slice). The port's model owns its weights, so the ``params`` a step takes
-is the model itself — the signature stays the JAX one."""
+"""Step functions (train / prefill / decode; port of
+``repro/launch/step_fns.py``). The serve steps take the model itself as
+their ``params`` (it owns its weights); the train step takes the train
+state's params, a flat dict under the state-dict names, and updates them
+in place."""
 from __future__ import annotations
+
+from typing import Dict
+
+import torch
 
 from repro_torch.configs.base import RunConfig
 from repro_torch.models import api as model_api
+from repro_torch.models import transformer
+from repro_torch.optim import adamw
 
 
 def make_model(run: RunConfig, device=None):
     return model_api.build_model(run.model, device=device)
+
+
+def make_opt_cfg(run: RunConfig) -> adamw.AdamWConfig:
+    return adamw.AdamWConfig(lr=run.learning_rate,
+                             weight_decay=run.weight_decay,
+                             beta1=run.beta1, beta2=run.beta2)
+
+
+def make_train_step(run: RunConfig):
+    """``train_step(params, opt_state, batch) -> (params, opt_state,
+    loss)``: the loss and every parameter's gradient, then one AdamW step
+    written into ``params`` and the moments in place (the counterpart of
+    the reference's donated jit); the grads are freed before it returns.
+    ``batch`` holds ``tokens`` and ``labels`` as tensors on the params'
+    device. Returns the step and the model's config (the reference returns
+    its model; here the weights live in the state)."""
+    cfg = run.model
+    transformer.check_trainable(cfg)
+    opt_cfg = make_opt_cfg(run)
+    seq_chunk = run.seq_chunk
+
+    def train_step(params: Dict[str, torch.Tensor], opt_state, batch):
+        # leaves that share the state's storage: the graph reads them, and
+        # the update below writes the state's tensors once it is freed
+        leaves = {k: p.detach().requires_grad_(True)
+                  for k, p in params.items()}
+        loss = transformer.loss_fn(cfg, leaves, batch, seq_chunk)
+        grads = dict(zip(leaves, torch.autograd.grad(loss,
+                                                     list(leaves.values()))))
+        del leaves
+        opt_state = adamw.update(opt_cfg, grads, opt_state, params)
+        del grads
+        return params, opt_state, loss.detach()
+
+    return train_step, cfg
 
 
 def make_prefill_step(run: RunConfig, device=None):

@@ -10,12 +10,17 @@ after the stacked name (``layers/wq[3]`` -> ``layers.3.wq``; the hybrid's
 has no bfloat16 of its own, so bf16 leaves arrive as ``ml_dtypes.bfloat16``
 arrays or as their ``uint16`` bit views (the trick ``repro/checkpoint/io.py``
 uses); both become ``torch.bfloat16`` bit for bit.
+
+``params_to_jax`` is the inverse: the port's per-block tensors stacked back
+into the reference's tree (``layers.3.attn.wq`` -> ``layers/attn/wq[3]``),
+bf16 as its ``uint16`` bits. ``stack_plan`` is the name mapping both use
+and ``checkpoint.Checkpointer`` writes the reference's keys with.
 Nothing here imports jax.
 """
 from __future__ import annotations
 
 from collections import OrderedDict
-from typing import Dict, Iterator, Tuple
+from typing import Dict, Iterator, List, Mapping, Tuple
 
 import numpy as np
 import torch
@@ -70,3 +75,78 @@ def params_from_jax(tree: dict, cfg: ModelConfig, device=None
             key = ".".join([head, *map(str, idx), rest])
             out[key] = to_tensor(arr[idx], device)
     return out
+
+
+def _split_name(name: str) -> Tuple[Tuple[str, ...], Tuple[int, ...]]:
+    """A state-dict name as (the reference's path, the stack index): the
+    first run of integer segments is the index (``layers.3.attn.wq`` ->
+    (("layers", "attn", "wq"), (3,)); ``mamba.1.4.in_x`` -> (("mamba",
+    "in_x"), (1, 4)); ``ln_f.scale`` -> (("ln_f", "scale"), ()))."""
+    parts = name.split(".")
+    i = next((j for j, p in enumerate(parts) if p.isdigit()), len(parts))
+    k = i
+    while k < len(parts) and parts[k].isdigit():
+        k += 1
+    return tuple(parts[:i] + parts[k:]), tuple(int(p) for p in parts[i:k])
+
+
+def stack_plan(names) -> Dict[Tuple[str, ...],
+                              List[Tuple[Tuple[int, ...], str]]]:
+    """The reference's path of each stacked (or plain) leaf -> the
+    state-dict names stacked into it with their indices, in index order.
+    Raises unless each stack is a full grid of indices."""
+    plan: Dict[Tuple[str, ...], List[Tuple[Tuple[int, ...], str]]] = {}
+    for name in names:
+        path, idx = _split_name(name)
+        plan.setdefault(path, []).append((idx, name))
+    for path, members in plan.items():
+        members.sort()
+        lead = tuple(max(ix[a] for ix, _ in members) + 1
+                     for a in range(len(members[0][0])))
+        if [ix for ix, _ in members] != list(np.ndindex(*lead)):
+            raise ValueError(f"{'/'.join(path)}: the indices "
+                             f"{[ix for ix, _ in members]} are not a full "
+                             f"{lead} grid")
+    return plan
+
+
+def stack_shape(members, sd: Mapping[str, torch.Tensor]) -> Tuple[int, ...]:
+    """The stacked leaf's shape: the index grid, then the block's shape."""
+    lead = tuple(i + 1 for i in members[-1][0])
+    return lead + tuple(sd[members[0][1]].shape)
+
+
+def to_numpy(t: torch.Tensor) -> np.ndarray:
+    """One host copy of ``t``: bf16 as its uint16 bits."""
+    host = t.detach().to("cpu", memory_format=torch.contiguous_format)
+    if t.dtype == torch.bfloat16:
+        return host.view(torch.int16).numpy().view(np.uint16)
+    return host.numpy()
+
+
+def params_to_jax(sd: Mapping[str, torch.Tensor]) -> dict:
+    """The port's state dict -> the reference's nested tree of numpy
+    arrays, per-block tensors stacked on their leading axes (bf16 as
+    ``uint16`` bits): the inverse of ``params_from_jax``."""
+    out: dict = {}
+    for path, members in stack_plan(sd).items():
+        if members[0][0]:
+            arr = np.stack([to_numpy(sd[name]) for _, name in members])
+            arr = arr.reshape(stack_shape(members, sd))
+        else:
+            arr = to_numpy(sd[members[0][1]])
+        node = out
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = arr
+    return out
+
+
+def train_state_to_jax(state: dict) -> dict:
+    """A port train state {"params", "opt": AdamWState(step, m, v)} as the
+    reference's: the same nesting with stacked numpy leaves, ``opt`` as
+    the tuple (step, m, v)."""
+    opt = state["opt"]
+    return {"params": params_to_jax(state["params"]),
+            "opt": (to_numpy(opt.step), params_to_jax(opt.m),
+                    params_to_jax(opt.v))}

@@ -21,6 +21,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
@@ -292,3 +293,37 @@ def embed_lookup(p, tokens: torch.Tensor) -> torch.Tensor:
 def unembed(cfg: ModelConfig, p, x: torch.Tensor) -> torch.Tensor:
     w = p["unembed"] if "unembed" in p else p["embed"].T
     return x @ w
+
+
+def _chunk_loss(cfg: ModelConfig, p, xc: torch.Tensor,
+                lc: torch.Tensor) -> torch.Tensor:
+    """Sum over one chunk of logsumexp(logits) - the label's logit, the
+    logits in f32."""
+    logits = unembed(cfg, p, xc).to(F32)
+    lse = torch.logsumexp(logits, dim=-1)
+    pick = logits.gather(-1, lc[..., None].long())[..., 0]
+    return (lse - pick).sum()
+
+
+def chunked_lm_loss(cfg: ModelConfig, p_embed, x: torch.Tensor,
+                    labels: torch.Tensor, seq_chunk: int = 2048
+                    ) -> torch.Tensor:
+    """Mean cross-entropy without materialising [B, S, V] logits (port of
+    ``repro/models/layers.py:423-459``): sequence chunks of ``seq_chunk``
+    and a remainder chunk, each chunk's logits in f32, the label's logit
+    picked by ``gather``; the sum divided by B * S. Each full chunk runs
+    under ``torch.utils.checkpoint`` (the reference wraps the chunk body
+    in ``jax.checkpoint``), so a [B, C, V] f32 logit block lives only
+    while its chunk is computed, forward and backward."""
+    b, s, _ = x.shape
+    chunk = min(seq_chunk, s)
+    n = s // chunk
+    total = torch.zeros((), dtype=F32, device=x.device)
+    for i in range(n):
+        sl = slice(i * chunk, (i + 1) * chunk)
+        total = total + checkpoint(_chunk_loss, cfg, p_embed, x[:, sl],
+                                   labels[:, sl], use_reentrant=False)
+    if s - n * chunk:                      # the remainder chunk
+        total = total + _chunk_loss(cfg, p_embed, x[:, n * chunk:],
+                                    labels[:, n * chunk:])
+    return total / (b * s)

@@ -8,6 +8,12 @@ layer index after ``layers`` (``layers.3.attn.wq`` <-> ``layers/attn/wq[3]``),
 so ``models.convert`` carries JAX weights across by name. The KV cache is a
 list of per-layer dicts instead of one dict of stacked arrays.
 
+Training differentiates ``loss_fn(cfg, params, batch)``: the weights it
+takes are the train state's (a flat dict under the state-dict names), not
+the module's, and it runs the same layer functions as ``prefill``. The
+module's own parameters never need grads; ``prefill`` and ``decode_step``
+run under ``no_grad``.
+
 The residual stream is carried as (x, r): r is the last branch output not
 yet added, and the next norm adds it (``layers.add_rmsnorm``, one launch on
 the card). The sums and their order are the JAX model's: x + attention,
@@ -15,7 +21,7 @@ then x + MLP, each rounded to the model dtype before its norm.
 """
 from __future__ import annotations
 
-from typing import List
+from typing import Dict, List
 
 import torch
 from torch import nn
@@ -158,3 +164,56 @@ class Transformer(nn.Module):
         _, x = L.add_rmsnorm(self.ln_f, x, r, cfg.norm_eps)
         logits = L.unembed(cfg, self.embed, x)
         return logits, new_cache
+
+
+# -- train ------------------------------------------------------------------
+
+def nest(params: Dict[str, torch.Tensor]) -> dict:
+    """A flat dict under state-dict names (``layers.3.attn.wq``) as the
+    nested dict the layer functions read (``p["layers"]["3"]["attn"]``);
+    the tensors themselves, no copies."""
+    out: dict = {}
+    for name, t in params.items():
+        node = out
+        *path, leaf = name.split(".")
+        for key in path:
+            node = node.setdefault(key, {})
+        node[leaf] = t
+    return out
+
+
+def loss_fn(cfg: ModelConfig, params: Dict[str, torch.Tensor], batch: dict,
+            seq_chunk: int = 2048) -> torch.Tensor:
+    """The f32 mean LM loss of ``params`` (state-dict names) on ``batch``
+    (``tokens``, ``labels``: [B, S] integer tensors on the params' device):
+    the reference's ``loss_fn`` (``transformer.py:138-152``) for the dense
+    family, through the same residual stream (x, r) and fused norms as
+    ``prefill``, differentiable."""
+    check_trainable(cfg)
+    p = nest(params)
+    tokens, labels = batch["tokens"], batch["labels"]
+    b, s = tokens.shape
+    positions = torch.arange(s, dtype=torch.int32,
+                             device=tokens.device).expand(b, s)
+    x, r = L.embed_lookup(p["embed"], tokens), None
+    for i in range(cfg.n_layers):
+        x, r, _ = _layer_apply(cfg, p["layers"][str(i)], x, r, positions)
+    _, x = L.add_rmsnorm(p["ln_f"], x, r, cfg.norm_eps)
+    return L.chunked_lm_loss(cfg, p["embed"], x, labels, seq_chunk)
+
+
+def check_trainable(cfg: ModelConfig) -> None:
+    """Raise ``NotImplementedError`` naming the roadmap item unless the
+    port trains ``cfg``'s family (the dense one)."""
+    if cfg.family != "dense":
+        raise NotImplementedError(_TRAIN_NOT_PORTED.get(
+            cfg.family, f"training the {cfg.family!r} family is not "
+                        f"ported"))
+
+
+_TRAIN_NOT_PORTED = {
+    "moe": "training MoE is not ported yet (ROADMAP.md, Queue 1 item 5)",
+    "vlm": "training the VLM is not ported yet (ROADMAP.md, Queue 1 item 6)",
+    "hybrid": "training the hybrid (zamba2-7b, K3's backward) is the next "
+              "slice (ROADMAP.md, Queue 1)",
+}

@@ -17,13 +17,13 @@ transport:
                until then;
   recovery   - rebuild a dead worker's state by pulling surviving partner
                shards back over the transport;
-  backend    - the CheckpointBackend protocol and ``MemBackend``, which
+  backend    - the CheckpointBackend protocol, ``MemBackend``, which
                turns a torch state into host bytes (one device-to-host copy
                per tensor) and back onto the device of the state it
-               replaces; the disk backend comes with training.
+               replaces, and ``DiskBackend`` over ``checkpoint.Checkpointer``.
 """
-from repro_torch.store.backend import (CheckpointBackend, MemBackend,
-                                       make_backend)
+from repro_torch.store.backend import (CheckpointBackend, DiskBackend,
+                                       MemBackend, make_backend)
 from repro_torch.store.memstore import MemStore
 from repro_torch.store.placement import PartnerPlacement, PlacementError
 from repro_torch.store.recovery import StoreRecovery, StoreUnrecoverable
@@ -32,5 +32,5 @@ __all__ = [
     "PartnerPlacement", "PlacementError",
     "MemStore",
     "StoreRecovery", "StoreUnrecoverable",
-    "CheckpointBackend", "MemBackend", "make_backend",
+    "CheckpointBackend", "DiskBackend", "MemBackend", "make_backend",
 ]

@@ -12,10 +12,8 @@ backend-agnostic: they snapshot/restore through whichever backend
                network-bound (ckpt_policy.memstore_ckpt_cost feeds the
                Young-Daly interval) and restores pull surviving partner
                shards instead of reading a filesystem.
-  DiskBackend  (the reference's, over checkpoint/io.py) needs a torch
-               Checkpointer, which comes with training (ROADMAP.md, Queue 1
-               item 4); until then ``make_backend`` raises where it would
-               pick the disk.
+  DiskBackend  the on-disk ``checkpoint.Checkpointer`` (the reference's
+               format) behind the same protocol; C and R are wall-measured.
 
 Host encoding of a torch state (``to_host`` / ``from_host``).  A state's
 tensors reach the store as host numpy arrays, one device-to-host copy per
@@ -42,6 +40,7 @@ and on load puts a tensor back on whatever device it came from):
 from __future__ import annotations
 
 import pickle
+import time
 from typing import (Any, Dict, List, NamedTuple, Optional, Protocol,
                     Tuple, runtime_checkable)
 
@@ -98,9 +97,10 @@ def _to_numpy(t: torch.Tensor, path: Path):
 
 
 def to_host(tree) -> Tuple[Any, List[TensorRecord]]:
-    """``tree`` with every tensor (inside dict/list/tuple containers) as a
-    host numpy array or ``BF16Bits``, and the manifest of those tensors.
-    Containers holding no tensor are returned as they are."""
+    """``tree`` with every tensor (inside dict/list/tuple/NamedTuple
+    containers) as a host numpy array or ``BF16Bits``, and the manifest of
+    those tensors. Containers holding no tensor are returned as they
+    are."""
     manifest: List[TensorRecord] = []
 
     def walk(x, path):
@@ -112,14 +112,25 @@ def to_host(tree) -> Tuple[Any, List[TensorRecord]]:
         if t is dict:
             out = {k: walk(v, path + (k,)) for k, v in x.items()}
             return x if all(out[k] is v for k, v in x.items()) else out
-        if t in (list, tuple):
+        if t in (list, tuple) or _is_namedtuple(x):
             items = [walk(v, path + (i,)) for i, v in enumerate(x)]
             if all(a is b for a, b in zip(items, x)):
                 return x
-            return items if t is list else tuple(items)
+            return _rebuild_seq(t, items)
         return x
 
     return walk(tree, ()), manifest
+
+
+def _is_namedtuple(x) -> bool:
+    return isinstance(x, tuple) and hasattr(x, "_fields")
+
+
+def _rebuild_seq(t, items):
+    """A list, tuple or NamedTuple of type ``t`` holding ``items``."""
+    if t is list:
+        return items
+    return t(*items) if hasattr(t, "_fields") else tuple(items)
 
 
 def _at(tree, path: Path):
@@ -167,9 +178,9 @@ def from_host(tree, manifest: List[TensorRecord], like=None):
         t = type(x)
         if t is dict:
             return {k: walk(v, path + (k,)) for k, v in x.items()}
-        if t in (list, tuple):
-            items = [walk(v, path + (i,)) for i, v in enumerate(x)]
-            return items if t is list else tuple(items)
+        if t in (list, tuple) or _is_namedtuple(x):
+            return _rebuild_seq(t, [walk(v, path + (i,))
+                                    for i, v in enumerate(x)])
         return x
 
     return walk(tree, ())
@@ -194,6 +205,38 @@ class CheckpointBackend(Protocol):
 
     def on_failure(self, workers) -> None:
         ...
+
+
+class DiskBackend:
+    """The on-disk Checkpointer behind the backend protocol."""
+
+    kind = "disk"
+    modeled_cost = False             # C/R are wall-measured, not priced
+
+    def __init__(self, ckpt_dir: str, n_bands: int = 4):
+        from repro_torch.checkpoint import Checkpointer
+        self.ckpt = Checkpointer(ckpt_dir, n_bands)
+        self.last_restore_s = 0.0
+
+    @property
+    def last_write_s(self) -> float:
+        return self.ckpt.last_write_s
+
+    def save(self, step, state, *, workload=None, baseline=False,
+             extra=None) -> float:
+        return self.ckpt.save(step, state, baseline=baseline, extra=extra)
+
+    def restore(self, like, *, workload=None):
+        t0 = time.perf_counter()
+        state, step, _extra = self.ckpt.restore(like)
+        self.last_restore_s = time.perf_counter() - t0
+        return state, step
+
+    def has_checkpoint(self) -> bool:
+        return self.ckpt.latest_tag() is not None
+
+    def on_failure(self, workers) -> None:
+        pass                                 # disks do not die with workers
 
 
 class MemBackend:
@@ -325,10 +368,9 @@ class MemBackend:
 
 def make_backend(ft, session, workload) -> CheckpointBackend:
     """Map FTConfig.ckpt_backend onto a backend for this session/workload:
-    ``"memory"`` forces the store; ``"disk"`` would use the on-disk
+    ``"memory"`` forces the store; ``"disk"`` uses the on-disk
     Checkpointer when the session has a ckpt_dir and the workload is
-    disk-checkpointable (not ported yet: raises), and uses the store
-    otherwise."""
+    disk-checkpointable, and the store otherwise."""
     choice = getattr(ft, "ckpt_backend", "disk")
     if choice not in ("disk", "memory"):
         raise ValueError(f"unknown ckpt_backend {choice!r}; "
@@ -336,14 +378,11 @@ def make_backend(ft, session, workload) -> CheckpointBackend:
     disk_ok = session.ckpt_dir and getattr(workload, "disk_checkpointable",
                                            True)
     if choice == "disk" and disk_ok:
-        raise NotImplementedError(
-            "the disk checkpoint backend needs the torch Checkpointer, "
-            "which comes with training (ROADMAP.md, Queue 1 item 4); use "
-            "ckpt_backend='memory' or no ckpt_dir")
+        return DiskBackend(session.ckpt_dir)
     return MemBackend(session, k_partners=getattr(ft, "store_partners", 2),
                       n_bands=getattr(ft, "store_bands", 4))
 
 
-__all__ = ["CheckpointBackend", "MemBackend", "make_backend",
+__all__ = ["CheckpointBackend", "DiskBackend", "MemBackend", "make_backend",
            "StoreUnrecoverable", "BF16Bits", "TensorRecord", "to_host",
            "from_host"]

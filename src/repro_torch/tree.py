@@ -1,4 +1,5 @@
-"""Stand-ins for the ``jax.tree`` utilities over dict/list/tuple trees.
+"""Stand-ins for the ``jax.tree`` utilities over dict/list/tuple trees
+(NamedTuples keep their type).
 
 ``copy_tree`` is the one the FT layer depends on: a replica's state must
 own its buffers. It clones every tensor and copies every numpy array, so a
@@ -18,6 +19,8 @@ def tree_map(fn: Callable[[Any], Any], tree):
     structure."""
     if isinstance(tree, dict):
         return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):   # NamedTuple
+        return type(tree)(*(tree_map(fn, v) for v in tree))
     if isinstance(tree, (list, tuple)):
         return type(tree)(tree_map(fn, v) for v in tree)
     return fn(tree)

@@ -1,6 +1,7 @@
-"""The port on the card: each CUDA kernel against its plain PyTorch
-version, the kernel path of the reduced model against its CPU path, and
-the in-memory checkpoint store and the recorder on card state.
+"""The port on the card: each CUDA kernel (forward and, for K1 and K2,
+backward) against its plain PyTorch version, the kernel path of the
+reduced model (serving and a train step) against its CPU path, and the
+in-memory checkpoint store and the recorder on card state.
 
 Every test here carries the ``cuda`` marker and skips without a card. The
 file imports neither jax nor the JAX package, so it runs on a machine that
@@ -24,10 +25,14 @@ from repro_torch.configs import get_arch
 from repro_torch.configs.base import FTConfig
 from repro_torch.ft import FTSession
 from repro_torch.kernels import ops, ref
-from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.flash_attention import (flash_attention,
+                                                 flash_attention_bwd)
 from repro_torch.kernels.mamba_scan import mamba_chunk_scan
-from repro_torch.kernels.rmsnorm import add_rmsnorm, rmsnorm
+from repro_torch.kernels.rmsnorm import (add_rmsnorm, add_rmsnorm_bwd,
+                                         rmsnorm, rmsnorm_bwd)
+from repro_torch.launch import train
 from repro_torch.launch.serve import ReplicatedServer
+from repro_torch.models import transformer
 from repro_torch.models.transformer import Transformer
 from repro_torch.models.zamba import Zamba
 from repro_torch.store.backend import MemBackend
@@ -421,3 +426,146 @@ def test_recorder_launches_nothing_on_the_card(cuda_device):
     c = srv.last_report.obs_metrics["counters"]
     assert c["comm.bytes.coll.cmp"] == 2 * 16 * 4
     assert srv.last_report.obs_metrics["links"]["max_contended"]["busy_s"] > 0
+
+
+# ------------------------------------------------------ backward kernels
+
+def _bwd_close(got, want, dtype, rows=None):
+    """Backward tolerances are the forward's; K1's dw sums ``rows`` rows,
+    each carrying its row's f32 rstd, so its f32 atol grows as
+    sqrt(rows)."""
+    for i, (g, w) in enumerate(zip(got, want)):
+        atol = ATOL[dtype]
+        if rows is not None and i == 1 and dtype == "float32":
+            atol *= rows ** 0.5
+        torch.testing.assert_close(g.float().cpu(), w.float().cpu(),
+                                   rtol=RTOL[dtype], atol=atol)
+
+
+@pytest.mark.parametrize("shape", [(4, 512, 32, 128), (2048, 4096),
+                                   (2048, 3584), (1003, 128), (37, 200)],
+                         ids=str)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rmsnorm_bwd_matches_plain(cuda_device, shape, dtype):
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    dt = getattr(torch, dtype)
+    dy, x = (torch.randn(shape, generator=gen, device="cuda").to(dt)
+             for _ in range(2))
+    w = torch.randn(shape[-1], generator=gen, device="cuda").to(dt)
+    got = rmsnorm_bwd(dy, x, w)
+    _bwd_close(got, ref.rmsnorm_bwd_ref(dy, x, w), dtype,
+               rows=x.numel() // shape[-1])
+    again = rmsnorm_bwd(dy, x, w)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    ds = torch.randn(shape, generator=gen, device="cuda").to(dt)
+    for d_s in (ds, None):
+        got = add_rmsnorm_bwd(dy, d_s, x, w)
+        _bwd_close(got, ref.add_rmsnorm_bwd_ref(dy, d_s, x, w), dtype,
+                   rows=x.numel() // shape[-1])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rmsnorm_bwd_reads_strided_and_unaligned_rows(cuda_device, dtype):
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    dt = getattr(torch, dtype)
+    fused = torch.randn(4, 64, 48, 128, generator=gen, device="cuda").to(dt)
+    x = fused[:, :, :32]                        # a qk-norm head slice
+    dy = torch.randn(x.shape, generator=gen, device="cuda").to(dt)
+    w = torch.randn(128, generator=gen, device="cuda").to(dt)
+    _bwd_close(rmsnorm_bwd(dy, x, w), ref.rmsnorm_bwd_ref(dy, x, w), dtype,
+               rows=4 * 64 * 32)
+    xu = torch.randn(64, 4097, generator=gen, device="cuda").to(dt)[:, 1:]
+    dyu = torch.randn(64, 4097, generator=gen, device="cuda").to(dt)[:, 1:]
+    wu = torch.randn(4096, generator=gen, device="cuda").to(dt)
+    _bwd_close(rmsnorm_bwd(dyu, xu, wu), ref.rmsnorm_bwd_ref(dyu, xu, wu),
+               dtype, rows=64)
+
+
+@pytest.mark.parametrize("b,hq,hkv,s,d,causal,window", [
+    (4, 32, 8, 512, 128, True, 0),             # qwen3-8b's train shape
+    (2, 8, 2, 200, 128, True, 0),              # ragged tail, GQA 4x
+    (1, 4, 2, 256, 64, True, 100),             # sliding window
+    (1, 2, 2, 130, 112, False, 0),             # non-causal, D 112
+    (1, 8, 2, 40, 32, True, 0),                # shorter than a tile
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_attention_bwd_matches_plain(cuda_device, b, hq, hkv, s, d, causal,
+                                     window, dtype):
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    dt = getattr(torch, dtype)
+
+    def bshd(h):
+        return torch.randn(b, s, h, d, generator=gen,
+                           device="cuda").to(dt).transpose(1, 2)
+    q, k, v, do = bshd(hq), bshd(hkv), bshd(hkv), bshd(hq)
+    o = flash_attention(q, k, v, causal=causal, window=window)
+    got = flash_attention_bwd(q, k, v, o, do, causal=causal, window=window)
+    _bwd_close(got, ref.flash_attention_bwd_ref(q, k, v, do, causal=causal,
+                                                window=window), dtype)
+    for g, t in zip(got, (q, k, v)):       # written in the inputs' layout
+        assert g.shape == t.shape and g.stride() == t.stride()
+    again = flash_attention_bwd(q, k, v, o, do, causal=causal, window=window)
+    assert all(torch.equal(a, b_) for a, b_ in zip(got, again))
+
+
+def test_ops_route_grads_through_the_backward_kernels(cuda_device):
+    """Under grad mode with an input that requires grad, ``ops`` goes
+    through the autograd Functions, whose backward launches the kernels;
+    under ``no_grad`` it launches the forward alone and builds no node."""
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    bf = torch.bfloat16
+    x = torch.randn(2, 64, 256, generator=gen, device="cuda").to(bf)
+    r = torch.randn_like(x)
+    w = torch.ones(256, device="cuda", dtype=bf)
+    q = torch.randn(2, 64, 4, 64, generator=gen, device="cuda").to(bf)
+    counters = (rmsnorm_bwd, add_rmsnorm_bwd, flash_attention_bwd)
+    for fn in counters:
+        fn.launches = 0
+    with torch.no_grad():
+        xs = [t.clone().requires_grad_(True) for t in (x, r, q)]
+        y = ops.rmsnorm(xs[0], w)
+        s_, y2 = ops.add_rmsnorm(xs[0], xs[1], w)
+        qt = xs[2].transpose(1, 2)
+        o = ops.attention(qt, qt, qt)
+    assert all(t.grad_fn is None for t in (y, s_, y2, o))
+    leaves = [t.clone().requires_grad_(True) for t in (x, r, q)]
+    y = ops.rmsnorm(leaves[0], w)
+    s_, y2 = ops.add_rmsnorm(leaves[0], leaves[1], w)
+    qt = leaves[2].transpose(1, 2)
+    o = ops.attention(qt, qt, qt)
+    assert [type(t.grad_fn).__name__ for t in (y, y2, o)] == [
+        "RMSNormBackward", "AddRMSNormBackward", "FlashAttentionBackward"]
+    assert [fn.launches for fn in counters] == [0, 0, 0]
+    (y.float().sum() + y2.float().square().sum() + s_.float().sum()
+     + o.float().sum()).backward()
+    assert [fn.launches for fn in counters] == [1, 1, 1]
+
+
+def test_reduced_train_step_on_card_matches_cpu(cuda_device):
+    """The reduced qwen3-8b in f32: loss and every gradient through the
+    kernels (forward and backward) on the card against the plain path on
+    the CPU, from the same weights; a rerun on the card is bitwise."""
+    cfg = dataclasses.replace(get_arch("qwen3-8b").reduced(),
+                              dtype="float32")
+    params = train.init_params(cfg, 0, "cpu")
+    rng = np.random.default_rng(0)
+    batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 64),
+                                              dtype=np.int32))
+             for k in ("tokens", "labels")}
+
+    def grads(device):
+        leaves = {k: v.to(device).requires_grad_(True)
+                  for k, v in params.items()}
+        loss = transformer.loss_fn(cfg, leaves, {
+            k: v.to(device) for k, v in batch.items()}, seq_chunk=64)
+        return loss, torch.autograd.grad(loss, list(leaves.values()))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    loss_c, g_c = grads("cpu")
+    loss_g, g_g = grads("cuda")
+    torch.testing.assert_close(loss_g.cpu(), loss_c, rtol=1e-5, atol=1e-6)
+    for a, b in zip(g_g, g_c):
+        scale = float(b.abs().max())
+        assert float((a.cpu() - b).abs().max()) <= 1e-4 * scale + 1e-7
+    loss_2, g_2 = grads("cuda")
+    assert torch.equal(loss_2, loss_g)
+    assert all(torch.equal(a, b) for a, b in zip(g_2, g_g))

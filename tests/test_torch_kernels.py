@@ -571,7 +571,8 @@ def test_row_view_rejects_what_the_kernel_cannot_address():
 
 
 def test_build_keys_library_on_source_and_flags(monkeypatch):
-    assert build.sources() == ["flash_attention", "mamba_scan", "rmsnorm"]
+    assert build.sources() == ["flash_attention", "flash_attention_bwd",
+                               "mamba_scan", "rmsnorm", "rmsnorm_bwd"]
     a = build.library_path("rmsnorm")
     assert a.name.startswith("rmsnorm-") and a.suffix == ".so"
     monkeypatch.setattr(build, "NVCC_FLAGS", build.NVCC_FLAGS + ["-G"])

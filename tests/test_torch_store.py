@@ -32,6 +32,7 @@ from repro.core.replica_map import ApplicationDead as RefApplicationDead
 from repro.core.replica_map import ReplicaMap as RefReplicaMap
 from repro.core.shrink import plan_recovery as ref_plan_recovery
 from repro.ft import FTSession as RefFTSession
+from repro.store import DiskBackend as RefDiskBackend
 from repro.store import MemBackend as RefMemBackend
 from repro.store import MemStore as RefMemStore
 from repro.store import PartnerPlacement as RefPlacement
@@ -44,8 +45,9 @@ from repro_torch.core.coordinator import ClusterTopology
 from repro_torch.core.replica_map import ApplicationDead, ReplicaMap
 from repro_torch.core.shrink import plan_recovery
 from repro_torch.ft import FTSession
-from repro_torch.store import (MemBackend, MemStore, PartnerPlacement,
-                               PlacementError, StoreUnrecoverable)
+from repro_torch.store import (DiskBackend, MemBackend, MemStore,
+                               PartnerPlacement, PlacementError,
+                               StoreUnrecoverable)
 from repro_torch.store import backend as backend_lib
 
 PORT = dict(map=ReplicaMap, topo=ClusterTopology, transport=ReplicaTransport,
@@ -599,29 +601,47 @@ class _TmpWorkload:
         return {"x": state["x"] + t}, None
 
 
-def test_backend_selection_and_the_disk_guard(tmp_path):
-    """The disk backend comes with training: where the reference would
-    pick it (a ckpt_dir and a disk-checkpointable workload) the port
-    raises, naming the roadmap item; otherwise the memory store serves."""
-    def run(backend, wl, ckpt_dir=None):
-        s = FTSession(ft=FTConfig(mode="combined", ckpt_interval_s=4.0,
+def test_backend_selection_matches_the_reference(tmp_path):
+    """``make_backend`` picks ``DiskBackend`` exactly where the reference
+    does (``ckpt_backend="disk"``, a ckpt_dir and a disk-checkpointable
+    workload) and ``MemBackend`` elsewhere; the disk run's checkpoints are
+    on disk and its report is the reference's."""
+    def run(session_cls, ft_cls, backend, wl, ckpt_dir=None):
+        s = session_cls(ft=ft_cls(mode="combined", ckpt_interval_s=2.0,
                                   ckpt_backend=backend),
-                      ckpt_dir=ckpt_dir, n_logical_workers=4,
-                      workers_per_node=2)
-        s.run(wl, 3)
-        return s
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        run("disk", _TmpWorkload(), str(tmp_path))
-    assert isinstance(run("disk", _TmpWorkload()).strategy.backend,
-                      MemBackend)
-    assert isinstance(run("memory", _TmpWorkload(),
-                          str(tmp_path)).strategy.backend, MemBackend)
+                        ckpt_dir=ckpt_dir, n_logical_workers=4,
+                        workers_per_node=2, injector={3: [1], 4: [5]})
+        return s, s.run(wl, 6)
     memory_only = _TmpWorkload()
     memory_only.disk_checkpointable = False
-    assert isinstance(run("disk", memory_only, str(tmp_path))
-                      .strategy.backend, MemBackend)
+    cases = [("disk", _TmpWorkload(), "a", "disk"),
+             ("disk", _TmpWorkload(), None, "memory"),
+             ("memory", _TmpWorkload(), "b", "memory"),
+             ("disk", memory_only, "c", "memory")]
+    for backend, wl, sub, kind in cases:
+        sessions, reports = [], []
+        for side, (cls, ft_cls) in {"port": (FTSession, FTConfig),
+                                    "ref": (RefFTSession,
+                                            RefFTConfig)}.items():
+            ckpt = str(tmp_path / side / sub) if sub else None
+            sess, rep = run(cls, ft_cls, backend, wl, ckpt)
+            assert sess.strategy.backend.kind == kind, (side, backend, sub)
+            sessions.append(sess)
+            reports.append(rep)
+        (port_sess, ref_sess), (port, ref) = sessions, reports
+        assert port.restarts == 1            # a pair death: from the backend
+        assert (port.restarts, port.ckpt_writes, port.rolled_back_steps) \
+            == (ref.restarts, ref.ckpt_writes, ref.rolled_back_steps)
+        assert float(port.final_state["x"]) == float(ref.final_state["x"])
+        want = {"disk": (DiskBackend, RefDiskBackend),
+                "memory": (MemBackend, RefMemBackend)}[kind]
+        assert isinstance(port_sess.strategy.backend, want[0])
+        assert isinstance(ref_sess.strategy.backend, want[1])
+        if kind == "disk":
+            assert (tmp_path / "port" / sub / "LATEST").read_text() == \
+                (tmp_path / "ref" / sub / "LATEST").read_text()
     with pytest.raises(ValueError):
-        run("tape", _TmpWorkload())
+        run(FTSession, FTConfig, "tape", _TmpWorkload())
 
 
 # ------------------------------------------------------------ sessions
