@@ -68,9 +68,12 @@ Phases (each a function; any failure exits non-zero):
      decode times. Each model's servers are freed before the next model's
      serve phase;
   8. train: the backward kernels of K1 (``rmsnorm_bwd``, ``add_rmsnorm_bwd``)
-     and K2 (``flash_attention_bwd``) against autograd of their plain
-     versions at the train shapes (qwen3-8b's and zamba2-7b's), reruns
-     bitwise, their ptxas lines (no spills) and times (a
+     and K2 (``flash_attention_bwd``: bf16 on the tensor cores, reading the
+     forward's logsumexp; f32 on FMAs) against autograd of their plain
+     versions at the train shapes (qwen3-8b's and zamba2-7b's) and the
+     other cases, reruns bitwise, the forward's logsumexp against
+     ``ref.flash_attention_lse_ref`` with o bitwise the same with and
+     without it, their ptxas lines (no spills) and times (a
      ``train.kernels`` line); then qwen3-8b at full width, depth cut to 2
      layers, trained 12 steps at batch 4 x 512 through ``launch.train``:
      clean, and under replication (a promotion), combined (a promotion,
@@ -153,6 +156,9 @@ TOL = {torch.float32: (2e-5, 2e-5), torch.bfloat16: (3e-2, 2e-2)}
 # the Mamba2 scan's f32 outputs: the chunked scan against the exact per-step
 # recurrence (tests/test_kernels.py's sweep tolerance)
 MAMBA_TOL = (3e-4, 3e-4)
+# the forward's logsumexp against the plain one: f32 sums in another order
+# on values of order ln(Skv)
+LSE_TOL = (1e-5, 1e-5)
 
 B, S, GEN, KILL_AT = 4, 512, 32, 8
 SPIN_CYCLES = 2_000_000            # ~1 ms at the H100's clock
@@ -1602,18 +1608,24 @@ def phase_train_kernels(state):
         k = _bshd(gen, c["b"], c["s"], c["hkv"], c["d"], dtype)
         v = _bshd(gen, c["b"], c["s"], c["hkv"], c["d"], dtype)
         do = _bshd(gen, c["b"], c["s"], c["hq"], c["d"], dtype)
-        o = flash_attention(q, k, v, causal=c["causal"], window=c["window"])
-        got = flash_attention_bwd(q, k, v, o, do, causal=c["causal"],
-                                  window=c["window"])
-        want = ref.flash_attention_bwd_ref(q, k, v, do, causal=c["causal"],
-                                           window=c["window"])
+        mask = {"causal": c["causal"], "window": c["window"]}
         shape = {k_: v_ for k_, v_ in c.items() if k_ != "dtype"}
+        # the forward's logsumexp (f32 sums in another order), and o the
+        # same bits with and without it
+        o, lse = flash_attention(q, k, v, **mask, return_lse=True)
+        compare("flash_attention_lse", lse,
+                ref.flash_attention_lse_ref(q, k, **mask), torch.float32,
+                tol=LSE_TOL, **shape, of=str(dtype)[6:])
+        if not torch.equal(o, flash_attention(q, k, v, **mask)):
+            raise AssertionError(f"flash_attention: o differs with lse "
+                                 f"asked: {shape}")
+        got = flash_attention_bwd(q, k, v, o, do, lse, **mask)
+        want = ref.flash_attention_bwd_ref(q, k, v, do, **mask)
         held("flash_attention_bwd", got, want, dtype, **shape)
-        again = flash_attention_bwd(q, k, v, o, do, causal=c["causal"],
-                                    window=c["window"])
+        again = flash_attention_bwd(q, k, v, o, do, lse, **mask)
         if not all(torch.equal(a, b_) for a, b_ in zip(got, again)):
             raise AssertionError(f"flash_attention_bwd rerun differs: {shape}")
-        del q, k, v, do, o, got, want, again
+        del q, k, v, do, o, lse, got, want, again
         torch.cuda.empty_cache()
     ptxas = [row for name in ("rmsnorm_bwd", "flash_attention_bwd")
              for row in ptxas_report(name)]
@@ -1700,13 +1712,14 @@ def _train_kernel_times(card_name, gen):
         emit({"time": name, **row, "card": card_name})
         rows[call] = row
     q, k, v, do = (_bshd(gen, B, S, h, dh, bf) for h in (hq, hkv, hkv, hq))
-    o = flash_attention(q, k, v, causal=True)
+    o, lse = flash_attention(q, k, v, causal=True, return_lse=True)
     pairs = B * hq * S * (S + 1) // 2            # unmasked (q, k) pairs
     lib, lib_note = _sdpa_bwd_ms(q, k, v, do, flush, deterministic=False)
     lib_det, det_note = _sdpa_bwd_ms(q, k, v, do, flush, deterministic=True)
     row = {"kernel": "flash_attention_bwd", "shape": list(q.shape),
            "kv_heads": hkv,
-           "ms": time_ms(lambda: flash_attention_bwd(q, k, v, o, do), flush),
+           "ms": time_ms(lambda: flash_attention_bwd(q, k, v, o, do, lse),
+                         flush),
            "plain_ms": time_ms(lambda: ref.flash_attention_bwd_ref(
                q, k, v, do), flush),
            "library_ms": lib, "library_deterministic_ms": lib_det,

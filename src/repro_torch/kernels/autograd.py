@@ -57,24 +57,27 @@ class AddRMSNorm(torch.autograd.Function):
 
 
 class FlashAttention(torch.autograd.Function):
-    """o = flash_attention(q, k, v); saves q, k, v and o."""
+    """o = flash_attention(q, k, v); saves q, k, v, o and the rows'
+    logsumexp (the forward writes it when asked; the bf16 backward reads
+    it in place of a sweep that recomputes it)."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window):
         ctx.causal, ctx.window = causal, window
-        o = fa.flash_attention(q, k, v, causal=causal, window=window)
-        ctx.save_for_backward(q, k, v, o)
+        o, lse = fa.flash_attention(q, k, v, causal=causal, window=window,
+                                    return_lse=True)
+        ctx.save_for_backward(q, k, v, o, lse)
         return o
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, o = ctx.saved_tensors
+        q, k, v, o, lse = ctx.saved_tensors
         try:
             fa.check_layout(do.shape, do.stride(), do.dtype, do.data_ptr())
         except ValueError:
             # autograd handed dO in another layout: the kernel's own
             do = do.transpose(1, 2).contiguous().transpose(1, 2)
-        dq, dk, dv = fa.flash_attention_bwd(q, k, v, o, do,
+        dq, dk, dv = fa.flash_attention_bwd(q, k, v, o, do, lse,
                                             causal=ctx.causal,
                                             window=ctx.window)
         return dq, dk, dv, None, None

@@ -3,11 +3,13 @@
 Each source is compiled by ``nvcc`` for ``sm_90a`` into its own shared
 library with a plain C interface, loaded with ``ctypes``. Nothing here runs
 at import: the first call that needs a kernel builds it. The library name
-carries a hash of its source and the compiler flags, so a changed source is
-rebuilt and an unchanged one is loaded from ``build/kernels/`` (listed in
-``.gitignore``) at the root of the checkout. ``build_all`` starts one
-``nvcc`` per source at once and waits for all of them; ``build_log``
-returns what ``ptxas`` reported (registers, shared memory, spills).
+carries a hash of its source, of the headers beside it (``csrc/*.cuh``,
+which the sources share) and of the compiler flags, so a changed source or
+header is rebuilt and an unchanged one is loaded from ``build/kernels/``
+(listed in ``.gitignore``) at the root of the checkout. ``build_all``
+starts one ``nvcc`` per source at once and waits for all of them;
+``build_log`` returns what ``ptxas`` reported (registers, shared memory,
+spills).
 """
 from __future__ import annotations
 
@@ -42,10 +44,17 @@ def _nvcc() -> str:
                        "machine with the CUDA toolkit")
 
 
+def headers() -> List[str]:
+    """The shared headers: every ``csrc/*.cuh``."""
+    return sorted(p.name for p in CSRC.glob("*.cuh"))
+
+
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"{name}-{key[:16]}.so"
+    key = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for h in headers():
+        key.update(h.encode() + (CSRC / h).read_bytes())
+    key.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{key.hexdigest()[:16]}.so"
 
 
 def _start(name: str):
@@ -95,12 +104,14 @@ def _load(name: str) -> ctypes.CDLL:
     return ctypes.CDLL(str(path))
 
 
-def load_function(name: str, symbol: str, argtypes: Sequence):
+def load_function(name: str, symbol: str, argtypes: Sequence,
+                  restype=ctypes.c_int):
     """The C entry point ``symbol`` of kernel ``name``, built on first use,
-    with its ``argtypes`` set and an ``int`` (cudaError_t) result."""
+    with its ``argtypes`` set and, by default, an ``int`` (cudaError_t)
+    result."""
     fn = getattr(_load(name), symbol)
     fn.argtypes = list(argtypes)
-    fn.restype = ctypes.c_int
+    fn.restype = restype
     return fn
 
 

@@ -58,7 +58,9 @@
 //     it stays within the bf16 tolerance the kernel is held to.
 //   * The epilogue scales by 1 / max(l, 1e-30), writes bf16 into the
 //     warpgroup's Q tile in the swizzled box layout and stores it with TMA,
-//     which drops rows past Sq and D 112's padded columns.
+//     which drops rows past Sq and D 112's padded columns. When asked (a
+//     non-null lse), it also writes each row's natural-log logsumexp
+//     m D^-1/2 + ln l for the backward kernels; o is the same either way.
 //   * The two warpgroups overlap each other's softmax and products; within
 //     one warpgroup the products wait for the softmax: a software pipeline
 //     of the two products made ptxas serialise every wgmma (its C7513
@@ -68,25 +70,21 @@
 //   hold the f32 kernel path to 1e-3 of the CPU path, which needs full-f32
 //   products). Four threads own each query row and split the head dimension
 //   in interleaved float4 chunks; partial dot products are summed with two
-//   xor shuffles; 32-key K and V tiles are staged in shared memory.
+//   xor shuffles; 32-key K and V tiles are staged in shared memory. It
+//   writes the logsumexp m + ln l when asked, as the bf16 kernel does.
 //
 // Both: q, k, v and o are addressed through explicit (batch, seq, head)
 // strides, so the model's [B, S, H, D] tensors are read and written in
 // place. No atomics, and each output element is computed by a fixed
 // sequence of operations: reruns are bitwise identical.
 
-#include <cuda.h>  // CUtensorMap and its enums (types only; no libcuda link)
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <stdint.h>
+#include <math.h>
+
+#include "hopper_tc.cuh"  // TMA, mbarrier and wgmma helpers
 
 namespace {
 
 constexpr float kNegInf = -1e30f;
-
-struct Strides {
-  int b, s, h;  // elements between batches, positions, heads
-};
 
 // ------------------------------------------------------- f32: FMA kernel
 
@@ -106,9 +104,10 @@ __device__ __forceinline__ void store4(float* p, float4 v) {
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
-          const T* __restrict__ v, T* __restrict__ o, int sq, int skv,
-          int group, Strides qs, Strides ks, Strides vs, Strides os,
-          int causal, int window, float scale) {
+          const T* __restrict__ v, T* __restrict__ o,
+          float* __restrict__ lse, int sq, int skv, int group, Strides qs,
+          Strides ks, Strides vs, Strides os, int causal, int window,
+          float scale) {
   constexpr int kChunks = D / 4;                 // float4 chunks per row
   constexpr int kMine = kChunks / kLanesPerRow;  // chunks per thread
   __shared__ float4 k_tile[kBlockN][kChunks];
@@ -219,19 +218,22 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
       store4(op + 4 * (c + 4 * i),
              make_float4(a.x / denom, a.y / denom, a.z / denom, a.w / denom));
     }
+    if (lse != nullptr && c == 0)  // m holds scaled scores here
+      lse[((long long)b * gridDim.y + h) * sq + qi] =
+          l > 0.f ? m + logf(l) : INFINITY;
   }
 }
 
 template <typename T, int D>
-void launch(const void* q, const void* k, const void* v, void* o, int batch,
-            int hq, int sq, int skv, int group, Strides qs, Strides ks,
-            Strides vs, Strides os, int causal, int window, float scale,
-            cudaStream_t stream) {
+void launch(const void* q, const void* k, const void* v, void* o, float* lse,
+            int batch, int hq, int sq, int skv, int group, Strides qs,
+            Strides ks, Strides vs, Strides os, int causal, int window,
+            float scale, cudaStream_t stream) {
   const dim3 grid((sq + kBlockM - 1) / kBlockM, hq, batch);
   flash_fwd<T, D><<<grid, kThreads, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), sq, skv, group, qs, ks,
-      vs, os, causal, window, scale);
+      static_cast<const T*>(v), static_cast<T*>(o), lse, sq, skv, group, qs,
+      ks, vs, os, causal, window, scale);
 }
 
 // ------------------------------------------- bf16: tensor-core kernel
@@ -244,10 +246,6 @@ constexpr int kThreads = kConsumerThreads + 32;  // and one producer warp
 constexpr int kRows = 64;                // query rows per consumer (wgmma M)
 constexpr int kBlockN = 64;              // keys per tile
 constexpr int kStages = 4;               // K/V ring depth
-constexpr int kBox = 64;                 // TMA box: 64 rows x 64 columns
-constexpr int kBoxBytes = kBox * kBox * 2;
-constexpr int kRowBytes = kBox * 2;      // one swizzled 128-byte row
-constexpr int kAtomBytes = 8 * kRowBytes;  // 8 rows: one swizzle atom
 
 template <int D>
 struct Cfg {
@@ -311,183 +309,6 @@ __device__ __forceinline__ int head_of(const Item& it, const Shape& sh,
 __device__ __forceinline__ int item_of_round(int r) {
   const int g = gridDim.x, c = blockIdx.x;
   return r * g + ((r & 1) ? g - 1 - c : c);
-}
-
-// Which dimension (1..3) of a tensor map holds seq, head and batch: the
-// host orders them by stride.
-struct Perm {
-  int s, h, b;
-};
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
-               ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  asm volatile(
-      "{\n"
-      ".reg .pred done;\n"
-      "WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
-      "@!done bra WAIT;\n"
-      "}\n" ::"r"(bar),
-      "r"(parity)
-      : "memory");
-}
-
-// The coordinate of tensor-map dimension d (1..3) for (seq, head, batch).
-__device__ __forceinline__ int coord(const Perm& p, int d, int s, int h,
-                                     int b) {
-  return p.s == d ? s : p.h == d ? h : b;
-}
-
-// One box of a 4-D tensor map into shared memory, completing on ``bar``.
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         uint32_t bar, int col, int s, int h,
-                                         int b, Perm p) {
-  const int c1 = coord(p, 1, s, h, b), c2 = coord(p, 2, s, h, b),
-            c3 = coord(p, 3, s, h, b);
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(col), "r"(c1),
-      "r"(c2), "r"(c3)
-      : "memory");
-}
-
-// One box from shared memory to a 4-D tensor map, in the current bulk
-// group; rows and columns outside the tensor are not written.
-__device__ __forceinline__ void tma_store(const CUtensorMap* map,
-                                          uint32_t src, int col, int s,
-                                          int h, int b, Perm p) {
-  const int c1 = coord(p, 1, s, h, b), c2 = coord(p, 2, s, h, b),
-            c3 = coord(p, 3, s, h, b);
-  asm volatile(
-      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group"
-      " [%0, {%2, %3, %4, %5}], [%1];" ::"l"(reinterpret_cast<uint64_t>(map)),
-      "r"(src), "r"(col), "r"(c1), "r"(c2), "r"(c3)
-      : "memory");
-}
-
-// wgmma shared-memory descriptor of a 128-byte-swizzled operand: start
-// address, leading and stride byte offsets (16-byte units), layout 1 = B128.
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
-                                               uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>(lbo >> 4) << 16) |
-         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wg_fence() {
-  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wg_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wg_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
-}
-
-// Keeps the compiler from moving reads or writes of accumulator registers
-// across the asynchronous wgmma that owns them.
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-
-#define FA_D8(i)                                                        \
-  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),          \
-      "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
-
-// S[64 x 64] (+)= Q[64 x 16] K[64 x 16]^T, both K-major in shared memory.
-__device__ __forceinline__ void wgmma_qk(float (&d)[32], uint64_t da,
-                                         uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
-      "%28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n"
-      "}\n"
-      : FA_D8(0), FA_D8(8), FA_D8(16), FA_D8(24)
-      : "l"(da), "l"(db), "r"(accumulate));
-}
-
-// O[64 x N] += P[64 x 16] V[16 x N]: P in registers (bf16 A fragment), V
-// MN-major in shared memory (transposed B).
-template <int N>
-__device__ __forceinline__ void wgmma_pv(float (&d)[N / 2],
-                                         const uint32_t* a, uint64_t db);
-
-template <>
-__device__ __forceinline__ void wgmma_pv<64>(float (&d)[32],
-                                             const uint32_t* a,
-                                             uint64_t db) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
-      "%28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n"
-      "}\n"
-      : FA_D8(0), FA_D8(8), FA_D8(16), FA_D8(24)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_pv<128>(float (&d)[64],
-                                              const uint32_t* a,
-                                              uint64_t db) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
-      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
-      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
-      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n"
-      "}\n"
-      : FA_D8(0), FA_D8(8), FA_D8(16), FA_D8(24), FA_D8(32), FA_D8(40),
-        FA_D8(48), FA_D8(56)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-#undef FA_D8
-
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
 }
 
 // Masks and the online softmax of one S tile (keys t0..t0+63) on the raw
@@ -616,7 +437,8 @@ flash_fwd_tc(const __grid_constant__ CUtensorMap tq,
              const __grid_constant__ CUtensorMap tk,
              const __grid_constant__ CUtensorMap tv,
              const __grid_constant__ CUtensorMap to, Shape sh, Perm pq,
-             Perm pk, Perm pv, Perm po, float scale_log2) {
+             Perm pk, Perm pv, Perm po, float scale_log2, float* lse,
+             float scale) {
   using C = Cfg<D>;
   extern __shared__ uint8_t smem[];
   const uint32_t base = (smem_u32(smem) + 1023) & ~1023u;
@@ -767,6 +589,11 @@ flash_fwd_tc(const __grid_constant__ CUtensorMap tq,
       l += __shfl_xor_sync(0xffffffffu, l, 2);
       const float inv = 1.f / fmaxf(l, 1e-30f);
       const int rr = row + 8 * r;
+      // the row's natural-log logsumexp for the backward, when asked (m
+      // is the raw-score max)
+      if (lse != nullptr && lane % 4 == 0 && qw + rr < sh.sq)
+        lse[((long long)item.b * sh.hq + hw) * sh.sq + qw + rr] =
+            l > 0.f ? fmaf(m_run[r], scale, logf(l)) : INFINITY;
 #pragma unroll
       for (int j = 0; j < C::kDP / 8; ++j) {
         const uint32_t at = qt + (j / 8) * kBoxBytes + rr * kRowBytes +
@@ -790,77 +617,11 @@ flash_fwd_tc(const __grid_constant__ CUtensorMap tq,
   }
 }
 
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType,
-                                cuuint32_t, void*, const cuuint64_t*,
-                                const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave,
-                                CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-EncodeTiled encoder() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// The tensor map of a bf16 [B, S, H, D] operand given its (batch, seq,
-// head) element strides: dimension 0 is D (contiguous), dimensions 1..3 are
-// seq, head and batch ordered by stride; boxes of 64 columns x 64 positions.
-int make_map(CUtensorMap* map, Perm* perm, const void* ptr, int d, int n_s,
-             int n_h, int n_b, Strides st) {
-  EncodeTiled encode = encoder();
-  if (encode == nullptr) return (int)cudaErrorNotSupported;
-  struct Dim {
-    long long extent, stride;
-    int which;  // 0 seq, 1 head, 2 batch
-  } dims[3] = {{n_s, st.s, 0}, {n_h, st.h, 1}, {n_b, st.b, 2}};
-  for (int i = 1; i < 3; ++i)  // stable insertion sort by stride
-    for (int j = i; j > 0 && dims[j].stride < dims[j - 1].stride; --j) {
-      const Dim t = dims[j];
-      dims[j] = dims[j - 1];
-      dims[j - 1] = t;
-    }
-  cuuint64_t extent[4] = {(cuuint64_t)d, 0, 0, 0};
-  cuuint64_t stride[3];
-  cuuint32_t box[4] = {kBox, 1, 1, 1};
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
-  for (int i = 0; i < 3; ++i) {
-    extent[i + 1] = (cuuint64_t)dims[i].extent;
-    stride[i] = (cuuint64_t)dims[i].stride * sizeof(__nv_bfloat16);
-    if (dims[i].which == 0) {
-      box[i + 1] = kBox;
-      perm->s = i + 1;
-    } else if (dims[i].which == 1) {
-      perm->h = i + 1;
-    } else {
-      perm->b = i + 1;
-    }
-  }
-  const CUresult r = encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
-      extent, stride, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
-}
-
 template <int D>
-int launch(const void* q, const void* k, const void* v, void* o, int batch,
-           int hq, int hkv, int sq, int skv, Strides qs, Strides ks,
-           Strides vs, Strides os, int causal, int window, float scale,
-           cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           int batch, int hq, int hkv, int sq, int skv, Strides qs,
+           Strides ks, Strides vs, Strides os, int causal, int window,
+           float scale, cudaStream_t stream) {
   using C = Cfg<D>;
   CUtensorMap tq, tk, tv, to;
   Perm pq, pk, pv, po;
@@ -896,32 +657,33 @@ int launch(const void* q, const void* k, const void* v, void* o, int batch,
   sh.n_qt = (sq + span - 1) / span;
   sh.n_items = sh.n_qt * (sh.pair_heads ? hq / 2 : hq) * batch;
   flash_fwd_tc<D><<<min(resident, sh.n_items), kThreads, C::kSmem, stream>>>(
-      tq, tk, tv, to, sh, pq, pk, pv, po, scale * 1.4426950408889634f);
+      tq, tk, tv, to, sh, pq, pk, pv, po, scale * 1.4426950408889634f, lse,
+      scale);
   return 0;
 }
 
 }  // namespace tc
 
 int launch_f32(int d, const void* q, const void* k, const void* v, void* o,
-               int batch, int hq, int sq, int skv, int group, Strides qs,
-               Strides ks, Strides vs, Strides os, int causal, int window,
-               float scale, cudaStream_t stream) {
+               float* lse, int batch, int hq, int sq, int skv, int group,
+               Strides qs, Strides ks, Strides vs, Strides os, int causal,
+               int window, float scale, cudaStream_t stream) {
   switch (d) {
     case 32:
-      launch<float, 32>(q, k, v, o, batch, hq, sq, skv, group, qs, ks, vs,
-                        os, causal, window, scale, stream);
+      launch<float, 32>(q, k, v, o, lse, batch, hq, sq, skv, group, qs, ks,
+                        vs, os, causal, window, scale, stream);
       return 0;
     case 64:
-      launch<float, 64>(q, k, v, o, batch, hq, sq, skv, group, qs, ks, vs,
-                        os, causal, window, scale, stream);
+      launch<float, 64>(q, k, v, o, lse, batch, hq, sq, skv, group, qs, ks,
+                        vs, os, causal, window, scale, stream);
       return 0;
     case 112:  // zamba2's shared attention: 28 float4 chunks, 7 a lane
-      launch<float, 112>(q, k, v, o, batch, hq, sq, skv, group, qs, ks, vs,
-                         os, causal, window, scale, stream);
+      launch<float, 112>(q, k, v, o, lse, batch, hq, sq, skv, group, qs, ks,
+                         vs, os, causal, window, scale, stream);
       return 0;
     case 128:
-      launch<float, 128>(q, k, v, o, batch, hq, sq, skv, group, qs, ks, vs,
-                         os, causal, window, scale, stream);
+      launch<float, 128>(q, k, v, o, lse, batch, hq, sq, skv, group, qs, ks,
+                         vs, os, causal, window, scale, stream);
       return 0;
     default:
       return (int)cudaErrorInvalidValue;
@@ -929,22 +691,22 @@ int launch_f32(int d, const void* q, const void* k, const void* v, void* o,
 }
 
 int launch_bf16(int d, const void* q, const void* k, const void* v, void* o,
-                int batch, int hq, int hkv, int sq, int skv, Strides qs,
-                Strides ks, Strides vs, Strides os, int causal, int window,
-                float scale, cudaStream_t stream) {
+                float* lse, int batch, int hq, int hkv, int sq, int skv,
+                Strides qs, Strides ks, Strides vs, Strides os, int causal,
+                int window, float scale, cudaStream_t stream) {
   switch (d) {
     case 32:
-      return tc::launch<32>(q, k, v, o, batch, hq, hkv, sq, skv, qs, ks, vs,
-                            os, causal, window, scale, stream);
+      return tc::launch<32>(q, k, v, o, lse, batch, hq, hkv, sq, skv, qs, ks,
+                            vs, os, causal, window, scale, stream);
     case 64:
-      return tc::launch<64>(q, k, v, o, batch, hq, hkv, sq, skv, qs, ks, vs,
-                            os, causal, window, scale, stream);
+      return tc::launch<64>(q, k, v, o, lse, batch, hq, hkv, sq, skv, qs, ks,
+                            vs, os, causal, window, scale, stream);
     case 112:  // zamba2's shared attention: padded to two 64-column boxes
-      return tc::launch<112>(q, k, v, o, batch, hq, hkv, sq, skv, qs, ks, vs,
-                             os, causal, window, scale, stream);
+      return tc::launch<112>(q, k, v, o, lse, batch, hq, hkv, sq, skv, qs,
+                             ks, vs, os, causal, window, scale, stream);
     case 128:
-      return tc::launch<128>(q, k, v, o, batch, hq, hkv, sq, skv, qs, ks, vs,
-                             os, causal, window, scale, stream);
+      return tc::launch<128>(q, k, v, o, lse, batch, hq, hkv, sq, skv, qs,
+                             ks, vs, os, causal, window, scale, stream);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -958,11 +720,13 @@ extern "C" {
 // {32, 64, 112, 128}. Strides are in elements, ordered (batch, seq, head)
 // for each of q, k, v, o; the last dimension is contiguous. For bf16 the
 // q, k, v base addresses are 16-byte aligned and their strides multiples
-// of 8 elements (the tensor maps' rule; the wrapper checks it). Returns
-// cudaGetLastError() after the launch.
+// of 8 elements (the tensor maps' rule; the wrapper checks it). lse, when
+// not null, receives the natural-log logsumexp of each row's scaled, masked
+// scores as f32 [batch, hq, sq] (+inf for a row that sees no key); o is the
+// same with or without it. Returns cudaGetLastError() after the launch.
 int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
-                        int dtype, int batch, int hq, int hkv, int sq,
-                        int skv, int d, int q_sb, int q_ss, int q_sh,
+                        void* lse, int dtype, int batch, int hq, int hkv,
+                        int sq, int skv, int d, int q_sb, int q_ss, int q_sh,
                         int k_sb, int k_ss, int k_sh, int v_sb, int v_ss,
                         int v_sh, int o_sb, int o_ss, int o_sh, int causal,
                         int window, float scale, void* stream) {
@@ -972,13 +736,14 @@ int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
   const Strides qs{q_sb, q_ss, q_sh}, ks{k_sb, k_ss, k_sh},
       vs{v_sb, v_ss, v_sh}, os{o_sb, o_ss, o_sh};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* l = static_cast<float*>(lse);
   int err;
   if (dtype == 0) {
-    err = launch_f32(d, q, k, v, o, batch, hq, sq, skv, hq / hkv, qs, ks, vs,
-                     os, causal, window, scale, s);
+    err = launch_f32(d, q, k, v, o, l, batch, hq, sq, skv, hq / hkv, qs, ks,
+                     vs, os, causal, window, scale, s);
   } else if (dtype == 1) {
-    err = launch_bf16(d, q, k, v, o, batch, hq, hkv, sq, skv, qs, ks, vs, os,
-                      causal, window, scale, s);
+    err = launch_bf16(d, q, k, v, o, l, batch, hq, hkv, sq, skv, qs, ks, vs,
+                      os, causal, window, scale, s);
   } else {
     err = (int)cudaErrorInvalidValue;
   }

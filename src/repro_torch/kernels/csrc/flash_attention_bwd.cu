@@ -11,14 +11,75 @@
 //   dv = P^T dO,   dP = dO v^T,   dS = P o (dP - rowsum(dO o o)),
 //   dq = scale dS k,   dk = scale dS^T q.
 //
-// What bounds it on the H100: at the training shapes the four products
-// per tile pair (S, dP, and dq or dv/dk) make it compute-bound on the
-// tensor cores (the least time is the FLOPs over 989 TFLOP/s); this first
-// design runs them as f32 FMAs from shared memory, as K2's first forward did,
-// and is far from that bound (a tensor-core design is later work).
+// What bounds it on the H100: at qwen3-8b's train shape ([4, 32, 512,
+// 128], 8 KV heads, causal) the least time is 0.025 ms of memory traffic
+// (q, k, v, o, dO read once; dq, dk, dv written once), with the five
+// products the math needs (2.1e10 FLOP, 0.0217 ms at the bf16 tensor-core
+// peak) close behind; the design below does seven (S and dP are formed in
+// both the dq and the dk/dv kernel), so the products are its limit.
 //
-// Two kernels, no atomics, launch configurations fixed by the shapes, so
-// reruns are bitwise identical and no sum depends on scheduling:
+// Two routes, chosen by dtype; neither is a fallback for the other.
+//
+// bf16: three launches, no atomics, every sum in a fixed order.
+// (0) flash_bwd_prep: L = lse log2(e) from the forward's logsumexp (the
+//     forward writes it when asked) and D_row = rowsum(dO o o), per row in
+//     [B, Hq, Sq rounded up to 64] f32 scratch, padded rows L = +inf and
+//     D_row = 0 so that a tile past Sq contributes nothing. This replaces
+//     the sweep that recomputed the logsumexp.
+// (1) flash_bwd_dq_tc: the forward's structure (persistent grid, one CTA
+//     an SM, a producer warp issuing TMA copies, two consumer warpgroups
+//     of 64 q rows sharing each K/V tile). Per visible 64-key tile S = Q
+//     K^T and dP = dO V^T with wgmma (all operands K-major in
+//     128-byte-swizzled shared memory), P = 2^(S c - L) and dS = P (dP -
+//     D_row) in f32 registers, dQ += dS K with dS in bf16 as the register A
+//     operand and K read MN-major, as the forward feeds P and V.
+// (2) flash_bwd_dkdv_tc: one 64-key tile of one KV head an item; its work
+//     is the (q head of the GQA group, q tile that sees the keys) pairs,
+//     heads outer, each pair's Q and dO tiles and its L and D_row vectors
+//     arriving through a TMA ring. The two consumer warpgroups split the
+//     work by output: warpgroup 0 forms S^T = K Q^T, P^T and dV += P^T dO;
+//     warpgroup 1 forms dP^T = V dO^T, takes P^T in f32 from warpgroup 0
+//     through a double-buffered shared-memory tile (an mbarrier each way),
+//     forms dS^T and dK += dS^T Q. P^T and dS^T go to the products in bf16
+//     from registers, dO and Q read MN-major. Each warpgroup stages its sum
+//     in the tile of the item's K/V buffer that only it reads and stores it
+//     with TMA.
+// Rounding P and dS to bf16 before the products is this route's departure
+// from the plain version, as the forward's bf16 P is; it stays within the
+// bf16 tolerance (tests/test_torch_kernels.py emulates the arithmetic on
+// the CPU at the train shapes; chip_smoke.py prints each case's share).
+//
+// Where the trouble was, and what the design does about it:
+// * Registers. ptxas grants each of these 288-thread kernels' threads 168
+//   registers (a first build asked for 224 and got 168). A warpgroup that
+//   held both dK and dV (64 + 64 f32 a thread at D 128) with S^T and dP^T
+//   (32 + 32) spilled 1 KB even with S^T and dP^T in two groups of 32
+//   columns; hence the split by output above (each warpgroup 64 + 32 + 16,
+//   163 registers at D 128, no spill). In dq, dQ (64) with S and dP of 64
+//   keys spilled too, so at D > 64 S and dP are formed in two groups of 32
+//   keys, each group's dQ product issued before the next group, and the
+//   rows' L and D_row come with the Q tile into shared memory and are read
+//   where they are used (held across the tile loop they spilled; reread
+//   from global memory before the products, more so). Score accumulators are zeroed before each group
+//   (its first k-step overwrites them) so no stale tile stays live across
+//   the products, and the tiles' shared-memory addresses are made opaque
+//   where a product is issued, so the descriptors of every k-step are not
+//   hoisted into registers. setmaxnreg, which could rebalance registers
+//   towards the consumers, hung in the K3 kernel and is not used.
+//   chip_smoke.py prints the ptxas lines and fails on a spill.
+// * ptxas C7513 (every wgmma serialised) came from a software pipeline of
+//   the products in the forward; here each wgmma group is retired
+//   (wait_group 0) before any of its registers is read.
+// * Causal imbalance in dk/dv: key tile 0 sees every q tile, the last
+//   tile one. The grid is persistent, items longest first, taken forwards
+//   in even rounds and backwards in odd ones, as the forward's. Which CTA
+//   takes an item does not change its arithmetic, so reruns are bitwise
+//   identical.
+// * Masks are applied only on tiles that cross the diagonal, the window's
+//   edge, Skv or Sq.
+//
+// f32: the FMA kernels, which the reduced card-vs-CPU checks need for their
+// full-f32 products (as the forward's f32 kernel):
 // (a) flash_bwd_dq, one block per (64-row q tile, q head, batch): D_row =
 //     rowsum(dO o o); a first sweep over the visible k tiles recomputes the
 //     row max and sum (the logsumexp); a second sweep forms P = exp(S -
@@ -31,14 +92,15 @@
 // Tiles are f32 in shared memory with rows padded by one float (no bank
 // conflicts on column walks); 256 threads, each owning a 4 x 4 block of
 // the 64 x 64 score tile (rows ty + 16 i, columns tx + 16 j) and 4 x D/16
-// of each accumulator. Operands are read through their (batch, seq, head)
-// strides with a contiguous head dim, so the model's [B, S, H, D] views go
-// in without copies, and dq, dk, dv are written through the strides given.
+// of each accumulator.
+//
+// Both routes read every operand through its (batch, seq, head) strides
+// with a contiguous head dim, so the model's [B, S, H, D] views go in
+// without copies, and write dq, dk, dv through the strides given.
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
 #include <math.h>
-#include <stdint.h>
+
+#include "hopper_tc.cuh"  // TMA, mbarrier and wgmma helpers
 
 namespace {
 
@@ -48,16 +110,9 @@ constexpr int kPad = kTile + 1;       // padded row of a score tile
 constexpr float kNegInf = -INFINITY;
 
 __device__ __forceinline__ float to_float(float v) { return v; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
 template <typename T> __device__ __forceinline__ T from_float(float v);
 template <> __device__ __forceinline__ float from_float<float>(float v) {
   return v;
-}
-template <> __device__ __forceinline__ __nv_bfloat16
-from_float<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
 }
 
 // Element strides of one [B, S, H, D] operand (head dim contiguous).
@@ -425,11 +480,11 @@ int launch(const void* q, const void* k, const void* v, const void* o,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int dispatch_d(int d, const void* q, const void* k, const void* v,
+int launch_f32(int d, const void* q, const void* k, const void* v,
                const void* o, const void* dout, void* dq, void* dk, void* dv,
                float* lse, float* drow, int b, const Shape& sh,
                const Bsh* st, cudaStream_t stream) {
+  using T = float;
   switch (d) {
     case 32:
       return launch<32, T>(q, k, v, o, dout, dq, dk, dv, lse, drow, b, sh,
@@ -448,40 +503,851 @@ int dispatch_d(int d, const void* q, const void* k, const void* v,
   }
 }
 
+// ------------------------------------------- bf16: tensor-core kernels
+
+namespace tc {
+
+constexpr int kConsumers = 2;                    // consumer warpgroups
+constexpr int kThreads = 128 * kConsumers + 32;  // and one producer warp
+constexpr int kRows = 64;       // rows of a tile: q rows (dq), keys (dk/dv)
+constexpr int kCols = 64;       // keys of a dq tile, q rows of a dk/dv tile
+constexpr float kMasked = -1e30f;                // a masked raw score
+constexpr float kLog2e = 1.4426950408889634f;
+
+template <int D>
+struct Tiles {
+  static constexpr int kBoxes = D > 64 ? 2 : 1;     // 64-column boxes
+  static constexpr int kDP = kBox * kBoxes;         // D padded to the boxes
+  static constexpr int kAcc = kDP / 2;              // floats per thread
+  static constexpr int kTile = kBoxes * kBoxBytes;  // 64 rows of an operand
+};
+
+// The problem. sq_pad is the row stride of the prep kernel's L and D_row
+// (sq rounded up to 64 rows).
+struct Shape {
+  int sq, skv, hq, hkv, batch, group, causal, window, sq_pad;
+  int pair_heads;  // dq: consumers take heads 2p, 2p + 1 (1) or rows (0)
+  int n_t, n_items;  // dq: q spans; dk/dv: key tiles; and the items
+};
+
+// The CTA's item of round r: rounds of G items (G CTAs), taken forwards in
+// even rounds and backwards in odd ones, so long and short items pair up.
+// Which CTA computes an item does not change its arithmetic.
+__device__ __forceinline__ int item_of_round(int r) {
+  const int g = gridDim.x, c = blockIdx.x;
+  return r * g + ((r & 1) ? g - 1 - c : c);
+}
+
+// Named barriers (0 is __syncthreads).
+constexpr int kBarWg = 1;      // + wg: one consumer warpgroup
+
+// ------------------------------------------------------------- prep
+
+// L = lse log2(e) and D_row = rowsum(dO o o) of each (batch, head, row) in
+// [B, Hq, sq_pad] f32 arrays; rows sq..sq_pad - 1 get L = +inf and D_row =
+// 0, so a tile past sq contributes nothing. 16 lanes a row, one 16-byte
+// chunk of o and dO each, summed by a fixed shuffle tree.
+template <int D>
+__global__ void __launch_bounds__(256)
+flash_bwd_prep(const __nv_bfloat16* __restrict__ o,
+               const __nv_bfloat16* __restrict__ dout,
+               const float* __restrict__ lse, float* __restrict__ lrow,
+               float* __restrict__ drow, Shape sh, Strides so,
+               Strides sdo) {
+  constexpr int kLanes = 16, kChunks = D / 8;
+  const int r = blockIdx.x * (256 / kLanes) + threadIdx.x / kLanes;
+  const int lane = threadIdx.x % kLanes;
+  const int n_rows = sh.batch * sh.hq * sh.sq_pad;
+  const int i = r % sh.sq_pad, bh = r / sh.sq_pad;
+  const bool live = r < n_rows && i < sh.sq;
+  float acc = 0.f;
+  if (live && lane < kChunks) {
+    const int b = bh / sh.hq, h = bh % sh.hq;
+    const uint4 a = *reinterpret_cast<const uint4*>(
+        o + (long long)b * so.b + (long long)i * so.s +
+        (long long)h * so.h + 8 * lane);
+    const uint4 c = *reinterpret_cast<const uint4*>(
+        dout + (long long)b * sdo.b + (long long)i * sdo.s +
+        (long long)h * sdo.h + 8 * lane);
+    const __nv_bfloat162* a2 = reinterpret_cast<const __nv_bfloat162*>(&a);
+    const __nv_bfloat162* c2 = reinterpret_cast<const __nv_bfloat162*>(&c);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float2 fa = __bfloat1622float2(a2[e]);
+      const float2 fc = __bfloat1622float2(c2[e]);
+      acc = fmaf(fa.x, fc.x, acc);
+      acc = fmaf(fa.y, fc.y, acc);
+    }
+  }
+#pragma unroll
+  for (int off = kLanes / 2; off > 0; off >>= 1)
+    acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  if (r < n_rows && lane == 0) {
+    drow[r] = acc;
+    lrow[r] = live ? lse[(long long)bh * sh.sq + i] * kLog2e : INFINITY;
+  }
+}
+
+// Score accumulators are zeroed before their group (its first k-step
+// overwrites them anyway), so the previous tile's values are dead and hold
+// no registers across the products that follow.
+template <int N>
+__device__ __forceinline__ void zero(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) r[i] = 0.f;
+}
+
+// Makes shared-memory addresses opaque where a product is issued, so the
+// compiler forms its descriptors there and does not hoist the descriptors
+// of every k-step of a loop-invariant tile into registers held across the
+// loop (they cost more registers than the kernels have).
+__device__ __forceinline__ void opaque(uint32_t& a, uint32_t& b) {
+  asm volatile("" : "+r"(a), "+r"(b));
+}
+
+// S (+)= A B^T over D / 16 k-steps of 32 bytes along the swizzled rows of
+// two K-major 64-row tiles, into a 64 x 64 accumulator (no commit).
+template <int D>
+__device__ __forceinline__ void mma_abt(float (&s)[32], uint32_t a,
+                                        uint32_t b) {
+  opaque(a, b);
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const uint32_t off = (kk / 4) * kBoxBytes + (kk % 4) * 32;
+    wgmma_qk(s, sw128_desc(a + off, 16, kAtomBytes),
+             sw128_desc(b + off, 16, kAtomBytes), kk > 0);
+  }
+}
+
+// The same into a 64 x 32 accumulator: B's rows 32 h .. 32 h + 31.
+template <int D>
+__device__ __forceinline__ void mma_abt32(float (&s)[16], uint32_t a,
+                                          uint32_t b, int h) {
+  opaque(a, b);
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const uint32_t off = (kk / 4) * kBoxBytes + (kk % 4) * 32;
+    wgmma_qk32(s, sw128_desc(a + off, 16, kAtomBytes),
+               sw128_desc(b + off + h * 32 * kRowBytes, 16, kAtomBytes),
+               kk > 0);
+  }
+}
+
+// O += P B over K rows of B (16 a k-step, two swizzle atoms), P the bf16
+// A fragments in pa (k-step kk in pa[4 kk .. 4 kk + 3]), B MN-major; the
+// second 64-column box of B is the leading-dimension step (no commit).
+template <int DP, int K = kCols>
+__device__ __forceinline__ void mma_pb(float (&acc)[DP / 2],
+                                       const uint32_t (&pa)[K / 4],
+                                       uint32_t b) {
+  uint32_t unused = 0;
+  opaque(b, unused);
+#pragma unroll
+  for (int kk = 0; kk < K / 16; ++kk)
+    wgmma_pv<DP>(acc, pa + 4 * kk,
+                 sw128_desc(b + kk * 2 * kAtomBytes, kBoxBytes, kAtomBytes));
+}
+
+// bf16 A fragments of an accumulator of N / 2 columns: k-step kk takes
+// columns 16 kk .. 16 kk + 15 (j = 2 kk, 2 kk + 1).
+template <int N>
+__device__ __forceinline__ void pack_frags(const float (&x)[N],
+                                           uint32_t (&out)[N / 2]) {
+#pragma unroll
+  for (int kk = 0; kk < N / 8; ++kk) {
+    out[4 * kk + 0] = pack_bf16(x[8 * kk + 0], x[8 * kk + 1]);
+    out[4 * kk + 1] = pack_bf16(x[8 * kk + 2], x[8 * kk + 3]);
+    out[4 * kk + 2] = pack_bf16(x[8 * kk + 4], x[8 * kk + 5]);
+    out[4 * kk + 3] = pack_bf16(x[8 * kk + 6], x[8 * kk + 7]);
+  }
+}
+
+// An accumulator (times ``scale``) in bf16 into a 64-row tile in the TMA
+// box layout with the 128-byte swizzle: 16-byte chunk k of row r at chunk
+// k ^ (r % 8), so a warp's stores hit 32 distinct banks.
+template <int DP>
+__device__ __forceinline__ void stage_bf16(const float (&acc)[DP / 2],
+                                           uint32_t tile, float scale,
+                                           int row, int col) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int rr = row + 8 * r;
+#pragma unroll
+    for (int j = 0; j < DP / 8; ++j) {
+      const uint32_t at = tile + (j / 8) * kBoxBytes + rr * kRowBytes +
+                          (((j % 8) ^ (rr % 8)) * 16) + col * 2;
+      const uint32_t v = pack_bf16(acc[4 * j + 2 * r] * scale,
+                                   acc[4 * j + 2 * r + 1] * scale);
+      asm volatile("st.shared.b32 [%0], %1;" ::"r"(at), "r"(v) : "memory");
+    }
+  }
+}
+
+// ------------------------------------------------------------- dq
+
+template <int D>
+struct DqCfg : Tiles<D> {
+  using T = Tiles<D>;
+  static constexpr int kStages = D > 64 ? 2 : 4;  // K/V ring depth
+  // S and dP in two groups of 32 keys at D > 64: with the 64 floats of dQ
+  // a thread, 64 + 64 would spill under the 168 registers ptxas grants
+  // each of the 288 threads
+  static constexpr int kSplit = D > 64 ? 2 : 1;
+  static constexpr int kVec = 2 * kRows * 4;  // a consumer's L and D_row
+  // Q and dO [2 buffers][kConsumers], then K and V [kStages], then the
+  // L and D_row vectors [2 buffers][kConsumers]
+  static constexpr int kTiles = 4 * kConsumers + 2 * kStages;
+  // a full and an empty barrier for each Q/dO buffer and each stage
+  static constexpr int kBars = 2 * (2 + kStages);
+  static constexpr int kSmem =
+      1024 + T::kTile * kTiles + 2 * kConsumers * kVec + 8 * kBars;
+};
+
+// An item of the dq kernel, as the forward's: each consumer warpgroup c
+// takes 64 q rows of one head that read the same KV head (the same rows of
+// q heads 2p and 2p + 1 when the GQA group is even, else rows q0 and
+// q0 + 64 of one head); the longest causal rows first.
+struct DqItem {
+  int q0, h, b, span;
+  int kv_lo, n;  // first key and 64-key tiles any row may see
+};
+
+__device__ __forceinline__ DqItem dq_item(int w, const Shape& sh) {
+  const int heads = sh.pair_heads ? sh.hq / 2 : sh.hq;
+  const int per = heads * sh.batch;
+  DqItem it;
+  it.span = sh.pair_heads ? kRows : kRows * kConsumers;
+  it.q0 = (sh.n_t - 1 - w / per) * it.span;
+  it.h = ((w % per) % heads) * (sh.pair_heads ? 2 : 1);
+  it.b = (w % per) / heads;
+  const int kv_hi = sh.causal ? min(sh.skv, it.q0 + it.span) : sh.skv;
+  const int lo = sh.window > 0 ? max(0, it.q0 - sh.window + 1) : 0;
+  it.kv_lo = (lo / kCols) * kCols;
+  it.n = kv_hi > it.kv_lo ? (kv_hi - it.kv_lo + kCols - 1) / kCols : 0;
+  return it;
+}
+
+// dq = scale dS K for 64-row q tiles. Warp-specialised like the forward:
+// a producer warp issues every TMA copy (each consumer's Q and dO tiles and
+// its rows' L and D_row, double-buffered across items; K and V through a
+// ring of kStages), two consumer warpgroups share each K/V tile. For each visible key tile, in
+// kSplit groups of keys: S = Q K^T and dP = dO V^T (wgmma, one group,
+// retired before any read), P = 2^(S c - L) and dS = P (dP - D_row) in f32
+// registers, dS rounded to bf16 as the register A operand of dQ += dS K
+// (K read MN-major).
+//
+// Accumulator fragments of thread t = 32 w + lane of a warpgroup: rows
+// 16 w + lane / 4 (+ 8 for i = 1) of its 64, columns 8 j + 2 (lane % 4) + c,
+// held in d[4 j + 2 i + c].
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_bwd_dq_tc(const __grid_constant__ CUtensorMap tq,
+                const __grid_constant__ CUtensorMap tk,
+                const __grid_constant__ CUtensorMap tv,
+                const __grid_constant__ CUtensorMap tdo,
+                const __grid_constant__ CUtensorMap tdq, Shape sh, Perm pq,
+                Perm pk, Perm pv, Perm pdo, Perm pdq,
+                const float* __restrict__ lrow,
+                const float* __restrict__ drow, float scale_log2,
+                float scale) {
+  using C = DqCfg<D>;
+  constexpr int kTile = C::kTile, kStages = C::kStages;
+  // S and dP in kSplit groups of kN keys, kS floats a thread each
+  constexpr int kSplit = C::kSplit, kN = kCols / kSplit, kS = kN / 2;
+  extern __shared__ uint8_t smem[];
+  const uint32_t base = (smem_u32(smem) + 1023) & ~1023u;
+  const uint32_t vecs = base + kTile * C::kTiles;
+  const uint32_t bars = vecs + C::kVec * 2 * kConsumers;
+  // Q of consumer c in buffer i, and its dO beside it
+  auto q_tile = [&](int i, int c) {
+    return base + kTile * (2 * ((i & 1) * kConsumers + c));
+  };
+  auto k_tile = [&](int st) {
+    return base + kTile * (4 * kConsumers + 2 * st);
+  };
+  // the L and D_row of consumer c's rows in buffer i
+  auto vec = [&](int i, int c) {
+    return vecs + C::kVec * ((i & 1) * kConsumers + c);
+  };
+  auto qd_full = [&](int i) { return bars + 8 * (i & 1); };
+  auto kv_full = [&](int st) { return bars + 8 * (2 + st); };
+  constexpr int kEmpty = 8 * (2 + kStages);
+  auto parity = [](int g) { return (uint32_t)((g / kStages) & 1); };
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  if (tid == 0) {
+    for (int i = 0; i < C::kBars / 2; ++i) {
+      mbar_init(bars + 8 * i, 1);
+      mbar_init(bars + kEmpty + 8 * i, kConsumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == kConsumers * 4) {  // the producer warp: one thread copies
+    if (lane != 0) return;
+    int g = 0;
+    for (int i = 0; item_of_round(i) < sh.n_items; ++i) {
+      const DqItem it = dq_item(item_of_round(i), sh);
+      const int hk = it.h / sh.group;
+      mbar_wait(qd_full(i) + kEmpty, ((i / 2) & 1) ^ 1);
+      // a consumer whose rows start past sq has no tile to run and gets
+      // no L and D_row (they would lie past its head's padded rows)
+      const int live = sh.pair_heads || it.q0 + kRows < sh.sq ? 2 : 1;
+      mbar_expect(qd_full(i), 2 * kConsumers * kTile + live * C::kVec);
+      for (int c = 0; c < kConsumers; ++c) {
+        const int q0 = sh.pair_heads ? it.q0 : it.q0 + kRows * c;
+        const int h = sh.pair_heads ? it.h + c : it.h;
+#pragma unroll
+        for (int x = 0; x < C::kBoxes; ++x) {
+          tma_load(q_tile(i, c) + x * kBoxBytes, &tq, qd_full(i), x * kBox,
+                   q0, h, it.b, pq);
+          tma_load(q_tile(i, c) + kTile + x * kBoxBytes, &tdo, qd_full(i),
+                   x * kBox, q0, h, it.b, pdo);
+        }
+        if (c < live) {
+          const long long at = ((long long)it.b * sh.hq + h) * sh.sq_pad + q0;
+          bulk_load(vec(i, c), lrow + at, kRows * 4, qd_full(i));
+          bulk_load(vec(i, c) + kRows * 4, drow + at, kRows * 4, qd_full(i));
+        }
+      }
+      for (int t = 0; t < it.n; ++t, ++g) {
+        const int st = g % kStages, t0 = it.kv_lo + t * kCols;
+        mbar_wait(kv_full(st) + kEmpty, parity(g) ^ 1);
+        mbar_expect(kv_full(st), 2 * kTile);
+#pragma unroll
+        for (int x = 0; x < C::kBoxes; ++x) {
+          tma_load(k_tile(st) + x * kBoxBytes, &tk, kv_full(st), x * kBox,
+                   t0, hk, it.b, pk);
+          tma_load(k_tile(st) + kTile + x * kBoxBytes, &tv, kv_full(st),
+                   x * kBox, t0, hk, it.b, pv);
+        }
+      }
+    }
+    return;
+  }
+
+  const int wg = warp / 4;
+  float acc[C::kAcc];
+  float s[kS], dp[kS];
+  uint32_t pd[kN / 4];
+  const int row = 16 * (warp % 4) + lane / 4;  // rows row, row + 8
+  const int col = 2 * (lane % 4);              // columns col, col + 1 of 8
+  const bool signal = tid % 128 == 0;
+  auto release = [&](uint32_t full_bar) {
+    if (signal) mbar_arrive(full_bar + kEmpty);
+  };
+
+  int g = 0;  // the CTA's K/V tiles consumed so far
+  for (int i = 0; item_of_round(i) < sh.n_items; ++i) {
+    const DqItem item = dq_item(item_of_round(i), sh);
+    const int qw = sh.pair_heads ? item.q0 : item.q0 + kRows * wg;
+    const int hw = sh.pair_heads ? item.h + wg : item.h;
+    const int n = item.n;
+    // the tiles that meet this warpgroup's rows: [first, first + n_act)
+    const int lo = sh.window > 0 ? max(0, qw - sh.window + 1) : 0;
+    const int hi = qw >= sh.sq ? 0 : sh.causal ? min(sh.skv, qw + kRows)
+                                               : sh.skv;
+    const int first = min(n, (lo - item.kv_lo) / kCols);
+    const int last = min(n, (hi - item.kv_lo + kCols - 1) / kCols);
+    const int n_act = max(0, last - first);
+#pragma unroll
+    for (int j = 0; j < C::kAcc; ++j) acc[j] = 0.f;
+    mbar_wait(qd_full(i), (i / 2) & 1);
+    const uint32_t qt = q_tile(i, wg), dot = qt + kTile;
+    const float* lv = reinterpret_cast<const float*>(
+        smem + (vec(i, wg) - smem_u32(smem)));
+
+    for (int t = 0; t < first; ++t) {  // tiles without a row of ours
+      mbar_wait(kv_full((g + t) % kStages), parity(g + t));
+      release(kv_full((g + t) % kStages));
+    }
+    int gt = g + first;
+    for (int t = 0; t < n_act; ++t, ++gt) {
+      const int st = gt % kStages;
+      const uint32_t kt = k_tile(st), vt = kt + kTile;
+      const int t0 = item.kv_lo + (first + t) * kCols;
+      const bool edge = t0 + kCols > sh.skv ||
+                        (sh.causal && t0 + kCols - 1 > qw) ||
+                        (sh.window > 0 && t0 <= qw + kRows - 1 - sh.window);
+      mbar_wait(kv_full(st), parity(gt));
+#pragma unroll
+      for (int hf = 0; hf < kSplit; ++hf) {  // keys hf kN .. hf kN + kN - 1
+        zero(s);
+        zero(dp);
+        wg_fence();
+        if constexpr (kSplit == 1) {
+          mma_abt<D>(s, qt, kt);
+          mma_abt<D>(dp, dot, vt);
+        } else {
+          mma_abt32<D>(s, qt, kt, hf);
+          mma_abt32<D>(dp, dot, vt, hf);
+        }
+        wg_commit();
+        wg_wait_all();
+        fence_regs(s);
+        fence_regs(dp);
+        // the rows' L and D_row from shared memory, read where they are
+        // used (held across the loop, these four registers spilled)
+        float lr[2], dr[2];
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          lr[r] = lv[row + 8 * r];
+          dr[r] = lv[kRows + row + 8 * r];
+        }
+#pragma unroll
+        for (int j = 0; j < kS / 4; ++j)
+#pragma unroll
+          for (int r = 0; r < 2; ++r)
+#pragma unroll
+            for (int c = 0; c < 2; ++c) {
+              const int e = 4 * j + 2 * r + c;
+              float x = s[e];
+              if (edge) {
+                const int qi = qw + row + 8 * r;
+                const int kj = t0 + hf * kN + 8 * j + col + c;
+                bool keep = kj < sh.skv;
+                if (sh.causal) keep = keep && kj <= qi;
+                if (sh.window > 0) keep = keep && kj > qi - sh.window;
+                if (!keep) x = kMasked;
+              }
+              const float p = ex2(fmaf(x, scale_log2, -lr[r]));
+              dp[e] = p * (dp[e] - dr[r]);
+            }
+        // dQ += dS K over this group's keys (its dS fragments only: with
+        // the other group's held as well, ptxas spilled at D 128)
+        pack_frags(dp, pd);
+        fence_regs(acc);
+        wg_fence();
+        mma_pb<C::kDP, kN>(acc, pd, kt + hf * kN / 16 * 2 * kAtomBytes);
+        wg_commit();
+        wg_wait_all();
+        fence_regs(acc);
+      }
+      release(kv_full(st));
+    }
+    for (int t = first + n_act; t < n; ++t) {
+      mbar_wait(kv_full((g + t) % kStages), parity(g + t));
+      release(kv_full((g + t) % kStages));
+    }
+    g += n;
+
+    // epilogue: scale dQ into this warpgroup's Q tile (no longer read) and
+    // store it with TMA, which drops rows past Sq and D 112's padding
+    stage_bf16<C::kDP>(acc, qt, scale, row, col);
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+    named_sync(kBarWg + wg, 128);
+    if (signal) {
+#pragma unroll
+      for (int x = 0; x < C::kBoxes; ++x)
+        tma_store(&tdq, qt + x * kBoxBytes, x * kBox, qw, hw, item.b, pdq);
+      asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+      asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
+      release(qd_full(i));  // the buffer may take the item after next's
+    }
+  }
+}
+
+// ------------------------------------------------------------- dk, dv
+
+template <int D>
+struct KvCfg : Tiles<D> {
+  using T = Tiles<D>;
+  static constexpr int kStages = D > 64 ? 3 : 4;  // Q/dO ring depth
+  static constexpr int kVec = 2 * kCols * 4;      // a stage's L and D_row
+  static constexpr int kP = kRows * kCols * 4;    // one f32 P^T tile
+  // K and V [2 buffers], then Q and dO [kStages]
+  static constexpr int kTiles = 4 + 2 * kStages;
+  // full and empty barriers: K/V buffers (2), stages, P^T buffers (2)
+  static constexpr int kBars = 2 * (2 + kStages + 2);
+  static constexpr int kSmem = 1024 + T::kTile * kTiles + 2 * kP +
+                               kVec * kStages + 8 * kBars;
+};
+
+// An item of the dk/dv kernel: one 64-key tile of one KV head; its work is
+// the (q head of the group, q tile that sees the keys) pairs, heads outer.
+// Key tile 0 first (the most causal work).
+struct KvItem {
+  int k0, hk, b;
+  int qt_lo, n_qt, n;  // first q tile, q tiles a head, pairs
+};
+
+__device__ __forceinline__ KvItem kv_item(int w, const Shape& sh) {
+  const int per = sh.hkv * sh.batch;
+  KvItem it;
+  it.k0 = (w / per) * kRows;
+  it.hk = (w % per) % sh.hkv;
+  it.b = (w % per) / sh.hkv;
+  const int q_lo = sh.causal ? min(it.k0, sh.sq) : 0;
+  const int q_hi =
+      sh.window > 0 ? min(sh.sq, it.k0 + kRows - 1 + sh.window) : sh.sq;
+  it.qt_lo = q_lo / kCols;
+  const int qt_hi = q_hi > q_lo ? (q_hi + kCols - 1) / kCols : it.qt_lo;
+  it.n_qt = qt_hi - it.qt_lo;
+  it.n = sh.group * it.n_qt;
+  return it;
+}
+
+// dv = P^T dO and dk = scale dS^T q for 64-key tiles. A producer warp
+// loads each item's K and V tiles (double-buffered across items) and,
+// through a ring of kStages, each pair's Q and dO tiles (TMA) and its L
+// and D_row vectors (a bulk copy of 256 bytes each). The two consumer
+// warpgroups split the work by output, each holding one 64 x D
+// accumulator: warpgroup 0 forms S^T = K Q^T, P^T = 2^(S^T c - L) (L of
+// the columns from shared memory) and dV += P^T dO; warpgroup 1 forms
+// dP^T = V dO^T, takes P^T in f32 from warpgroup 0 through a
+// double-buffered shared-memory tile (each thread reads the floats its
+// counterpart wrote), dS^T = P^T (dP^T - D_row) and dK += dS^T Q. P^T and
+// dS^T are rounded to bf16 as register A operands; dO and Q are read
+// MN-major. Each warpgroup then stages its sum in bf16 in the tile of the
+// item's K/V buffer that only it read (dV in K's, dK in V's) and stores it
+// with TMA.
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_bwd_dkdv_tc(const __grid_constant__ CUtensorMap tq,
+                  const __grid_constant__ CUtensorMap tk,
+                  const __grid_constant__ CUtensorMap tv,
+                  const __grid_constant__ CUtensorMap tdo,
+                  const __grid_constant__ CUtensorMap tdk,
+                  const __grid_constant__ CUtensorMap tdv, Shape sh,
+                  Perm pq, Perm pk, Perm pv, Perm pdo, Perm pdk, Perm pdv,
+                  const float* __restrict__ lrow,
+                  const float* __restrict__ drow, float scale_log2,
+                  float scale) {
+  using C = KvCfg<D>;
+  constexpr int kTile = C::kTile, kStages = C::kStages;
+  extern __shared__ uint8_t smem[];
+  const uint32_t base = (smem_u32(smem) + 1023) & ~1023u;
+  uint8_t* const base_g = smem + (base - smem_u32(smem));
+  const uint32_t ptiles = base + kTile * C::kTiles;
+  const uint32_t vecs = ptiles + 2 * C::kP;
+  const uint32_t bars = vecs + C::kVec * kStages;
+  // K of buffer i, V beside it
+  auto k_tile = [&](int i) { return base + kTile * (2 * (i & 1)); };
+  // Q of stage st, dO beside it
+  auto q_tile = [&](int st) { return base + kTile * (4 + 2 * st); };
+  auto kv_full = [&](int i) { return bars + 8 * (i & 1); };
+  auto st_full = [&](int st) { return bars + 8 * (2 + st); };
+  auto p_full = [&](int g) { return bars + 8 * (2 + kStages + (g & 1)); };
+  constexpr int kEmpty = 8 * (4 + kStages);
+  auto parity = [](int g) { return (uint32_t)((g / kStages) & 1); };
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  if (tid == 0) {
+    for (int i = 0; i < 2 + kStages; ++i) {  // TMA fills, two readers
+      mbar_init(bars + 8 * i, 1);
+      mbar_init(bars + kEmpty + 8 * i, kConsumers);
+    }
+    for (int i = 2 + kStages; i < C::kBars / 2; ++i) {  // P^T: a warpgroup
+      mbar_init(bars + 8 * i, 128);
+      mbar_init(bars + kEmpty + 8 * i, 128);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == kConsumers * 4) {  // the producer warp: one thread copies
+    if (lane != 0) return;
+    int g = 0;
+    for (int i = 0; item_of_round(i) < sh.n_items; ++i) {
+      const KvItem it = kv_item(item_of_round(i), sh);
+      mbar_wait(kv_full(i) + kEmpty, ((i / 2) & 1) ^ 1);
+      mbar_expect(kv_full(i), 2 * kTile);
+#pragma unroll
+      for (int x = 0; x < C::kBoxes; ++x) {
+        tma_load(k_tile(i) + x * kBoxBytes, &tk, kv_full(i), x * kBox,
+                 it.k0, it.hk, it.b, pk);
+        tma_load(k_tile(i) + kTile + x * kBoxBytes, &tv, kv_full(i),
+                 x * kBox, it.k0, it.hk, it.b, pv);
+      }
+      for (int p = 0; p < it.n; ++p, ++g) {
+        const int st = g % kStages;
+        const int h = it.hk * sh.group + p / it.n_qt;
+        const int q0 = (it.qt_lo + p % it.n_qt) * kCols;
+        mbar_wait(st_full(st) + kEmpty, parity(g) ^ 1);
+        mbar_expect(st_full(st), 2 * kTile + C::kVec);
+#pragma unroll
+        for (int x = 0; x < C::kBoxes; ++x) {
+          tma_load(q_tile(st) + x * kBoxBytes, &tq, st_full(st), x * kBox,
+                   q0, h, it.b, pq);
+          tma_load(q_tile(st) + kTile + x * kBoxBytes, &tdo, st_full(st),
+                   x * kBox, q0, h, it.b, pdo);
+        }
+        const long long at =
+            ((long long)it.b * sh.hq + h) * sh.sq_pad + q0;
+        bulk_load(vecs + C::kVec * st, lrow + at, kCols * 4, st_full(st));
+        bulk_load(vecs + C::kVec * st + kCols * 4, drow + at, kCols * 4,
+                  st_full(st));
+      }
+    }
+    return;
+  }
+
+  const int wg = warp / 4, t128 = tid % 128;
+  float acc[C::kAcc];  // dV (warpgroup 0) or dK (warpgroup 1)
+  float s[32];         // S^T then P^T (0), or dP^T then dS^T (1)
+  uint32_t pa[16];
+  const int row = 16 * (warp % 4) + lane / 4;  // key rows row, row + 8
+  const int col = 2 * (lane % 4);              // q columns col, col + 1 of 8
+  const bool signal = t128 == 0;
+
+  int g = 0;  // the CTA's pairs so far
+  for (int i = 0; item_of_round(i) < sh.n_items; ++i) {
+    const KvItem item = kv_item(item_of_round(i), sh);
+#pragma unroll
+    for (int j = 0; j < C::kAcc; ++j) acc[j] = 0.f;
+    mbar_wait(kv_full(i), (i / 2) & 1);
+    // warpgroup 0 reads K and stages dV there; warpgroup 1 V, and dK
+    const uint32_t kv = k_tile(i) + wg * kTile;
+    for (int p = 0; p < item.n; ++p, ++g) {
+      const int st = g % kStages;
+      const uint32_t qt = q_tile(st), dot = qt + kTile;
+      const float* lv = reinterpret_cast<const float*>(
+          base_g + (vecs + C::kVec * st - base));
+      float* const pt = reinterpret_cast<float*>(
+          base_g + (ptiles + C::kP * (g & 1) - base));
+      const uint32_t pbar = p_full(g), pphase = (g >> 1) & 1;
+      const int q0 = (item.qt_lo + p % item.n_qt) * kCols;
+      mbar_wait(st_full(st), parity(g));
+      // S^T = K Q^T (0) or dP^T = V dO^T (1)
+      zero(s);
+      wg_fence();
+      mma_abt<D>(s, kv, wg == 0 ? qt : dot);
+      wg_commit();
+      wg_wait_all();
+      fence_regs(s);
+      if (wg == 0) {
+        const bool edge =
+            item.k0 + kRows > sh.skv || q0 + kCols > sh.sq ||
+            (sh.causal && item.k0 + kRows - 1 > q0) ||
+            (sh.window > 0 && item.k0 <= q0 + kCols - 1 - sh.window);
+        mbar_wait(pbar + kEmpty, pphase ^ 1);  // pair g - 2's P^T is read
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const float2 l2 =
+              *reinterpret_cast<const float2*>(lv + 8 * j + col);
+#pragma unroll
+          for (int r = 0; r < 2; ++r)
+#pragma unroll
+            for (int c = 0; c < 2; ++c) {
+              const int e = 4 * j + 2 * r + c;
+              float x = s[e];
+              if (edge) {
+                const int kj = item.k0 + row + 8 * r;
+                const int qi = q0 + 8 * j + col + c;
+                bool keep = kj < sh.skv && qi < sh.sq;
+                if (sh.causal) keep = keep && kj <= qi;
+                if (sh.window > 0) keep = keep && kj > qi - sh.window;
+                if (!keep) x = kMasked;
+              }
+              s[e] = ex2(fmaf(x, scale_log2, -(c ? l2.y : l2.x)));
+              pt[e * 128 + t128] = s[e];
+            }
+        }
+        mbar_arrive(pbar);
+        pack_frags(s, pa);
+      } else {
+        mbar_wait(pbar, pphase);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const float2 d2 =
+              *reinterpret_cast<const float2*>(lv + kCols + 8 * j + col);
+#pragma unroll
+          for (int r = 0; r < 2; ++r)
+#pragma unroll
+            for (int c = 0; c < 2; ++c) {
+              const int e = 4 * j + 2 * r + c;
+              s[e] = pt[e * 128 + t128] * (s[e] - (c ? d2.y : d2.x));
+            }
+        }
+        mbar_arrive(pbar + kEmpty);
+        pack_frags(s, pa);
+      }
+      // dV += P^T dO (0) or dK += dS^T Q (1)
+      fence_regs(acc);
+      wg_fence();
+      mma_pb<C::kDP>(acc, pa, wg == 0 ? dot : qt);
+      wg_commit();
+      wg_wait_all();
+      fence_regs(acc);
+      if (signal) mbar_arrive(st_full(st) + kEmpty);
+    }
+
+    // epilogue: the sum in bf16 into the tile this warpgroup alone read,
+    // stored with TMA (rows past Skv and D 112's padding dropped)
+    stage_bf16<C::kDP>(acc, kv, wg == 0 ? 1.f : scale, row, col);
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+    named_sync(kBarWg + wg, 128);
+    if (signal) {
+#pragma unroll
+      for (int x = 0; x < C::kBoxes; ++x) {
+        if (wg == 0)
+          tma_store(&tdv, kv + x * kBoxBytes, x * kBox, item.k0, item.hk,
+                    item.b, pdv);
+        else
+          tma_store(&tdk, kv + x * kBoxBytes, x * kBox, item.k0, item.hk,
+                    item.b, pdk);
+      }
+      asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+      asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
+      mbar_arrive(kv_full(i) + kEmpty);  // the buffer may take K and V again
+    }
+  }
+}
+
+// ------------------------------------------------------------- host
+
+template <typename Kernel>
+int resident_ctas(Kernel kernel, int smem, int* out) {
+  if (*out) return 0;
+  int dev, sms, per_sm;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributePreferredSharedMemoryCarveout,
+                             (int)cudaSharedmemCarveoutMaxShared);
+  if (e == cudaSuccess) e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                      kThreads, smem);
+  if (e != cudaSuccess) return (int)e;
+  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+  *out = sms * per_sm;
+  return 0;
+}
+
+// The three launches of the bf16 backward: prep, dq, dk/dv. st: the
+// (batch, seq, head) strides of q, k, v, o, dO, dq, dk, dv.
+template <int D>
+int launch(const void* q, const void* k, const void* v, const void* o,
+           const void* dout, const float* lse, void* dq, void* dk, void* dv,
+           float* lrow, float* drow, int batch, int hq, int hkv, int sq,
+           int skv, int causal, int window, float scale, const Strides* st,
+           cudaStream_t stream) {
+  // maps of q, k, v, dO, dq, dk, dv
+  const void* ptrs[7] = {q, k, v, dout, dq, dk, dv};
+  const int which[7] = {0, 1, 2, 4, 5, 6, 7};
+  CUtensorMap m[7];
+  Perm pm[7];
+  for (int i = 0; i < 7; ++i) {
+    const bool rows_q = which[i] == 0 || which[i] == 4 || which[i] == 5;
+    const int err = make_map(&m[i], &pm[i], ptrs[i], D, rows_q ? sq : skv,
+                             rows_q ? hq : hkv, batch, st[which[i]]);
+    if (err) return err;
+  }
+  Shape sh{sq, skv, hq, hkv, batch, hq / hkv, causal, window,
+           (sq + kCols - 1) / kCols * kCols, 0, 0, 0};
+  const int n_rows = batch * hq * sh.sq_pad;
+  flash_bwd_prep<D><<<(n_rows + 15) / 16, 256, 0, stream>>>(
+      static_cast<const __nv_bfloat16*>(o),
+      static_cast<const __nv_bfloat16*>(dout), lse, lrow, drow, sh, st[3],
+      st[4]);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+
+  static int resident_dq = 0, resident_kv = 0;
+  int err = resident_ctas(flash_bwd_dq_tc<D>, DqCfg<D>::kSmem, &resident_dq);
+  if (!err)
+    err = resident_ctas(flash_bwd_dkdv_tc<D>, KvCfg<D>::kSmem, &resident_kv);
+  if (err) return err;
+  Shape dq_sh = sh;
+  dq_sh.pair_heads = sh.group % 2 == 0 ? 1 : 0;
+  const int span = dq_sh.pair_heads ? kRows : kRows * kConsumers;
+  dq_sh.n_t = (sq + span - 1) / span;
+  dq_sh.n_items = dq_sh.n_t * (dq_sh.pair_heads ? hq / 2 : hq) * batch;
+  flash_bwd_dq_tc<D><<<min(resident_dq, dq_sh.n_items), kThreads,
+                       DqCfg<D>::kSmem, stream>>>(
+      m[0], m[1], m[2], m[3], m[4], dq_sh, pm[0], pm[1], pm[2], pm[3], pm[4],
+      lrow, drow, scale * kLog2e, scale);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+
+  Shape kv_sh = sh;
+  kv_sh.n_t = (skv + kRows - 1) / kRows;
+  kv_sh.n_items = kv_sh.n_t * hkv * batch;
+  flash_bwd_dkdv_tc<D><<<min(resident_kv, kv_sh.n_items), kThreads,
+                         KvCfg<D>::kSmem, stream>>>(
+      m[0], m[1], m[2], m[3], m[5], m[6], kv_sh, pm[0], pm[1], pm[2], pm[3],
+      pm[5], pm[6], lrow, drow, scale * kLog2e, scale);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace tc
+
+
+
 }  // namespace
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16. q, o, dout, dq: [B, Hq, Sq, D];
-// k, v, dk, dv: [B, Hkv, Skv, D]; each given by its (batch, seq, head)
-// element strides, head dim contiguous. scratch holds 2 * B * Hq * Sq
-// floats (lse, then rowsum(dO o o)). Returns cudaGetLastError() after the
-// launches (0 = success).
+// dtype: 0 = float32 (the FMA kernels), 1 = bfloat16 (the tensor-core
+// kernels). q, o, dout, dq: [B, Hq, Sq, D]; k, v, dk, dv: [B, Hkv, Skv, D];
+// each given by its (batch, seq, head) element strides, head dim
+// contiguous. lse: the forward's natural-log logsumexp, f32 [B, Hq, Sq],
+// read by the bf16 kernels (required there; the f32 kernels recompute
+// theirs). scratch holds two f32 arrays of [B, Hq, Sq] rows (f32) or of
+// [B, Hq, Sq rounded up to 64] rows (bf16). For
+// bf16 the operands' base addresses are 16-byte aligned and their strides
+// multiples of 8 elements (the tensor maps' rule; the wrapper checks it).
+// Returns cudaGetLastError() after the launches (0 = success).
 int flash_attention_bwd(const void* q, const void* k, const void* v,
-                        const void* o, const void* dout, void* dq, void* dk,
-                        void* dv, void* scratch, int dtype, int b, int hq,
-                        int hkv, int sq, int skv, int d, int q_sb, int q_ss,
-                        int q_sh, int k_sb, int k_ss, int k_sh, int v_sb,
-                        int v_ss, int v_sh, int o_sb, int o_ss, int o_sh,
-                        int do_sb, int do_ss, int do_sh, int dq_sb,
-                        int dq_ss, int dq_sh, int dk_sb, int dk_ss,
-                        int dk_sh, int dv_sb, int dv_ss, int dv_sh,
-                        int causal, int window, float scale, void* stream) {
-  const Shape sh{hq, hkv, sq, skv, causal, window, scale};
-  const Bsh st[8] = {{q_sb, q_ss, q_sh},    {k_sb, k_ss, k_sh},
-                     {v_sb, v_ss, v_sh},    {o_sb, o_ss, o_sh},
-                     {do_sb, do_ss, do_sh}, {dq_sb, dq_ss, dq_sh},
-                     {dk_sb, dk_ss, dk_sh}, {dv_sb, dv_ss, dv_sh}};
-  float* lse = static_cast<float*>(scratch);
-  float* drow = lse + static_cast<int64_t>(b) * hq * sq;
+                        const void* o, const void* dout, const void* lse,
+                        void* dq, void* dk, void* dv, void* scratch,
+                        int dtype, int b, int hq, int hkv, int sq, int skv,
+                        int d, int q_sb, int q_ss, int q_sh, int k_sb,
+                        int k_ss, int k_sh, int v_sb, int v_ss, int v_sh,
+                        int o_sb, int o_ss, int o_sh, int do_sb, int do_ss,
+                        int do_sh, int dq_sb, int dq_ss, int dq_sh,
+                        int dk_sb, int dk_ss, int dk_sh, int dv_sb,
+                        int dv_ss, int dv_sh, int causal, int window,
+                        float scale, void* stream) {
+  if (b <= 0 || hq <= 0 || hkv <= 0 || hq % hkv != 0 || sq <= 0 || skv <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return dispatch_d<float>(d, q, k, v, o, dout, dq, dk, dv, lse, drow, b,
-                             sh, st, s);
-  if (dtype == 1)
-    return dispatch_d<__nv_bfloat16>(d, q, k, v, o, dout, dq, dk, dv, lse,
-                                     drow, b, sh, st, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  if (dtype == 0) {
+    const Shape sh{hq, hkv, sq, skv, causal, window, scale};
+    const Bsh st[8] = {{q_sb, q_ss, q_sh},    {k_sb, k_ss, k_sh},
+                       {v_sb, v_ss, v_sh},    {o_sb, o_ss, o_sh},
+                       {do_sb, do_ss, do_sh}, {dq_sb, dq_ss, dq_sh},
+                       {dk_sb, dk_ss, dk_sh}, {dv_sb, dv_ss, dv_sh}};
+    // the f32 kernels' own lse, then rowsum(dO o o)
+    float* own_lse = static_cast<float*>(scratch);
+    float* drow = own_lse + static_cast<int64_t>(b) * hq * sq;
+    return launch_f32(d, q, k, v, o, dout, dq, dk, dv, own_lse, drow, b, sh,
+                      st, s);
+  }
+  if (dtype != 1 || lse == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Strides st[8] = {{q_sb, q_ss, q_sh},    {k_sb, k_ss, k_sh},
+                         {v_sb, v_ss, v_sh},    {o_sb, o_ss, o_sh},
+                         {do_sb, do_ss, do_sh}, {dq_sb, dq_ss, dq_sh},
+                         {dk_sb, dk_ss, dk_sh}, {dv_sb, dv_ss, dv_sh}};
+  // L = lse log2(e), then D_row, each [B, Hq, Sq rounded up to 64]
+  const int sq_pad = (sq + tc::kCols - 1) / tc::kCols * tc::kCols;
+  float* lrow = static_cast<float*>(scratch);
+  float* drow = lrow + static_cast<int64_t>(b) * hq * sq_pad;
+  const float* l = static_cast<const float*>(lse);
+  switch (d) {
+    case 32:
+      return tc::launch<32>(q, k, v, o, dout, l, dq, dk, dv, lrow, drow, b,
+                            hq, hkv, sq, skv, causal, window, scale, st, s);
+    case 64:
+      return tc::launch<64>(q, k, v, o, dout, l, dq, dk, dv, lrow, drow, b,
+                            hq, hkv, sq, skv, causal, window, scale, st, s);
+    case 112:  // zamba2's shared attention: padded to two 64-column boxes
+      return tc::launch<112>(q, k, v, o, dout, l, dq, dk, dv, lrow, drow, b,
+                             hq, hkv, sq, skv, causal, window, scale, st, s);
+    case 128:
+      return tc::launch<128>(q, k, v, o, dout, l, dq, dk, dv, lrow, drow, b,
+                             hq, hkv, sq, skv, causal, window, scale, st, s);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 const char* flash_attention_bwd_error_string(int code) {

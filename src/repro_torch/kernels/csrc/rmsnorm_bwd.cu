@@ -8,31 +8,43 @@
 //
 // Per row of x viewed as [rows, d] (all in f32):
 //   rstd = rsqrt(mean(x^2) + eps),  g = dy * w,
-//   dx   = rstd * g - x * rstd^3 * sum(x * g) / d        (written in x's dtype)
+//   dx   = rstd * g - x * rstd^3 * sum(x * g) / d       (written in x's dtype)
 //   dw   = sum over rows of dy * x * rstd                 (written in w's dtype)
 // The fused entry is the gradient of (s = x + r, y = rmsnorm(s)): ds, the
 // gradient that reaches s from later uses, is added to the norm's dx in f32
 // before the one cast, and the result is the gradient of both x and r.
 //
-// What bounds it on the H100: memory, as the forward. It reads x, dy (and
-// ds) once for the row pass and writes dx; dw reads x and dy a second time
-// (an L2 hit at the model's sizes). The least time is (3 rows d + d)
-// bytes / 3.35 TB/s, fused (4 rows d + d).
+// What bounds it on the H100: memory, as the forward. x, dy (and ds) are
+// read once and dx written once, so the least time is (3 rows d + d) bytes
+// / 3.35 TB/s, fused (4 rows d + d).
 //
-// Design (a simple kernel that is right; speed is for later work):
-// * rms_bwd_rows: one warp per row. Lanes stride over the row (scalar
-//   loads, so any alignment is taken); two f32 sums (x^2 and x*g) reduced
-//   by shuffles in a fixed order; a second pass over the row writes dx.
-//   It also writes rstd per row to a scratch buffer for the dw kernels.
-// * dw without atomics: rms_bwd_dw_part gives each block a range of 256
-//   columns and a fixed chunk of rows, a thread per column summing its
-//   rows in order into a float64 partial [n_chunks, d]; rms_bwd_dw_reduce
-//   sums the partials of each column in chunk order and rounds once to w's
-//   dtype. dw sums 65,536 rows at the qk-norm's train shape: an f32 sum in
-//   that order was off by 6e-4, float64 keeps the sum itself exact to well
-//   below the f32 result's rounding. The chunk count is a function of
-//   (rows, d) alone.
-// So reruns are bitwise identical.
+// Design: two launches.
+// * rms_bwd_regs, one pass with the row in registers, as the forward's
+//   rmsnorm_regs: each thread issues all its 16-byte loads of x, dy (and
+//   ds) before the reductions (loading the next row ahead of the current
+//   row's reductions was slower on the H100: more registers, fewer
+//   blocks). Threads per row (TPR) and 16-byte chunks a thread (CPT) are
+//   fixed at compile time for d 128 (16 lanes, 16 rows a block), 3584,
+//   4096 and 7168 (224, 256 and 448 threads), and the f32 widths alike;
+//   other aligned rows of up to 32 chunks take a predicated warp. Both
+//   row sums (x^2 and x g) go through one fixed shuffle tree (and, across
+//   warps, shared memory read back by every warp alike); dx is formed
+//   from registers and written with 16-byte stores. Each block takes a
+//   fixed run of rows and w once; every thread keeps dy x rstd for its
+//   columns in float64 over the run, and the block writes one float64 dw
+//   partial [d] (rows sharing a block's columns are summed through shared
+//   memory in slot order).
+// * rms_bwd_dw_reduce sums the partials of each column in a fixed order
+//   (eight strided groups, then the groups) and rounds once to w's dtype.
+//   The sums across rows stay in float64: an f32 sum missed the dw
+//   tolerance by 2.8x at 65,536 rows.
+// Rows that are not 16-byte aligned or of other widths take the generic
+// path of three launches: rms_bwd_rows (a warp per row, scalar loads, the
+// row read twice, rstd to scratch), rms_bwd_dw_part (a thread per column
+// over a fixed chunk of rows, float64) and the same reduce.
+// The run of rows a block takes is a function of (rows, d) and the route,
+// which (dtype, d, alignment) fix, and nothing is atomic, so reruns are
+// bitwise identical.
 //
 // Rows are addressed as the forward addresses them: row_offset =
 // (row / inner_n) * outer_stride + (row % inner_n) * inner_stride, for x,
@@ -127,25 +139,239 @@ rms_bwd_dw_part(const T* __restrict__ dy, const T* __restrict__ x,
   part[static_cast<int64_t>(chunk) * d + c] = acc;
 }
 
+// dw from the float64 partials [n, d]: 32 columns a block (a warp reads 32
+// consecutive doubles), eight groups of partials k = g, g + 8, ... each
+// summed in order by one thread, then the eight group sums in order; one
+// rounding to w's dtype.
+constexpr int kReduceGroups = kThreads / 32;
+
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 rms_bwd_dw_reduce(const double* __restrict__ part, T* __restrict__ dw,
-                  int n_chunks, int d) {
-  const int c = blockIdx.x * kThreads + threadIdx.x;
-  if (c >= d) return;
+                  int n, int d) {
+  __shared__ double red[kReduceGroups][32];
+  const int lane = threadIdx.x % 32, grp = threadIdx.x / 32;
+  const int c = blockIdx.x * 32 + lane;
   double acc = 0.0;
-  for (int k = 0; k < n_chunks; ++k) acc += part[static_cast<int64_t>(k) * d + c];
-  dw[c] = from_float<T>(static_cast<float>(acc));
+  if (c < d) {
+#pragma unroll 8
+    for (int k = grp; k < n; k += kReduceGroups)
+      acc += part[static_cast<int64_t>(k) * d + c];
+  }
+  red[grp][lane] = acc;
+  __syncthreads();
+  if (grp == 0 && c < d) {
+    double t = 0.0;
+#pragma unroll
+    for (int g = 0; g < kReduceGroups; ++g) t += red[g][lane];
+    dw[c] = from_float<T>(static_cast<float>(t));
+  }
 }
 
-}  // namespace
+// ------------------------------------------------ one pass, registers
 
-extern "C" {
+// Chunks of VEC = 16 / sizeof(T) consecutive elements: one 16-byte access.
+template <typename T, int VEC>
+__device__ __forceinline__ void load_chunk(const T* p, float (&out)[VEC]) {
+  static_assert(VEC * sizeof(T) == 16, "a chunk is 16 bytes");
+  const uint4 raw = *reinterpret_cast<const uint4*>(p);
+  const T* e = reinterpret_cast<const T*>(&raw);
+#pragma unroll
+  for (int i = 0; i < VEC; ++i) out[i] = to_float(e[i]);
+}
 
-// Rows a dw chunk covers, so that the partial kernel has about
-// kTargetBlocks blocks; a function of (rows, d) alone. The caller sizes
-// the partial buffer as ceil(rows / rows_per_chunk) x d doubles.
-int rmsnorm_bwd_rows_per_chunk(int rows, int d) {
+template <typename T, int VEC>
+__device__ __forceinline__ void store_chunk(T* p, const float (&in)[VEC]) {
+  static_assert(VEC * sizeof(T) == 16, "a chunk is 16 bytes");
+  uint4 raw;
+  T* e = reinterpret_cast<T*>(&raw);
+#pragma unroll
+  for (int i = 0; i < VEC; ++i) e[i] = from_float<T>(in[i]);
+  *reinterpret_cast<uint4*>(p) = raw;
+}
+
+// Sum over groups of ``width`` lanes (a power of two <= 32), every lane of
+// the warp taking part; each group gets its own total.
+template <int width>
+__device__ __forceinline__ float group_sum(float v) {
+#pragma unroll
+  for (int o = width / 2; o > 0; o >>= 1)
+    v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+template <typename T>
+struct Args {
+  const T* dy;
+  const T* x;
+  const T* ds;  // null: the plain norm's backward
+  const T* w;
+  T* dx;
+  T* dw;
+  double* part;  // [blocks, d] float64 dw partials
+  int rows, d, rows_per_block;
+  View vdy, vx, vds;
+  float eps;
+};
+
+// TPR threads per row, CPT chunks of VEC elements a thread; chunk k of a
+// thread is lane + k * TPR. kExact: d == TPR * CPT * VEC, no predicates.
+// Rows of TPR <= 32 lanes share a block of kThreads (kSlots = kThreads /
+// TPR rows an iteration); a longer row has the block to itself. Block b
+// takes rows [b rows_per_block, (b + 1) rows_per_block).
+template <typename T, int VEC, int TPR, int CPT, bool kExact, bool kDs>
+__global__ void __launch_bounds__(TPR <= 32 ? kThreads : TPR)
+rms_bwd_regs(Args<T> a) {
+  constexpr int kSlots = TPR <= 32 ? kThreads / TPR : 1;
+  constexpr int kWidth = TPR * CPT * VEC;  // the columns the threads cover
+  constexpr int kWarpsRow = TPR > 32 ? TPR / 32 : 1;
+  const int lane = threadIdx.x % TPR, slot = threadIdx.x / TPR;
+  const int nchunk = a.d / VEC;
+  const int r0 = blockIdx.x * a.rows_per_block;
+  const int r1 = min(a.rows, r0 + a.rows_per_block);
+  const float inv_d = 1.f / static_cast<float>(a.d);
+
+  float w[CPT][VEC];
+  double acc[CPT][VEC];
+#pragma unroll
+  for (int k = 0; k < CPT; ++k) {
+    const int c = lane + k * TPR;
+    if (kExact || c < nchunk) load_chunk<T, VEC>(a.w + c * VEC, w[k]);
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) acc[k][i] = 0.0;
+  }
+  // per-warp partial sums of a row, double-buffered by iteration parity
+  __shared__ float2 partial[2][kWarpsRow];
+
+  for (int it = 0, base = r0; base < r1; ++it, base += kSlots) {
+    const int row = base + slot;
+    const bool live = row < r1;  // the group stays for the shuffles
+    float x[CPT][VEC], dy[CPT][VEC], ds[kDs ? CPT : 1][VEC];
+    if (live) {
+      // every load of the row is issued before any of them is used
+      const T* xr = a.x + a.vx.row(row);
+      const T* dyr = a.dy + a.vdy.row(row);
+      const T* dsr = kDs ? a.ds + a.vds.row(row) : nullptr;
+#pragma unroll
+      for (int k = 0; k < CPT; ++k) {
+        const int c = lane + k * TPR;
+        if (kExact || c < nchunk) {
+          load_chunk<T, VEC>(xr + c * VEC, x[k]);
+          load_chunk<T, VEC>(dyr + c * VEC, dy[k]);
+          if constexpr (kDs) load_chunk<T, VEC>(dsr + c * VEC, ds[k]);
+        }
+      }
+    }
+    float sxx = 0.f, sxg = 0.f;
+#pragma unroll
+    for (int k = 0; k < CPT; ++k) {
+      const int c = lane + k * TPR;
+      if (live && (kExact || c < nchunk)) {
+#pragma unroll
+        for (int i = 0; i < VEC; ++i) {
+          sxx = fmaf(x[k][i], x[k][i], sxx);
+          sxg = fmaf(x[k][i], dy[k][i] * w[k][i], sxg);
+        }
+      }
+    }
+    if constexpr (TPR <= 32) {
+      sxx = group_sum<TPR>(sxx);
+      sxg = group_sum<TPR>(sxg);
+    } else {
+      const int warp = threadIdx.x / 32, wl = threadIdx.x % 32;
+      sxx = group_sum<32>(sxx);
+      sxg = group_sum<32>(sxg);
+      if (wl == 0) partial[it & 1][warp] = make_float2(sxx, sxg);
+      __syncthreads();
+      const float2 p =
+          wl < kWarpsRow ? partial[it & 1][wl] : make_float2(0.f, 0.f);
+      sxx = group_sum<32>(p.x);  // every warp reduces the same values alike
+      sxg = group_sum<32>(p.y);
+    }
+    if (!live) continue;
+    const float rstd = rsqrtf(sxx * inv_d + a.eps);
+    const float coef = rstd * rstd * rstd * sxg * inv_d;
+    T* dxr = a.dx + static_cast<int64_t>(row) * a.d;
+#pragma unroll
+    for (int k = 0; k < CPT; ++k) {
+      const int c = lane + k * TPR;
+      if (kExact || c < nchunk) {
+        float v[VEC];
+#pragma unroll
+        for (int i = 0; i < VEC; ++i) {
+          v[i] = rstd * (dy[k][i] * w[k][i]) - x[k][i] * coef;
+          if constexpr (kDs) v[i] += ds[k][i];
+          acc[k][i] = fma(static_cast<double>(dy[k][i]),
+                          static_cast<double>(x[k][i]) * rstd, acc[k][i]);
+        }
+        store_chunk<T, VEC>(dxr + c * VEC, v);
+      }
+    }
+  }
+
+  double* out = a.part + static_cast<int64_t>(blockIdx.x) * a.d;
+  if constexpr (kSlots == 1) {  // each thread's columns are its own
+#pragma unroll
+    for (int k = 0; k < CPT; ++k) {
+      const int c = lane + k * TPR;
+      if (kExact || c < nchunk) {
+#pragma unroll
+        for (int i = 0; i < VEC; ++i) out[c * VEC + i] = acc[k][i];
+      }
+    }
+  } else {  // the slots' sums of each column, in slot order
+    __shared__ double red[kSlots][kWidth];
+#pragma unroll
+    for (int k = 0; k < CPT; ++k)
+#pragma unroll
+      for (int i = 0; i < VEC; ++i)
+        red[slot][(lane + k * TPR) * VEC + i] = acc[k][i];
+    __syncthreads();
+    for (int c = threadIdx.x; c < a.d; c += kThreads) {
+      double t = 0.0;
+#pragma unroll
+      for (int sl = 0; sl < kSlots; ++sl) t += red[sl][c];
+      out[c] = t;
+    }
+  }
+}
+
+// Rows a block of the one-pass kernel takes: about kRegsBlocks(d) blocks,
+// a whole number of the kernel's row slots. A function of (rows, d, slots).
+constexpr int kRegsBlocksNarrow = 512;   // d <= 256: partials are small
+constexpr int kRegsBlocksWide = 264;     // two blocks an SM on the H100
+
+int regs_blocks_target(int d) {
+  return d <= 256 ? kRegsBlocksNarrow : kRegsBlocksWide;
+}
+
+int regs_rows_per_block(int rows, int d, int slots) {
+  const int target = regs_blocks_target(d);
+  const int per = (rows + target - 1) / target;
+  return (per + slots - 1) / slots * slots;
+}
+
+template <typename T, int VEC, int TPR, int CPT, bool kExact>
+void launch_regs(Args<T> a, cudaStream_t stream) {
+  constexpr int kSlots = TPR <= 32 ? kThreads / TPR : 1;
+  constexpr int kBlock = TPR <= 32 ? kThreads : TPR;
+  a.rows_per_block = regs_rows_per_block(a.rows, a.d, kSlots);
+  const int blocks = (a.rows + a.rows_per_block - 1) / a.rows_per_block;
+  if (a.ds)
+    rms_bwd_regs<T, VEC, TPR, CPT, kExact, true>
+        <<<blocks, kBlock, 0, stream>>>(a);
+  else
+    rms_bwd_regs<T, VEC, TPR, CPT, kExact, false>
+        <<<blocks, kBlock, 0, stream>>>(a);
+  rms_bwd_dw_reduce<T><<<(a.d + 31) / 32, kThreads, 0, stream>>>(
+      a.part, a.dw, blocks, a.d);
+}
+
+// ------------------------------------------------------------------ route
+
+// Rows a generic dw chunk covers, so that the partial kernel has about
+// kTargetBlocks blocks; a function of (rows, d) alone.
+int generic_rows_per_chunk(int rows, int d) {
   const int col_blocks = (d + kThreads - 1) / kThreads;
   int chunks = kTargetBlocks / col_blocks;
   if (chunks < 1) chunks = 1;
@@ -153,49 +379,106 @@ int rmsnorm_bwd_rows_per_chunk(int rows, int d) {
   return (rows + chunks - 1) / chunks;
 }
 
+template <typename T>
+void run(Args<T> a, cudaStream_t st) {
+  constexpr int kVec = 16 / sizeof(T);
+  auto fits = [](const void* p) {
+    return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+  };
+  auto view_fits = [](View v) {
+    return v.outer_stride % kVec == 0 && v.inner_stride % kVec == 0;
+  };
+  const bool aligned =
+      a.d % kVec == 0 && view_fits(a.vx) && view_fits(a.vdy) &&
+      fits(a.x) && fits(a.dy) && fits(a.w) && fits(a.dx) &&
+      (a.ds == nullptr || (view_fits(a.vds) && fits(a.ds)));
+  if (aligned) {
+    // the served widths: every thread does the same loads
+    switch (a.d / kVec) {
+      case 16:    // d 128 bf16
+        return launch_regs<T, kVec, 16, 1, true>(a, st);
+      case 32:    // d 256 bf16, d 128 f32
+        return launch_regs<T, kVec, 32, 1, true>(a, st);
+      case 448:   // d 3584 bf16
+        return launch_regs<T, kVec, 224, 2, true>(a, st);
+      case 512:   // d 4096 bf16
+        return launch_regs<T, kVec, 256, 2, true>(a, st);
+      case 896:   // d 7168 bf16, d 3584 f32
+        return launch_regs<T, kVec, 448, 2, true>(a, st);
+      default:
+        break;
+    }
+    if constexpr (sizeof(T) == 4) {  // four f32 chunks a thread
+      if (a.d == 4096) return launch_regs<T, kVec, 256, 4, true>(a, st);
+      if (a.d == 7168) return launch_regs<T, kVec, 448, 4, true>(a, st);
+    }
+    if (a.d / kVec <= 32)
+      return launch_regs<T, kVec, 32, 1, false>(a, st);
+  }
+  // generic: rstd per row, then the dw partials, then the reduce
+  const int rpc = generic_rows_per_chunk(a.rows, a.d);
+  const int n_chunks = (a.rows + rpc - 1) / rpc;
+  float* rstd = reinterpret_cast<float*>(
+      a.part + static_cast<int64_t>(n_chunks) * a.d);
+  const dim3 row_grid((a.rows + kWarps - 1) / kWarps);
+  const dim3 part_grid((a.d + kThreads - 1) / kThreads, n_chunks);
+  const dim3 red_grid((a.d + 31) / 32);
+  rms_bwd_rows<T><<<row_grid, kThreads, 0, st>>>(
+      a.dy, a.x, a.ds, a.w, a.dx, rstd, a.rows, a.d, a.vdy, a.vx, a.vds,
+      a.eps);
+  rms_bwd_dw_part<T><<<part_grid, kThreads, 0, st>>>(
+      a.dy, a.x, rstd, a.part, a.rows, a.d, rpc, a.vdy, a.vx);
+  rms_bwd_dw_reduce<T><<<red_grid, kThreads, 0, st>>>(a.part, a.dw,
+                                                      n_chunks, a.d);
+}
+
+}  // namespace
+
+extern "C" {
+
+// Bytes of scratch the backward needs for (rows, d): the float64 dw
+// partials of whichever route runs (and, on the generic path, rows f32
+// rstd).
+long long rmsnorm_bwd_scratch_bytes(int rows, int d) {
+  const int rpc = generic_rows_per_chunk(rows, d);
+  const long long generic = 8LL * ((rows + rpc - 1) / rpc) * d + 4LL * rows;
+  const int blocks = rows < regs_blocks_target(d) ? rows
+                                                  : regs_blocks_target(d);
+  const long long regs = 8LL * blocks * d;
+  return generic > regs ? generic : regs;
+}
+
 // dtype: 0 = float32, 1 = bfloat16. dy, x and ds (nullptr: none) through
-// their row views; dx contiguous [rows, d]; dw [d]. scratch holds
-// n_chunks * d doubles (the dw partials) followed by rows floats (rstd).
-// Returns cudaGetLastError() after the launches (0 = success).
+// their row views; dx contiguous [rows, d]; dw [d]; scratch holds
+// rmsnorm_bwd_scratch_bytes(rows, d) bytes. Returns cudaGetLastError()
+// after the launches (0 = success).
 int rmsnorm_bwd(const void* dy, const void* x, const void* ds, const void* w,
                 void* dx, void* dw, void* scratch, int dtype, int rows, int d,
                 int dy_inner_n, int dy_outer, int dy_inner, int x_inner_n,
                 int x_outer, int x_inner, int ds_inner_n, int ds_outer,
                 int ds_inner, float eps, void* stream) {
+  if (rows <= 0 || d <= 0 || dy_inner_n <= 0 || x_inner_n <= 0 ||
+      ds_inner_n <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const View vdy{dy_inner_n, dy_outer, dy_inner};
   const View vx{x_inner_n, x_outer, x_inner};
   const View vds{ds_inner_n, ds_outer, ds_inner};
-  const int rpc = rmsnorm_bwd_rows_per_chunk(rows, d);
-  const int n_chunks = (rows + rpc - 1) / rpc;
   double* part = static_cast<double*>(scratch);
-  float* rstd =
-      reinterpret_cast<float*>(part + static_cast<int64_t>(n_chunks) * d);
-  const dim3 row_grid((rows + kWarps - 1) / kWarps);
-  const dim3 part_grid((d + kThreads - 1) / kThreads, n_chunks);
-  const dim3 red_grid((d + kThreads - 1) / kThreads);
   if (dtype == 0) {
     using T = float;
-    rms_bwd_rows<T><<<row_grid, kThreads, 0, st>>>(
-        static_cast<const T*>(dy), static_cast<const T*>(x),
-        static_cast<const T*>(ds), static_cast<const T*>(w),
-        static_cast<T*>(dx), rstd, rows, d, vdy, vx, vds, eps);
-    rms_bwd_dw_part<T><<<part_grid, kThreads, 0, st>>>(
-        static_cast<const T*>(dy), static_cast<const T*>(x), rstd, part,
-        rows, d, rpc, vdy, vx);
-    rms_bwd_dw_reduce<T><<<red_grid, kThreads, 0, st>>>(
-        part, static_cast<T*>(dw), n_chunks, d);
+    run<T>({static_cast<const T*>(dy), static_cast<const T*>(x),
+            static_cast<const T*>(ds), static_cast<const T*>(w),
+            static_cast<T*>(dx), static_cast<T*>(dw), part, rows, d, 0, vdy,
+            vx, vds, eps},
+           st);
   } else if (dtype == 1) {
     using T = __nv_bfloat16;
-    rms_bwd_rows<T><<<row_grid, kThreads, 0, st>>>(
-        static_cast<const T*>(dy), static_cast<const T*>(x),
-        static_cast<const T*>(ds), static_cast<const T*>(w),
-        static_cast<T*>(dx), rstd, rows, d, vdy, vx, vds, eps);
-    rms_bwd_dw_part<T><<<part_grid, kThreads, 0, st>>>(
-        static_cast<const T*>(dy), static_cast<const T*>(x), rstd, part,
-        rows, d, rpc, vdy, vx);
-    rms_bwd_dw_reduce<T><<<red_grid, kThreads, 0, st>>>(
-        part, static_cast<T*>(dw), n_chunks, d);
+    run<T>({static_cast<const T*>(dy), static_cast<const T*>(x),
+            static_cast<const T*>(ds), static_cast<const T*>(w),
+            static_cast<T*>(dx), static_cast<T*>(dw), part, rows, d, 0, vdy,
+            vx, vds, eps},
+           st);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }

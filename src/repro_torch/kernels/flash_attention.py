@@ -13,15 +13,18 @@ on. Both read q, k and v through their strides, so the model's
 output in [B, S, H, D] storage. ``ops.attention`` routes CUDA tensors here
 and CPU tensors to ``ref.flash_attention_ref``.
 
+``flash_attention(..., return_lse=True)`` also returns each row's
+logsumexp (``ref.flash_attention_lse_ref``), which the bf16 backward reads.
 ``flash_attention_bwd`` wraps the backward kernels of
-``csrc/flash_attention_bwd.cu`` (f32 FMAs for both dtypes, no atomics);
+``csrc/flash_attention_bwd.cu``: bf16 on the tensor cores (a prep kernel,
+a dq kernel and a dk/dv kernel, TMA and ``wgmma``), f32 on FMAs; no atomics.
 ``kernels.autograd`` calls it from the backward of its
 ``torch.autograd.Function``.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 
@@ -30,7 +33,7 @@ from repro_torch.kernels.rmsnorm import DTYPE_CODES
 
 HEAD_DIMS = (32, 64, 112, 128)
 ALIGN_BYTES = 16        # base addresses and (batch, seq, head) strides
-_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 21
+_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 21
              + [ctypes.c_float, ctypes.c_void_p])
 _INT_MAX = 2 ** 31 - 1
 
@@ -65,11 +68,14 @@ def _bsh_strides(t: torch.Tensor):
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True, window: int = 0) -> torch.Tensor:
+                    causal: bool = True, window: int = 0,
+                    return_lse: bool = False):
     """q: [B, Hq, Sq, D]; k, v: [B, Hkv, Skv, D] CUDA tensors of one dtype
-    (bf16 or f32) laid out as ``check_layout`` requires. Returns
+    (bf16 or f32) laid out as ``check_layout`` requires. Returns o,
     [B, Hq, Sq, D] in q's dtype, a view of a new contiguous [B, Sq, Hq, D]
-    tensor."""
+    tensor; with ``return_lse`` (o, lse), lse the natural-log logsumexp of
+    each row's scaled, masked scores, f32 [B, Hq, Sq] (o is the same bits
+    either way)."""
     dev = q.device
     if dev.type != "cuda" or k.device != dev or v.device != dev:
         raise ValueError("flash attention kernel needs q, k, v on one CUDA "
@@ -94,20 +100,23 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if window < 0:
         raise ValueError(f"window must be >= 0, got {window}")
     o = torch.empty((b, sq, hq, d), dtype=q.dtype, device=dev).transpose(1, 2)
+    lse = (torch.empty((b, hq, sq), dtype=torch.float32, device=dev)
+           if return_lse else None)
     if b == 0 or sq == 0 or hq == 0:
-        return o
+        return (o, lse) if return_lse else o
     if skv == 0:
         raise ValueError("flash attention kernel needs at least one key")
     fn = build.load_function("flash_attention", "flash_attention_fwd",
                              _ARGTYPES)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+             None if lse is None else lse.data_ptr(),
              DTYPE_CODES[q.dtype], b, hq, hkv, sq, skv, d,
              *_bsh_strides(q), *_bsh_strides(k), *_bsh_strides(v),
              *_bsh_strides(o), int(causal), int(window), d ** -0.5,
              torch.cuda.current_stream(dev).cuda_stream)
     build.check("flash_attention", err)
     flash_attention.launches += 1
-    return o
+    return (o, lse) if return_lse else o
 
 
 flash_attention.launches = 0
@@ -117,19 +126,22 @@ flash_attention.launches = 0
 # backward (csrc/flash_attention_bwd.cu)
 # ---------------------------------------------------------------------------
 
-_BWD_ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 33
+_BWD_ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 33
                  + [ctypes.c_float, ctypes.c_void_p])
 
 
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        o: torch.Tensor, do: torch.Tensor, *,
+                        o: torch.Tensor, do: torch.Tensor,
+                        lse: Optional[torch.Tensor] = None, *,
                         causal: bool = True, window: int = 0):
     """Gradient of ``flash_attention(q, k, v)`` = o given dO: (dq, dk, dv)
     in the inputs' dtype, each a [B, H, S, D] view of new [B, S, H, D]
     storage (the forward output's layout). q, o, dO: [B, Hq, Sq, D]; k, v:
     [B, Hkv, Skv, D]; every operand laid out as ``check_layout`` requires.
-    No atomics: the dk/dv kernel sums over the group's q heads and q tiles
-    in a fixed order."""
+    ``lse``: the forward's logsumexp (``flash_attention(...,
+    return_lse=True)``), f32 [B, Hq, Sq]; the bf16 kernels need it, the f32
+    kernels recompute their own and ignore it. No atomics: the dk/dv
+    kernels sum over the group's q heads and q tiles in a fixed order."""
     dev = q.device
     ops_ = (q, k, v, o, do)
     if dev.type != "cuda" or any(t.device != dev for t in ops_):
@@ -153,6 +165,13 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         check_layout(t.shape, t.stride(), t.dtype, t.data_ptr())
     if window < 0:
         raise ValueError(f"window must be >= 0, got {window}")
+    bf16 = q.dtype == torch.bfloat16
+    if bf16 and (lse is None or lse.shape != (b, hq, sq) or
+                 lse.dtype != torch.float32 or lse.device != dev or
+                 not lse.is_contiguous()):
+        raise ValueError(f"the bf16 backward needs the forward's lse, a "
+                         f"contiguous f32 [{b}, {hq}, {sq}] on {dev}; got "
+                         f"{None if lse is None else (lse.shape, lse.dtype)}")
     dq = torch.empty((b, sq, hq, d), dtype=q.dtype, device=dev).transpose(1, 2)
     dk = torch.empty((b, skv, hkv, d), dtype=q.dtype,
                      device=dev).transpose(1, 2)
@@ -161,11 +180,13 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return dq, dk.zero_(), dv.zero_()
     if skv == 0:
         raise ValueError("flash attention backward needs at least one key")
-    scratch = torch.empty(2 * b * hq * sq, dtype=torch.float32, device=dev)
+    scratch = torch.empty(bwd_scratch_floats(q.dtype, b, hq, sq),
+                          dtype=torch.float32, device=dev)
     fn = build.load_function("flash_attention_bwd", "flash_attention_bwd",
                              _BWD_ARGTYPES)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-             do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+             do.data_ptr(), lse.data_ptr() if bf16 else None,
+             dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
              scratch.data_ptr(), DTYPE_CODES[q.dtype], b, hq, hkv, sq, skv,
              d, *(s for t in (q, k, v, o, do, dq, dk, dv)
                   for s in _bsh_strides(t)),
@@ -177,3 +198,11 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 flash_attention_bwd.launches = 0
+
+
+def bwd_scratch_floats(dtype: torch.dtype, b: int, hq: int, sq: int) -> int:
+    """f32 scratch of the backward: two [B, Hq, Sq] arrays (the f32
+    kernels' lse and D_row), or for bf16 two [B, Hq, Sq rounded up to 64]
+    (L = lse log2(e) and D_row, padded to whole 64-row tiles)."""
+    rows = -(-sq // 64) * 64 if dtype == torch.bfloat16 else sq
+    return 2 * b * hq * rows

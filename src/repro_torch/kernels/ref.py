@@ -13,16 +13,12 @@ F32 = torch.float32
 NEG_INF = -1e30
 
 
-def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0):
-    """q: [B,Hq,Sq,D]; k, v: [B,Hkv,Skv,D] -> [B,Hq,Sq,D] in q's dtype.
-
-    Positions start at 0 on both sides. Scores, softmax and the PV product
-    stay in f32 (as the TPU kernel keeps them)."""
-    b, hq, sq, d = q.shape
+def _masked_scores(q, k, causal, window):
+    """The scaled f32 scores q k^T D^-1/2 of every (q head, key), masked
+    to NEG_INF where causality or the window hides the key, and the mask."""
+    _, hq, sq, d = q.shape
     hkv, skv = k.shape[1], k.shape[2]
-    g = hq // hkv
-    k = k.repeat_interleave(g, dim=1)
-    v = v.repeat_interleave(g, dim=1)
+    k = k.repeat_interleave(hq // hkv, dim=1)
     s = torch.einsum("bhqd,bhkd->bhqk", q.to(F32), k.to(F32))
     s = s * d ** -0.5
     q_pos = torch.arange(sq, device=q.device)[:, None]
@@ -32,9 +28,28 @@ def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0):
         mask &= k_pos <= q_pos
     if window:
         mask &= k_pos > q_pos - window
-    s = torch.where(mask, s, NEG_INF)
+    return torch.where(mask, s, NEG_INF), mask
+
+
+def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0):
+    """q: [B,Hq,Sq,D]; k, v: [B,Hkv,Skv,D] -> [B,Hq,Sq,D] in q's dtype.
+
+    Positions start at 0 on both sides. Scores, softmax and the PV product
+    stay in f32 (as the TPU kernel keeps them)."""
+    s, _ = _masked_scores(q, k, causal, window)
+    v = v.repeat_interleave(q.shape[1] // k.shape[1], dim=1)
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bhqk,bhkd->bhqd", p, v.to(F32)).to(q.dtype)
+
+
+def flash_attention_lse_ref(q, k, *, causal: bool = True, window: int = 0):
+    """The natural-log logsumexp of each row's scaled scores over the keys
+    it sees, f32 [B,Hq,Sq] (what the forward kernels write when asked; +inf
+    for a row that sees no key, whose output the kernels leave 0)."""
+    s, mask = _masked_scores(q, k, causal, window)
+    seen = torch.where(mask, s, -torch.inf)
+    lse = torch.logsumexp(seen, dim=-1)
+    return torch.where(mask.any(-1), lse, torch.inf)
 
 
 def rmsnorm_ref(x, w, *, eps: float = 1e-5):

@@ -12,8 +12,11 @@ to x's dtype, y = rmsnorm(s), one launch. ``ops.rmsnorm`` and
 
 ``rmsnorm_bwd`` and ``add_rmsnorm_bwd`` wrap the backward kernels of
 ``csrc/rmsnorm_bwd.cu`` (a library of their own, so the tuned forward
-library is untouched); ``kernels.autograd`` calls them from the backward of
-its ``torch.autograd.Function``s.
+library is untouched): one pass over the rows with 16-byte loads into
+registers that writes dx and float64 dw partials, then a reduce of the
+partials (two launches; other widths and unaligned rows take a generic
+path of three); ``kernels.autograd`` calls them from the backward of its
+``torch.autograd.Function``s.
 """
 from __future__ import annotations
 
@@ -157,12 +160,10 @@ def _bwd(name: str, dy, x, ds, w, eps: float):
     if rows == 0 or d == 0:
         return dx, torch.zeros_like(w)
     dw = torch.empty_like(w)
-    rpc = build.load_function("rmsnorm_bwd", "rmsnorm_bwd_rows_per_chunk",
-                              [_I, _I])(rows, d)
-    n_chunks = -(-rows // rpc)
-    # n_chunks x d float64 partials of dw, then rows f32 rstd
-    scratch = torch.empty(2 * n_chunks * d + rows, dtype=torch.float32,
-                          device=x.device)
+    size = build.load_function("rmsnorm_bwd", "rmsnorm_bwd_scratch_bytes",
+                               [_I, _I], ctypes.c_longlong)
+    # the float64 dw partials (and on the generic path, f32 rstd)
+    scratch = torch.empty(size(rows, d), dtype=torch.uint8, device=x.device)
     fn = build.load_function("rmsnorm_bwd", "rmsnorm_bwd", _BWD_ARGTYPES)
     err = fn(dy.data_ptr(), x.data_ptr(),
              None if ds is None else ds.data_ptr(), w.data_ptr(),

@@ -481,31 +481,67 @@ def test_rmsnorm_bwd_reads_strided_and_unaligned_rows(cuda_device, dtype):
                dtype, rows=64)
 
 
-@pytest.mark.parametrize("b,hq,hkv,s,d,causal,window", [
+ATTENTION_BWD_CASES = [
     (4, 32, 8, 512, 128, True, 0),             # qwen3-8b's train shape
+    (4, 32, 32, 512, 112, True, 0),            # zamba2-7b's train shape
     (2, 8, 2, 200, 128, True, 0),              # ragged tail, GQA 4x
     (1, 4, 2, 256, 64, True, 100),             # sliding window
     (1, 2, 2, 130, 112, False, 0),             # non-causal, D 112
     (1, 8, 2, 40, 32, True, 0),                # shorter than a tile
-])
+]
+
+
+def _bshd_cuda(gen, b, s, h, d, dt):
+    return torch.randn(b, s, h, d, generator=gen,
+                       device="cuda").to(dt).transpose(1, 2)
+
+
+@pytest.mark.parametrize("b,hq,hkv,s,d,causal,window", ATTENTION_BWD_CASES)
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_attention_bwd_matches_plain(cuda_device, b, hq, hkv, s, d, causal,
                                      window, dtype):
     gen = torch.Generator(device="cuda").manual_seed(7)
     dt = getattr(torch, dtype)
-
-    def bshd(h):
-        return torch.randn(b, s, h, d, generator=gen,
-                           device="cuda").to(dt).transpose(1, 2)
-    q, k, v, do = bshd(hq), bshd(hkv), bshd(hkv), bshd(hq)
-    o = flash_attention(q, k, v, causal=causal, window=window)
-    got = flash_attention_bwd(q, k, v, o, do, causal=causal, window=window)
+    q, k, v, do = (_bshd_cuda(gen, b, s, h, d, dt)
+                   for h in (hq, hkv, hkv, hq))
+    o, lse = flash_attention(q, k, v, causal=causal, window=window,
+                             return_lse=True)
+    got = flash_attention_bwd(q, k, v, o, do, lse, causal=causal,
+                              window=window)
     _bwd_close(got, ref.flash_attention_bwd_ref(q, k, v, do, causal=causal,
                                                 window=window), dtype)
     for g, t in zip(got, (q, k, v)):       # written in the inputs' layout
         assert g.shape == t.shape and g.stride() == t.stride()
-    again = flash_attention_bwd(q, k, v, o, do, causal=causal, window=window)
+    again = flash_attention_bwd(q, k, v, o, do, lse, causal=causal,
+                                window=window)
     assert all(torch.equal(a, b_) for a, b_ in zip(got, again))
+
+
+@pytest.mark.parametrize("b,hq,hkv,s,d,causal,window", ATTENTION_BWD_CASES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_attention_lse_matches_plain_and_leaves_o_alone(
+        cuda_device, b, hq, hkv, s, d, causal, window, dtype):
+    """The forward's optional logsumexp against ``flash_attention_lse_ref``
+    (f32 sums in another order: 1e-5 absolute and relative on values of
+    order ln(Skv)); o is bitwise the same with and without it."""
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    dt = getattr(torch, dtype)
+    q, k, v = (_bshd_cuda(gen, b, s, h, d, dt) for h in (hq, hkv, hkv))
+    o, lse = flash_attention(q, k, v, causal=causal, window=window,
+                             return_lse=True)
+    assert lse.shape == (b, hq, s) and lse.dtype == torch.float32
+    torch.testing.assert_close(
+        lse.cpu(), ref.flash_attention_lse_ref(q, k, causal=causal,
+                                               window=window).cpu(),
+        rtol=1e-5, atol=1e-5)
+    assert torch.equal(o, flash_attention(q, k, v, causal=causal,
+                                          window=window))
+
+
+def test_attention_bwd_bf16_needs_the_forward_lse(cuda_device):
+    q = torch.zeros(1, 2, 64, 64, device="cuda", dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="lse"):
+        flash_attention_bwd(q, q, q, q, q)
 
 
 def test_ops_route_grads_through_the_backward_kernels(cuda_device):

@@ -9,6 +9,7 @@ chunked scan against the exact recurrence in f32). Inputs are made once with
 numpy and handed to both sides. The CUDA kernels themselves are compared
 with the plain versions in ``test_torch_cuda.py``, which runs on a card.
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -16,8 +17,10 @@ import torch
 
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
-from repro_torch.kernels import build, ops
-from repro_torch.kernels.flash_attention import check_layout, flash_attention
+from repro_torch.kernels import build, ops, ref
+from repro_torch.kernels.flash_attention import (bwd_scratch_floats,
+                                                 check_layout,
+                                                 flash_attention)
 from repro_torch.kernels.mamba_scan import (_tma_copy, mamba_chunk_scan,
                                             tma_ready)
 from repro_torch.kernels.rmsnorm import add_rmsnorm, rmsnorm, row_view
@@ -122,6 +125,44 @@ def test_attention_head_dim_112_matches_ref(b, h, s, causal, window, dtype):
         _close(got, jops.attention(q, k, v, causal=causal, window=window,
                                    q_block=64, kv_block=64,
                                    backend="interpret"), dtype)
+
+
+@pytest.mark.parametrize("b,hq,hkv,s,d,causal,window", [
+    (2, 4, 2, 130, 64, True, 0),
+    (1, 4, 4, 96, 112, True, 40),
+    (1, 2, 1, 70, 32, False, 0),
+])
+def test_flash_attention_lse_ref_is_the_logsumexp_of_masked_scores(
+        b, hq, hkv, s, d, causal, window):
+    """The plain version of the forward's optional output: torch.logsumexp
+    over the keys each row sees of the reference's scaled scores, and the
+    same in jnp on the same numpy inputs."""
+    rng = np.random.default_rng(3)
+    (jq, tq), (jk, tk) = (_pair(rng, (b, h, s, d), "float32")
+                          for h in (hq, hkv))
+    got = ref.flash_attention_lse_ref(tq, tk, causal=causal, window=window)
+    scores = torch.einsum("bhqd,bhkd->bhqk", tq,
+                          tk.repeat_interleave(hq // hkv, 1)) * d ** -0.5
+    pos = torch.arange(s)
+    mask = torch.ones(s, s, dtype=torch.bool)
+    if causal:
+        mask &= pos[None, :] <= pos[:, None]
+    if window:
+        mask &= pos[None, :] > pos[:, None] - window
+    want = torch.logsumexp(torch.where(mask, scores, -torch.inf), -1)
+    torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+    jscores = jnp.einsum("bhqd,bhkd->bhqk", jq,
+                         jnp.repeat(jk, hq // hkv, axis=1)) * d ** -0.5
+    jwant = jax.nn.logsumexp(jnp.where(jnp.asarray(mask.numpy()), jscores,
+                                       -jnp.inf), axis=-1)
+    np.testing.assert_allclose(got.numpy(), np.asarray(jwant), rtol=1e-5,
+                               atol=1e-5)
+
+
+def test_bwd_scratch_pads_bf16_rows_to_whole_tiles():
+    assert bwd_scratch_floats(torch.float32, 2, 4, 130) == 2 * 2 * 4 * 130
+    assert bwd_scratch_floats(torch.bfloat16, 2, 4, 130) == 2 * 2 * 4 * 192
+    assert bwd_scratch_floats(torch.bfloat16, 4, 32, 512) == 2 * 4 * 32 * 512
 
 
 _BASE = 0x7F00_0000_0000      # a 16-byte aligned device address
@@ -303,6 +344,108 @@ def _emulate_tc_scan(x, b, c, dt, da, chunk, terms=3, f64_exponent=True):
         h = expo(ca_t)[..., None, None] * h + dot(
             "bshp,bshn->bhpn", xc, parts(wb))
     return torch.cat(ys, 1), h
+
+
+def _emulate_tc_attention_bwd(q, k, v, o, do, lse, causal, window):
+    """The bf16 tensor-core backward's arithmetic (csrc/flash_attention_bwd.cu)
+    in f32 on the CPU, for bf16 q, k, v, o, dO: L = lse log2(e) from the
+    forward's logsumexp and D_row = rowsum(dO o o); S and dP as f32 sums of
+    exact bf16 products; P = 2^(S c - L) (masked: 0) and dS = P (dP -
+    D_row) in f32; P rounded to bf16 before dV = P^T dO, dS rounded to bf16
+    before dQ = dS K and dK = dS^T Q, with f32 accumulation in the kernels'
+    order: dQ over 32-key groups in key order, dK and dV over the (q head
+    of the GQA group, 64-row q tile) pairs of each 64-key tile, heads outer;
+    dq and dk scaled by D^-1/2 last, each output rounded once to bf16.
+    Test-local: the port does not use it."""
+    f32, bf = torch.float32, torch.bfloat16
+    b_, hq, sq, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    g = hq // hkv
+    scale = torch.tensor(d ** -0.5, dtype=f32)
+    log2e = torch.tensor(1.4426950408889634, dtype=f32)
+    c = scale * log2e
+    qf, kf, vf, of, dof = (t.to(f32) for t in (q, k, v, o, do))
+    L = (lse.to(f32) * log2e)[..., None]
+    drow = (dof * of).sum(-1, keepdim=True)
+    kr, vr = kf.repeat_interleave(g, 1), vf.repeat_interleave(g, 1)
+    qi = torch.arange(sq)[:, None]
+    kj = torch.arange(skv)[None, :]
+    mask = torch.ones(sq, skv, dtype=torch.bool)
+    if causal:
+        mask &= kj <= qi
+    if window:
+        mask &= kj > qi - window
+    sc = qf @ kr.transpose(-1, -2)                       # [B, Hq, Sq, Skv]
+    p = torch.where(mask, torch.exp2(sc * c - L), 0.0)
+    dp = dof @ vr.transpose(-1, -2)
+    ds = (p * (dp - drow)).to(bf).to(f32)
+    pb = p.to(bf).to(f32)
+    del sc, dp
+    dq = torch.zeros_like(qf)
+    for k0 in range(0, skv, 32):                          # dQ: key order
+        dq += ds[..., k0:k0 + 32] @ kr[:, :, k0:k0 + 32]
+    dk = torch.zeros_like(kf)
+    dv = torch.zeros_like(vf)
+    qs = qf.view(b_, hkv, g, sq, d)
+    dos = dof.view(b_, hkv, g, sq, d)
+    ps = pb.view(b_, hkv, g, sq, skv)
+    dss = ds.view(b_, hkv, g, sq, skv)
+    for k0 in range(0, skv, 64):                          # dK, dV: pairs
+        for h in range(g):
+            for q0 in range(0, sq, 64):
+                rows, keys = slice(q0, q0 + 64), slice(k0, k0 + 64)
+                pt = ps[:, :, h, rows, keys].transpose(-1, -2)
+                dst = dss[:, :, h, rows, keys].transpose(-1, -2)
+                dv[:, :, keys] += pt @ dos[:, :, h, rows]
+                dk[:, :, keys] += dst @ qs[:, :, h, rows]
+    return (dq * scale).to(bf), (dk * scale).to(bf), dv.to(bf)
+
+
+def _share(got, want):
+    """max |got - want| / (3e-2 + 2e-2 |want|): the bf16 tolerance's share
+    that the worst element uses (<= 1 passes)."""
+    got = np.asarray(got.float() if isinstance(got, torch.Tensor) else got,
+                     np.float64)
+    want = np.asarray(want, np.float64)
+    return float(np.max(np.abs(got - want) /
+                        (ATOL["bfloat16"] + RTOL["bfloat16"] *
+                         np.abs(want))))
+
+
+@pytest.mark.parametrize("b,hq,hkv,s,d,causal,window", [
+    (4, 32, 8, 512, 128, True, 0),      # qwen3-8b's train shape
+    (4, 32, 8, 512, 128, True, 100),    # the same, a window of 100
+    (4, 32, 32, 512, 112, True, 0),     # zamba2-7b's train shape, D 112
+])
+def test_tc_attention_bwd_numerics_keep_the_tolerance(b, hq, hkv, s, d,
+                                                      causal, window):
+    """The bf16 backward kernels round P and dS to bf16 before their
+    products (their one departure from the plain version, as the forward
+    rounds P); emulated at the train shapes, that arithmetic stays within
+    the bf16 tolerance of autograd of the plain version and of the JAX
+    package's gradient of its jnp attention, on the same numpy inputs. The
+    shares (largest over dq, dk, dv) are printed: the card's checks in
+    ``chip_smoke.py`` report the kernels' own."""
+    rng = np.random.default_rng(21)
+    (jq, tq), (jk, tk), (jv, tv), (jdo, tdo) = (
+        _pair(rng, (b, h, s, d), "bfloat16") for h in (hq, hkv, hkv, hq))
+    o = ref.flash_attention_ref(tq, tk, tv, causal=causal, window=window)
+    lse = ref.flash_attention_lse_ref(tq, tk, causal=causal, window=window)
+    got = _emulate_tc_attention_bwd(tq, tk, tv, o, tdo, lse, causal, window)
+    plain = ref.flash_attention_bwd_ref(tq, tk, tv, tdo, causal=causal,
+                                        window=window)
+    _, vjp = jax.vjp(lambda q_, k_, v_: jref.flash_attention_ref(
+        q_, k_, v_, causal=causal, window=window), jq, jk, jv)
+    jgrads = vjp(jdo)
+    shares = {"plain": max(_share(g_, w_.float()) for g_, w_ in
+                           zip(got, plain)),
+              "jax": max(_share(g_, np.asarray(w_, np.float32))
+                         for g_, w_ in zip(got, jgrads))}
+    print(f"tc attention bwd {(b, hq, hkv, s, d, causal, window)}: "
+          f"share of tolerance {shares}")
+    for g_, w_, j_ in zip(got, plain, jgrads):
+        _close(g_, w_.float(), "bfloat16")
+        _close(g_, np.asarray(j_, np.float32), "bfloat16")
 
 
 def _chunked_f64(x, b, c, dt, da, chunk):
@@ -570,13 +713,23 @@ def test_row_view_rejects_what_the_kernel_cannot_address():
         row_view(x.transpose(-1, -2))
 
 
-def test_build_keys_library_on_source_and_flags(monkeypatch):
+def test_build_keys_library_on_source_and_flags(monkeypatch, tmp_path):
     assert build.sources() == ["flash_attention", "flash_attention_bwd",
                                "mamba_scan", "rmsnorm", "rmsnorm_bwd"]
+    assert build.headers() == ["hopper_tc.cuh"]
     a = build.library_path("rmsnorm")
     assert a.name.startswith("rmsnorm-") and a.suffix == ".so"
     monkeypatch.setattr(build, "NVCC_FLAGS", build.NVCC_FLAGS + ["-G"])
     assert build.library_path("rmsnorm") != a
+    # a shared header is part of every library's key
+    for f in build.CSRC.iterdir():
+        (tmp_path / f.name).write_bytes(f.read_bytes())
+    monkeypatch.setattr(build, "CSRC", tmp_path)
+    before = {n: build.library_path(n) for n in build.sources()}
+    with open(tmp_path / "hopper_tc.cuh", "a") as f:
+        f.write("// changed\n")
+    after = {n: build.library_path(n) for n in build.sources()}
+    assert all(before[n] != after[n] for n in before)
 
 
 def test_build_without_nvcc_raises(monkeypatch):

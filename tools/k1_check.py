@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Time the RMSNorm kernel (K1) on the card, alone.
 
-    python3 tools/k1_check.py [--csrc DIR] [--cluster]
+    python3 tools/k1_check.py [--csrc DIR] [--cluster] [--backward]
 
 Builds K1 from ``src/repro_torch/kernels/csrc/rmsnorm.cu`` (or from
 ``DIR/rmsnorm.cu``, another version of the source such as the parent
@@ -12,6 +12,15 @@ table at the served bf16 shapes: the qwen3-8b prefill layer's four norms,
 the zamba2-7b Mamba block's two and attention application's two, and the
 decode norms; where the source has the fused entry, the fused calls that
 the models now make as well; and the launch floor (an empty kernel).
+
+With ``--backward`` it times the backward entries instead, from
+``rmsnorm_bwd.cu`` of the same directory, at qwen3-8b's train shapes
+(q_norm [4, 512, 32, 128], k_norm [4, 512, 8, 128], the fused add+ln
+[4, 512, 4096]) beside their bounds and the library's backward (autograd
+of ``F.rms_norm``, after ``x + r`` for the fused entry), each first held
+against autograd of the plain version (share of the bf16 tolerance) and
+rerun bitwise. It calls the earlier interface (scratch sized by
+``rmsnorm_bwd_rows_per_chunk``) where the source has it.
 
 With ``--cluster`` it also builds ``tools/k1_cluster.cu`` (each decode row
 split over a thread-block cluster of 2-8 CTAs), checks it against the
@@ -35,6 +44,7 @@ import torch  # noqa: E402
 
 import chip_smoke as cs  # noqa: E402
 from repro_torch.kernels import build, ref  # noqa: E402
+from repro_torch.kernels import rmsnorm as rn  # noqa: E402
 from repro_torch.kernels.rmsnorm import rmsnorm  # noqa: E402
 
 BF = torch.bfloat16
@@ -123,11 +133,89 @@ def cluster_probe(card, flush, gen):
                  "max_abs_err": err, "card": card})
 
 
+def backward_fn():
+    """(dy, x, ds, w, eps) -> (dx, dw) of the built rmsnorm_bwd library:
+    the tree's wrappers, or for the earlier source its C entry with the
+    earlier scratch (float64 partials of rows_per_chunk rows, then rstd)."""
+    if b"rmsnorm_bwd_scratch_bytes" in (build.CSRC /
+                                        "rmsnorm_bwd.cu").read_bytes():
+        return lambda dy, x, ds, w, eps: (
+            rn.rmsnorm_bwd(dy, x, w, eps=eps) if ds is None
+            else rn.add_rmsnorm_bwd(dy, ds, x, w, eps=eps))
+    rpc = build.load_function("rmsnorm_bwd", "rmsnorm_bwd_rows_per_chunk",
+                              [ctypes.c_int] * 2)
+    fn = build.load_function("rmsnorm_bwd", "rmsnorm_bwd", rn._BWD_ARGTYPES)
+
+    def old(dy, x, ds, w, eps):
+        rows, x_n, x_outer, x_inner = rn.row_view(x)
+        d = x.shape[-1]
+        n_chunks = -(-rows // rpc(rows, d))
+        scratch = torch.empty(2 * n_chunks * d + rows, dtype=torch.float32,
+                              device="cuda")
+        dx, dw = torch.empty_like(x), torch.empty_like(w)
+        err = fn(dy.data_ptr(), x.data_ptr(),
+                 None if ds is None else ds.data_ptr(), w.data_ptr(),
+                 dx.data_ptr(), dw.data_ptr(), scratch.data_ptr(), 1, rows, d,
+                 *rn.row_view(dy)[1:], x_n, x_outer, x_inner,
+                 *((1, 0, 0) if ds is None else rn.row_view(ds)[1:]), eps,
+                 torch.cuda.current_stream().cuda_stream)
+        build.check("rmsnorm_bwd", err)
+        return dx, dw
+    return old
+
+
+def backward_rows(card, flush, gen, source):
+    """The backward entries at qwen3-8b's train shapes, as chip_smoke.py's
+    train.kernels phase times them."""
+    build.build_all(["rmsnorm_bwd"])
+    bwd = backward_fn()
+    for row in cs.ptxas_report("rmsnorm_bwd"):
+        cs.emit({**row, "source": source})
+    d, eps = cs.QWEN.d_model, cs.QWEN.norm_eps
+    for call, shape, fused in [("add+ln", (B, S, d), True),
+                               ("q_norm", (B, S, 32, 128), False),
+                               ("k_norm", (B, S, 8, 128), False)]:
+        x, dy = cs._rand(gen, shape, BF), cs._rand(gen, shape, BF)
+        w = cs._rand(gen, (shape[-1],), BF)
+        ds = cs._rand(gen, shape, BF) if fused else None
+        got = bwd(dy, x, ds, w, eps)
+        want = (ref.add_rmsnorm_bwd_ref(dy, ds, x, w, eps=eps) if fused
+                else ref.rmsnorm_bwd_ref(dy, x, w, eps=eps))
+        atol, rtol = cs.TOL[BF]
+        share = max(float(((g.float() - t.float()).abs()
+                           / (atol + rtol * t.float().abs())).max())
+                    for g, t in zip(got, want))
+        again = bwd(dy, x, ds, w, eps)
+        lx, lw = (t.detach().requires_grad_(True) for t in (x, w))
+        if fused:
+            lr = torch.zeros_like(x).requires_grad_(True)
+            ls = lx + lr
+            ly = torch.nn.functional.rms_norm(ls, (shape[-1],), lw, eps)
+            outs, ins, grads = [ls, ly], [lx, lr, lw], [ds, dy]
+        else:
+            ly = torch.nn.functional.rms_norm(lx, (shape[-1],), lw, eps)
+            outs, ins, grads = [ly], [lx, lw], [dy]
+        n = x.numel()
+        cs.emit({"time": "add_rmsnorm_bwd" if fused else "rmsnorm_bwd",
+                 "call": call, "shape": list(shape), "source": source,
+                 "ms": cs.time_ms(lambda: bwd(dy, x, ds, w, eps), flush),
+                 "library_ms": cs._grad_ms(outs, ins, grads, flush),
+                 # as chip_smoke.py counts: inputs once, dx and dw once
+                 **cs.bound(((4 if fused else 3) * n + 2 * shape[-1]) * 2,
+                            (8 if fused else 7) * n, BF),
+                 "share_of_tolerance": share,
+                 "reruns_bitwise": all(torch.equal(a, b_)
+                                       for a, b_ in zip(got, again)),
+                 "card": card})
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--csrc", help="directory holding another rmsnorm.cu")
     ap.add_argument("--cluster", action="store_true",
                     help="also probe the cluster-split decode norm")
+    ap.add_argument("--backward", action="store_true",
+                    help="time the backward entries instead")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("k1_check: needs an NVIDIA GPU", file=sys.stderr)
@@ -136,8 +224,12 @@ def main() -> int:
     if args.csrc:
         build.CSRC = Path(args.csrc).resolve()
         source = args.csrc
-    build.build_all(["rmsnorm"])
     card = cs.card()
+    if args.backward:
+        backward_rows(card, cs._L2Flush(),
+                      torch.Generator(device="cuda").manual_seed(5), source)
+        return 0
+    build.build_all(["rmsnorm"])
     fused = b"add_rmsnorm_fwd" in (build.CSRC / "rmsnorm.cu").read_bytes()
     flush = cs._L2Flush()
     gen = torch.Generator(device="cuda").manual_seed(5)
