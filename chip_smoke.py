@@ -67,11 +67,15 @@ Phases (each a function; any failure exits non-zero):
      the launch floor (an empty kernel), and the whole path's prefill and
      decode times. Each model's servers are freed before the next model's
      serve phase;
-  8. train: the backward kernels of K1 (``rmsnorm_bwd``, ``add_rmsnorm_bwd``)
-     and K2 (``flash_attention_bwd``: bf16 on the tensor cores, reading the
-     forward's logsumexp; f32 on FMAs) against autograd of their plain
-     versions at the train shapes (qwen3-8b's and zamba2-7b's) and the
-     other cases, reruns bitwise, the forward's logsumexp against
+  8. train: the backward kernels of K1 (``rmsnorm_bwd``, ``add_rmsnorm_bwd``,
+     at d 128, 3584, 4096 and zamba2-7b's out_norm at 7168), K2
+     (``flash_attention_bwd``: bf16 on the tensor cores, reading the
+     forward's logsumexp; f32 on FMAs) and K3 (``mamba_scan_bwd``: a state
+     pass, a chunk pass and a reduce, f32 FMAs; at zamba2-7b's train shape
+     with x, B, C as views of the conv output, chunk 64, the reduced
+     config's P 64 / N 16 / chunk 16 and a ragged head count) against
+     autograd of their plain versions at the train shapes and the other
+     cases, reruns bitwise, the forward's logsumexp against
      ``ref.flash_attention_lse_ref`` with o bitwise the same with and
      without it, their ptxas lines (no spills) and times (a
      ``train.kernels`` line); then qwen3-8b at full width, depth cut to 2
@@ -79,10 +83,17 @@ Phases (each a function; any failure exits non-zero):
      clean, and under replication (a promotion), combined (a promotion,
      then a pair death restored from the on-disk checkpoint) and
      checkpoint (a death restored from disk), each final state (params,
-     m, v) bitwise the clean run's and each kernel's launches the count
-     the executed steps imply (a ``train`` line per run). The disk runs
-     write their checkpoints (16.3 GB each) under ``build/train_ckpt``
-     and keep at most two there at a time.
+     m, v) bitwise the clean run's, its bytes those its tensors' dtypes
+     give, and each kernel's launches the count the executed steps imply
+     (a ``train`` line per run). The disk runs write their checkpoints
+     (16.3 GB each) under ``build/train_ckpt`` and keep at most two there
+     at a time;
+  8b. train, zamba2-7b: full width, depth cut to 13 Mamba blocks (two
+     groups of 6 behind the shared attention block and a tail of 1), the
+     same 12 steps, clean, replication and combined under the same gates,
+     every kernel of the path and its backward launched the counted
+     number of times (14.5 GB checkpoints; the hybrid's checkpoint
+     schedule runs on the CPU only, see ``phase_train_zamba``).
 
 Prints JSON lines as it goes (``comm``, ``fanout``, ``serve``,
 ``serve.ckpt``, ``obs``, ``store``, ``train.kernels`` and ``train`` lines
@@ -130,7 +141,8 @@ from repro_torch.ft import DecodeWorkload, FTSession  # noqa: E402
 from repro_torch.kernels import build, ref  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention, flash_attention_bwd)
-from repro_torch.kernels.mamba_scan import mamba_chunk_scan  # noqa: E402
+from repro_torch.kernels.mamba_scan import (  # noqa: E402
+    mamba_chunk_scan, mamba_chunk_scan_bwd)
 from repro_torch.kernels.rmsnorm import (  # noqa: E402
     add_rmsnorm, add_rmsnorm_bwd, rmsnorm, rmsnorm_bwd)
 from repro_torch.launch import train as train_lib  # noqa: E402
@@ -159,6 +171,20 @@ MAMBA_TOL = (3e-4, 3e-4)
 # the forward's logsumexp against the plain one: f32 sums in another order
 # on values of order ln(Skv)
 LSE_TOL = (1e-5, 1e-5)
+# K3's backward (tests/test_torch_mamba_bwd.py, fixed before any card run):
+# MAMBA_TOL scaled to each output's largest |plain|; TOL[bf16] on top for
+# a bf16 output
+SCAN_BWD_TOL = 3e-4
+
+
+def scan_bwd_tol(want, dtype):
+    """(atol, rtol) of K3's backward for one output of plain value
+    ``want`` written in ``dtype``."""
+    atol = SCAN_BWD_TOL * float(want.float().abs().max())
+    rtol = SCAN_BWD_TOL
+    if dtype == torch.bfloat16:
+        atol, rtol = atol + TOL[dtype][0], rtol + TOL[dtype][1]
+    return atol, rtol
 
 B, S, GEN, KILL_AT = 4, 512, 32, 8
 SPIN_CYCLES = 2_000_000            # ~1 ms at the H100's clock
@@ -1514,22 +1540,26 @@ def phase_times_zamba(state):
 
 
 # --------------------------------------------------------- phase 8: train
-# The backward kernels of K1 and K2 (no TPU counterpart: the JAX package
-# differentiates its jnp model), then qwen3-8b trained at full width.
+# The backward kernels of K1, K2 and K3 (no TPU counterpart: the JAX
+# package differentiates its jnp model), then qwen3-8b and zamba2-7b
+# trained at full width.
 
 BWD_KERNELS = {"rmsnorm_bwd": rmsnorm_bwd, "add_rmsnorm_bwd": add_rmsnorm_bwd,
-               "flash_attention_bwd": flash_attention_bwd}
+               "flash_attention_bwd": flash_attention_bwd,
+               "mamba_scan_bwd": mamba_chunk_scan_bwd}
 
 
 def _k1_bwd_cases(gen, dtype):
     """(name, dy, x, ds, w) of the K1 backward checks: the train shape's
-    qk-norm heads (d 128) and residual norms (d 4096), zamba2-7b's d 3584,
-    a strided head view, unaligned rows and a ragged row count."""
+    qk-norm heads (d 128) and residual norms (d 4096), zamba2-7b's d 3584
+    and its Mamba out_norm at d_inner 7168, a strided head view, unaligned
+    rows and a ragged row count."""
     dq, dz, dh = QWEN.d_model, ZAMBA.d_model, QWEN.resolved_head_dim
+    di = mamba2.dims(ZAMBA)[0]
     hq, hkv = QWEN.n_heads, QWEN.n_kv_heads
     cases = []
     for shape in [(B, S, hq, dh), (B, S, hkv, dh), (B, S, dq), (B, S, dz),
-                  (1000 + 3, dq), (37, 200)]:
+                  (B, S, di), (1000 + 3, dq), (37, 200)]:
         d = shape[-1]
         cases.append((shape, _rand(gen, shape, dtype), _rand(gen, shape, dtype),
                       _rand(gen, (d,), dtype)))
@@ -1539,6 +1569,39 @@ def _k1_bwd_cases(gen, dtype):
     cases.append(("unaligned", _unaligned(gen, 64, dq, dtype),
                   _unaligned(gen, 64, dq, dtype), _rand(gen, (dq,), dtype)))
     return cases
+
+
+def _scan_inputs(gen, b, s, h, p, n, dtype, fused=False):
+    """x, B, C in ``dtype`` (with ``fused``, strided views of one
+    [b, s, h p + 2 n] tensor, as the model splits its conv output), dt =
+    softplus(noise) and da = -dt exp(0.1 noise) in f32."""
+    if fused:
+        xbc = _rand(gen, (b, s, h * p + 2 * n), dtype)
+        x = xbc[..., :h * p].unflatten(-1, (h, p))
+        bm, cm = xbc[..., h * p:h * p + n], xbc[..., h * p + n:]
+    else:
+        x, bm, cm = (_rand(gen, shape, dtype) for shape in
+                     ((b, s, h, p), (b, s, n), (b, s, n)))
+    dt = F.softplus(_rand(gen, (b, s, h), torch.float32))
+    da = -dt * torch.exp(_rand(gen, (h,), torch.float32) * 0.1)
+    return x, bm, cm, dt, da
+
+
+def _k3_bwd_cases():
+    """(shape (b, s, h, p, n), chunk, dtype, dy dtype, dh given, x/B/C
+    fused) of the K3 backward checks: zamba2-7b's train shape (x [4, 512,
+    112, 64], N 64, chunk 128, x/B/C views of the conv output) in bf16 and
+    f32, with and without a gradient of the final h; chunk 64 (dy in bf16);
+    the reduced config's P 64 / N 16 / chunk 16; a ragged head count."""
+    bf, f32 = torch.bfloat16, torch.float32
+    _, nh, p, n = mamba2.dims(ZAMBA)
+    train = (B, S, nh, p, n)
+    return ([(train, ZAMBA.ssm_chunk, dt, f32, dh, True)
+             for dt in (bf, f32) for dh in (False, True)]
+            + [((2, 256, 3, 64, 64), 64, bf, bf, True, False),
+               ((2, 64, 4, 64, 16), 16, f32, f32, True, False),
+               ((2, 64, 4, 64, 16), 16, bf, f32, False, True),
+               ((1, 256, 5, 64, 64), 128, bf, f32, True, False)])
 
 
 def _k2_bwd_cases():
@@ -1557,8 +1620,8 @@ def _k2_bwd_cases():
 
 
 def phase_train_kernels(state):
-    """K1's two backward entries and K2's backward against autograd of
-    their plain versions on the card, reruns bitwise; their ptxas lines
+    """K1's two backward entries, K2's and K3's backward against autograd
+    of their plain versions on the card, reruns bitwise; their ptxas lines
     (no spills); their times at the train shapes."""
     card_name = state["card"]
     gen = torch.Generator(device="cuda").manual_seed(11)
@@ -1627,7 +1690,36 @@ def phase_train_kernels(state):
             raise AssertionError(f"flash_attention_bwd rerun differs: {shape}")
         del q, k, v, do, o, lse, got, want, again
         torch.cuda.empty_cache()
-    ptxas = [row for name in ("rmsnorm_bwd", "flash_attention_bwd")
+    for shape, chunk, dtype, dy_dtype, with_dh, fused in _k3_bwd_cases():
+        b, s, h, p, n = shape
+        x, bm, cm, dt, da = _scan_inputs(gen, *shape, dtype, fused)
+        dy = _rand(gen, (b, s, h, p), dy_dtype)
+        dh = _rand(gen, (b, h, p, n), torch.float32) if with_dh else None
+        tag = {"shape": list(shape), "chunk": chunk, "dy": str(dy_dtype)[6:],
+               "dh": with_dh, "fused": fused}
+        got = mamba_chunk_scan_bwd(x, bm, cm, dt, da, dy, dh, chunk=chunk)
+        want = ref.mamba_chunk_scan_bwd_ref(x, bm, cm, dt, da, dy, dh)
+        share = {}
+        for name, g, w_ in zip(("dx", "db", "dc", "ddt", "dda"), got, want):
+            if g.dtype != w_.dtype or g.shape != w_.shape:
+                raise AssertionError(f"mamba_scan_bwd {name}: {g.dtype} "
+                                     f"{tuple(g.shape)} is not the plain "
+                                     f"{w_.dtype} {tuple(w_.shape)}")
+            atol, rtol = scan_bwd_tol(w_, g.dtype)
+            err = compare("mamba_scan_bwd", g, w_, g.dtype, tol=(atol, rtol),
+                          **tag, output=name)
+            worst["mamba_scan_bwd"] = max(worst["mamba_scan_bwd"], err)
+            share[name] = float(((g.float() - w_.float()).abs()
+                                 / (atol + rtol * w_.float().abs())).max())
+        again = mamba_chunk_scan_bwd(x, bm, cm, dt, da, dy, dh, chunk=chunk)
+        if not all(torch.equal(a, b_) for a, b_ in zip(got, again)):
+            raise AssertionError(f"mamba_scan_bwd rerun differs: {tag}")
+        checks.append({"kernel": "mamba_scan_bwd", "dtype": str(dtype)[6:],
+                       **tag, "share_of_tolerance": share})
+        del x, bm, cm, dt, da, dy, dh, got, want, again
+        torch.cuda.empty_cache()
+    ptxas = [row for name in ("rmsnorm_bwd", "flash_attention_bwd",
+                              "mamba_scan_bwd")
              for row in ptxas_report(name)]
     spilled = [row for row in ptxas
                if "spills" in row and not re.search(
@@ -1668,8 +1760,9 @@ def _sdpa_bwd_ms(q, k, v, do, flush, deterministic):
 
 def _train_kernel_times(card_name, gen):
     """CUDA-event medians (L2 flushed) of the backward kernels at the
-    qwen3-8b train shapes, beside their plain versions (autograd of the
-    plain forward), their bounds and the PyTorch library backward."""
+    train shapes (qwen3-8b's for K1 and K2, zamba2-7b's out_norm for K1 at
+    d 7168 and its scan for K3), beside their plain versions (autograd of
+    the plain forward), their bounds and the PyTorch library backward."""
     flush = _L2Flush()
     bf = torch.bfloat16
     d, dh, hq, hkv = (QWEN.d_model, QWEN.resolved_head_dim, QWEN.n_heads,
@@ -1678,7 +1771,9 @@ def _train_kernel_times(card_name, gen):
     rows = {}
     for call, shape, fused in [("add+ln", (B, S, d), True),
                                ("q_norm", (B, S, hq, dh), False),
-                               ("k_norm", (B, S, hkv, dh), False)]:
+                               ("k_norm", (B, S, hkv, dh), False),
+                               ("out_norm", (B, S, mamba2.dims(ZAMBA)[0]),
+                                False)]:
         x, dy = _rand(gen, shape, bf), _rand(gen, shape, bf)
         w = _rand(gen, (shape[-1],), bf)
         n = x.numel()
@@ -1731,11 +1826,46 @@ def _train_kernel_times(card_name, gen):
                          10 * dh * pairs, bf)}
     emit({"time": "flash_attention_bwd", **row, "card": card_name})
     rows["attention"] = row
+    del q, k, v, do, o, lse
+    rows["scan"] = _scan_bwd_times(card_name, gen, flush)
     return rows
+
+
+def _scan_bwd_times(card_name, gen, flush):
+    """K3's backward at zamba2-7b's train shape as the model calls it
+    (bf16 x, B, C views of the conv output, f32 dt, da and dy, the final h
+    unused), beside its plain version and its bound."""
+    _, nh, p, n = mamba2.dims(ZAMBA)
+    T = ZAMBA.ssm_chunk
+    x, bm, cm, dt, da = _scan_inputs(gen, B, S, nh, p, n, torch.bfloat16,
+                                     fused=True)
+    dy = _rand(gen, (B, S, nh, p), torch.float32)
+    pairs = T * (T + 1) // 2                     # causal (t, s) pairs
+    # per (batch, head, chunk): the causal products C B^T, dy x^T, SE^T dy,
+    # K^T C, K B (3 N + 2 P a pair) and five T x P x N ones (h_k, G_k,
+    # G B, x^T G, dy^T h), 2 flops a multiply-add, all f32
+    per_chunk = 2 * (pairs * (3 * n + 2 * p) + 5 * T * p * n)
+    n_bytes = (2 * x.numel() * 2 + 2 * 2 * bm.numel() * 2   # x, B, C, dx,
+               + 4 * dt.numel() * 4                          # dB, dC; dt,
+               + dy.numel() * 4)                             # da, ddt, dda
+    row = {"kernel": "mamba_scan_bwd", "shape": list(x.shape), "n": n,
+           "chunk": T,
+           "ms": time_ms(lambda: mamba_chunk_scan_bwd(
+               x, bm, cm, dt, da, dy, chunk=T), flush),
+           "plain_ms": time_ms(lambda: ref.mamba_chunk_scan_bwd_ref(
+               x, bm, cm, dt, da, dy), flush, reps=5, warmup=1),
+           # no single PyTorch call computes the SSD scan's gradient
+           "library_ms": None,
+           **bound(n_bytes, per_chunk * (S // T) * B * nh, torch.float32)}
+    emit({"time": "mamba_scan_bwd", **row, "card": card_name})
+    return row
 
 
 
 TRAIN_LAYERS, TRAIN_STEPS, TRAIN_LR, TRAIN_SEED = 2, 12, 1e-3, 0
+# zamba2-7b's depth in training: two groups of 6 Mamba blocks behind the
+# shared attention block, and a tail of 1
+TRAIN_ZAMBA_BLOCKS = 13
 # the disk runs' checkpoint directory (gitignored), emptied before and
 # after the phase
 TRAIN_CKPT = os.path.join(ROOT, "build", "train_ckpt")
@@ -1749,6 +1879,9 @@ TRAIN_RUNS = [
     ("checkpoint", dict(mode="checkpoint", ckpt_interval_s=3.0),
      {7: [2]}, True),
 ]
+# the hybrid's on the card: the checkpoint schedule runs on the CPU only
+# (tests/test_torch_zamba_train.py; see phase_train_zamba)
+TRAIN_RUNS_ZAMBA = [run for run in TRAIN_RUNS if run[0] != "checkpoint"]
 
 
 def train_config():
@@ -1758,17 +1891,45 @@ def train_config():
     return dataclasses.replace(QWEN, n_layers=TRAIN_LAYERS)
 
 
+def train_config_zamba():
+    """zamba2-7b at full width (d 3584, d_inner 7168, 112 SSM heads of 64,
+    N 64, 32 attention heads of 112, d_ff 14336, vocab 32000, bf16), depth
+    cut from 81 to 13 Mamba blocks: two groups of 6 and a tail of 1, so
+    both param stacks, the tail and the shared block's summed gradients
+    take part; 1,448,622,480 parameters, a 14.5 GB train state."""
+    return dataclasses.replace(ZAMBA, n_layers=TRAIN_ZAMBA_BLOCKS)
+
+
 def train_launches_per_step(cfg):
-    """Kernel launches of one train step (forward and backward) of the
-    dense model: each layer's qk-norms and, in layer 0, ln1 are plain
-    norms (2 L + 1); ln2, the later ln1s and ln_f fuse the residual add
-    (2 L); one attention a layer; each backward once per forward."""
+    """Kernel launches of one train step (forward and backward), each
+    backward once per forward call. Dense (L layers): each layer's
+    qk-norms and, in layer 0, ln1 are plain norms (2 L + 1); ln2, the
+    later ln1s and ln_f fuse the residual add (2 L); one attention a
+    layer. Hybrid (n Mamba blocks, G groups): every block's out_norm and
+    the first attn_ln are plain norms (n + 1); the later attn_lns, every
+    attn_mlp_ln, every block's ln and ln_f fuse the add (2 G + n); one
+    attention a group, one scan a block."""
     n = cfg.n_layers
-    fwd = {"rmsnorm": 2 * n + 1, "add_rmsnorm": 2 * n,
-           "flash_attention": n, "mamba_scan": 0}
+    if cfg.family == "hybrid":
+        g = n // cfg.attn_every
+        fwd = {"rmsnorm": n + 1, "add_rmsnorm": 2 * g + n,
+               "flash_attention": g, "mamba_scan": n}
+    else:
+        fwd = {"rmsnorm": 2 * n + 1, "add_rmsnorm": 2 * n,
+               "flash_attention": n, "mamba_scan": 0}
     return {**fwd, "rmsnorm_bwd": fwd["rmsnorm"],
             "add_rmsnorm_bwd": fwd["add_rmsnorm"],
-            "flash_attention_bwd": fwd["flash_attention"]}
+            "flash_attention_bwd": fwd["flash_attention"],
+            "mamba_scan_bwd": fwd["mamba_scan"]}
+
+
+def train_state_bytes(cfg):
+    """Bytes of the train state from its tensors' own dtypes (the hybrid
+    keeps a_log, d_skip and dt_bias in f32 in a bf16 model): each param,
+    its f32 m and v, the int32 step."""
+    model = api.build_model(cfg, device="meta")
+    return sum(p.numel() * (p.element_size() + 8)
+               for p in model.parameters()) + 4
 
 
 def _train_state_tensors(state):
@@ -1824,26 +1985,42 @@ def phase_train(state):
     clean and under replication (a promotion), combined (a promotion then
     a pair death, restarted from disk) and checkpoint (restarted from
     disk); each run's final params and moments bitwise the clean run's."""
+    _train_phase(state, train_config(), TRAIN_RUNS)
+
+
+def phase_train_zamba(state):
+    """zamba2-7b trained at full width (``train_config_zamba``) for
+    TRAIN_STEPS steps, batch 4 x 512, clean and under replication (a
+    promotion) and combined (a promotion then a pair death, restarted from
+    disk), under qwen3-8b's gates. The hybrid's checkpoint schedule runs on
+    the CPU only (``tests/test_torch_zamba_train.py``): on the card its ~4
+    saves and a restore of the 14.5 GB state would add ~180 s and leave the
+    script within ~70 s of its 1,200 s limit."""
+    _train_phase(state, train_config_zamba(), TRAIN_RUNS_ZAMBA)
+
+
+def _train_phase(state, cfg, runs):
     shutil.rmtree(TRAIN_CKPT, ignore_errors=True)     # a killed run's
     try:
-        _train_runs(state)
+        _train_runs(state, cfg, runs)
     finally:
         shutil.rmtree(TRAIN_CKPT, ignore_errors=True)
 
 
-def _train_runs(state):
+def _train_runs(state, cfg, runs):
     card_name = state["card"]
-    cfg = train_config()
     per_step = train_launches_per_step(cfg)
     counters = {**KERNELS, **BWD_KERNELS}
     n_params = api.param_count(cfg)
+    state_bytes = train_state_bytes(cfg)
     emit({"phase": "train.build", "arch": cfg.name, "n_layers": cfg.n_layers,
           "d_model": cfg.d_model, "vocab": cfg.vocab_size, "params": n_params,
-          "state_bytes": n_params * (2 + 4 + 4) + 4, "batch": B, "seq": S,
-          "steps": TRAIN_STEPS, "lr": TRAIN_LR, "card": card_name})
+          "state_bytes": state_bytes, "batch": B, "seq": S,
+          "steps": TRAIN_STEPS, "lr": TRAIN_LR,
+          "launches_per_step": per_step, "card": card_name})
     clean = None
     totals = dict.fromkeys(counters, 0)
-    for mode, ft, kills, disk in TRAIN_RUNS:
+    for mode, ft, kills, disk in runs:
         ckpt_dir = os.path.join(TRAIN_CKPT, mode) if disk else None
         if ckpt_dir:
             shutil.rmtree(ckpt_dir, ignore_errors=True)
@@ -1872,6 +2049,10 @@ def _train_runs(state):
             raise AssertionError(f"train {mode}: launches {launches} != "
                                  f"{expected}")
         final = _train_state_tensors(rep.final_state)
+        held_bytes = sum(t.numel() * t.element_size() for _, t in final)
+        if held_bytes != state_bytes:
+            raise AssertionError(f"train {mode}: the state holds "
+                                 f"{held_bytes} B, not {state_bytes}")
         if clean is None:
             clean = [(k, t.cpu()) for k, t in final]   # one host copy
             equal = True
@@ -1894,6 +2075,7 @@ def _train_runs(state):
             "launches_expected": expected,
             "step_ms_median": 1e3 * statistics.median(times),
             "wall_s": wall,
+            "state_bytes": held_bytes,
             "max_memory_allocated": torch.cuda.max_memory_allocated(),
             "host_rss_peak_bytes":
                 resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024,
@@ -1926,13 +2108,14 @@ def _train_runs(state):
         torch.cuda.empty_cache()
         if ckpt_dir:
             shutil.rmtree(ckpt_dir)
-    state["train_launches"] = totals
+    state.setdefault("train_launches", {})[cfg.name] = totals
+
 
 PHASES = [phase_device_and_build, phase_comm, phase_rmsnorm, phase_attention,
           phase_mamba_scan, phase_reference, phase_reference_zamba,
           phase_serve, phase_serve_ckpt, phase_obs, phase_store, phase_times,
           phase_serve_zamba, phase_serve_ckpt_zamba, phase_times_zamba,
-          phase_train_kernels, phase_train]
+          phase_train_kernels, phase_train, phase_train_zamba]
 
 REPLACES = {"rmsnorm": "src/repro/kernels/rmsnorm.py:31",
             "flash_attention": "src/repro/kernels/flash_attention.py:97",
@@ -1981,11 +2164,15 @@ def kernels_line(state):
 
 def _backward_rows(state):
     """The backward kernels (port only: the JAX package differentiates its
-    jnp model): launches over the four train runs, the worst error of the
-    train.kernels checks, times at qwen3-8b's train shapes. ``replaces``
-    names the TPU kernel whose function they differentiate. The K1 row
-    sums one call of each timed entry (q_norm, k_norm, add+ln)."""
-    launches = state["train_launches"]
+    jnp model): launches over the train runs of both models, the worst
+    error of the train.kernels checks, times at the train shapes
+    (qwen3-8b's for K1 and K2, zamba2-7b's for K3). ``replaces`` names the
+    TPU kernel whose function they differentiate. The K1 row sums one call
+    of each timed entry (q_norm, k_norm, add+ln) and lists zamba2-7b's
+    out_norm at d 7168 beside them."""
+    launches = {name: sum(runs[name]
+                          for runs in state["train_launches"].values())
+                for name in BWD_KERNELS}
     tk = state["train_kernels"]
     times, worst = tk["times"], tk["worst"]
     k1_calls = [times[c] for c in ("q_norm", "k_norm", "add+ln")]
@@ -2000,6 +2187,8 @@ def _backward_rows(state):
          "launches": launches["rmsnorm_bwd"] + launches["add_rmsnorm_bwd"],
          "max_abs_err": max(worst["rmsnorm_bwd"], worst["add_rmsnorm_bwd"]),
          **k1, "call": "q_norm + k_norm + add+ln",
+         "out_norm": {key: times["out_norm"][key]
+                      for key in TIMED + ("shape",)},
          "entries": [
              {"name": name, "launches": launches[name],
               "max_abs_err": worst[name],
@@ -2013,7 +2202,14 @@ def _backward_rows(state):
          "launches": launches["flash_attention_bwd"],
          "max_abs_err": worst["flash_attention_bwd"],
          **{key: att[key] for key in TIMED + ("library_deterministic_ms",)},
-         "shape": att["shape"]}]
+         "shape": att["shape"]},
+        {"name": "mamba_scan_bwd", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/mamba_scan_bwd.cu",
+         "replaces": REPLACES["mamba_scan"], "backward_of": "mamba_scan",
+         "launches": launches["mamba_scan_bwd"],
+         "max_abs_err": worst["mamba_scan_bwd"],
+         **{key: times["scan"][key] for key in TIMED},
+         "shape": times["scan"]["shape"]}]
 
 
 def main() -> int:

@@ -3,7 +3,8 @@ the card.
 
 The forward of each calls the existing forward kernel and saves what the
 backward kernel reads; the backward calls the hand-written backward kernel
-(``rmsnorm_bwd``, ``add_rmsnorm_bwd``, ``flash_attention_bwd``). The JAX
+(``rmsnorm_bwd``, ``add_rmsnorm_bwd``, ``flash_attention_bwd``,
+``mamba_chunk_scan_bwd``). The JAX
 package has no backward kernels (its model differentiates jnp code); these
 exist so that no plain PyTorch version runs on the card's training path.
 ``kernels.ops`` routes a CUDA call here only when grad mode is on and an
@@ -16,6 +17,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import mamba_scan as ms
 from repro_torch.kernels import rmsnorm as rn
 
 
@@ -81,3 +83,33 @@ class FlashAttention(torch.autograd.Function):
                                             causal=ctx.causal,
                                             window=ctx.window)
         return dq, dk, dv, None, None
+
+
+class MambaChunkScan(torch.autograd.Function):
+    """(y, h) = mamba_chunk_scan(x, b, c, dt, da); saves x, b, c, dt and
+    da (the backward recomputes the chunk states). A gradient that does not
+    reach y or h arrives as None."""
+
+    @staticmethod
+    def forward(ctx, x, b, c, dt, da, chunk, out_dtype):
+        ctx.chunk = chunk
+        ctx.set_materialize_grads(False)
+        y, h = ms.mamba_chunk_scan(x, b, c, dt, da, chunk=chunk,
+                                   out_dtype=out_dtype)
+        ctx.save_for_backward(x, b, c, dt, da)
+        return y, h
+
+    @staticmethod
+    def backward(ctx, dy, dh):
+        x, b, c, dt, da = ctx.saved_tensors
+        if dy is None:
+            dy = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+        elif dy.dtype not in (torch.float32, x.dtype):
+            dy = dy.float()             # y was asked in a third dtype
+        if dy.shape[-1] > 1 and dy.stride(-1) != 1:
+            dy = dy.contiguous()        # the kernel's layout rule
+        if dh is not None:
+            dh = dh.contiguous()
+        grads = ms.mamba_chunk_scan_bwd(x, b, c, dt, da, dy, dh,
+                                        chunk=ctx.chunk)
+        return (*grads, None, None)

@@ -76,5 +76,8 @@ def mamba_chunk_scan(x, b, c, dt, da, *, chunk: int = 128, out_dtype=None,
         raise ValueError(f"sequence length {x.shape[1]} must divide by "
                          f"chunk={chunk}")
     if _use_kernel(x, backend):
+        if _needs_grad(x, b, c, dt, da):
+            return autograd.MambaChunkScan.apply(x, b, c, dt, da, chunk,
+                                                 out_dtype)
         return _mamba_cuda(x, b, c, dt, da, chunk=chunk, out_dtype=out_dtype)
     return ref.mamba_chunk_scan_ref(x, b, c, dt, da, out_dtype=out_dtype)

@@ -124,3 +124,12 @@ def flash_attention_bwd_ref(q, k, v, do, *, causal: bool = True,
     """(dq, dk, dv) of ``flash_attention_ref(q, k, v)`` given dO."""
     return _grad(lambda q_, k_, v_: flash_attention_ref(
         q_, k_, v_, causal=causal, window=window), (q, k, v), (do,))
+
+
+def mamba_chunk_scan_bwd_ref(x, b, c, dt, da, dy, dh=None):
+    """(dx, db, dc, ddt, dda) of ``mamba_chunk_scan_ref(x, b, c, dt, da)``
+    given dy, the gradient of y (f32, or x's dtype for a y written in it),
+    and dh, the gradient of the final h (None: the final h is unused)."""
+    out_dtype = dy.dtype
+    return _grad(lambda *a: mamba_chunk_scan_ref(*a, out_dtype=out_dtype),
+                 (x, b, c, dt, da), (dy, dh))

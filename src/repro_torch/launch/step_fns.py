@@ -11,8 +11,11 @@ import torch
 
 from repro_torch.configs.base import RunConfig
 from repro_torch.models import api as model_api
-from repro_torch.models import transformer
+from repro_torch.models import transformer, zamba
 from repro_torch.optim import adamw
+
+# each trainable family's loss over the train state's params
+LOSS_FNS = {"dense": transformer.loss_fn, "hybrid": zamba.loss_fn}
 
 
 def make_model(run: RunConfig, device=None):
@@ -31,10 +34,12 @@ def make_train_step(run: RunConfig):
     written into ``params`` and the moments in place (the counterpart of
     the reference's donated jit); the grads are freed before it returns.
     ``batch`` holds ``tokens`` and ``labels`` as tensors on the params'
-    device. Returns the step and the model's config (the reference returns
-    its model; here the weights live in the state)."""
+    device. The loss is the family's (``LOSS_FNS``). Returns the step and
+    the model's config (the reference returns its model; here the weights
+    live in the state)."""
     cfg = run.model
     transformer.check_trainable(cfg)
+    loss_fn = LOSS_FNS[cfg.family]
     opt_cfg = make_opt_cfg(run)
     seq_chunk = run.seq_chunk
 
@@ -43,7 +48,7 @@ def make_train_step(run: RunConfig):
         # the update below writes the state's tensors once it is freed
         leaves = {k: p.detach().requires_grad_(True)
                   for k, p in params.items()}
-        loss = transformer.loss_fn(cfg, leaves, batch, seq_chunk)
+        loss = loss_fn(cfg, leaves, batch, seq_chunk)
         grads = dict(zip(leaves, torch.autograd.grad(loss,
                                                      list(leaves.values()))))
         del leaves

@@ -1,5 +1,5 @@
 """Training entry point of the port (port of ``repro/launch/train.py``): any
-dense arch, any FT mode, on one device.
+dense or hybrid arch, any FT mode, on one device.
 
 ``build_workload`` wraps the train step as a ``TrainWorkload``;
 ``build_session`` pairs it with an ``FTSession``; ``build_trainer`` keeps
@@ -9,7 +9,8 @@ seeded by ``seed`` on the device (the reference's distribution, not its
 bits), or from the reference's own init (``init_params``, numpy leaves, as
 ``models.convert.params_from_jax`` takes them).
 
-Example (reduced qwen3-8b on the CPU, a promotion then a pair death):
+Example (reduced qwen3-8b on the CPU, a promotion then a pair death; the
+hybrid with ``--arch zamba2-7b``):
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
       --steps 10 --seq 32 --batch 4 --ft-mode combined --ckpt-interval 3 \\
       --ckpt-dir /tmp/ck --kill 3:0 --kill 6:8
@@ -129,7 +130,8 @@ def build_trainer(arch: Union[str, ModelConfig], *, reduced: bool = True,
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="qwen3-8b")
+    ap.add_argument("--arch", default="qwen3-8b",
+                    help="a dense or hybrid arch (qwen3-8b, zamba2-7b, ...)")
     ap.add_argument("--reduced", action="store_true", default=True)
     ap.add_argument("--full", dest="reduced", action="store_false")
     ap.add_argument("--steps", type=int, default=50)

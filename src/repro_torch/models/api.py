@@ -5,7 +5,7 @@ from __future__ import annotations
 from repro_torch.configs.base import ModelConfig
 
 # where each family not ported yet stands in ROADMAP.md's Queue 1
-_NOT_PORTED = {"moe": 6, "vlm": 7, "audio": 8, "ssm": 9}
+_NOT_PORTED = {"moe": 5, "vlm": 6, "audio": 7, "ssm": 8}
 
 
 def build_model(cfg: ModelConfig, *, device=None):

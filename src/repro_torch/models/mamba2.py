@@ -131,6 +131,22 @@ def mamba2_block(cfg: ModelConfig, prm, x, r=None):
     """Prefill of one block on the stream (x, r). Returns (x + r, out,
     state): the stream, this block's output (not yet added) and the state
     as ``mamba2_apply`` returns it."""
+    x, out, h_f, conv_state = _prefill(cfg, prm, x, r)
+    # a copy, so the state does not keep the whole padded input alive
+    return x, out, {"h": h_f, "conv": conv_state.to(x.dtype).clone()}
+
+
+def mamba2_branch(cfg: ModelConfig, prm, x, r=None):
+    """``mamba2_block`` without the state, for training: (x + r, out). The
+    loss never reads the final h or the conv state, so neither is kept and
+    no gradient reaches them."""
+    x, out, _, _ = _prefill(cfg, prm, x, r)
+    return x, out
+
+
+def _prefill(cfg: ModelConfig, prm, x, r):
+    """The block on (x, r): (x + r, out, the final h, the conv state as a
+    view of the padded input)."""
     bsz, s, _ = x.shape
     d_inner, nh, p, n = dims(cfg)
     chunk = min(cfg.ssm_chunk, s)
@@ -156,9 +172,7 @@ def mamba2_block(cfg: ModelConfig, prm, x, r=None):
                                   out_dtype=F32)
     y = y[:, :s] + xs.to(F32) * prm["d_skip"][None, None, :, None]
     y = y.reshape(bsz, s, d_inner).to(x.dtype)
-    out = _gate_out(cfg, prm, x, y, z)
-    # a copy, so the state does not keep the whole padded input alive
-    return x, out, {"h": h_f, "conv": conv_state.to(x.dtype).clone()}
+    return x, _gate_out(cfg, prm, x, y, z), h_f, conv_state
 
 
 def mamba2_decode(cfg: ModelConfig, prm, x, state: dict):

@@ -204,8 +204,8 @@ def loss_fn(cfg: ModelConfig, params: Dict[str, torch.Tensor], batch: dict,
 
 def check_trainable(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` naming the roadmap item unless the
-    port trains ``cfg``'s family (the dense one)."""
-    if cfg.family != "dense":
+    port trains ``cfg``'s family (the dense one and the hybrid)."""
+    if cfg.family not in ("dense", "hybrid"):
         raise NotImplementedError(_TRAIN_NOT_PORTED.get(
             cfg.family, f"training the {cfg.family!r} family is not "
                         f"ported"))
@@ -214,6 +214,6 @@ def check_trainable(cfg: ModelConfig) -> None:
 _TRAIN_NOT_PORTED = {
     "moe": "training MoE is not ported yet (ROADMAP.md, Queue 1 item 5)",
     "vlm": "training the VLM is not ported yet (ROADMAP.md, Queue 1 item 6)",
-    "hybrid": "training the hybrid (zamba2-7b, K3's backward) is the next "
-              "slice (ROADMAP.md, Queue 1)",
+    "audio": "training audio is not ported yet (ROADMAP.md, Queue 1 item 7)",
+    "ssm": "training the SSM is not ported yet (ROADMAP.md, Queue 1 item 8)",
 }

@@ -18,7 +18,14 @@ card), with a window only when the prompt is longer than it. Its cache is
 a ring of ``min(S, sliding_window)`` slots, as in the reference: for a
 prompt no longer than the window the first decode step overwrites the key
 of position 0 (ROADMAP.md, F3 — reference behaviour, kept for parity).
-Training (``backbone``, ``loss_fn``) comes with the training slice.
+
+Training differentiates ``loss_fn(cfg, params, batch)`` (module level, as
+the dense family's): it takes the train state's params (a flat dict under
+the state-dict names, nested by ``transformer.nest``), runs ``backbone``
+with the shared block at window 0 (full causal attention, the reference's
+``Zamba.loss_fn``) and the blocks without their serving state
+(``mamba2.mamba2_branch``). The shared block's weights are read once a
+group, so autograd sums their gradients over the groups.
 
 As in the dense model the residual stream is carried as (x, r), r being
 the last branch output not yet added: every norm that follows a residual
@@ -27,6 +34,8 @@ add (attention's two, each Mamba block's ``ln``, ``ln_f``) fuses the add
 """
 from __future__ import annotations
 
+from typing import Dict
+
 import torch
 from torch import nn
 
@@ -34,7 +43,7 @@ from repro_torch import device as device_lib
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models import mamba2 as M2
-from repro_torch.models.transformer import ParamTree
+from repro_torch.models.transformer import ParamTree, nest
 
 
 class Zamba(nn.Module):
@@ -106,8 +115,6 @@ class Zamba(nn.Module):
             out["mamba_tail"] = [state() for _ in self.mamba_tail]
         return out
 
-    
-
     def _mlp(self, x, h):
         """The shared block's MLP after attention's output h: returns the
         stream x + h and the MLP's output, not yet added."""
@@ -172,3 +179,38 @@ class Zamba(nn.Module):
                 new["mamba_tail"].append(st)
         _, x = L.add_rmsnorm(self.ln_f, x, r, cfg.norm_eps)
         return L.unembed(cfg, self.embed, x), new
+
+
+# -- train ------------------------------------------------------------------
+
+def backbone(cfg: ModelConfig, p: dict, x, positions):
+    """The reference's ``Zamba.backbone`` at window 0 on nested params
+    ``p``, through the same residual stream (x, r) and fused norms as
+    ``Zamba.prefill``: returns ``ln_f`` of the stream."""
+    n_groups = cfg.n_layers // cfg.attn_every
+    r = None
+    for g in range(n_groups):
+        x, h = L.add_rmsnorm(p["attn_ln"], x, r, cfg.norm_eps)
+        h, _ = L.attention_apply(cfg, p["attn"], h, positions, window=0)
+        x, h = L.add_rmsnorm(p["attn_mlp_ln"], x, h, cfg.norm_eps)
+        r = L.mlp_apply(p["attn_mlp"], h)
+        for j in range(cfg.attn_every):
+            x, r = M2.mamba2_branch(cfg, p["mamba"][str(g)][str(j)], x, r)
+    for i in range(cfg.n_layers % cfg.attn_every):
+        x, r = M2.mamba2_branch(cfg, p["mamba_tail"][str(i)], x, r)
+    _, x = L.add_rmsnorm(p["ln_f"], x, r, cfg.norm_eps)
+    return x
+
+
+def loss_fn(cfg: ModelConfig, params: Dict[str, torch.Tensor], batch: dict,
+            seq_chunk: int = 2048) -> torch.Tensor:
+    """The f32 mean LM loss of ``params`` (state-dict names) on ``batch``
+    (``tokens``, ``labels``: [B, S] integer tensors on the params' device):
+    the reference's ``Zamba.loss_fn`` (``zamba.py:96-104``), differentiable."""
+    p = nest(params)
+    tokens, labels = batch["tokens"], batch["labels"]
+    b, s = tokens.shape
+    positions = torch.arange(s, dtype=torch.int32,
+                             device=tokens.device).expand(b, s)
+    x = backbone(cfg, p, L.embed_lookup(p["embed"], tokens), positions)
+    return L.chunked_lm_loss(cfg, p["embed"], x, labels, seq_chunk)

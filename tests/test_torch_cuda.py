@@ -1,5 +1,5 @@
-"""The port on the card: each CUDA kernel (forward and, for K1 and K2,
-backward) against its plain PyTorch version, the kernel path of the
+"""The port on the card: each CUDA kernel (forward and backward) against
+its plain PyTorch version, the kernel path of the
 reduced model (serving and a train step) against its CPU path, and the
 in-memory checkpoint store and the recorder on card state.
 
@@ -13,7 +13,9 @@ Tolerances: f32 2e-5 (summation order only); bf16 rtol 2e-2 / atol 3e-2
 (one bf16 rounding of an f32 result; the bf16 attention kernel also
 rounds its softmax weights p to bf16 before the PV product) —
 ``tests/test_kernels.py``'s; the Mamba2 scan 3e-4 on f32 outputs (the
-chunked scan against the exact recurrence, that file's sweep tolerance).
+chunked scan against the exact recurrence, that file's sweep tolerance);
+its backward 3e-4 of each output's largest |plain| + 3e-4 |plain|, the
+bf16 tolerance on top for a bf16 output (``tests/test_torch_mamba_bwd.py``).
 """
 import dataclasses
 
@@ -27,12 +29,13 @@ from repro_torch.ft import FTSession
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_bwd)
-from repro_torch.kernels.mamba_scan import mamba_chunk_scan
+from repro_torch.kernels.mamba_scan import (mamba_chunk_scan,
+                                            mamba_chunk_scan_bwd)
 from repro_torch.kernels.rmsnorm import (add_rmsnorm, add_rmsnorm_bwd,
                                          rmsnorm, rmsnorm_bwd)
 from repro_torch.launch import train
 from repro_torch.launch.serve import ReplicatedServer
-from repro_torch.models import transformer
+from repro_torch.models import transformer, zamba
 from repro_torch.models.transformer import Transformer
 from repro_torch.models.zamba import Zamba
 from repro_torch.store.backend import MemBackend
@@ -598,6 +601,96 @@ def test_reduced_train_step_on_card_matches_cpu(cuda_device):
     torch.backends.cuda.matmul.allow_tf32 = False
     loss_c, g_c = grads("cpu")
     loss_g, g_g = grads("cuda")
+    torch.testing.assert_close(loss_g.cpu(), loss_c, rtol=1e-5, atol=1e-6)
+    for a, b in zip(g_g, g_c):
+        scale = float(b.abs().max())
+        assert float((a.cpu() - b).abs().max()) <= 1e-4 * scale + 1e-7
+    loss_2, g_2 = grads("cuda")
+    assert torch.equal(loss_2, loss_g)
+    assert all(torch.equal(a, b) for a, b in zip(g_2, g_g))
+
+
+def _scan_bwd_close(got, want):
+    """K3's backward tolerance, output by output (see the module doc)."""
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        w = w.float()
+        atol, rtol = 3e-4 * float(w.abs().max()), 3e-4
+        if g.dtype == torch.bfloat16:
+            atol, rtol = atol + ATOL["bfloat16"], rtol + RTOL["bfloat16"]
+        assert bool(((g.float() - w).abs() <= atol + rtol * w.abs()).all())
+
+
+@pytest.mark.parametrize("b,s,h,p,n,chunk,dh", [
+    (4, 512, 112, 64, 64, 128, False),   # zamba2-7b's train shape
+    (2, 256, 3, 64, 64, 64, True),
+    (2, 64, 4, 64, 16, 16, True),        # the reduced zamba2-7b
+    (1, 120, 5, 32, 8, 40, True),        # a ragged chunk, odd heads
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_mamba_scan_bwd_matches_plain(cuda_device, b, s, h, p, n, chunk, dh,
+                                      dtype):
+    x, bm, cm, dt, da = _mamba_inputs(cuda_device, b, s, h, p, n,
+                                      getattr(torch, dtype), seed=3)
+    gen = torch.Generator(device=cuda_device).manual_seed(4)
+    dy = torch.randn((b, s, h, p), generator=gen, device=cuda_device)
+    dhv = (torch.randn((b, h, p, n), generator=gen, device=cuda_device)
+           if dh else None)
+    before = mamba_chunk_scan_bwd.launches
+    got = mamba_chunk_scan_bwd(x, bm, cm, dt, da, dy, dhv, chunk=chunk)
+    assert mamba_chunk_scan_bwd.launches == before + 1
+    _scan_bwd_close(got, ref.mamba_chunk_scan_bwd_ref(x, bm, cm, dt, da, dy,
+                                                      dhv))
+    again = mamba_chunk_scan_bwd(x, bm, cm, dt, da, dy, dhv, chunk=chunk)
+    assert all(torch.equal(a, b_) for a, b_ in zip(got, again))
+
+
+def test_ops_route_scan_grads_through_the_backward_kernel(cuda_device):
+    """A CUDA scan that needs a gradient goes through
+    ``autograd.MambaChunkScan``: y has a grad_fn, the backward launches the
+    kernel once, and the gradients are the plain version's within the
+    tolerance; under ``no_grad`` the forward launches alone."""
+    args = _mamba_inputs(cuda_device, 2, 128, 3, 64, 16, torch.bfloat16,
+                         seed=5)
+    with torch.no_grad():
+        y, _ = ops.mamba_chunk_scan(*[t.clone().requires_grad_(True)
+                                      for t in args], chunk=64,
+                                    out_dtype=torch.float32)
+    assert y.grad_fn is None
+    leaves = [t.clone().requires_grad_(True) for t in args]
+    y, h = ops.mamba_chunk_scan(*leaves, chunk=64, out_dtype=torch.float32)
+    assert type(y.grad_fn).__name__ == "MambaChunkScanBackward"
+    dy = torch.randn_like(y)
+    before = mamba_chunk_scan_bwd.launches
+    got = torch.autograd.grad(y, leaves, dy)          # h unused: dh None
+    assert mamba_chunk_scan_bwd.launches == before + 1
+    _scan_bwd_close(got, ref.mamba_chunk_scan_bwd_ref(*args, dy))
+
+
+def test_reduced_hybrid_train_step_on_card_matches_cpu(cuda_device):
+    """The reduced zamba2-7b in f32: loss and every gradient through the
+    kernels (K1, K2, K3 forward and backward) on the card against the
+    plain path on the CPU, from the same weights; a rerun on the card is
+    bitwise."""
+    cfg = dataclasses.replace(get_arch("zamba2-7b").reduced(),
+                              dtype="float32")
+    params = train.init_params(cfg, 0, "cpu")
+    rng = np.random.default_rng(0)
+    batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 64),
+                                              dtype=np.int32))
+             for k in ("tokens", "labels")}
+
+    def grads(device):
+        leaves = {k: v.to(device).requires_grad_(True)
+                  for k, v in params.items()}
+        loss = zamba.loss_fn(cfg, leaves, {
+            k: v.to(device) for k, v in batch.items()}, seq_chunk=64)
+        return loss, torch.autograd.grad(loss, list(leaves.values()))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    loss_c, g_c = grads("cpu")
+    before = mamba_chunk_scan_bwd.launches
+    loss_g, g_g = grads("cuda")
+    assert mamba_chunk_scan_bwd.launches == before + cfg.n_layers
     torch.testing.assert_close(loss_g.cpu(), loss_c, rtol=1e-5, atol=1e-6)
     for a, b in zip(g_g, g_c):
         scale = float(b.abs().max())

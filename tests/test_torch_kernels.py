@@ -715,7 +715,8 @@ def test_row_view_rejects_what_the_kernel_cannot_address():
 
 def test_build_keys_library_on_source_and_flags(monkeypatch, tmp_path):
     assert build.sources() == ["flash_attention", "flash_attention_bwd",
-                               "mamba_scan", "rmsnorm", "rmsnorm_bwd"]
+                               "mamba_scan", "mamba_scan_bwd", "rmsnorm",
+                               "rmsnorm_bwd"]
     assert build.headers() == ["hopper_tc.cuh"]
     a = build.library_path("rmsnorm")
     assert a.name.startswith("rmsnorm-") and a.suffix == ".so"

@@ -155,8 +155,11 @@ def test_loss_and_every_gradient_match(dtype, tol, monkeypatch):
 
 
 def test_families_without_a_train_port_raise():
-    for arch, item in (("zamba2-7b", "next slice"),
-                       ("mixtral-8x7b", "item 5")):
+    """Each names its item of ROADMAP.md's Queue 1 (the hybrid trains:
+    ``tests/test_torch_zamba_train.py``)."""
+    for arch, item in (("mixtral-8x7b", "item 5"),
+                       ("llama-3.2-vision-11b", "item 6"),
+                       ("whisper-tiny", "item 7"), ("xlstm-350m", "item 8")):
         cfg = get_arch(arch).reduced()
         run = RunConfig(model=cfg, shape=ShapeConfig("t", seq_len=8,
                                                     global_batch=1,

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Check the Mamba2 SSD scan kernel (K3) on the card, alone.
 
-    python3 tools/k3_check.py
+    python3 tools/k3_check.py [--backward]
 
 Builds ``kernels/csrc/mamba_scan.cu``, prints what ptxas reported for each
 entry function, then for a sweep of bf16 shapes holds y (f32) and the final
@@ -16,10 +16,20 @@ kernel (on the same values in f32) use against the plain recurrence and
 against the chunked scan computed in float64, then the maximum over the
 draws. Last it times the bf16 kernel as ``chip_smoke.py`` does. One JSON
 object a line.
+
+With ``--backward`` it checks the backward kernels
+(``kernels/csrc/mamba_scan_bwd.cu``) alone: their ptxas lines, the cases of
+``chip_smoke.py``'s train.kernels phase against autograd of the plain
+version (each output's share of the backward's tolerance, reruns bitwise),
+a sweep of draws at zamba2-7b's train shape (x [4, 512, 112, 64] bf16 as
+views of the conv output, N 64, chunk 128, dy f32) with each output's
+share and the maximum over the draws, then the CUDA-event time beside the
+bound and the plain version, and the device time of each of its three
+launches (state pass, chunk pass, reduce) from a profiler trace.
 """
 from __future__ import annotations
 
-import json
+import argparse
 import os
 import sys
 
@@ -31,7 +41,8 @@ import torch  # noqa: E402
 
 import chip_smoke as cs  # noqa: E402
 from repro_torch.kernels import build, ref  # noqa: E402
-from repro_torch.kernels.mamba_scan import mamba_chunk_scan  # noqa: E402
+from repro_torch.kernels.mamba_scan import (  # noqa: E402
+    mamba_chunk_scan, mamba_chunk_scan_bwd)
 
 BF, F32, F64 = torch.bfloat16, torch.float32, torch.float64
 SERVE = (4, 512, 112, 64, 64, 128)        # b, s, h, p, n, chunk
@@ -99,10 +110,80 @@ def serve_sweep():
              "max_share_y_h": worst})
 
 
+BWD_NAMES = ("dx", "db", "dc", "ddt", "dda")
+BWD_DRAWS = 8                             # train-shape draws of the sweep
+
+
+def bwd_shares(got, want):
+    """Each output's share of the backward's tolerance."""
+    out = {}
+    for name, g, w in zip(BWD_NAMES, got, want):
+        atol, rtol = cs.scan_bwd_tol(w, g.dtype)
+        out[name] = float(((g.float() - w.float()).abs()
+                           / (atol + rtol * w.float().abs())).max())
+    return out
+
+
+def backward() -> int:
+    sys.path.insert(0, os.path.join(ROOT, "tools"))
+    from k2_bwd_check import kernel_split
+    card = cs.card()
+    build.build_all(["mamba_scan", "mamba_scan_bwd"])
+    for row in cs.ptxas_report("mamba_scan_bwd"):
+        cs.emit(row)
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    for shape, chunk, dtype, dy_dtype, with_dh, fused in cs._k3_bwd_cases():
+        b, s, h, p, n = shape
+        x, bm, cm, dt, da = cs._scan_inputs(gen, *shape, dtype, fused)
+        dy = cs._rand(gen, (b, s, h, p), dy_dtype)
+        dh = cs._rand(gen, (b, h, p, n), F32) if with_dh else None
+        got = mamba_chunk_scan_bwd(x, bm, cm, dt, da, dy, dh, chunk=chunk)
+        want = ref.mamba_chunk_scan_bwd_ref(x, bm, cm, dt, da, dy, dh)
+        again = mamba_chunk_scan_bwd(x, bm, cm, dt, da, dy, dh, chunk=chunk)
+        cs.emit({"case": list(shape), "chunk": chunk,
+                 "dtype": str(dtype)[6:], "dy": str(dy_dtype)[6:],
+                 "dh": with_dh, "fused": fused,
+                 "share_of_tolerance": bwd_shares(got, want),
+                 "reruns_bitwise": all(torch.equal(a, b_)
+                                       for a, b_ in zip(got, again))})
+        del x, bm, cm, dt, da, dy, dh, got, want, again
+        torch.cuda.empty_cache()
+    _, nh, p, n = cs.mamba2.dims(cs.ZAMBA)
+    T = cs.ZAMBA.ssm_chunk
+    worst = dict.fromkeys(BWD_NAMES, 0.0)
+    for seed in range(BWD_DRAWS):
+        g = torch.Generator(device="cuda").manual_seed(100 + seed)
+        args = cs._scan_inputs(g, cs.B, cs.S, nh, p, n, BF, fused=True)
+        dy = cs._rand(g, (cs.B, cs.S, nh, p), F32)
+        got = mamba_chunk_scan_bwd(*args, dy, chunk=T)
+        share = bwd_shares(got, ref.mamba_chunk_scan_bwd_ref(*args, dy))
+        worst = {k: max(v, share[k]) for k, v in worst.items()}
+        cs.emit({"draw": 100 + seed, "share_of_tolerance": share})
+        del args, dy, got
+        torch.cuda.empty_cache()
+    cs.emit({"sweep": "train", "shape": [cs.B, cs.S, nh, p], "n": n,
+             "chunk": T, "draws": BWD_DRAWS, "max_share": worst})
+    flush = cs._L2Flush()
+    row = cs._scan_bwd_times(card, gen, flush)
+    x, bm, cm, dt, da = cs._scan_inputs(gen, cs.B, cs.S, nh, p, n, BF,
+                                        fused=True)
+    dy = cs._rand(gen, (cs.B, cs.S, nh, p), F32)
+    cs.emit({"time": "mamba_scan_bwd", "ms": row["ms"],
+             "kernels_ms": kernel_split(lambda: mamba_chunk_scan_bwd(
+                 x, bm, cm, dt, da, dy, chunk=T)), "card": card})
+    return 0
+
+
 def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--backward", action="store_true",
+                    help="check and time the backward kernels instead")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         print("k3_check: needs an NVIDIA GPU", file=sys.stderr)
         return 1
+    if args.backward:
+        return backward()
     build.build_all(["mamba_scan"])
     for row in cs.ptxas_report("mamba_scan"):
         cs.emit(row)
