@@ -71,7 +71,8 @@ Phases (each a function; any failure exits non-zero):
      at d 128, 3584, 4096 and zamba2-7b's out_norm at 7168), K2
      (``flash_attention_bwd``: bf16 on the tensor cores, reading the
      forward's logsumexp; f32 on FMAs) and K3 (``mamba_scan_bwd``: a state
-     pass, a chunk pass and a reduce, f32 FMAs; at zamba2-7b's train shape
+     pass, a chunk pass and a reduce; bf16 on the tensor cores, f32 on
+     FMAs, every entry in the ptxas gate; at zamba2-7b's train shape
      with x, B, C as views of the conv output, chunk 64, the reduced
      config's P 64 / N 16 / chunk 16 and a ragged head count) against
      autograd of their plain versions at the train shapes and the other
@@ -1282,6 +1283,35 @@ def time_ms(fn, flush, reps=25, warmup=3):
     return statistics.median(times)
 
 
+def kernel_split(fn, calls=10):
+    """Mean device ms of one launch of each CUDA kernel that ``fn``
+    launches (each once a call), over the launches that a
+    ``torch.profiler`` trace of ``calls`` calls holds: a trace can miss
+    some launches of kernels started through ctypes, so the mean is taken
+    per launch seen, not per call (empty if the trace has no device
+    time)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    total, seen = {}, {}
+    for ev in prof.key_averages():
+        us = getattr(ev, "device_time_total", None)
+        if us is None:
+            us = getattr(ev, "cuda_time_total", 0.0)
+        if us > 0:   # "void ns::name<args>(params)" -> "name<args>"
+            head = ev.key.replace("(anonymous namespace)::", "")
+            head = head.split("(")[0]
+            base = head.split("<")[0].split("::")[-1].split()[-1]
+            name = (base + head[len(head.split("<")[0]):])[:60]
+            total[name] = total.get(name, 0.0) + us
+            seen[name] = seen.get(name, 0) + ev.count
+    return {name: total[name] / seen[name] / 1e3 for name in total}
+
+
 def bound(n_bytes, n_ops, dtype=torch.bfloat16):
     """Least time (ms) for work that moves ``n_bytes`` once and does
     ``n_ops`` operations of ``dtype`` (bf16 on the tensor cores, f32 on
@@ -1547,6 +1577,10 @@ def phase_times_zamba(state):
 BWD_KERNELS = {"rmsnorm_bwd": rmsnorm_bwd, "add_rmsnorm_bwd": add_rmsnorm_bwd,
                "flash_attention_bwd": flash_attention_bwd,
                "mamba_scan_bwd": mamba_chunk_scan_bwd}
+# K3's backward: the launches of each route (csrc/mamba_scan_bwd.cu)
+SCAN_BWD_ROUTES = {
+    "bfloat16": ["scan_bwd_tc_states", "scan_bwd_tc_chunks", "scan_bwd_reduce"],
+    "float32": ["scan_bwd_states", "scan_bwd_chunks", "scan_bwd_reduce"]}
 
 
 def _k1_bwd_cases(gen, dtype):
@@ -1727,6 +1761,13 @@ def phase_train_kernels(state):
                    row["spills"])]
     if spilled:
         raise AssertionError(f"ptxas spilled in a backward kernel: {spilled}")
+    reported = [row["function"] for row in ptxas if "function" in row]
+    unreported = [entry for route in SCAN_BWD_ROUTES.values()
+                  for entry in route
+                  if not any(f"::{entry}(" in f or f.startswith(f"{entry}(")
+                             for f in reported)]
+    if unreported:
+        raise AssertionError(f"no ptxas line for {unreported}")
     times = _train_kernel_times(card_name, gen)
     state["train_kernels"] = {"worst": worst, "times": times}
     emit({"phase": "train.kernels", "checks": checks,
@@ -1831,10 +1872,34 @@ def _train_kernel_times(card_name, gen):
     return rows
 
 
+def scan_bwd_tc_macs(b, s, h, chunk):
+    """Multiply-adds that the bf16 backward's wgmma passes issue (whole
+    tiles, as the kernels loop). Per chunk, warpgroup r of
+    scan_bwd_tc_chunks (if 64 r < chunk) runs B G^T and x G (2 passes
+    each) and dy h (3) on 64 x 64 x 64 tiles, then on each causal
+    32-column block (t >= 64 r in pass A, s < 64 (r + 1) in pass B) S^T or
+    S (1 pass) and D^T or D (2) on 64 x 32 x 64 and dx's SE^T dy (3) and
+    dB's K^T C (2), or dC's K B (2), on 64 x 64 x 32; scan_bwd_tc_states
+    runs 2 passes of 64 x 64 x 128 a chunk and direction."""
+    blocks = -(-chunk // 32)
+    macs = 0
+    for r in range(2):
+        if 64 * r >= chunk:
+            continue
+        macs += (2 + 2 + 3) * 64 * 64 * 64
+        macs += (blocks - 2 * r) * (3 * 64 * 32 * 64 + 5 * 64 * 64 * 32)
+        macs += min(2 * r + 2, blocks) * (3 * 64 * 32 * 64 + 2 * 64 * 64 * 32)
+    macs += 2 * 2 * 64 * 64 * 128
+    return macs * (s // chunk) * b * h
+
+
 def _scan_bwd_times(card_name, gen, flush):
     """K3's backward at zamba2-7b's train shape as the model calls it
     (bf16 x, B, C views of the conv output, f32 dt, da and dy, the final h
-    unused), beside its plain version and its bound."""
+    unused), beside its plain version and its bound: by bytes (the bf16
+    tensor-core kernels' operands), with the FP32-pipe bound of the same
+    causal products, the TFLOP/s of the wgmma passes issued and the device
+    time of each launch."""
     _, nh, p, n = mamba2.dims(ZAMBA)
     T = ZAMBA.ssm_chunk
     x, bm, cm, dt, da = _scan_inputs(gen, B, S, nh, p, n, torch.bfloat16,
@@ -1843,20 +1908,26 @@ def _scan_bwd_times(card_name, gen, flush):
     pairs = T * (T + 1) // 2                     # causal (t, s) pairs
     # per (batch, head, chunk): the causal products C B^T, dy x^T, SE^T dy,
     # K^T C, K B (3 N + 2 P a pair) and five T x P x N ones (h_k, G_k,
-    # G B, x^T G, dy^T h), 2 flops a multiply-add, all f32
+    # G B, x^T G, dy^T h), 2 flops a multiply-add
     per_chunk = 2 * (pairs * (3 * n + 2 * p) + 5 * T * p * n)
+    flops = per_chunk * (S // T) * B * nh
     n_bytes = (2 * x.numel() * 2 + 2 * 2 * bm.numel() * 2   # x, B, C, dx,
                + 4 * dt.numel() * 4                          # dB, dC; dt,
                + dy.numel() * 4)                             # da, ddt, dda
+
+    def call():
+        return mamba_chunk_scan_bwd(x, bm, cm, dt, da, dy, chunk=T)
+    ms = time_ms(call, flush)
     row = {"kernel": "mamba_scan_bwd", "shape": list(x.shape), "n": n,
-           "chunk": T,
-           "ms": time_ms(lambda: mamba_chunk_scan_bwd(
-               x, bm, cm, dt, da, dy, chunk=T), flush),
+           "chunk": T, "ms": ms,
            "plain_ms": time_ms(lambda: ref.mamba_chunk_scan_bwd_ref(
                x, bm, cm, dt, da, dy), flush, reps=5, warmup=1),
            # no single PyTorch call computes the SSD scan's gradient
            "library_ms": None,
-           **bound(n_bytes, per_chunk * (S // T) * B * nh, torch.float32)}
+           **bound(n_bytes, flops, torch.bfloat16),
+           "bound_fp32_ms": bound(n_bytes, flops, torch.float32)["bound_ms"],
+           "wgmma_tflops": 2 * scan_bwd_tc_macs(B, S, nh, T) / ms / 1e9,
+           "kernels_ms": kernel_split(call)}
     emit({"time": "mamba_scan_bwd", **row, "card": card_name})
     return row
 
@@ -2209,7 +2280,8 @@ def _backward_rows(state):
          "launches": launches["mamba_scan_bwd"],
          "max_abs_err": worst["mamba_scan_bwd"],
          **{key: times["scan"][key] for key in TIMED},
-         "shape": times["scan"]["shape"]}]
+         "shape": times["scan"]["shape"], "routes": SCAN_BWD_ROUTES,
+         "kernels_ms": times["scan"]["kernels_ms"]}]
 
 
 def main() -> int:

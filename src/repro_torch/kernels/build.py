@@ -9,12 +9,13 @@ header is rebuilt and an unchanged one is loaded from ``build/kernels/``
 (listed in ``.gitignore``) at the root of the checkout. ``build_all``
 starts one ``nvcc`` per source at once and waits for all of them;
 ``build_log`` returns what ``ptxas`` reported (registers, shared memory,
-spills).
+spills). ``use_source`` builds one kernel from another directory instead
+(another version of its source, for an A/B timing in a process of its
+own).
 """
 from __future__ import annotations
 
 import ctypes
-import functools
 import hashlib
 import os
 import shutil
@@ -28,9 +29,32 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 
+_SOURCE_DIRS: Dict[str, Path] = {}      # name -> directory, by use_source
+_LIBS: Dict[str, ctypes.CDLL] = {}
+
+
 def sources() -> List[str]:
     """Kernel names: one per ``csrc/<name>.cu``."""
     return sorted(p.stem for p in CSRC.glob("*.cu"))
+
+
+def source_dir(name: str) -> Path:
+    """The directory kernel ``name`` is built from: ``csrc/`` unless
+    ``use_source`` named another."""
+    return _SOURCE_DIRS.get(name, CSRC)
+
+
+def use_source(name: str, directory) -> Path:
+    """Build kernel ``name`` from ``directory/<name>.cu`` (with the headers
+    it includes beside it) and bind every later ``load_function(name,
+    ...)`` of this process to that library; every other kernel stays the
+    tree's. Must come before the kernel's first load: two libraries with
+    the same symbols in one process interfere. Returns the library."""
+    if name in _LIBS:
+        raise RuntimeError(f"{name} is already loaded from "
+                           f"{source_dir(name)}")
+    _SOURCE_DIRS[name] = Path(directory).resolve()
+    return build_all([name])[name]
 
 
 def _nvcc() -> str:
@@ -44,15 +68,16 @@ def _nvcc() -> str:
                        "machine with the CUDA toolkit")
 
 
-def headers() -> List[str]:
-    """The shared headers: every ``csrc/*.cuh``."""
-    return sorted(p.name for p in CSRC.glob("*.cuh"))
+def headers(directory: Path = None) -> List[str]:
+    """The shared headers: every ``*.cuh`` of ``directory`` (``csrc/``)."""
+    return sorted(p.name for p in (directory or CSRC).glob("*.cuh"))
 
 
 def library_path(name: str) -> Path:
-    key = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
-    for h in headers():
-        key.update(h.encode() + (CSRC / h).read_bytes())
+    src = source_dir(name)
+    key = hashlib.sha256((src / f"{name}.cu").read_bytes())
+    for h in headers(src):
+        key.update(h.encode() + (src / h).read_bytes())
     key.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{key.hexdigest()[:16]}.so"
 
@@ -65,7 +90,8 @@ def _start(name: str):
         return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = target.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+           str(source_dir(name) / f"{name}.cu")]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
     return target, tmp, proc
@@ -98,10 +124,10 @@ def build_log(name: str) -> str:
     return log.read_text() if log.exists() else ""
 
 
-@functools.lru_cache(maxsize=None)
 def _load(name: str) -> ctypes.CDLL:
-    path = build_all([name])[name]
-    return ctypes.CDLL(str(path))
+    if name not in _LIBS:
+        _LIBS[name] = ctypes.CDLL(str(build_all([name])[name]))
+    return _LIBS[name]
 
 
 def load_function(name: str, symbol: str, argtypes: Sequence,

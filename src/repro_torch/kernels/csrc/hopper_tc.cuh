@@ -1,6 +1,6 @@
-// Hopper (sm_90a) building blocks shared by the tensor-core attention
-// kernels: flash_fwd_tc (flash_attention.cu) and flash_bwd_*_tc
-// (flash_attention_bwd.cu).
+// Hopper (sm_90a) building blocks shared by the tensor-core kernels:
+// flash_fwd_tc (flash_attention.cu), flash_bwd_*_tc (flash_attention_bwd.cu)
+// and scan_bwd_tc_* (mamba_scan_bwd.cu).
 //
 // * mbarriers: init, arrive, arrive with an expected byte count, and a
 //   parity wait;
@@ -9,9 +9,11 @@
 //   completing on an mbarrier; the tensor maps are encoded on the host
 //   with cuTensorMapEncodeTiled, taken from the driver through
 //   cudaGetDriverEntryPoint (no link to libcuda);
-// * wgmma: descriptors of 128-byte-swizzled shared-memory operands, the
+// * wgmma: descriptors of 128-byte-swizzled shared-memory operands (and of
+//   one k-step of a K-major or an MN-major 64-wide tile), the
 //   fence / commit / wait trio, S (+)= A B^T with both operands K-major in
-//   shared memory (m64n64k16 and m64n32k16), and O += P V with P a bf16
+//   shared memory (m64n64k16 and m64n32k16), D (+)= A B with A K-major and
+//   B MN-major in shared memory (m64n64k16), and O += P V with P a bf16
 //   register A fragment and V MN-major in shared memory (m64n64k16 and
 //   m64n128k16).
 //
@@ -135,6 +137,18 @@ __device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
          (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
 }
 
+// A K-major operand (rows along M or N, K along the swizzled rows): k-step
+// kk starts 32 bytes further along the rows.
+__device__ __forceinline__ uint64_t kmajor(uint32_t tile, int kk) {
+  return sw128_desc(tile + kk * 32, 16, kAtomBytes);
+}
+
+// An MN-major operand (rows along K, 64 columns along M or N): k-step kk
+// starts 16 rows (two swizzle atoms) further down.
+__device__ __forceinline__ uint64_t mnmajor(uint32_t tile, int kk) {
+  return sw128_desc(tile + kk * 2 * kAtomBytes, kBoxBytes, kAtomBytes);
+}
+
 __device__ __forceinline__ void wg_fence() {
   asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
 }
@@ -185,6 +199,23 @@ __device__ __forceinline__ void wgmma_qk32(float (&d)[16], uint64_t da,
       "%15}, %16, %17, p, 1, 1, 0, 0;\n"
       "}\n"
       : FA_D8(0), FA_D8(8)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// D[64 x 64] (+)= A[64 x 16] B[16 x 64]: A K-major, B MN-major (transposed),
+// both in shared memory.
+__device__ __forceinline__ void wgmma_ss_mn(float (&d)[32], uint64_t da,
+                                            uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 1;\n"
+      "}\n"
+      : FA_D8(0), FA_D8(8), FA_D8(16), FA_D8(24)
       : "l"(da), "l"(db), "r"(accumulate));
 }
 
@@ -243,6 +274,11 @@ __device__ __forceinline__ float ex2(float x) {
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// v rounded to the nearest bf16, as a float.
+__device__ __forceinline__ float bf16_round(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
 }
 
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType,

@@ -6,7 +6,7 @@ mamba_chunk_scan``. At the zamba2-7b prefill shape its least time on the
 H100 is set by memory traffic (x, B, C, dt, da read once, y and the final
 state written once: ~98 MB, ~29 us). The C entry point routes by dtype:
 bf16 x, B, C go to a tensor-core kernel (TMA copies, ``wgmma`` for all
-four products, every f32 operand split into two bf16 terms), f32 to a
+four products, every f32 operand split into three bf16 terms), f32 to a
 kernel of f32 FMAs (see the source for both designs). It reads its inputs
 through their strides, so the model's split views of the conv output go in
 without a copy; for bf16 the strides must suit the TMA
@@ -16,7 +16,11 @@ CPU tensors to ``ref.mamba_chunk_scan_ref``.
 
 ``mamba_chunk_scan_bwd`` wraps the backward kernels ``csrc/mamba_scan_bwd.cu``
 (no TPU counterpart: the JAX package differentiates its jnp model), which
-``autograd.MambaChunkScan`` calls when a CUDA call needs a gradient.
+``autograd.MambaChunkScan`` calls when a CUDA call needs a gradient. It
+routes by dtype as the forward does: bf16 to the tensor-core kernels
+(``scan_bwd_tc_states``, ``scan_bwd_tc_chunks``), f32 to the FMA kernels
+(``scan_bwd_states``, ``scan_bwd_chunks``); both end with
+``scan_bwd_reduce``.
 """
 from __future__ import annotations
 
@@ -160,7 +164,12 @@ def mamba_chunk_scan_bwd(x: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
     (f32 [B, H, P, N] contiguous; None: zero). x, b, c, dt, da as the
     forward takes them. Returns (dx in x's dtype, db and dc in b's dtype,
     ddt and dda in f32), new contiguous tensors; the chunk states are
-    recomputed (three launches, no atomics, bitwise reruns)."""
+    recomputed (three launches, no atomics, bitwise reruns). bf16 x, b, c
+    go to the tensor-core kernels (every f32 operand split into two bf16
+    terms), f32 to the FMA kernels; for bf16 the layout rule is the
+    forward's (:func:`tma_ready`: the kernels read x, b, c 16 bytes at a
+    time), and an input that fails it is first copied into one that
+    meets it."""
     what = "mamba scan backward kernel"
     bsz, s, h, p, n = _check(what, x, b, c, dt, da, chunk)
     dev = x.device
@@ -170,6 +179,8 @@ def mamba_chunk_scan_bwd(x: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
                          f"{dev} in float32 or {x.dtype}, got "
                          f"{tuple(dy.shape)} {dy.dtype} on {dy.device}")
     _check_last_dim("dy", dy)
+    if x.dtype == torch.bfloat16:
+        x, b, c = (t if tma_ready(t) else _tma_copy(t) for t in (x, b, c))
     if dh is not None and (dh.device != dev or dh.dtype != torch.float32
                            or dh.shape != (bsz, h, p, n)
                            or not dh.is_contiguous()):

@@ -645,6 +645,28 @@ def test_mamba_scan_bwd_matches_plain(cuda_device, b, s, h, p, n, chunk, dh,
     assert all(torch.equal(a, b_) for a, b_ in zip(got, again))
 
 
+@pytest.mark.parametrize("dtype,tensor_cores", [("bfloat16", True),
+                                                ("float32", False)])
+def test_mamba_scan_bwd_routes_by_dtype(cuda_device, dtype, tensor_cores):
+    """bf16 runs the tensor-core backward (``scan_bwd_tc_states``,
+    ``scan_bwd_tc_chunks``), f32 the FMA kernels (``scan_bwd_states``,
+    ``scan_bwd_chunks``); both end with ``scan_bwd_reduce``."""
+    x, bm, cm, dt, da = _mamba_inputs(cuda_device, 1, 128, 2, 64, 64,
+                                      getattr(torch, dtype))
+    dy = torch.randn((1, 128, 2, 64), device=cuda_device)
+
+    def calls():   # a trace can miss a launch made through ctypes
+        for _ in range(4):
+            mamba_chunk_scan_bwd(x, bm, cm, dt, da, dy, chunk=64)
+    calls()
+    names = {nm.replace("(anonymous namespace)::", "").split("(")[0]
+             .split("::")[-1] for nm in _cuda_kernels(calls)
+             if "scan_bwd" in nm}
+    want = ({"scan_bwd_tc_states", "scan_bwd_tc_chunks"} if tensor_cores
+            else {"scan_bwd_states", "scan_bwd_chunks"})
+    assert names == want | {"scan_bwd_reduce"}, names
+
+
 def test_ops_route_scan_grads_through_the_backward_kernel(cuda_device):
     """A CUDA scan that needs a gradient goes through
     ``autograd.MambaChunkScan``: y has a grad_fn, the backward launches the

@@ -733,6 +733,32 @@ def test_build_keys_library_on_source_and_flags(monkeypatch, tmp_path):
     assert all(before[n] != after[n] for n in before)
 
 
+def test_build_use_source_moves_one_kernel(monkeypatch, tmp_path):
+    # another version of one source builds from its own directory; the
+    # other kernels keep the tree's libraries
+    monkeypatch.setattr(build, "_SOURCE_DIRS", {})
+    monkeypatch.setattr(build, "_LIBS", {})
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "libs")
+    other = tmp_path / "parent"
+    other.mkdir()
+    for f in build.CSRC.iterdir():
+        (other / f.name).write_bytes(f.read_bytes())
+    with open(other / "mamba_scan_bwd.cu", "a") as f:
+        f.write("// the parent's\n")
+    tree = {n: build.library_path(n) for n in build.sources()}
+    monkeypatch.setattr(build, "_start", lambda name: None)   # no nvcc here
+    lib = build.use_source("mamba_scan_bwd", other)
+    assert build.source_dir("mamba_scan_bwd") == other.resolve()
+    assert lib == build.library_path("mamba_scan_bwd")
+    assert lib != tree["mamba_scan_bwd"]
+    assert all(build.library_path(n) == tree[n] for n in tree
+               if n != "mamba_scan_bwd")
+    assert build.source_dir("rmsnorm") == build.CSRC
+    build._LIBS["rmsnorm"] = None           # loaded: too late to move it
+    with pytest.raises(RuntimeError, match="already loaded"):
+        build.use_source("rmsnorm", other)
+
+
 def test_build_without_nvcc_raises(monkeypatch):
     monkeypatch.setattr(build.shutil, "which", lambda _: None)
     monkeypatch.setattr(build.os.path, "exists", lambda _: False)

@@ -137,7 +137,7 @@ def backward_fn():
     """(dy, x, ds, w, eps) -> (dx, dw) of the built rmsnorm_bwd library:
     the tree's wrappers, or for the earlier source its C entry with the
     earlier scratch (float64 partials of rows_per_chunk rows, then rstd)."""
-    if b"rmsnorm_bwd_scratch_bytes" in (build.CSRC /
+    if b"rmsnorm_bwd_scratch_bytes" in (build.source_dir("rmsnorm_bwd") /
                                         "rmsnorm_bwd.cu").read_bytes():
         return lambda dy, x, ds, w, eps: (
             rn.rmsnorm_bwd(dy, x, w, eps=eps) if ds is None
@@ -222,7 +222,8 @@ def main() -> int:
         return 1
     source = "src/repro_torch/kernels/csrc"
     if args.csrc:
-        build.CSRC = Path(args.csrc).resolve()
+        build.use_source("rmsnorm_bwd" if args.backward else "rmsnorm",
+                         args.csrc)
         source = args.csrc
     card = cs.card()
     if args.backward:
@@ -230,7 +231,8 @@ def main() -> int:
                       torch.Generator(device="cuda").manual_seed(5), source)
         return 0
     build.build_all(["rmsnorm"])
-    fused = b"add_rmsnorm_fwd" in (build.CSRC / "rmsnorm.cu").read_bytes()
+    fused = b"add_rmsnorm_fwd" in (build.source_dir("rmsnorm")
+                                   / "rmsnorm.cu").read_bytes()
     flush = cs._L2Flush()
     gen = torch.Generator(device="cuda").manual_seed(5)
     for row, calls in k1_calls(gen, fused).items():

@@ -26,7 +26,6 @@ import argparse
 import ctypes
 import os
 import sys
-from pathlib import Path
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
@@ -80,31 +79,6 @@ def backward_fn(reads_lse):
     return old
 
 
-def kernel_split(fn, calls=10):
-    """Mean device ms a call of each CUDA kernel that ``fn`` launches,
-    from a ``torch.profiler`` trace (empty if the trace has no device
-    time)."""
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    out = {}
-    for ev in prof.key_averages():
-        us = getattr(ev, "device_time_total", None)
-        if us is None:
-            us = getattr(ev, "cuda_time_total", 0.0)
-        if us > 0:   # "void ns::name<args>(params)" -> "name<args>"
-            head = ev.key.replace("(anonymous namespace)::", "")
-            head = head.split("(")[0]
-            base = head.split("<")[0].split("::")[-1].split()[-1]
-            name = (base + head[len(head.split("<")[0]):])[:60]
-            out[name] = out.get(name, 0.0) + us / calls / 1e3
-    return out
-
-
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--csrc", help="directory holding another "
@@ -117,15 +91,13 @@ def main() -> int:
     # as chip_smoke.py runs: no fill of uninitialised memory under the
     # deterministic switch (it would add fill kernels to SDPA's time)
     torch.utils.deterministic.fill_uninitialized_memory = False
-    build.build_all(["flash_attention"])
-    fa.flash_attention(*(torch.zeros(1, 1, 64, 64, dtype=BF, device="cuda")
-                         for _ in range(3)))        # loads the tree's forward
     source = "src/repro_torch/kernels/csrc"
     if args.csrc:
-        build.CSRC = Path(args.csrc).resolve()
+        build.use_source("flash_attention_bwd", args.csrc)
         source = args.csrc
     build.build_all(["flash_attention_bwd"])
-    text = (build.CSRC / "flash_attention_bwd.cu").read_text()
+    text = (build.source_dir("flash_attention_bwd")
+            / "flash_attention_bwd.cu").read_text()
     reads_lse = "const void* lse" in text
     bwd = backward_fn(reads_lse)
     for row in cs.ptxas_report("flash_attention_bwd"):
@@ -161,7 +133,8 @@ def main() -> int:
                  "share_of_tolerance": {"dq": shares[0], "dk": shares[1],
                                         "dv": shares[2]},
                  "reruns_bitwise": bitwise,
-                 "kernels_ms": kernel_split(lambda: bwd(q, k, v, o, do, lse)),
+                 "kernels_ms": cs.kernel_split(
+                     lambda: bwd(q, k, v, o, do, lse)),
                  "card": card})
         del q, k, v, do, o, lse, got
         torch.cuda.empty_cache()

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Check the Mamba2 SSD scan kernel (K3) on the card, alone.
 
-    python3 tools/k3_check.py [--backward]
+    python3 tools/k3_check.py [--backward [--csrc DIR]]
 
 Builds ``kernels/csrc/mamba_scan.cu``, prints what ptxas reported for each
 entry function, then for a sweep of bf16 shapes holds y (f32) and the final
@@ -25,7 +25,16 @@ a sweep of draws at zamba2-7b's train shape (x [4, 512, 112, 64] bf16 as
 views of the conv output, N 64, chunk 128, dy f32) with each output's
 share and the maximum over the draws, then the CUDA-event time beside the
 bound and the plain version, and the device time of each of its three
-launches (state pass, chunk pass, reduce) from a profiler trace.
+launches (state pass, chunk pass, reduce; for bf16 the tensor-core
+``scan_bwd_tc_states`` and ``scan_bwd_tc_chunks``) from a profiler trace.
+``--csrc DIR`` builds the backward from ``DIR/mamba_scan_bwd.cu`` instead
+(another version of the source, such as the parent commit's, unpacked with
+any header it includes under a directory that ``.gitignore`` lists); two
+versions go in two processes, since their libraries share symbols: run
+parent, change, change, parent in one call, e.g.
+
+    mkdir -p build/parent_csrc && for f in mamba_scan_bwd.cu hopper_tc.cuh; do
+      git show HEAD:src/repro_torch/kernels/csrc/$f > build/parent_csrc/$f; done
 """
 from __future__ import annotations
 
@@ -124,13 +133,15 @@ def bwd_shares(got, want):
     return out
 
 
-def backward() -> int:
-    sys.path.insert(0, os.path.join(ROOT, "tools"))
-    from k2_bwd_check import kernel_split
+def backward(csrc=None) -> int:
     card = cs.card()
-    build.build_all(["mamba_scan", "mamba_scan_bwd"])
+    source = "src/repro_torch/kernels/csrc"
+    if csrc:
+        build.use_source("mamba_scan_bwd", csrc)
+        source = csrc
+    build.build_all(["mamba_scan_bwd"])
     for row in cs.ptxas_report("mamba_scan_bwd"):
-        cs.emit(row)
+        cs.emit({**row, "source": source})
     gen = torch.Generator(device="cuda").manual_seed(11)
     for shape, chunk, dtype, dy_dtype, with_dh, fused in cs._k3_bwd_cases():
         b, s, h, p, n = shape
@@ -163,14 +174,9 @@ def backward() -> int:
         torch.cuda.empty_cache()
     cs.emit({"sweep": "train", "shape": [cs.B, cs.S, nh, p], "n": n,
              "chunk": T, "draws": BWD_DRAWS, "max_share": worst})
-    flush = cs._L2Flush()
-    row = cs._scan_bwd_times(card, gen, flush)
-    x, bm, cm, dt, da = cs._scan_inputs(gen, cs.B, cs.S, nh, p, n, BF,
-                                        fused=True)
-    dy = cs._rand(gen, (cs.B, cs.S, nh, p), F32)
-    cs.emit({"time": "mamba_scan_bwd", "ms": row["ms"],
-             "kernels_ms": kernel_split(lambda: mamba_chunk_scan_bwd(
-                 x, bm, cm, dt, da, dy, chunk=T)), "card": card})
+    row = cs._scan_bwd_times(card, gen, cs._L2Flush())
+    cs.emit({"time": "mamba_scan_bwd", "source": source, "ms": row["ms"],
+             "kernels_ms": row["kernels_ms"], "card": card})
     return 0
 
 
@@ -178,12 +184,16 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--backward", action="store_true",
                     help="check and time the backward kernels instead")
+    ap.add_argument("--csrc", help="with --backward: a directory holding "
+                    "another mamba_scan_bwd.cu")
     args = ap.parse_args()
+    if args.csrc and not args.backward:
+        ap.error("--csrc goes with --backward")
     if not torch.cuda.is_available():
         print("k3_check: needs an NVIDIA GPU", file=sys.stderr)
         return 1
     if args.backward:
-        return backward()
+        return backward(args.csrc)
     build.build_all(["mamba_scan"])
     for row in cs.ptxas_report("mamba_scan"):
         cs.emit(row)
