@@ -23,21 +23,29 @@ Phases (each a function; any failure exits non-zero):
   3. flash-attention kernels against their plain PyTorch version on the
      card (head dims 32, 64, 112, 128; bf16 runs the tensor-core kernel,
      f32 the FMA kernel), ragged key tails, short prompts, windows and
-     non-causal cases included;
+     non-causal cases included, and non-causal with Sq != Skv:
+     llama-3.2-vision's cross-attention (q [4, 32, 512, 128] over k/v
+     [4, 8, 1600, 128]) in bf16 and f32, and a ragged 40 x 1000 pair;
   4. Mamba2 SSD scan kernels against their plain PyTorch version (the exact
      recurrence) on the card (bf16 runs the tensor-core kernel, f32 the FMA
      kernel, which a profiler trace confirms): the serve shape on several
      draws, chunks of 64 and 40, P and N below 64, an odd head count,
      reruns and strided views bitwise;
-  5. reference: the reduced qwen3-8b and zamba2-7b in f32, kernel path on
-     the card against the plain path on the CPU;
+  5. reference: the reduced qwen3-8b, zamba2-7b, mixtral-8x7b and
+     llama-3.2-vision-11b (random image embeddings, nonzero gates) in
+     f32, kernel path on the card against the plain path on the CPU;
   6. serve, for each model — qwen3-8b (slice 1) and zamba2-7b (slice 2), at
-     full width and depth in bf16 (random weights from a seed) under
-     replication: a clean run, a run whose computational slice is killed
-     mid-stream (the token streams and the whole final state must be
-     bitwise equal, one promotion), and an unreplicated kill that must
-     raise; the kernels' launch counters, zeroed just before each path and
-     read just after, must equal the counts the path implies; every
+     full width and depth, mixtral-8x7b (slice 12) at full width with 16 of
+     its 32 layers and llama-3.2-vision-11b (slice 12) at full size (zero
+     image embeddings, as the reference's server feeds them), in bf16
+     (random weights from a seed) under replication: an unreplicated kill
+     that must raise (that server freed before the next is built, so one
+     copy of the weights is on the card at a time), a clean run, and a run
+     whose computational slice is killed mid-stream (the token streams and
+     the whole final state, the VLM's cross K/V included, must be bitwise
+     equal, one promotion); the kernels' launch counters, zeroed just
+     before each path and read just after, must equal the counts the path
+     implies; every
      request batch reaches the model through ``BatchFanout`` (a ``fanout``
      line: the server's log, one send-ID per ``generate`` in order, then a
      priced fan-out of the device batch timed on the host, its copies
@@ -65,8 +73,10 @@ Phases (each a function; any failure exits non-zero):
      plain version and the PyTorch library call (where one exists) at the
      path's shapes (the fused norm beside ``x + r`` and ``F.rms_norm``),
      the launch floor (an empty kernel), and the whole path's prefill and
-     decode times. Each model's servers are freed before the next model's
-     serve phase;
+     decode times; for mixtral-8x7b and llama-3.2-vision-11b (in their
+     serve phases) K2 at each of their prefill shapes, the cross shape
+     with its operations bound, and the path's times. Each model's servers
+     are freed before the next model's serve phase;
   8. train: the backward kernels of K1 (``rmsnorm_bwd``, ``add_rmsnorm_bwd``,
      at d 128, 3584, 4096 and zamba2-7b's out_norm at 7168), K2
      (``flash_attention_bwd``: bf16 on the tensor cores, reading the
@@ -191,6 +201,10 @@ B, S, GEN, KILL_AT = 4, 512, 32, 8
 SPIN_CYCLES = 2_000_000            # ~1 ms at the H100's clock
 QWEN = get_arch("qwen3-8b")
 ZAMBA = get_arch("zamba2-7b")
+# mixtral-8x7b at full width, depth cut from 32 to 16 layers (46.96 GB of
+# bf16 weights; 32 layers would be 93.4 GB, more than the card holds)
+MIXTRAL = dataclasses.replace(get_arch("mixtral-8x7b"), n_layers=16)
+VISION = get_arch("llama-3.2-vision-11b")       # full size, 20.2 GB
 KERNELS = {"rmsnorm": rmsnorm, "add_rmsnorm": add_rmsnorm,
            "flash_attention": flash_attention, "mamba_scan": mamba_chunk_scan}
 SERVE_DRAWS = (7, 8, 9)            # more serve-shape draws of K3
@@ -211,6 +225,7 @@ def card() -> str:
 def reset_launches():
     for fn in KERNELS.values():
         fn.launches = 0
+    flash_attention.by_shape.clear()
 
 
 def read_launches():
@@ -500,12 +515,25 @@ def phase_attention(state):
              dtype=torch.bfloat16),                      # D = 112, window
         dict(b=1, hq=4, hkv=2, s=192, d=128, causal=False, window=0,
              dtype=torch.bfloat16),                      # non-causal
+        # non-causal with Sq != Skv: llama-3.2-vision's cross-attention of
+        # the prompt over its 1,600 image tokens, a ragged pair, f32
+        dict(b=B, hq=VISION.n_heads, hkv=VISION.n_kv_heads, s=S,
+             skv=VISION.n_image_tokens, d=VISION.resolved_head_dim,
+             causal=False, window=0, dtype=torch.bfloat16),
+        dict(b=1, hq=4, hkv=2, s=40, skv=1000, d=128, causal=False,
+             window=0, dtype=torch.bfloat16),
+        dict(b=1, hq=4, hkv=2, s=40, skv=1000, d=128, causal=False,
+             window=0, dtype=torch.float32),
+        dict(b=B, hq=VISION.n_heads, hkv=VISION.n_kv_heads, s=S,
+             skv=VISION.n_image_tokens, d=VISION.resolved_head_dim,
+             causal=False, window=0, dtype=torch.float32),
     ]
     worst = 0.0
     for c in cases:
+        skv = c.get("skv", c["s"])
         q = _bshd(gen, c["b"], c["s"], c["hq"], c["d"], c["dtype"])
-        k = _bshd(gen, c["b"], c["s"], c["hkv"], c["d"], c["dtype"])
-        v = _bshd(gen, c["b"], c["s"], c["hkv"], c["d"], c["dtype"])
+        k = _bshd(gen, c["b"], skv, c["hkv"], c["d"], c["dtype"])
+        v = _bshd(gen, c["b"], skv, c["hkv"], c["d"], c["dtype"])
         got = flash_attention(q, k, v, causal=c["causal"], window=c["window"])
         want = ref.flash_attention_ref(q, k, v, causal=c["causal"],
                                        window=c["window"])
@@ -688,6 +716,57 @@ def phase_reference_zamba(state):
         raise AssertionError(f"card and CPU logits differ by {worst}")
 
 
+def phase_reference_families(state):
+    """The same for the reduced mixtral-8x7b (4 layers, 4 experts top-2,
+    window 64; assignments dropped at capacity) and llama-3.2-vision-11b
+    (2 groups of 1 cross + 2 self layers; random image embeddings and
+    nonzero gates, so the cross-attention counts, K2 non-causal at
+    Sq 32 x Skv 16 on the card): a 32-token prompt and 8 greedy decode
+    steps each in f32; logits within 1e-3, tokens equal, K1 and K2
+    launched."""
+    worst = {}
+    for arch in (MIXTRAL.name, VISION.name):
+        cfg = dataclasses.replace(get_arch(arch).reduced(), dtype="float32")
+        cpu = Transformer(cfg, device="cpu").init(
+            torch.Generator().manual_seed(0))
+        if cfg.family == "vlm":
+            for i, cp in enumerate(cpu.cross):
+                cp["gate"].fill_(0.5 - i)
+        gpu = Transformer(cfg, device="cuda")
+        gpu.load_state_dict(cpu.state_dict())
+        rng = np.random.default_rng(4)
+        batch = {"tokens": torch.as_tensor(rng.integers(
+            0, cfg.vocab_size, (2, 32), dtype=np.int32))}
+        if cfg.family == "vlm":
+            batch["image_embeds"] = torch.as_tensor(rng.standard_normal(
+                (2, cfg.n_image_tokens, cfg.d_model), dtype=np.float32))
+        reset_launches()
+        lc, cc = cpu.prefill(batch)
+        lg, cg = gpu.prefill({k: t.cuda() for k, t in batch.items()})
+        err = float((lg.cpu() - lc).abs().max())
+        pos = torch.full((2, 1), 32, dtype=torch.int32)
+        for _ in range(8):
+            tok = torch.argmax(lc[:, -1], -1)[:, None].to(torch.int32)
+            if not torch.equal(tok, torch.argmax(lg[:, -1], -1)[:, None]
+                               .to(torch.int32).cpu()):
+                raise AssertionError(f"{arch}: kernel path picked another "
+                                     f"token")
+            lc, cc = cpu.decode_step(cc, tok, pos)
+            lg, cg = gpu.decode_step(cg, tok.cuda(), pos.cuda())
+            err = max(err, float((lg.cpu() - lc).abs().max()))
+            pos = pos + 1
+        counts = read_launches()
+        if not (counts["add_rmsnorm"] and counts["flash_attention"]):
+            raise AssertionError(f"{arch}: a kernel was not launched: "
+                                 f"{counts}")
+        worst[arch] = err
+    emit({"check": "reduced_moe_vlm_card_vs_cpu", "prompt": 32,
+          "decode_steps": 8, "max_abs_err": worst, "atol": 1e-3,
+          "ok": max(worst.values()) <= 1e-3})
+    if max(worst.values()) > 1e-3:
+        raise AssertionError(f"card and CPU logits differ by {worst}")
+
+
 # ---------------------------------------------------------------- phase 6
 
 def _state_tensors(tree):
@@ -702,8 +781,11 @@ def expected_launches(cfg):
     killed, unreplicated) and the decode steps (clean 2 x GEN, the replica
     re-executing; killed 2 x KILL_AT + the rest; unreplicated KILL_AT).
     Every norm after a residual add is the fused ``add_rmsnorm``; the
-    first norm of a forward and the norms inside a branch are plain."""
-    fwds = 3 + 2 * GEN + (2 * KILL_AT + GEN - KILL_AT) + KILL_AT
+    first norm of a forward, when no branch output is pending, and the
+    norms inside a branch (the qk-norms, where ``cfg.qk_norm``) are
+    plain."""
+    prefills = 3
+    fwds = prefills + 2 * GEN + (2 * KILL_AT + GEN - KILL_AT) + KILL_AT
     if cfg.family == "hybrid":
         groups = cfg.n_layers // cfg.attn_every
         # plain: the first attn_ln, each block's out_norm; fused: the
@@ -711,13 +793,39 @@ def expected_launches(cfg):
         # all for zamba2-7b)
         return {"rmsnorm": (1 + cfg.n_layers) * fwds,
                 "add_rmsnorm": (2 * groups + cfg.n_layers) * fwds,
-                "flash_attention": groups * 3,
-                "mamba_scan": cfg.n_layers * 3}
-    # plain: the first ln1, q_norm and k_norm; fused: the other ln1, ln2,
-    # ln_f (145 in all for qwen3-8b)
-    return {"rmsnorm": (1 + 2 * cfg.n_layers) * fwds,
+                "flash_attention": groups * prefills,
+                "mamba_scan": cfg.n_layers * prefills}
+    if cfg.family == "vlm":
+        groups = cfg.n_layers // cfg.cross_attn_every
+        # the cross layer has no pre-norm (the pending r is added into the
+        # stream before it, a plain add) and its output is pending at
+        # every first ln1, so every ln1, ln2 and ln_f is fused (81 for
+        # llama-3.2-vision-11b, which has no qk-norms). K2: every self
+        # layer and every cross layer of a prefill (the decode's
+        # cross-attention is plain, as its self-attention is)
+        return {"rmsnorm": 0,
+                "add_rmsnorm": (2 * cfg.n_layers + 1) * fwds,
+                "flash_attention": (cfg.n_layers + groups) * prefills,
+                "mamba_scan": 0}
+    # dense and MoE: plain, the first ln1 and the qk-norms; fused, the
+    # other ln1, ln2, ln_f (145 in all for qwen3-8b, 33 for mixtral-8x7b
+    # at 16 layers)
+    qk = 2 if cfg.qk_norm else 0
+    return {"rmsnorm": (1 + qk * cfg.n_layers) * fwds,
             "add_rmsnorm": 2 * cfg.n_layers * fwds,
-            "flash_attention": cfg.n_layers * 3, "mamba_scan": 0}
+            "flash_attention": cfg.n_layers * prefills, "mamba_scan": 0}
+
+
+def expected_k2_shapes(cfg):
+    """K2's launches in one serve phase by (Sq, Skv, causal): the prompt's
+    self-attention, and for the VLM each cross layer's prompt over the
+    image memory."""
+    total = expected_launches(cfg)["flash_attention"]
+    if cfg.family != "vlm":
+        return {(S, S, True): total}
+    cross = cfg.n_layers // cfg.cross_attn_every * 3
+    return {(S, S, True): total - cross,
+            (S, cfg.n_image_tokens, False): cross}
 
 
 FANOUT_CALLS = 7
@@ -777,19 +885,44 @@ def fanout_line(card_name, arch, srv, prompts, device="cuda"):
           "card": card_name})
 
 
+def _server(cfg, replication=True):
+    return ReplicatedServer(cfg, batch=B, prompt_len=S,
+                            replication=replication, device="cuda")
+
+
 def serve(state, cfg):
-    """The replicated serving path of ``cfg`` at full size; leaves the
-    server in ``state`` for the times that follow."""
-    t0 = time.perf_counter()
-    srv = ReplicatedServer(cfg.name, reduced=False, batch=B, prompt_len=S,
-                           device="cuda")
-    torch.cuda.synchronize()
-    emit({"phase": "serve.build", "arch": cfg.name,
-          "n_layers": cfg.n_layers, "d_model": cfg.d_model,
-          "params": api.param_count(cfg), "dtype": cfg.dtype,
-          "seconds": time.perf_counter() - t0})
+    """The replicated serving path of ``cfg`` at full size (width; depth
+    as ``cfg`` has it); leaves the server in ``state`` for the times that
+    follow. The unreplicated server is built, killed and freed before the
+    replicated one is built, so the card holds one copy of the weights at
+    a time (mixtral-8x7b's 16 layers are 47 GB)."""
     prompts = np.random.default_rng(0).integers(
         0, cfg.vocab_size, (B, S), dtype=np.int32)
+    unreplicated = _server(cfg, replication=False)
+    reset_launches()
+    try:
+        unreplicated.generate(prompts, GEN, kill_at=KILL_AT)
+    except RuntimeError as e:
+        fatal = str(e)
+    else:
+        raise AssertionError("an unreplicated kill did not raise")
+    torch.cuda.synchronize()
+    counts = read_launches()
+    shapes = flash_attention.by_shape.copy()
+    del unreplicated
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    srv = _server(cfg)
+    torch.cuda.synchronize()
+    build_line = {"phase": "serve.build", "arch": cfg.name,
+                  "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+                  "params": api.param_count(cfg), "dtype": cfg.dtype,
+                  "seconds": time.perf_counter() - t0}
+    if cfg.n_experts:
+        build_line["active_params"] = api.param_count(cfg, active_only=True)
+    emit(build_line)
 
     reset_launches()
     t0 = time.perf_counter()
@@ -799,26 +932,18 @@ def serve(state, cfg):
     clean_state = _state_tensors(srv.last_report.final_state["cache"])
     faulty = srv.generate(prompts, GEN, kill_at=KILL_AT)
     # the FT theorem on the whole state, not only the tokens: after the
-    # promotion every tensor of the final state (KV rings and, for the
-    # hybrid, every Mamba h and conv) equals the clean run's bit for bit
+    # promotion every tensor of the final state (KV rings, the VLM's cross
+    # K/V and, for the hybrid, every Mamba h and conv) equals the clean
+    # run's bit for bit
     faulty_state = _state_tensors(srv.last_report.final_state["cache"])
     state_equal = len(clean_state) == len(faulty_state) and all(
         torch.equal(a, b) for a, b in zip(clean_state, faulty_state))
     n_state = len(clean_state)
     del clean_state, faulty_state
-    unreplicated = ReplicatedServer(cfg.name, reduced=False, batch=B,
-                                    prompt_len=S, replication=False,
-                                    device="cuda")
-    try:
-        unreplicated.generate(prompts, GEN, kill_at=KILL_AT)
-    except RuntimeError as e:
-        fatal = str(e)
-    else:
-        raise AssertionError("an unreplicated kill did not raise")
     torch.cuda.synchronize()
-    counts = read_launches()
-    del unreplicated
-    torch.cuda.empty_cache()
+    later = read_launches()
+    counts = {k: counts[k] + later[k] for k in counts}
+    shapes = dict(shapes + flash_attention.by_shape)
 
     if clean.shape != (B, GEN) or clean.min() < 0 or \
             clean.max() >= cfg.vocab_size:
@@ -829,18 +954,27 @@ def serve(state, cfg):
         raise AssertionError(f"promotions={srv.promotions} "
                              f"failures={srv.failures}")
     want = expected_launches(cfg)
-    emit({"phase": "serve", "arch": cfg.name, "tokens_equal": True,
-          "state_equal": True, "state_tensors": n_state,
+    want_shapes = expected_k2_shapes(cfg)
+    emit({"phase": "serve", "arch": cfg.name, "n_layers": cfg.n_layers,
+          "tokens_equal": True, "state_equal": True,
+          "state_tensors": n_state,
           "promotions": srv.promotions, "failures": srv.failures,
           "unreplicated_kill": fatal, "launches": counts,
-          "launches_expected": want, "first_tokens": clean[:, :8].tolist(),
+          "launches_expected": want,
+          "flash_attention_by_shape": _shape_rows(shapes),
+          "flash_attention_by_shape_expected": _shape_rows(want_shapes),
+          "first_tokens": clean[:, :8].tolist(),
           "clean_generate_s": wall,
           "clean_generate_tok_per_s": clean.size / wall,
           "card": state["card"]})
     if counts != want:
         raise AssertionError(f"launch counts {counts}, expected {want}")
+    if shapes != want_shapes:
+        raise AssertionError(f"K2 launches by shape {shapes}, expected "
+                             f"{want_shapes}")
     fanout_line(state["card"], cfg.name, srv, prompts)
     state.setdefault("launches", {})[cfg.name] = counts
+    state.setdefault("k2_shapes", {})[cfg.name] = shapes
     state["server"] = srv
     state["prompts"] = prompts
     state.setdefault("clean_tokens", {})[cfg.name] = clean
@@ -853,6 +987,38 @@ def phase_serve(state):
 
 def phase_serve_zamba(state):
     serve(state, ZAMBA)
+
+
+def phase_serve_mixtral(state):
+    """mixtral-8x7b (16 layers, full width) served, then its times: K2 at
+    its prefill shape (causal, window 4096) and the whole path."""
+    serve(state, MIXTRAL)
+    flush = _L2Flush()
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    k2 = _attention_times(state["card"], flush, gen, MIXTRAL.n_heads,
+                          MIXTRAL.n_kv_heads, MIXTRAL.resolved_head_dim,
+                          window=MIXTRAL.sliding_window)
+    _path_times(state, MIXTRAL, flush)
+    state.setdefault("times", {})[MIXTRAL.name] = {"flash_attention": k2}
+    _free_server(state)
+
+
+def phase_serve_vlm(state):
+    """llama-3.2-vision-11b (full size) served, then its times: K2 at its
+    self-attention shape (causal) and at its cross-attention shape (the
+    prompt over 1,600 image tokens, non-causal), and the whole path."""
+    serve(state, VISION)
+    flush = _L2Flush()
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    hq, hkv, dh = (VISION.n_heads, VISION.n_kv_heads,
+                   VISION.resolved_head_dim)
+    k2 = _attention_times(state["card"], flush, gen, hq, hkv, dh)
+    k2_cross = _attention_times(state["card"], flush, gen, hq, hkv, dh,
+                                skv=VISION.n_image_tokens, causal=False)
+    _path_times(state, VISION, flush)
+    state.setdefault("times", {})[VISION.name] = {
+        "flash_attention": k2, "flash_attention_cross": k2_cross}
+    _free_server(state)
 
 
 # ------------------------------------------------------ phase 6b: serve.ckpt
@@ -1367,39 +1533,46 @@ def _launch_floor(card_name, flush):
     return ms
 
 
-def _sdpa_ms(q, k, v, flush, deterministic):
-    """``scaled_dot_product_attention`` (causal, GQA) with PyTorch's
+def _sdpa_ms(q, k, v, flush, deterministic, causal=True):
+    """``scaled_dot_product_attention`` (GQA) with PyTorch's
     deterministic-algorithms switch set as asked: the serve phases run with
     it on, which steers SDPA to another backend than the default."""
     before = torch.are_deterministic_algorithms_enabled()
     torch.use_deterministic_algorithms(deterministic)
     try:
         return time_ms(lambda: F.scaled_dot_product_attention(
-            q, k, v, is_causal=True, enable_gqa=True), flush)
+            q, k, v, is_causal=causal, enable_gqa=True), flush)
     finally:
         torch.use_deterministic_algorithms(before)
 
 
-def _attention_times(card_name, flush, gen, hq, hkv, dh):
+def _attention_times(card_name, flush, gen, hq, hkv, dh, skv=S, causal=True,
+                     window=0):
     """K2 (the bf16 tensor-core kernel) at the prefill shape
-    [B, hq, S, dh], causal, beside its plain version and
+    [B, hq, S, dh] over ``skv`` keys (causal, or non-causal as the VLM's
+    cross-attention), beside its plain version and
     ``scaled_dot_product_attention`` (the yardstick, never called by the
     port): ``library_ms`` with PyTorch's default settings and
     ``library_deterministic_ms`` with the switch on, as the serve path
-    runs."""
+    runs. A window as wide as the prompt (mixtral's 4096) masks nothing
+    more, so SDPA's causal call computes the same function."""
+    if window and window < S:
+        raise ValueError("SDPA has no window narrower than the prompt")
     bf = torch.bfloat16
     q = _bshd(gen, B, S, hq, dh, bf)
-    k = _bshd(gen, B, S, hkv, dh, bf)
-    v = _bshd(gen, B, S, hkv, dh, bf)
-    pairs = B * hq * S * (S + 1) // 2            # unmasked (q, k) pairs
+    k = _bshd(gen, B, skv, hkv, dh, bf)
+    v = _bshd(gen, B, skv, hkv, dh, bf)
+    # unmasked (q, k) pairs
+    pairs = B * hq * (S * (S + 1) // 2 if causal else S * skv)
+    kw = dict(causal=causal, window=window)
     k2 = {
-        "shape": list(q.shape), "kv_heads": hkv,
-        "ms": time_ms(lambda: flash_attention(q, k, v, causal=True), flush),
+        "shape": list(q.shape), "kv_heads": hkv, "skv": skv,
+        "causal": causal, "window": window,
+        "ms": time_ms(lambda: flash_attention(q, k, v, **kw), flush),
         "plain_ms": time_ms(
-            lambda: ref.flash_attention_ref(q, k, v, causal=True), flush),
-        "library_ms": _sdpa_ms(q, k, v, flush, deterministic=False),
-        "library_deterministic_ms": _sdpa_ms(q, k, v, flush,
-                                             deterministic=True),
+            lambda: ref.flash_attention_ref(q, k, v, **kw), flush),
+        "library_ms": _sdpa_ms(q, k, v, flush, False, causal),
+        "library_deterministic_ms": _sdpa_ms(q, k, v, flush, True, causal),
         # q, k, v read once, o written once; QK and PV: 4 D per pair
         **bound((2 * q.numel() + k.numel() + v.numel()) * q.element_size(),
                 4 * dh * pairs),
@@ -2184,8 +2357,9 @@ def _train_runs(state, cfg, runs):
 
 PHASES = [phase_device_and_build, phase_comm, phase_rmsnorm, phase_attention,
           phase_mamba_scan, phase_reference, phase_reference_zamba,
-          phase_serve, phase_serve_ckpt, phase_obs, phase_store, phase_times,
+          phase_reference_families, phase_serve, phase_serve_ckpt, phase_obs, phase_store, phase_times,
           phase_serve_zamba, phase_serve_ckpt_zamba, phase_times_zamba,
+          phase_serve_mixtral, phase_serve_vlm,
           phase_train_kernels, phase_train, phase_train_zamba]
 
 REPLACES = {"rmsnorm": "src/repro/kernels/rmsnorm.py:31",
@@ -2196,15 +2370,17 @@ ERRORS = {"rmsnorm": "rmsnorm_err", "add_rmsnorm": "add_rmsnorm_err",
 
 
 TIMED = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+SERVED = (QWEN.name, ZAMBA.name, MIXTRAL.name, VISION.name)
 
 
 def kernels_line(state):
     """One row per kernel, with the launch counts and times of the zamba2-7b
     path, the only one that runs all three; the RMSNorm row counts both of
-    its entries' launches and lists each entry (the fused one timed at the
-    Mamba block's add + ln); the flash-attention row also lists both
-    prefill shapes (qwen3-8b's and zamba2-7b's) with each path's
-    launches."""
+    its entries' launches, lists each entry (the fused one timed at the
+    Mamba block's add + ln) and each served path's launches of both; the
+    flash-attention row also lists every served prefill shape (qwen3-8b's,
+    zamba2-7b's, mixtral-8x7b's, llama-3.2-vision-11b's self and cross)
+    with each path's launches."""
     launches, times = state["launches"][ZAMBA.name], state["times"][ZAMBA.name]
     rows = []
     for name, replaces in REPLACES.items():
@@ -2222,15 +2398,36 @@ def kernels_line(state):
                  "max_abs_err": state[ERRORS[entry]],
                  **{key: times[entry][key] for key in TIMED}}
                 for entry in ("rmsnorm", "add_rmsnorm")]
+        if name == "rmsnorm":
+            rows[-1]["by_path"] = [
+                {"arch": arch, **{e: state["launches"][arch][e]
+                                  for e in ("rmsnorm", "add_rmsnorm")}}
+                for arch in SERVED]
         if name == "flash_attention":
             rows[-1]["by_shape"] = [
-                {"arch": arch, "shape": state["times"][arch][name]["shape"],
-                 "launches": state["launches"][arch][name],
-                 **{key: state["times"][arch][name][key] for key in
-                    TIMED + ("library_deterministic_ms",)}}
-                for arch in (QWEN.name, ZAMBA.name)]
+                _k2_shape(state, arch, key) for arch in SERVED
+                for key in ("flash_attention", "flash_attention_cross")
+                if key in state["times"][arch]]
     rows += _backward_rows(state)
     return {"kernels": rows}
+
+
+def _shape_rows(shapes):
+    return [{"sq": sq, "skv": skv, "causal": causal, "launches": n}
+            for (sq, skv, causal), n in sorted(shapes.items())]
+
+
+def _k2_shape(state, arch, key):
+    """One K2 shape of a served path: its times and the launches the
+    path's serve phase made at that (Sq, Skv, causal), as the wrapper
+    counted them."""
+    t = state["times"][arch][key]
+    launches = state["k2_shapes"][arch].get(
+        (t["shape"][2], t["skv"], t["causal"]), 0)
+    return {"arch": arch, "shape": t["shape"], "skv": t["skv"],
+            "causal": t["causal"], "window": t["window"],
+            "launches": launches,
+            **{k: t[k] for k in TIMED + ("library_deterministic_ms",)}}
 
 
 def _backward_rows(state):

@@ -50,6 +50,15 @@ def get_arch(name: str) -> ModelConfig:
     return ARCHS[name]
 
 
+def as_config(arch: "str | ModelConfig", reduced: bool) -> ModelConfig:
+    """``arch`` as a config: a ``ModelConfig`` (a depth-cut one, say) as
+    given, a name looked up, and reduced if asked."""
+    if isinstance(arch, ModelConfig):
+        return arch
+    cfg = get_arch(arch)
+    return cfg.reduced() if reduced else cfg
+
+
 def get_shape(name: str) -> ShapeConfig:
     if name not in SHAPES:
         raise KeyError(f"unknown shape {name!r}; known: {sorted(SHAPES)}")
@@ -72,7 +81,7 @@ def cells(include_inapplicable: bool = False):
 
 
 __all__ = [
-    "ARCHS", "get_arch", "get_shape", "cells",
+    "ARCHS", "get_arch", "as_config", "get_shape", "cells",
     "ModelConfig", "ShapeConfig", "MeshConfig", "FTConfig", "RunConfig",
     "SHAPES", "SINGLE_POD", "MULTI_POD",
     "TRAIN_4K", "PREFILL_32K", "DECODE_32K", "LONG_500K",

@@ -23,6 +23,7 @@ a dq kernel and a dk/dv kernel, TMA and ``wgmma``), f32 on FMAs; no atomics.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 from typing import Optional, Sequence
 
@@ -75,7 +76,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     [B, Hq, Sq, D] in q's dtype, a view of a new contiguous [B, Sq, Hq, D]
     tensor; with ``return_lse`` (o, lse), lse the natural-log logsumexp of
     each row's scaled, masked scores, f32 [B, Hq, Sq] (o is the same bits
-    either way)."""
+    either way). Each launch adds one to ``flash_attention.launches`` and
+    one to ``flash_attention.by_shape[(Sq, Skv, causal)]``."""
     dev = q.device
     if dev.type != "cuda" or k.device != dev or v.device != dev:
         raise ValueError("flash attention kernel needs q, k, v on one CUDA "
@@ -116,10 +118,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
              torch.cuda.current_stream(dev).cuda_stream)
     build.check("flash_attention", err)
     flash_attention.launches += 1
+    flash_attention.by_shape[(sq, skv, bool(causal))] += 1
     return (o, lse) if return_lse else o
 
 
 flash_attention.launches = 0
+flash_attention.by_shape = collections.Counter()
 
 
 # ---------------------------------------------------------------------------

@@ -39,7 +39,9 @@ def _needs_grad(*tensors) -> bool:
 
 def attention(q, k, v, *, causal: bool = True, window: int = 0,
               backend: str = "auto"):
-    """Flash attention. q: [B,Hq,S,D]; k, v: [B,Hkv,S,D] (any strides)."""
+    """Flash attention. q: [B,Hq,Sq,D]; k, v: [B,Hkv,Skv,D] (any strides;
+    Skv may differ from Sq, as in the VLM's cross-attention over its image
+    memory, non-causal). Positions start at 0 on both sides."""
     if _use_kernel(q, backend):
         if _needs_grad(q, k, v):
             return autograd.FlashAttention.apply(q, k, v, causal, window)

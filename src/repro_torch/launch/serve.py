@@ -19,12 +19,18 @@ fan-out's traffic and every serving session's steps, failures and
 recovery arcs (host-side bookkeeping: it launches nothing on the card).
 
 Any ported family serves through the same code: the dense qwen3-8b (the
-default) and the zamba2-7b hybrid, whose state carries a recurrent Mamba
-state per block beside the attention rings (cloned like the rings).
+default), the zamba2-7b hybrid, whose state carries a recurrent Mamba
+state per block beside the attention rings (cloned like the rings), the
+mixtral MoE and the llama-3.2-vision VLM, whose prefill also reads image
+embeddings (zeros, as the reference's server feeds them) and whose state
+carries each group's cross K/V. ``ReplicatedServer`` takes an arch name
+or a ``ModelConfig`` (a depth-cut one, say).
 
 Examples:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-7b \
       --batch 4 --prompt-len 32 --gen 16 --kill-at 8 --device cuda
+  PYTHONPATH=src python -m repro_torch.launch.serve \
+      --arch llama-3.2-vision-11b --device cpu --kill-at 3
   # replicated in-memory checkpoints: promote, then a pair death restored
   # from partner memory (8 logical ranks, 4 a node)
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
@@ -35,6 +41,7 @@ from __future__ import annotations
 import argparse
 import sys
 import time
+from typing import Union
 
 import numpy as np
 import torch
@@ -42,8 +49,8 @@ import torch
 from repro_torch import device as device_lib
 from repro_torch.clock import VirtualClock, pricing_from_ft
 from repro_torch.comm import NOTHING, CollectiveEngine, ReplicaTransport
-from repro_torch.configs import RunConfig, get_arch
-from repro_torch.configs.base import FTConfig, ShapeConfig
+from repro_torch.configs import RunConfig, as_config
+from repro_torch.configs.base import FTConfig, ModelConfig, ShapeConfig
 from repro_torch.core.coordinator import ClusterTopology
 from repro_torch.core.replica_map import ReplicaMap
 from repro_torch.ft import DecodeWorkload, FTSession, StepKillInjector
@@ -129,14 +136,12 @@ class ReplicatedServer:
     """Model plumbing (prefill/decode steps, seeded weights) + a thin
     ``generate`` that delegates all fault tolerance to FTSession."""
 
-    def __init__(self, arch: str, *, reduced: bool = True, batch: int = 4,
-                 prompt_len: int = 32, replication: bool = True,
-                 seed: int = 0, device=None, topology: str = None,
-                 obs=None):
+    def __init__(self, arch: Union[str, ModelConfig], *,
+                 reduced: bool = True, batch: int = 4, prompt_len: int = 32,
+                 replication: bool = True, seed: int = 0, device=None,
+                 topology: str = None, obs=None):
         dev = device_lib.resolve(device)
-        cfg = get_arch(arch)
-        if reduced:
-            cfg = cfg.reduced()
+        cfg = as_config(arch, reduced)
         self.cfg = cfg
         shape = ShapeConfig("serve", seq_len=prompt_len, global_batch=batch,
                             kind="prefill")
@@ -162,13 +167,25 @@ class ReplicatedServer:
         self.promotions = 0
         self.last_report = None
 
+    def _extras(self, tokens: torch.Tensor) -> dict:
+        """The prefill batch: the tokens and, for the VLM, the image
+        embeddings [B, n_image_tokens, d] as zeros in bf16 on the server's
+        device (the reference's ``_extras``; its vision frontend is a
+        stub). The frames of the audio family wait for its port."""
+        batch = {"tokens": tokens}
+        if self.cfg.family == "vlm":
+            batch["image_embeds"] = torch.zeros(
+                (tokens.shape[0], self.cfg.n_image_tokens, self.cfg.d_model),
+                dtype=torch.bfloat16, device=self.device)
+        return batch
+
     def workload(self, prompt_tokens) -> DecodeWorkload:
         """The decode loop as a Workload (also used by tests directly);
         ``prompt_tokens`` is an ndarray or a tensor, moved to the server's
         device once."""
         tokens = torch.as_tensor(prompt_tokens, device=self.device)
         return DecodeWorkload(params=self.model, prefill=self.prefill,
-                              decode=self.decode, batch={"tokens": tokens},
+                              decode=self.decode, batch=self._extras(tokens),
                               prompt_len=self.prompt_len)
 
     def session(self, kill_at: int = -1) -> FTSession:

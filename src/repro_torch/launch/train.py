@@ -27,7 +27,7 @@ import numpy as np
 import torch
 
 from repro_torch import device as device_lib
-from repro_torch.configs import RunConfig, get_arch
+from repro_torch.configs import RunConfig, as_config
 from repro_torch.configs.base import FTConfig, ModelConfig, ShapeConfig
 from repro_torch.core.ft_runtime import FTTrainer
 from repro_torch.data import DataConfig, TokenSource
@@ -36,13 +36,6 @@ from repro_torch.launch.step_fns import make_train_step
 from repro_torch.models import api as model_api
 from repro_torch.models.convert import params_from_jax
 from repro_torch.optim import adamw
-
-
-def _config(arch: Union[str, ModelConfig], reduced: bool) -> ModelConfig:
-    if isinstance(arch, ModelConfig):
-        return arch
-    cfg = get_arch(arch)
-    return cfg.reduced() if reduced else cfg
 
 
 def init_params(cfg: ModelConfig, seed: int, device) -> dict:
@@ -65,7 +58,7 @@ def build_workload(arch: Union[str, ModelConfig], *, reduced: bool = True,
     a depth-cut one) as a workload on ``device`` (CUDA unless told
     otherwise). ``jax_params``: start from these reference weights (numpy
     leaves) instead of the seeded draw."""
-    cfg = _config(arch, reduced)
+    cfg = as_config(arch, reduced)
     dev = device_lib.resolve(device)
     shape = ShapeConfig("cli", seq_len=seq, global_batch=batch, kind="train")
     run = RunConfig(model=cfg, shape=shape, remat="none",

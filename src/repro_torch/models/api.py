@@ -1,17 +1,19 @@
 """Model factory and parameter count (port of ``repro/models/api.py``:
-the dense and hybrid families)."""
+the dense, MoE, VLM and hybrid families)."""
 from __future__ import annotations
 
 from repro_torch.configs.base import ModelConfig
 
 # where each family not ported yet stands in ROADMAP.md's Queue 1
-_NOT_PORTED = {"moe": 5, "vlm": 6, "audio": 7, "ssm": 8}
+_NOT_PORTED = {"audio": 7, "ssm": 8}
+# the expert weights under a layer's ``ffn`` (``models.moe.moe_params``)
+_EXPERT_LEAVES = ("wi", "wg", "wo")
 
 
 def build_model(cfg: ModelConfig, *, device=None):
     """The port's model for ``cfg`` on ``device`` (CUDA unless told
     otherwise), with uninitialised weights."""
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "moe", "vlm"):
         from repro_torch.models.transformer import Transformer
         return Transformer(cfg, device=device)
     if cfg.family == "hybrid":
@@ -26,8 +28,17 @@ def build_model(cfg: ModelConfig, *, device=None):
 
 def param_count(cfg: ModelConfig, active_only: bool = False) -> int:
     """Exact parameter count from a build on the ``meta`` device (no
-    allocation). ``active_only`` matters only for MoE, which is not
-    ported, so for the ported families both counts agree."""
-    del active_only
+    allocation). ``active_only``: MoE experts count at top_k / E of their
+    weights (the 6 * N_active * D roofline convention), as the reference
+    counts them: int(total - expert + expert * k / E)."""
     model = build_model(cfg, device="meta")
-    return sum(p.numel() for p in model.parameters())
+    total = expert = 0
+    for name, p in model.named_parameters():
+        total += p.numel()
+        parts = name.split(".")
+        if cfg.n_experts and "ffn" in parts and parts[-1] in _EXPERT_LEAVES:
+            expert += p.numel()
+    if active_only and cfg.n_experts:
+        frac = cfg.n_experts_per_tok / cfg.n_experts
+        return int(total - expert + expert * frac)
+    return total

@@ -3,7 +3,10 @@
 ``params_from_jax`` takes the JAX parameter pytree as numpy arrays (what
 ``jax.device_get`` returns) and gives the port's state dict: each stacked
 tree is split along its leading axes into per-block tensors, the indices
-after the stacked name (``layers/wq[3]`` -> ``layers.3.wq``; the hybrid's
+after the stacked name (``layers/wq[3]`` -> ``layers.3.wq``, an MoE
+layer's experts ``layers/ffn/wi[3]`` [E, d, f] -> ``layers.3.ffn.wi``;
+the VLM's ``layers/attn/wq[g, j]`` -> ``layers.g.j.attn.wq`` and
+``cross/gate[g]`` -> ``cross.g.gate``; the hybrid's
 ``mamba/in_x[g, j]`` -> ``mamba.g.j.in_x`` and ``mamba_tail/a_log[i]`` ->
 ``mamba_tail.i.a_log``), and every dtype is kept (the hybrid's f32
 ``a_log``, ``d_skip`` and ``dt_bias`` stay f32 in a bf16 model). numpy
@@ -39,11 +42,13 @@ def _leaves(tree, prefix: str = "") -> Iterator[Tuple[str, np.ndarray]]:
 
 
 def to_tensor(arr: np.ndarray, device=None) -> torch.Tensor:
-    """numpy -> torch, with bf16 (ml_dtypes or a uint16 view) kept bitwise."""
+    """numpy -> torch, with bf16 (ml_dtypes or a uint16 view) kept bitwise
+    and the shape kept (a 0-d leaf such as the VLM's ``gate`` stays 0-d)."""
     if arr.dtype.name == "bfloat16" or arr.dtype == np.uint16:
-        bits = np.ascontiguousarray(arr).view(np.int16)
+        bits = np.ascontiguousarray(arr).view(np.int16).reshape(arr.shape)
         return torch.from_numpy(bits.copy()).view(torch.bfloat16).to(device)
-    return torch.from_numpy(np.ascontiguousarray(arr).copy()).to(device)
+    flat = np.ascontiguousarray(arr).reshape(arr.shape)
+    return torch.from_numpy(flat.copy()).to(device)
 
 
 def _stacked(cfg: ModelConfig) -> Dict[str, Tuple[int, ...]]:
@@ -53,13 +58,17 @@ def _stacked(cfg: ModelConfig) -> Dict[str, Tuple[int, ...]]:
         if cfg.n_layers % cfg.attn_every:
             out["mamba_tail"] = (cfg.n_layers % cfg.attn_every,)
         return out
+    if cfg.family == "vlm":
+        groups = cfg.n_layers // cfg.cross_attn_every
+        return {"layers": (groups, cfg.cross_attn_every), "cross": (groups,)}
     return {"layers": (cfg.n_layers,)}
 
 
 def params_from_jax(tree: dict, cfg: ModelConfig, device=None
                     ) -> Dict[str, torch.Tensor]:
-    """JAX params (numpy leaves) of the dense transformer or the hybrid ->
-    the port's state dict, for the model's ``load_state_dict``."""
+    """JAX params (numpy leaves) of the transformer (dense, MoE, VLM) or
+    the hybrid -> the port's state dict, for the model's
+    ``load_state_dict``."""
     stacked = _stacked(cfg)
     out: Dict[str, torch.Tensor] = OrderedDict()
     for name, arr in _leaves(tree):

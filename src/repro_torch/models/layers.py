@@ -1,5 +1,6 @@
-"""Shared layers of the dense decoder, in PyTorch (port of
-``repro/models/layers.py``, dense subset).
+"""Shared layers of the decoders, in PyTorch (port of
+``repro/models/layers.py``: the dense layers and the gated
+cross-attention).
 
 Conventions (kept from the JAX package so the two compare like with like)
 ---------------------------------------------------------------------------
@@ -7,9 +8,10 @@ Conventions (kept from the JAX package so the two compare like with like)
   model); ``wq`` is [d, H, Dh], ``wo`` is [H, Dh, d].
 - Activations: ``x[batch, seq, d_model]``; attention heads ``[B, S, H, Dh]``.
 - Compute dtype is the model's (bf16) with f32 softmax / norm accumulation.
-- RMSNorm and prefill attention go through ``kernels.ops``: the hand-written
-  CUDA kernels on the card, their plain versions on the CPU. Decode
-  attention is plain PyTorch, as it is plain jnp in the JAX package.
+- RMSNorm and prefill attention (the cross-attention's too, non-causal
+  over Sq != Skv) go through ``kernels.ops``: the hand-written CUDA
+  kernels on the card, their plain versions on the CPU. Decode attention
+  is plain PyTorch, as it is plain jnp in the JAX package.
 
 One deliberate difference: the JAX model's blockwise attention casts the
 probability tile to bf16 before the PV product (``layers.py:108``); the
@@ -131,9 +133,11 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float
 
 def _scores_block(q, k, q_pos, k_pos, window: int, causal: bool = True):
     """q: [B, Tq, Hkv, G, Dh], k: [B, Tk, Hkv, Dh] -> masked f32 scores
-    [B, Hkv, G, Tq, Tk]."""
+    [B, Hkv, G, Tq, Tk]; ``k_pos`` None masks nothing (cross-attention)."""
     s = torch.einsum("bqhgd,bkhd->bhgqk", q.to(F32), k.to(F32))
     s = s * (1.0 / q.shape[-1] ** 0.5)
+    if k_pos is None:
+        return s
     mask = (k_pos >= 0)[:, None, :]                        # empty cache slots
     if causal:
         mask = mask & (k_pos[:, None, :] <= q_pos[:, :, None])
@@ -158,7 +162,8 @@ def decode_attention(q, k_cache, v_cache, q_pos, k_pos, *, window: int = 0):
     """Single-token attention against a (possibly ring-buffered) KV cache.
 
     q: [B, 1, Hq, Dh]; caches: [B, S, Hkv, Dh]; k_pos: [B, S] absolute
-    positions (-1 for unwritten slots)."""
+    positions (-1 for unwritten slots), or None (with ``q_pos``) to attend
+    to every key, as the cross-attention does."""
     b, _, hq, dh = q.shape
     hkv = k_cache.shape[2]
     qg = q.reshape(b, 1, hkv, hq // hkv, dh)
@@ -273,6 +278,52 @@ def empty_cache(cfg: ModelConfig, batch: int, cache_len: int, dtype,
             "pos": torch.full((batch, cache_len), -1, dtype=torch.int32,
                               device=device),
             "idx": 0}
+
+
+# ---------------------------------------------------------------------------
+# Gated cross-attention (VLM image layers)
+# ---------------------------------------------------------------------------
+
+def cross_attention_params(cfg: ModelConfig, dtype, device) -> dict:
+    """Attention weights and a scalar ``gate`` (``init`` zeroes it, as the
+    reference initialises it)."""
+    p = attention_params(cfg, dtype, device)
+    p["gate"] = torch.zeros((), dtype=dtype, device=device)
+    return p
+
+
+def cross_attention_kv(cfg: ModelConfig, p, memory):
+    """The memory's keys and values [B, M, Hkv, Dh], computed once at
+    prefill and reused every decode step. Memory positions carry no RoPE.
+    ``memory`` is taken in the weights' dtype (the reference's bf16 image
+    embeddings promote to an f32 model's dtype the same way)."""
+    memory = memory.to(p["wk"].dtype)
+    k = _heads(memory, p["wk"])
+    v = _heads(memory, p["wv"])
+    if cfg.qk_norm:
+        k = rmsnorm(p["k_norm"], k, cfg.norm_eps)
+    return k, v
+
+
+def cross_attention_apply(cfg: ModelConfig, p, x, kv):
+    """x: [B, S, d] queries; kv: the memory's (k, v) from
+    ``cross_attention_kv``. Every query sees every memory position: the
+    prompt goes through ``ops.attention(causal=False)`` (K2 on the card,
+    Sq != Skv), a decode token through the plain path, as decode
+    self-attention does. y is scaled by tanh(gate), the tanh in f32 (the
+    reference's ungated form waits for its audio caller, ROADMAP Queue 1
+    item 7)."""
+    k, v = kv
+    q = _heads(x, p["wq"])
+    if cfg.qk_norm:
+        q = rmsnorm(p["q_norm"], q, cfg.norm_eps)
+    if x.shape[1] == 1:
+        out = decode_attention(q, k, v, None, None)
+    else:
+        out = ops.attention(q.transpose(1, 2), k.transpose(1, 2),
+                            v.transpose(1, 2), causal=False).transpose(1, 2)
+    y = attention_out(p, out)
+    return y * torch.tanh(p["gate"].to(F32)).to(y.dtype)
 
 
 # ---------------------------------------------------------------------------

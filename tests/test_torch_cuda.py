@@ -171,6 +171,30 @@ def test_attention_kernel_matches_plain(cuda_device, b, hq, hkv, s, d,
                                           window=window))   # bitwise rerun
 
 
+@pytest.mark.parametrize("b,hq,hkv,sq,skv,d", [
+    (4, 32, 8, 512, 1600, 128),   # llama-3.2-vision's cross-attention
+    (1, 4, 2, 40, 1000, 128),     # ragged on both sides
+    (2, 8, 2, 96, 40, 64),        # more queries than keys
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_attention_kernel_sq_ne_skv_matches_plain(cuda_device, b, hq, hkv,
+                                                  sq, skv, d, dtype):
+    """Non-causal with Sq != Skv (the VLM's prompt over its image
+    memory), as the model lays q and k/v out."""
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    q, k, v = (torch.randn((b, s, h, d), generator=gen, device=cuda_device)
+               .to(getattr(torch, dtype)).transpose(1, 2)
+               for h, s in ((hq, sq), (hkv, skv), (hkv, skv)))
+    before = flash_attention.launches
+    at_shape = flash_attention.by_shape[(sq, skv, False)]
+    got = ops.attention(q, k, v, causal=False)
+    assert flash_attention.launches == before + 1
+    assert flash_attention.by_shape[(sq, skv, False)] == at_shape + 1
+    assert got.shape == q.shape
+    _close(got, ref.flash_attention_ref(q, k, v, causal=False), dtype)
+    assert torch.equal(got, ops.attention(q, k, v, causal=False))
+
+
 def _mamba_inputs(dev, b, s, h, p, n, dtype, seed=0):
     gen = torch.Generator(device=dev).manual_seed(seed)
 
@@ -308,6 +332,50 @@ def test_serve_failover_identical_stream_on_card(cuda_device):
     faulty = srv.generate(prompts, 8, kill_at=3)
     np.testing.assert_array_equal(clean, faulty)
     assert srv.promotions == 1
+
+
+@pytest.mark.parametrize("arch", ["mixtral-8x7b", "llama-3.2-vision-11b"])
+def test_reduced_moe_and_vlm_kernel_path_matches_cpu(cuda_device, arch):
+    """Prefill (the VLM with random image embeddings and nonzero gates)
+    and four greedy steps, f32: summation order only."""
+    cfg = dataclasses.replace(get_arch(arch).reduced(), dtype="float32")
+    cpu = Transformer(cfg, device="cpu").init(torch.Generator().manual_seed(0))
+    if cfg.family == "vlm":
+        for i, cp in enumerate(cpu.cross):
+            cp["gate"].fill_(0.5 - i)
+    gpu = Transformer(cfg, device=cuda_device)
+    gpu.load_state_dict(cpu.state_dict())
+    rng = np.random.default_rng(0)
+    batch = {"tokens": torch.as_tensor(rng.integers(
+        0, cfg.vocab_size, (2, 32), dtype=np.int32))}
+    if cfg.family == "vlm":
+        batch["image_embeds"] = torch.as_tensor(rng.standard_normal(
+            (2, cfg.n_image_tokens, cfg.d_model), dtype=np.float32))
+    lc, cc = cpu.prefill(batch)
+    lg, cg = gpu.prefill({k: t.to(cuda_device) for k, t in batch.items()})
+    torch.testing.assert_close(lg.cpu(), lc, rtol=1e-3, atol=1e-3)
+    pos = torch.full((2, 1), 32, dtype=torch.int32)
+    for _ in range(4):
+        tok = torch.argmax(lc[:, -1], -1)[:, None].to(torch.int32)
+        lc, cc = cpu.decode_step(cc, tok, pos)
+        lg, cg = gpu.decode_step(cg, tok.to(cuda_device), pos.to(cuda_device))
+        torch.testing.assert_close(lg.cpu(), lc, rtol=1e-3, atol=1e-3)
+        pos = pos + 1
+
+
+@pytest.mark.parametrize("arch", ["mixtral-8x7b", "llama-3.2-vision-11b"])
+def test_moe_and_vlm_serve_failover_identical_stream_on_card(cuda_device,
+                                                             arch):
+    prompts = np.random.default_rng(0).integers(0, 400, (2, 16),
+                                                dtype=np.int32)
+    srv = ReplicatedServer(arch, batch=2, prompt_len=16)
+    clean = srv.generate(prompts, 8)
+    clean_state = _tensors(srv.last_report.final_state["cache"])
+    faulty = srv.generate(prompts, 8, kill_at=3)
+    np.testing.assert_array_equal(clean, faulty)
+    assert srv.promotions == 1
+    assert all(torch.equal(a, b) for a, b in zip(
+        clean_state, _tensors(srv.last_report.final_state["cache"])))
 
 
 @pytest.mark.parametrize("s", [96, 32])

@@ -180,13 +180,35 @@ def test_init_matches_jax_distribution():
     assert torch.all(model.ln_f["scale"] == 1)
 
 
-@pytest.mark.parametrize("arch", ["mixtral-8x7b", "xlstm-350m",
-                                  "whisper-tiny", "llama-3.2-vision-11b"])
+@pytest.mark.parametrize("arch", ["xlstm-350m", "whisper-tiny"])
 def test_other_families_not_ported_yet(arch):
-    """Each names its item of ROADMAP.md's Queue 1 (MoE 5, VLM 6, audio 7,
-    SSM 8)."""
-    item = {"mixtral-8x7b": 5, "llama-3.2-vision-11b": 6, "whisper-tiny": 7,
-            "xlstm-350m": 8}[arch]
+    """Each names its item of ROADMAP.md's Queue 1 (audio 7, SSM 8)."""
+    item = {"whisper-tiny": 7, "xlstm-350m": 8}[arch]
     with pytest.raises(NotImplementedError,
                        match=rf"ROADMAP\.md, Queue 1 item {item}\)"):
         api.build_model(get_arch(arch).reduced(), device="cpu")
+
+
+@pytest.mark.parametrize("arch,names", [
+    ("mixtral-8x7b", ["layers.3.ffn.router", "layers.3.ffn.wi",
+                      "layers.3.ffn.wg", "layers.3.ffn.wo"]),
+    ("llama-3.2-vision-11b", ["layers.1.1.attn.wq", "layers.1.1.ffn.wi",
+                              "cross.1.gate", "cross.1.wo"])])
+def test_moe_and_vlm_families_build(arch, names):
+    """MoE (Queue 1 item 5) and the VLM (item 6) build since they serve
+    (slice 12); their state-dict names are the JAX tree's paths, each
+    leaf's shape the stacked leaf's without its leading axes."""
+    cfg = get_arch(arch).reduced()
+    jtree = jax.eval_shape(jax_api.build_model(jax_arch(arch).reduced())
+                           .init, jax.random.key(0))
+    model = api.build_model(cfg, device="cpu")
+    sd = model.state_dict()
+    assert set(names) <= set(sd)
+    stacked = {"/".join(k.key for k in path): leaf.shape
+               for path, leaf in jax.tree_util.tree_flatten_with_path(
+                   jtree)[0]}
+    for name, t in sd.items():
+        parts = name.split(".")
+        path = "/".join(p for p in parts if not p.isdigit())
+        lead = sum(p.isdigit() for p in parts)
+        assert stacked[path][lead:] == tuple(t.shape), name
