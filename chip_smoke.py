@@ -15,7 +15,8 @@ Phases (each a function; any failure exits non-zero):
      results, sender logs, recovery counts and priced seconds bitwise the
      same run's on CPU tensors, results bitwise ``reference_result``'s;
   2. RMSNorm kernel against its plain PyTorch version on the card, at
-     every (rows, d) of the served paths (prefill and decode), ragged row
+     every (rows, d) of the served paths (prefill and decode; whisper-tiny's
+     d 384 and xlstm-350m's d 1024 among them), ragged row
      counts, other widths, the strided qk-norm view and the unaligned
      scalar path, reruns bitwise; the fused residual add + norm
      (``add_rmsnorm``): s bitwise ``x + r``, y bitwise the kernel's norm
@@ -26,6 +27,8 @@ Phases (each a function; any failure exits non-zero):
      non-causal cases included, and non-causal with Sq != Skv:
      llama-3.2-vision's cross-attention (q [4, 32, 512, 128] over k/v
      [4, 8, 1600, 128]) in bf16 and f32, and a ragged 40 x 1000 pair;
+     whisper-tiny's D 64 MHA shapes: the encoder's non-causal 1,500 x
+     1,500, the cross-attention's 448 x 1,500, the decoder's causal 448;
   4. Mamba2 SSD scan kernels against their plain PyTorch version (the exact
      recurrence) on the card (bf16 runs the tensor-core kernel, f32 the FMA
      kernel, which a profiler trace confirms): the serve shape on several
@@ -33,11 +36,16 @@ Phases (each a function; any failure exits non-zero):
      reruns and strided views bitwise;
   5. reference: the reduced qwen3-8b, zamba2-7b, mixtral-8x7b and
      llama-3.2-vision-11b (random image embeddings, nonzero gates) in
-     f32, kernel path on the card against the plain path on the CPU;
+     f32, kernel path on the card against the plain path on the CPU; then
+     whisper-tiny (seeded random frames) and xlstm-350m at full size in
+     f32 the same way;
   6. serve, for each model — qwen3-8b (slice 1) and zamba2-7b (slice 2), at
      full width and depth, mixtral-8x7b (slice 12) at full width with 16 of
      its 32 layers and llama-3.2-vision-11b (slice 12) at full size (zero
-     image embeddings, as the reference's server feeds them), in bf16
+     image embeddings, as the reference's server feeds them), whisper-tiny
+     (slice 13; zero frames likewise, a 416-token prompt so that the
+     stream ends at its 448-token text context) and xlstm-350m (slice 13)
+     at full size, in bf16
      (random weights from a seed) under replication: an unreplicated kill
      that must raise (that server freed before the next is built, so one
      copy of the weights is on the card at a time), a clean run, and a run
@@ -75,8 +83,10 @@ Phases (each a function; any failure exits non-zero):
      the launch floor (an empty kernel), and the whole path's prefill and
      decode times; for mixtral-8x7b and llama-3.2-vision-11b (in their
      serve phases) K2 at each of their prefill shapes, the cross shape
-     with its operations bound, and the path's times. Each model's servers
-     are freed before the next model's serve phase;
+     with its operations bound, and the path's times; for whisper-tiny K1
+     at d 384 and K2 at its encoder, self and cross shapes, for xlstm-350m
+     K1 at d 1024, each with a ``times`` line. Each model's servers are
+     freed before the next model's serve phase;
   8. train: the backward kernels of K1 (``rmsnorm_bwd``, ``add_rmsnorm_bwd``,
      at d 128, 3584, 4096 and zamba2-7b's out_norm at 7168), K2
      (``flash_attention_bwd``: bf16 on the tensor cores, reading the
@@ -104,13 +114,21 @@ Phases (each a function; any failure exits non-zero):
      same 12 steps, clean, replication and combined under the same gates,
      every kernel of the path and its backward launched the counted
      number of times (14.5 GB checkpoints; the hybrid's checkpoint
-     schedule runs on the CPU only, see ``phase_train_zamba``).
+     schedule runs on the CPU only, see ``phase_train_zamba``);
+  8c. train, whisper-tiny (full size, batch 4 x 448, zero frames) and
+     xlstm-350m (full size, 4 x 64: its gradient overflows past ~96
+     tokens, ROADMAP.md F7): the same 12 steps, clean,
+     replication and combined under the same gates (K2's backward at D 64
+     non-causal with Sq != Skv on whisper's path); phase 8's checks and
+     times include K2's backward at whisper's three shapes and K1's at d
+     384 and 1024.
 
 Prints JSON lines as it goes (``comm``, ``fanout``, ``serve``,
-``serve.ckpt``, ``obs``, ``store``, ``train.kernels`` and ``train`` lines
-among them), then ``{"kernels": [...]}`` and, last,
-``{"ok": true, "device": {...}}``. Exits non-zero without CUDA, and when run
-outside the repository (the port's package must be beside it in ``src``).
+``serve.ckpt``, ``obs``, ``store``, ``times``, ``train.kernels`` and
+``train`` lines among them, and each phase's seconds), then
+``{"kernels": [...]}`` and, last, ``{"ok": true, "device": {...}}``.
+Exits non-zero without CUDA, and when run outside the repository (the
+port's package must be beside it in ``src``).
 """
 from __future__ import annotations
 
@@ -160,6 +178,8 @@ from repro_torch.launch import train as train_lib  # noqa: E402
 from repro_torch.launch.serve import (  # noqa: E402
     BatchFanout, ReplicatedServer)
 from repro_torch.models import api, mamba2  # noqa: E402
+from repro_torch.models import layers as mlayers  # noqa: E402
+from repro_torch.models import xlstm as xlstm_lib  # noqa: E402
 from repro_torch.models.transformer import Transformer  # noqa: E402
 from repro_torch.models.zamba import Zamba  # noqa: E402
 from repro_torch.obs import write_chrome_trace  # noqa: E402
@@ -205,6 +225,11 @@ ZAMBA = get_arch("zamba2-7b")
 # bf16 weights; 32 layers would be 93.4 GB, more than the card holds)
 MIXTRAL = dataclasses.replace(get_arch("mixtral-8x7b"), n_layers=16)
 VISION = get_arch("llama-3.2-vision-11b")       # full size, 20.2 GB
+WHISPER = get_arch("whisper-tiny")               # full size, 56.4 M params
+XLSTM = get_arch("xlstm-350m")                   # full size, 265.8 M params
+# whisper's served stream ends at its published text context (openai/whisper
+# n_text_ctx 448): a 416-token prompt and GEN new tokens
+WHISPER_PROMPT = 448 - GEN
 KERNELS = {"rmsnorm": rmsnorm, "add_rmsnorm": add_rmsnorm,
            "flash_attention": flash_attention, "mamba_scan": mamba_chunk_scan}
 SERVE_DRAWS = (7, 8, 9)            # more serve-shape draws of K3
@@ -386,18 +411,27 @@ def _rand(gen, shape, dtype):
 def _k1_shapes():
     """(rows, d) of every K1 call of the served paths, prefill (B x S
     rows) and decode (B rows): the residual norms at d 4096 and 3584, the
-    Mamba out_norm at 7168, the qk-norm heads at 128."""
+    Mamba out_norm at 7168, the qk-norm heads at 128, xlstm-350m's blocks
+    at d 1024; whisper-tiny's encoder (B x 1500 frames) and decoder (B x
+    its prompt) at d 384."""
     dq, dz, dh = QWEN.d_model, ZAMBA.d_model, QWEN.resolved_head_dim
     di = mamba2.dims(ZAMBA)[0]
     heads = (QWEN.n_heads, QWEN.n_kv_heads)
     return [(rows * m, d) for rows in (B * S, B)
-            for m, d in [(1, dq), (1, dz), (1, di)] + [(h, dh) for h in heads]]
+            for m, d in [(1, dq), (1, dz), (1, di), (1, XLSTM.d_model)]
+            + [(h, dh) for h in heads]] + _whisper_rows()
+
+
+def _whisper_rows():
+    dw = WHISPER.d_model
+    return [(B * WHISPER.n_frames, dw), (B * WHISPER_PROMPT, dw), (B, dw)]
 
 
 def _fused_shapes():
     """(rows, d) of the fused add + norm on the served paths."""
     return [(rows, d) for rows in (B * S, B)
-            for d in (QWEN.d_model, ZAMBA.d_model)]
+            for d in (QWEN.d_model, ZAMBA.d_model, XLSTM.d_model)] + \
+        _whisper_rows()
 
 
 def _unaligned(gen, rows, d, dtype):
@@ -475,6 +509,19 @@ def _bshd(gen, b, s, h, d, dtype):
     return _rand(gen, (b, s, h, d), dtype).transpose(1, 2)
 
 
+def _whisper_k2_cases():
+    """K2 at whisper-tiny's D 64, MHA (6 heads, group 1: the tensor-core
+    kernel's unpaired-head items): the encoder's non-causal 1,500 x 1,500
+    (a ragged last key tile, 1,500 = 23 x 64 + 28), the cross-attention
+    of the trained 448-token text over the 1,500 frames, the decoder's
+    causal 448 (its served prompt of 416 runs in the serve phase)."""
+    w = dict(b=B, hq=WHISPER.n_heads, hkv=WHISPER.n_kv_heads,
+             d=WHISPER.resolved_head_dim, window=0)
+    return [dict(w, s=WHISPER.n_frames, causal=False),
+            dict(w, s=448, skv=WHISPER.n_frames, causal=False),
+            dict(w, s=448, causal=True)]
+
+
 def phase_attention(state):
     gen = torch.Generator(device="cuda").manual_seed(2)
     cases = [
@@ -527,7 +574,8 @@ def phase_attention(state):
         dict(b=B, hq=VISION.n_heads, hkv=VISION.n_kv_heads, s=S,
              skv=VISION.n_image_tokens, d=VISION.resolved_head_dim,
              causal=False, window=0, dtype=torch.float32),
-    ]
+    ] + [dict(c, dtype=dt) for c in _whisper_k2_cases()
+         for dt in (torch.bfloat16, torch.float32)]
     worst = 0.0
     for c in cases:
         skv = c.get("skv", c["s"])
@@ -767,6 +815,154 @@ def phase_reference_families(state):
         raise AssertionError(f"card and CPU logits differ by {worst}")
 
 
+# the card-vs-CPU check of whisper-tiny and xlstm-350m: each compared
+# tensor within 1e-3 of its largest |value|. Whisper, the whole model: the
+# kernels' f32 sums in another order, as the reduced checks (1e-3
+# absolute there). xlstm, block by block: at full width the reference's
+# sLSTM is chaotic (its r_gates are drawn with std H^-1/2 = 0.5 over dh =
+# 256 terms; one-ulp noise in them moves a block's output by 9e-6 of its
+# largest after 8 tokens, 5e-4 after 16, 43% after 32, on the CPU), and the
+# mLSTM's copied bf16 rounding of its score tile turns last-bit
+# differences into steps of 2^-8 of one term (one-ulp input noise moves a
+# block's output by 1.2e-4 of its largest at 64 tokens, 5.2e-4 at 512), so
+# summation-order differences between two devices compound through 24
+# blocks into different streams. Each block on the card therefore starts
+# from the CPU's stream and state (an 8-token prompt, then 4 decode
+# steps), and the whole, unforced model's gap is reported beside it
+FAMILY_REF_TOL = 1e-3
+FAMILY_REF_PROMPT = {"audio": 64, "ssm": 8}
+
+
+def _rel(got, want):
+    return float((got.cpu() - want).abs().max()) / max(
+        float(want.abs().max()), 1e-30)
+
+
+def _xlstm_blocks(model):
+    """The model's blocks in order: (kind, params)."""
+    for group, sp in zip(model.mlstm, model.slstm):
+        for mp in group:
+            yield "m", mp
+        yield "s", sp
+
+
+def _xlstm_forced(cpu, gpu, tokens, n_decode):
+    """xlstm-350m on the card block by block, each block given the CPU's
+    stream (x, r) and, in decode, the CPU's state: the worst gap of any
+    block's stream, output and state tensors and of the logits, each
+    relative to its largest |value|, over the prompt and ``n_decode``
+    teacher-forced steps."""
+    cfg = cpu.cfg
+    pairs = list(zip(_xlstm_blocks(cpu), _xlstm_blocks(gpu)))
+    worst, states = 0.0, [None] * len(pairs)
+    tok = tokens
+    for step in range(1 + n_decode):
+        x, r = mlayers.embed_lookup(cpu.embed, tok), None
+        for i, ((kind, pc), (_, pg)) in enumerate(pairs):
+            gpu_st = None if states[i] is None else {
+                k: t.cuda() for k, t in states[i].items()}
+            gx, gr = x.cuda(), None if r is None else r.cuda()
+            if kind == "s":
+                xc, oc, sc = xlstm_lib.slstm_block(cfg, pc, x, r,
+                                                   state=states[i])
+                xg, og, sg = xlstm_lib.slstm_block(cfg, pg, gx, gr,
+                                                   state=gpu_st)
+            elif step == 0:
+                xc, oc, sc = xlstm_lib.mlstm_block(cfg, pc, x, r)
+                xg, og, sg = xlstm_lib.mlstm_block(cfg, pg, gx, gr)
+            else:
+                xc, oc, sc = xlstm_lib.mlstm_decode_block(cfg, pc, x, r,
+                                                          states[i])
+                xg, og, sg = xlstm_lib.mlstm_decode_block(cfg, pg, gx, gr,
+                                                          gpu_st)
+            worst = max([worst, _rel(xg, xc), _rel(og, oc)]
+                        + [_rel(sg[k], sc[k]) for k in sc])
+            x, r, states[i] = xc, oc, sc
+        _, hc = mlayers.add_rmsnorm(cpu.ln_f, x, r, cfg.norm_eps)
+        _, hg = mlayers.add_rmsnorm(gpu.ln_f, x.cuda(), r.cuda(),
+                                        cfg.norm_eps)
+        lc = mlayers.unembed(cfg, cpu.embed, hc[:, -1:])
+        worst = max(worst, _rel(mlayers.unembed(cfg, gpu.embed,
+                                                     hg[:, -1:]), lc))
+        tok = torch.argmax(lc[:, -1], -1)[:, None].to(torch.int32)
+    return worst
+
+
+def _whole_model(cpu, gpu, batch, n_decode):
+    """Prefill and ``n_decode`` decode steps on both, teacher-forced by
+    the CPU's greedy tokens: (the worst logit gap relative to the largest
+    |logit|, whether the card's greedy tokens were the CPU's)."""
+    lc, cc = cpu.prefill(batch)
+    lg, cg = gpu.prefill({k: t.cuda() for k, t in batch.items()})
+    worst, agree = _rel(lg, lc), True
+    s = batch["tokens"].shape[1]
+    pos = torch.full((2, 1), s, dtype=torch.int32)
+    for _ in range(n_decode):
+        tok = torch.argmax(lc[:, -1], -1)[:, None].to(torch.int32)
+        agree &= bool(torch.equal(torch.argmax(lg[:, -1], -1).cpu(),
+                                  tok[:, 0]))
+        lc, cc = cpu.decode_step(cc, tok, pos)
+        lg, cg = gpu.decode_step(cg, tok.cuda(), pos.cuda())
+        worst = max(worst, _rel(lg, lc))
+        pos = pos + 1
+    return worst, agree
+
+
+@torch.no_grad()
+def phase_reference_audio_ssm(state):
+    """whisper-tiny at full size with seeded random frames (its served
+    path feeds zeros, so this is where the encoder and the
+    cross-attention run on the card on real inputs) and xlstm-350m at full
+    size, both in f32, with the same weights on the card (through the
+    kernels) and on the CPU (through the plain versions, which the CPU
+    tests hold against the JAX package), batch 2, a prompt and 4 decode
+    steps teacher-forced by the CPU's greedy tokens: whisper's logits (a
+    64-token prompt) within FAMILY_REF_TOL of the largest; xlstm (an
+    8-token prompt) block by block from the CPU's stream and state
+    (``_xlstm_forced``), every block's tensors and the logits within it,
+    the unforced whole model's gap reported; K1 (and for whisper K2)
+    launched."""
+    lines = {}
+    for cfg in (WHISPER, XLSTM):
+        cfg = dataclasses.replace(cfg, dtype="float32")
+        cpu = api.build_model(cfg, device="cpu").init(
+            torch.Generator().manual_seed(0))
+        gpu = api.build_model(cfg, device="cuda")
+        gpu.load_state_dict(cpu.state_dict())
+        rng = np.random.default_rng(12)
+        s = FAMILY_REF_PROMPT[cfg.family]
+        batch = {"tokens": torch.as_tensor(rng.integers(
+            0, cfg.vocab_size, (2, s), dtype=np.int32))}
+        if cfg.family == "audio":
+            batch["frames"] = torch.as_tensor(rng.standard_normal(
+                (2, cfg.n_frames, cfg.d_model),
+                dtype=np.float32)).to(torch.bfloat16)
+        reset_launches()
+        whole, agree = _whole_model(cpu, gpu, batch, 4)
+        line = {"prompt": s, "whole_model_rel_err": whole,
+                "whole_model_tokens_equal": agree}
+        if cfg.family == "ssm":
+            line["blockwise_rel_err"] = _xlstm_forced(cpu, gpu,
+                                                      batch["tokens"], 4)
+        line["gated_rel_err"] = line.get("blockwise_rel_err", whole)
+        counts = read_launches()
+        if not counts["rmsnorm"] or not counts["add_rmsnorm"] or (
+                cfg.family == "audio" and not counts["flash_attention"]):
+            raise AssertionError(f"{cfg.name}: a kernel was not launched: "
+                                 f"{counts}")
+        lines[cfg.name] = {**line, "launches": counts}
+        del cpu, gpu
+        gc.collect()
+        torch.cuda.empty_cache()
+    worst = max(v["gated_rel_err"] for v in lines.values())
+    emit({"check": "whisper_xlstm_card_vs_cpu", "dtype": "float32",
+          "batch": 2, "decode_steps": 4, "frames": "seeded random",
+          "by_arch": lines, "rtol_of_largest": FAMILY_REF_TOL,
+          "ok": worst <= FAMILY_REF_TOL})
+    if worst > FAMILY_REF_TOL:
+        raise AssertionError(f"card and CPU differ: {lines}")
+
+
 # ---------------------------------------------------------------- phase 6
 
 def _state_tensors(tree):
@@ -785,7 +981,25 @@ def expected_launches(cfg):
     norms inside a branch (the qk-norms, where ``cfg.qk_norm``) are
     plain."""
     prefills = 3
-    fwds = prefills + 2 * GEN + (2 * KILL_AT + GEN - KILL_AT) + KILL_AT
+    decodes = 2 * GEN + (2 * KILL_AT + GEN - KILL_AT) + KILL_AT
+    fwds = prefills + decodes
+    if cfg.family == "audio":
+        # the encoder runs at prefill only: its first ln1 plain, the other
+        # ln1, every ln2 and ln_enc fused (2 x 4); the decoder's first ln1
+        # plain, the other ln1, every ln_x and ln2 and ln_f fused (3 x 4);
+        # K2 a prefill: 4 encoder, 4 causal, 4 cross (decode's attention
+        # is plain)
+        enc, dec = cfg.n_encoder_layers, cfg.n_layers
+        return {"rmsnorm": 2 * prefills + decodes,
+                "add_rmsnorm": (2 * enc + 3 * dec) * prefills
+                + 3 * dec * decodes,
+                "flash_attention": (enc + 2 * dec) * prefills,
+                "mamba_scan": 0}
+    if cfg.family == "ssm":
+        # the first block's ln plain; every other block's ln and ln_f
+        # fused (24 for xlstm-350m); no attention
+        return {"rmsnorm": fwds, "add_rmsnorm": cfg.n_layers * fwds,
+                "flash_attention": 0, "mamba_scan": 0}
     if cfg.family == "hybrid":
         groups = cfg.n_layers // cfg.attn_every
         # plain: the first attn_ln, each block's out_norm; fused: the
@@ -816,11 +1030,19 @@ def expected_launches(cfg):
             "flash_attention": cfg.n_layers * prefills, "mamba_scan": 0}
 
 
-def expected_k2_shapes(cfg):
+def expected_k2_shapes(cfg, prompt_len=S):
     """K2's launches in one serve phase by (Sq, Skv, causal): the prompt's
-    self-attention, and for the VLM each cross layer's prompt over the
-    image memory."""
+    self-attention, for the VLM each cross layer's prompt over the image
+    memory, for whisper its encoder over the frames and each decoder
+    layer's prompt over them."""
     total = expected_launches(cfg)["flash_attention"]
+    if cfg.family == "audio":
+        m = cfg.n_frames
+        return {(m, m, False): cfg.n_encoder_layers * 3,
+                (prompt_len, prompt_len, True): cfg.n_layers * 3,
+                (prompt_len, m, False): cfg.n_layers * 3}
+    if not total:
+        return {}
     if cfg.family != "vlm":
         return {(S, S, True): total}
     cross = cfg.n_layers // cfg.cross_attn_every * 3
@@ -885,20 +1107,21 @@ def fanout_line(card_name, arch, srv, prompts, device="cuda"):
           "card": card_name})
 
 
-def _server(cfg, replication=True):
-    return ReplicatedServer(cfg, batch=B, prompt_len=S,
+def _server(cfg, replication=True, prompt_len=S):
+    return ReplicatedServer(cfg, batch=B, prompt_len=prompt_len,
                             replication=replication, device="cuda")
 
 
-def serve(state, cfg):
+def serve(state, cfg, prompt_len=S):
     """The replicated serving path of ``cfg`` at full size (width; depth
-    as ``cfg`` has it); leaves the server in ``state`` for the times that
-    follow. The unreplicated server is built, killed and freed before the
-    replicated one is built, so the card holds one copy of the weights at
-    a time (mixtral-8x7b's 16 layers are 47 GB)."""
+    as ``cfg`` has it) with ``prompt_len``-token prompts; leaves the
+    server in ``state`` for the times that follow. The unreplicated server
+    is built, killed and freed before the replicated one is built, so the
+    card holds one copy of the weights at a time (mixtral-8x7b's 16
+    layers are 47 GB)."""
     prompts = np.random.default_rng(0).integers(
-        0, cfg.vocab_size, (B, S), dtype=np.int32)
-    unreplicated = _server(cfg, replication=False)
+        0, cfg.vocab_size, (B, prompt_len), dtype=np.int32)
+    unreplicated = _server(cfg, replication=False, prompt_len=prompt_len)
     reset_launches()
     try:
         unreplicated.generate(prompts, GEN, kill_at=KILL_AT)
@@ -914,7 +1137,7 @@ def serve(state, cfg):
     torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
-    srv = _server(cfg)
+    srv = _server(cfg, prompt_len=prompt_len)
     torch.cuda.synchronize()
     build_line = {"phase": "serve.build", "arch": cfg.name,
                   "n_layers": cfg.n_layers, "d_model": cfg.d_model,
@@ -954,9 +1177,10 @@ def serve(state, cfg):
         raise AssertionError(f"promotions={srv.promotions} "
                              f"failures={srv.failures}")
     want = expected_launches(cfg)
-    want_shapes = expected_k2_shapes(cfg)
+    want_shapes = expected_k2_shapes(cfg, prompt_len)
     emit({"phase": "serve", "arch": cfg.name, "n_layers": cfg.n_layers,
-          "tokens_equal": True, "state_equal": True,
+          "prompt_len": prompt_len, "tokens_equal": True,
+          "state_equal": True,
           "state_tensors": n_state,
           "promotions": srv.promotions, "failures": srv.failures,
           "unreplicated_kill": fatal, "launches": counts,
@@ -1547,23 +1771,24 @@ def _sdpa_ms(q, k, v, flush, deterministic, causal=True):
 
 
 def _attention_times(card_name, flush, gen, hq, hkv, dh, skv=S, causal=True,
-                     window=0):
+                     window=0, sq=S):
     """K2 (the bf16 tensor-core kernel) at the prefill shape
-    [B, hq, S, dh] over ``skv`` keys (causal, or non-causal as the VLM's
-    cross-attention), beside its plain version and
+    [B, hq, sq, dh] over ``skv`` keys (causal, or non-causal as the VLM's
+    and whisper's cross-attention and whisper's encoder), beside its
+    plain version and
     ``scaled_dot_product_attention`` (the yardstick, never called by the
     port): ``library_ms`` with PyTorch's default settings and
     ``library_deterministic_ms`` with the switch on, as the serve path
     runs. A window as wide as the prompt (mixtral's 4096) masks nothing
     more, so SDPA's causal call computes the same function."""
-    if window and window < S:
+    if window and window < sq:
         raise ValueError("SDPA has no window narrower than the prompt")
     bf = torch.bfloat16
-    q = _bshd(gen, B, S, hq, dh, bf)
+    q = _bshd(gen, B, sq, hq, dh, bf)
     k = _bshd(gen, B, skv, hkv, dh, bf)
     v = _bshd(gen, B, skv, hkv, dh, bf)
     # unmasked (q, k) pairs
-    pairs = B * hq * (S * (S + 1) // 2 if causal else S * skv)
+    pairs = B * hq * (sq * (sq + 1) // 2 if causal else sq * skv)
     kw = dict(causal=causal, window=window)
     k2 = {
         "shape": list(q.shape), "kv_heads": hkv, "skv": skv,
@@ -1581,12 +1806,14 @@ def _attention_times(card_name, flush, gen, hq, hkv, dh, skv=S, causal=True,
     return k2
 
 
-def _path_times(state, cfg, flush):
-    """The whole path: the workload's prefill, then its decode steps (one
-    slice); the prefill logits must be finite of the expected shape."""
+def _path_times(state, cfg, flush, prefill_reps=20):
+    """The whole path: the workload's prefill (the median of
+    ``prefill_reps``), then its decode steps (one slice); the prefill
+    logits must be finite of the expected shape."""
     srv = state["server"]
     wl = srv.workload(state["prompts"])
-    prefill_ms = time_ms(wl.init_state, flush, reps=20)
+    prefill_ms = time_ms(wl.init_state, flush, reps=prefill_reps,
+                         warmup=min(3, prefill_reps))
     logits, _ = srv.model.prefill(wl.batch)
     if logits.shape != (B, 1, cfg.vocab_size) or \
             not bool(torch.isfinite(logits).all()):
@@ -1601,13 +1828,96 @@ def _path_times(state, cfg, flush):
         torch.cuda.synchronize()
         decode.append(time.perf_counter() - t0)
     decode_ms = 1e3 * statistics.median(decode)
-    emit({"time": "serve_path", "arch": cfg.name, "batch": B,
-          "prompt_len": S, "prefill_ms": prefill_ms,
-          "decode_ms_per_step": decode_ms,
-          "decode_tok_per_s": B / (decode_ms * 1e-3),
+    line = {"arch": cfg.name, "batch": B, "prompt_len": srv.prompt_len,
+            "prefill_ms": prefill_ms, "decode_ms_per_step": decode_ms,
+            "decode_tok_per_s": B / (decode_ms * 1e-3),
+            "replicated_generate_tok_per_s":
+                state["generate_tok_per_s"][cfg.name]}
+    emit({"time": "serve_path", **line, "card": state["card"]})
+    return line
+
+
+def phase_serve_whisper(state):
+    """whisper-tiny (full size; zero frames, as the reference's server
+    feeds them) served with a 416-token prompt and GEN tokens, to its
+    448-token text context, then its times: K1 at d 384 (the encoder's
+    4 x 1,500 rows, the decoder's prompt rows, a decode step), K2 at its
+    three prefill shapes (the encoder's 1,500 x 1,500 and the
+    cross-attention's 416 x 1,500, non-causal; the decoder's causal 416),
+    each beside SDPA, and the whole path (a ``times`` line)."""
+    cfg, p = WHISPER, WHISPER_PROMPT
+    serve(state, cfg, p)
+    card_name = state["card"]
+    flush = _L2Flush()
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    model = state["server"].model
+    enc, dec = model.enc_layers[0], model.dec_layers[0]
+    d, m = cfg.d_model, cfg.n_frames
+
+    def act(*shape):
+        return _rand(gen, shape, torch.bfloat16)
+    k1 = _rmsnorm_times(card_name, flush, [
+        ("encoder add+ln2 d=384", act(B, m, d), act(B, m, d),
+         enc["ln2"]["scale"]),
+        ("encoder ln1 d=384", act(B, m, d), None, enc["ln1"]["scale"]),
+        ("decoder add+ln_x d=384", act(B, p, d), act(B, p, d),
+         dec["ln_x"]["scale"]),
+        ("decode add+ln2 d=384", act(B, 1, d), act(B, 1, d),
+         dec["ln2"]["scale"])], cfg.norm_eps)
+    hq, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    k2_enc = _attention_times(card_name, flush, gen, hq, hkv, dh, skv=m,
+                              causal=False, sq=m)
+    k2 = _attention_times(card_name, flush, gen, hq, hkv, dh, skv=p, sq=p)
+    k2_cross = _attention_times(card_name, flush, gen, hq, hkv, dh, skv=m,
+                                causal=False, sq=p)
+    path = _path_times(state, cfg, flush)
+    times = {"rmsnorm": k1, "flash_attention_encoder": k2_enc,
+             "flash_attention": k2, "flash_attention_cross": k2_cross,
+             "path": path}
+    state.setdefault("times", {})[cfg.name] = times
+    emit({"times": cfg.name, "prefill_ms": path["prefill_ms"],
+          "decode_ms_per_step": path["decode_ms_per_step"],
           "replicated_generate_tok_per_s":
-              state["generate_tok_per_s"][cfg.name],
-          "card": state["card"]})
+              path["replicated_generate_tok_per_s"],
+          "k1_ms": {c: r["ms"] for c, r in k1["calls"].items()},
+          "k2_ms": {"encoder": k2_enc["ms"], "self": k2["ms"],
+                    "cross": k2_cross["ms"]},
+          "card": card_name})
+    _free_server(state)
+
+
+def phase_serve_xlstm(state):
+    """xlstm-350m (full size) served under the same traffic as qwen3-8b
+    (a 512-token prompt, GEN tokens), then its times: K1 at d 1024 (a
+    block's fused add + ln at the prompt and at a decode step, the first
+    block's plain ln) beside ``F.rms_norm``, and the whole path (a
+    ``times`` line). The mLSTM and the sLSTM scan are plain PyTorch, as
+    the reference's are jnp: no kernel of theirs to time."""
+    cfg = XLSTM
+    serve(state, cfg)
+    card_name = state["card"]
+    flush = _L2Flush()
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    model = state["server"].model
+    ln, d = model.mlstm[0][1]["ln"]["scale"], cfg.d_model
+
+    def act(*shape):
+        return _rand(gen, shape, torch.bfloat16)
+    k1 = _rmsnorm_times(card_name, flush, [
+        ("add+ln d=1024", act(B, S, d), act(B, S, d), ln),
+        ("ln d=1024", act(B, S, d), None, ln),
+        ("decode add+ln d=1024", act(B, 1, d), act(B, 1, d), ln)],
+        cfg.norm_eps)
+    # a prefill is ~0.6 s of host-bound sLSTM steps: 5 timed, not 20
+    path = _path_times(state, cfg, flush, prefill_reps=5)
+    state.setdefault("times", {})[cfg.name] = {"rmsnorm": k1, "path": path}
+    emit({"times": cfg.name, "prefill_ms": path["prefill_ms"],
+          "decode_ms_per_step": path["decode_ms_per_step"],
+          "replicated_generate_tok_per_s":
+              path["replicated_generate_tok_per_s"],
+          "k1_ms": {c: r["ms"] for c, r in k1["calls"].items()},
+          "card": card_name})
+    _free_server(state)
 
 
 def _free_server(state):
@@ -1759,14 +2069,17 @@ SCAN_BWD_ROUTES = {
 def _k1_bwd_cases(gen, dtype):
     """(name, dy, x, ds, w) of the K1 backward checks: the train shape's
     qk-norm heads (d 128) and residual norms (d 4096), zamba2-7b's d 3584
-    and its Mamba out_norm at d_inner 7168, a strided head view, unaligned
-    rows and a ragged row count."""
+    and its Mamba out_norm at d_inner 7168, whisper-tiny's d 384 (the
+    encoder's 1,500 frames, the decoder's 448 tokens), xlstm-350m's d
+    1024, a strided head view, unaligned rows and a ragged row count."""
     dq, dz, dh = QWEN.d_model, ZAMBA.d_model, QWEN.resolved_head_dim
     di = mamba2.dims(ZAMBA)[0]
     hq, hkv = QWEN.n_heads, QWEN.n_kv_heads
     cases = []
+    dw, dx = WHISPER.d_model, XLSTM.d_model
     for shape in [(B, S, hq, dh), (B, S, hkv, dh), (B, S, dq), (B, S, dz),
-                  (B, S, di), (1000 + 3, dq), (37, 200)]:
+                  (B, S, di), (1000 + 3, dq), (37, 200),
+                  (B, WHISPER.n_frames, dw), (B, 448, dw), (B, S, dx)]:
         d = shape[-1]
         cases.append((shape, _rand(gen, shape, dtype), _rand(gen, shape, dtype),
                       _rand(gen, (d,), dtype)))
@@ -1821,7 +2134,7 @@ def _k2_bwd_cases():
         dict(b=1, hq=4, hkv=2, s=256, d=64, causal=True, window=100),
         dict(b=1, hq=2, hkv=2, s=130, d=112, causal=False, window=0),
         dict(b=1, hq=8, hkv=2, s=40, d=32, causal=True, window=0),
-    ]
+    ] + _whisper_k2_cases()
     return [dict(c, dtype=dt) for c in cases
             for dt in (torch.bfloat16, torch.float32)]
 
@@ -1874,9 +2187,10 @@ def phase_train_kernels(state):
         torch.cuda.empty_cache()
     for c in _k2_bwd_cases():
         dtype = c["dtype"]
+        skv = c.get("skv", c["s"])
         q = _bshd(gen, c["b"], c["s"], c["hq"], c["d"], dtype)
-        k = _bshd(gen, c["b"], c["s"], c["hkv"], c["d"], dtype)
-        v = _bshd(gen, c["b"], c["s"], c["hkv"], c["d"], dtype)
+        k = _bshd(gen, c["b"], skv, c["hkv"], c["d"], dtype)
+        v = _bshd(gen, c["b"], skv, c["hkv"], c["d"], dtype)
         do = _bshd(gen, c["b"], c["s"], c["hq"], c["d"], dtype)
         mask = {"causal": c["causal"], "window": c["window"]}
         shape = {k_: v_ for k_, v_ in c.items() if k_ != "dtype"}
@@ -1955,15 +2269,15 @@ def _grad_ms(outputs, inputs, grads, flush):
                                                retain_graph=True), flush)
 
 
-def _sdpa_bwd_ms(q, k, v, do, flush, deterministic):
-    """Backward of ``scaled_dot_product_attention`` (causal, GQA) with the
+def _sdpa_bwd_ms(q, k, v, do, flush, deterministic, causal=True):
+    """Backward of ``scaled_dot_product_attention`` (GQA) with the
     deterministic-algorithms switch as asked; None with PyTorch's reason
     where it refuses the combination."""
     before = torch.are_deterministic_algorithms_enabled()
     torch.use_deterministic_algorithms(deterministic)
     try:
         leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
-        o = F.scaled_dot_product_attention(*leaves, is_causal=True,
+        o = F.scaled_dot_product_attention(*leaves, is_causal=causal,
                                            enable_gqa=True)
         return _grad_ms([o], leaves, [do], flush), None
     except RuntimeError as e:
@@ -1983,10 +2297,19 @@ def _train_kernel_times(card_name, gen):
                       QWEN.n_kv_heads)
     eps = QWEN.norm_eps
     rows = {}
+    dw = WHISPER.d_model
     for call, shape, fused in [("add+ln", (B, S, d), True),
                                ("q_norm", (B, S, hq, dh), False),
                                ("k_norm", (B, S, hkv, dh), False),
                                ("out_norm", (B, S, mamba2.dims(ZAMBA)[0]),
+                                False),
+                               ("whisper enc add+ln d=384",
+                                (B, WHISPER.n_frames, dw), True),
+                               ("whisper dec add+ln d=384", (B, 448, dw),
+                                True),
+                               ("xlstm add+ln d=1024",
+                                (B, S, XLSTM.d_model), True),
+                               ("xlstm ln d=1024", (B, S, XLSTM.d_model),
                                 False)]:
         x, dy = _rand(gen, shape, bf), _rand(gen, shape, bf)
         w = _rand(gen, (shape[-1],), bf)
@@ -2041,8 +2364,38 @@ def _train_kernel_times(card_name, gen):
     emit({"time": "flash_attention_bwd", **row, "card": card_name})
     rows["attention"] = row
     del q, k, v, do, o, lse
+    rows["attention_d64"] = [_k2_bwd_times(card_name, gen, flush, c)
+                             for c in _whisper_k2_cases()]
     rows["scan"] = _scan_bwd_times(card_name, gen, flush)
     return rows
+
+
+def _k2_bwd_times(card_name, gen, flush, c):
+    """K2's backward (bf16) at one of whisper-tiny's train shapes, beside
+    its plain version, SDPA's backward and its bound (the visible pairs'
+    five products of 2 D flops, or the bytes if they take longer)."""
+    bf = torch.bfloat16
+    sq, skv, causal = c["s"], c.get("skv", c["s"]), c["causal"]
+    q, do = (_bshd(gen, c["b"], sq, c["hq"], c["d"], bf) for _ in range(2))
+    k, v = (_bshd(gen, c["b"], skv, c["hkv"], c["d"], bf) for _ in range(2))
+    o, lse = flash_attention(q, k, v, causal=causal, return_lse=True)
+    pairs = c["b"] * c["hq"] * (sq * (sq + 1) // 2 if causal else sq * skv)
+    lib, lib_note = _sdpa_bwd_ms(q, k, v, do, flush, False, causal)
+    lib_det, det_note = _sdpa_bwd_ms(q, k, v, do, flush, True, causal)
+    row = {"kernel": "flash_attention_bwd", "shape": list(q.shape),
+           "skv": skv, "kv_heads": c["hkv"], "causal": causal,
+           "ms": time_ms(lambda: flash_attention_bwd(
+               q, k, v, o, do, lse, causal=causal), flush),
+           "plain_ms": time_ms(lambda: ref.flash_attention_bwd_ref(
+               q, k, v, do, causal=causal), flush),
+           "library_ms": lib, "library_deterministic_ms": lib_det,
+           "library_notes": [lib_note, det_note],
+           # q, o, dO, k, v read once; dq, dk, dv written once
+           **bound((3 * q.numel() + 2 * k.numel()) * 2
+                   + (q.numel() + 2 * k.numel()) * 2,
+                   10 * c["d"] * pairs, bf)}
+    emit({"time": "flash_attention_bwd", **row, "card": card_name})
+    return row
 
 
 def scan_bwd_tc_macs(b, s, h, chunk):
@@ -2123,9 +2476,20 @@ TRAIN_RUNS = [
     ("checkpoint", dict(mode="checkpoint", ckpt_interval_s=3.0),
      {7: [2]}, True),
 ]
-# the hybrid's on the card: the checkpoint schedule runs on the CPU only
-# (tests/test_torch_zamba_train.py; see phase_train_zamba)
-TRAIN_RUNS_ZAMBA = [run for run in TRAIN_RUNS if run[0] != "checkpoint"]
+# the hybrid's, whisper's and xlstm's on the card: their checkpoint
+# schedule runs on the CPU only (tests/test_torch_zamba_train.py,
+# tests/test_torch_train.py; see phase_train_zamba)
+TRAIN_RUNS_CARD = [run for run in TRAIN_RUNS if run[0] != "checkpoint"]
+# whisper-tiny trains at its published text context (n_text_ctx 448)
+TRAIN_SEQ_WHISPER = 448
+# xlstm-350m trains at 64 tokens: at full width the reference's sLSTM is
+# chaotic (ROADMAP.md F7) and the gradient through its scan grows with the
+# sequence, in the reference's arithmetic as in the port's (one block's
+# r_gates gradient 1.8e6 at 32 tokens, 1.8e12 at 64, 2e19 at 96, 1e25 at
+# 128, non-finite at 256 and 512: tests/test_torch_xlstm.py,
+# tools/xlstm_grad_check.py), so at 4 x 512 the first update is NaN; at 64
+# tokens the gradient and AdamW's f32 second moment (g^2) stay finite
+TRAIN_SEQ_XLSTM = 64
 
 
 def train_config():
@@ -2152,12 +2516,24 @@ def train_launches_per_step(cfg):
     layer. Hybrid (n Mamba blocks, G groups): every block's out_norm and
     the first attn_ln are plain norms (n + 1); the later attn_lns, every
     attn_mlp_ln, every block's ln and ln_f fuse the add (2 G + n); one
-    attention a group, one scan a block."""
+    attention a group, one scan a block. Whisper (e encoder, n decoder
+    layers): each stack's first ln1 is plain (2); the other ln1s, every
+    ln2, ln_x, ln_enc and ln_f fuse the add (2 e + 3 n); K2 once an
+    encoder layer and twice a decoder layer (causal and cross). xLSTM (n
+    blocks): the first block's ln plain, the other lns and ln_f fused
+    (n); no attention."""
     n = cfg.n_layers
     if cfg.family == "hybrid":
         g = n // cfg.attn_every
         fwd = {"rmsnorm": n + 1, "add_rmsnorm": 2 * g + n,
                "flash_attention": g, "mamba_scan": n}
+    elif cfg.family == "audio":
+        e = cfg.n_encoder_layers
+        fwd = {"rmsnorm": 2, "add_rmsnorm": 2 * e + 3 * n,
+               "flash_attention": e + 2 * n, "mamba_scan": 0}
+    elif cfg.family == "ssm":
+        fwd = {"rmsnorm": 1, "add_rmsnorm": n, "flash_attention": 0,
+               "mamba_scan": 0}
     else:
         fwd = {"rmsnorm": 2 * n + 1, "add_rmsnorm": 2 * n,
                "flash_attention": n, "mamba_scan": 0}
@@ -2240,18 +2616,39 @@ def phase_train_zamba(state):
     the CPU only (``tests/test_torch_zamba_train.py``): on the card its ~4
     saves and a restore of the 14.5 GB state would add ~180 s and leave the
     script within ~70 s of its 1,200 s limit."""
-    _train_phase(state, train_config_zamba(), TRAIN_RUNS_ZAMBA)
+    _train_phase(state, train_config_zamba(), TRAIN_RUNS_CARD)
 
 
-def _train_phase(state, cfg, runs):
+def phase_train_whisper(state):
+    """whisper-tiny trained at full size (56.4 M parameters; zero frames,
+    as the reference's trainer feeds them) for TRAIN_STEPS steps at batch
+    4 x 448, clean, under replication and combined, under qwen3-8b's
+    gates: every forward and backward kernel of the path (K2 in the
+    encoder at 1,500 x 1,500 and the cross-attention at 448 x 1,500,
+    non-causal, and the decoder's causal 448) launched the counted number
+    of times."""
+    _train_phase(state, WHISPER, TRAIN_RUNS_CARD, seq=TRAIN_SEQ_WHISPER)
+
+
+def phase_train_xlstm(state):
+    """xlstm-350m trained at full size (265.8 M parameters, 24 blocks) for
+    TRAIN_STEPS steps at batch 4 x TRAIN_SEQ_XLSTM (64: the longest
+    power-of-two sequence whose gradient stays finite in the reference's
+    arithmetic), clean, under replication and combined, under qwen3-8b's
+    gates (K1 and its backward the only kernels: the mLSTM and the sLSTM
+    scan are plain, as in the reference)."""
+    _train_phase(state, XLSTM, TRAIN_RUNS_CARD, seq=TRAIN_SEQ_XLSTM)
+
+
+def _train_phase(state, cfg, runs, seq=S):
     shutil.rmtree(TRAIN_CKPT, ignore_errors=True)     # a killed run's
     try:
-        _train_runs(state, cfg, runs)
+        _train_runs(state, cfg, runs, seq)
     finally:
         shutil.rmtree(TRAIN_CKPT, ignore_errors=True)
 
 
-def _train_runs(state, cfg, runs):
+def _train_runs(state, cfg, runs, seq):
     card_name = state["card"]
     per_step = train_launches_per_step(cfg)
     counters = {**KERNELS, **BWD_KERNELS}
@@ -2259,7 +2656,7 @@ def _train_runs(state, cfg, runs):
     state_bytes = train_state_bytes(cfg)
     emit({"phase": "train.build", "arch": cfg.name, "n_layers": cfg.n_layers,
           "d_model": cfg.d_model, "vocab": cfg.vocab_size, "params": n_params,
-          "state_bytes": state_bytes, "batch": B, "seq": S,
+          "state_bytes": state_bytes, "batch": B, "seq": seq,
           "steps": TRAIN_STEPS, "lr": TRAIN_LR,
           "launches_per_step": per_step, "card": card_name})
     clean = None
@@ -2269,7 +2666,7 @@ def _train_runs(state, cfg, runs):
         if ckpt_dir:
             shutil.rmtree(ckpt_dir, ignore_errors=True)
         tr = train_lib.build_trainer(
-            cfg, batch=B, seq=S, seed=TRAIN_SEED, lr=TRAIN_LR, device="cuda",
+            cfg, batch=B, seq=seq, seed=TRAIN_SEED, lr=TRAIN_LR, device="cuda",
             ft=FTConfig(**ft), ckpt_dir=ckpt_dir,
             kill_schedule=kills)
         times, held = _timed_steps(tr.workload, ckpt_dir)
@@ -2357,10 +2754,12 @@ def _train_runs(state, cfg, runs):
 
 PHASES = [phase_device_and_build, phase_comm, phase_rmsnorm, phase_attention,
           phase_mamba_scan, phase_reference, phase_reference_zamba,
-          phase_reference_families, phase_serve, phase_serve_ckpt, phase_obs, phase_store, phase_times,
+          phase_reference_families, phase_reference_audio_ssm, phase_serve,
+          phase_serve_ckpt, phase_obs, phase_store, phase_times,
           phase_serve_zamba, phase_serve_ckpt_zamba, phase_times_zamba,
-          phase_serve_mixtral, phase_serve_vlm,
-          phase_train_kernels, phase_train, phase_train_zamba]
+          phase_serve_mixtral, phase_serve_vlm, phase_serve_whisper,
+          phase_serve_xlstm, phase_train_kernels, phase_train,
+          phase_train_zamba, phase_train_whisper, phase_train_xlstm]
 
 REPLACES = {"rmsnorm": "src/repro/kernels/rmsnorm.py:31",
             "flash_attention": "src/repro/kernels/flash_attention.py:97",
@@ -2370,7 +2769,10 @@ ERRORS = {"rmsnorm": "rmsnorm_err", "add_rmsnorm": "add_rmsnorm_err",
 
 
 TIMED = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-SERVED = (QWEN.name, ZAMBA.name, MIXTRAL.name, VISION.name)
+SERVED = (QWEN.name, ZAMBA.name, MIXTRAL.name, VISION.name, WHISPER.name,
+          XLSTM.name)
+K2_TIMES = ("flash_attention", "flash_attention_cross",
+            "flash_attention_encoder")
 
 
 def kernels_line(state):
@@ -2379,8 +2781,8 @@ def kernels_line(state):
     its entries' launches, lists each entry (the fused one timed at the
     Mamba block's add + ln) and each served path's launches of both; the
     flash-attention row also lists every served prefill shape (qwen3-8b's,
-    zamba2-7b's, mixtral-8x7b's, llama-3.2-vision-11b's self and cross)
-    with each path's launches."""
+    zamba2-7b's, mixtral-8x7b's, llama-3.2-vision-11b's self and cross,
+    whisper-tiny's encoder, self and cross) with each path's launches."""
     launches, times = state["launches"][ZAMBA.name], state["times"][ZAMBA.name]
     rows = []
     for name, replaces in REPLACES.items():
@@ -2406,8 +2808,7 @@ def kernels_line(state):
         if name == "flash_attention":
             rows[-1]["by_shape"] = [
                 _k2_shape(state, arch, key) for arch in SERVED
-                for key in ("flash_attention", "flash_attention_cross")
-                if key in state["times"][arch]]
+                for key in K2_TIMES if key in state["times"][arch]]
     rows += _backward_rows(state)
     return {"kernels": rows}
 
@@ -2437,7 +2838,8 @@ def _backward_rows(state):
     (qwen3-8b's for K1 and K2, zamba2-7b's for K3). ``replaces`` names the
     TPU kernel whose function they differentiate. The K1 row sums one call
     of each timed entry (q_norm, k_norm, add+ln) and lists zamba2-7b's
-    out_norm at d 7168 beside them."""
+    out_norm at d 7168 and whisper-tiny's and xlstm-350m's widths beside
+    them; the K2 row lists whisper-tiny's three shapes at D 64."""
     launches = {name: sum(runs[name]
                           for runs in state["train_launches"].values())
                 for name in BWD_KERNELS}
@@ -2457,6 +2859,9 @@ def _backward_rows(state):
          **k1, "call": "q_norm + k_norm + add+ln",
          "out_norm": {key: times["out_norm"][key]
                       for key in TIMED + ("shape",)},
+         "by_shape": [{"call": call, **{key: times[call][key]
+                                        for key in TIMED + ("shape",)}}
+                      for call in times if " d=" in call],
          "entries": [
              {"name": name, "launches": launches[name],
               "max_abs_err": worst[name],
@@ -2470,7 +2875,10 @@ def _backward_rows(state):
          "launches": launches["flash_attention_bwd"],
          "max_abs_err": worst["flash_attention_bwd"],
          **{key: att[key] for key in TIMED + ("library_deterministic_ms",)},
-         "shape": att["shape"]},
+         "shape": att["shape"],
+         "by_shape": [{key: r[key] for key in TIMED + (
+             "library_deterministic_ms", "shape", "skv", "causal")}
+             for r in times["attention_d64"]]},
         {"name": "mamba_scan_bwd", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/mamba_scan_bwd.cu",
          "replaces": REPLACES["mamba_scan"], "backward_of": "mamba_scan",

@@ -135,8 +135,10 @@ def _rows_to_host(leaf, lo: int, hi: int) -> np.ndarray:
         out = np.empty((n,) + shape[1:], dtype=nd)
         for ix, t in leaf:
             if lo <= ix[0] < hi:
-                _host_view(out[(ix[0] - lo,) + ix[1:]], t.dtype).copy_(
-                    t.detach())
+                # the trailing ... keeps a 0-d block (a stacked scalar such
+                # as whisper's cross gates) a view, not a numpy scalar
+                _host_view(out[(ix[0] - lo,) + ix[1:] + (...,)],
+                           t.dtype).copy_(t.detach())
         return out
     if isinstance(leaf, torch.Tensor):
         out = np.empty((n,) + shape[1:], dtype=nd)
@@ -202,8 +204,8 @@ def _fill(target, arr: np.ndarray, lo: int, stored: Tuple[int, ...],
         n = arr.shape[0]
         for ix, t in target:
             if lo <= ix[0] < lo + n:
-                t.copy_(_host_view(np.ascontiguousarray(
-                    arr[(ix[0] - lo,) + ix[1:]]), t.dtype))
+                block = arr[(ix[0] - lo,) + ix[1:] + (...,)].copy()
+                t.copy_(_host_view(block, t.dtype))
     elif isinstance(target, torch.Tensor):
         src = _host_view(arr if arr.flags.c_contiguous else arr.copy(),
                          target.dtype)

@@ -2,11 +2,17 @@
 trace of one prefill and of a few decode steps of a full-width model
 (qwen3-8b by default, or ``--arch zamba2-7b`` and the others the port
 serves; ``--layers N`` cuts the depth, as ``chip_smoke.py`` serves
-mixtral-8x7b at 16 layers; one slice, bf16, random weights from a seed).
+mixtral-8x7b at 16 layers; ``--prompt-len`` sets the prompt, as
+``chip_smoke.py`` serves whisper-tiny with 416 tokens; one slice, bf16,
+random weights from a seed, the zero frames or image embeddings of the
+server's prefill batch).
 
     python -m repro_torch.launch.profile_serve [--arch zamba2-7b]
     python -m repro_torch.launch.profile_serve --arch mixtral-8x7b \
         --layers 16
+    python -m repro_torch.launch.profile_serve --arch whisper-tiny \
+        --prompt-len 416
+    python -m repro_torch.launch.profile_serve --arch xlstm-350m
 
 It runs with ``chip_smoke.py``'s settings: deterministic algorithms on,
 without the fill of uninitialised memory, and no TF32.
@@ -99,6 +105,7 @@ def main(argv=None) -> int:
     ap.add_argument("--arch", default="qwen3-8b")
     ap.add_argument("--layers", type=int, default=0,
                     help="cut the depth to this many layers (0: full)")
+    ap.add_argument("--prompt-len", type=int, default=PROMPT_LEN)
     args = ap.parse_args(argv)
     # cuBLAS reproducibility needs this before the first CUDA call
     os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
@@ -115,13 +122,14 @@ def main(argv=None) -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     srv = ReplicatedServer(cfg, batch=BATCH,
-                           prompt_len=PROMPT_LEN, device="cuda")
+                           prompt_len=args.prompt_len, device="cuda")
     prompts = np.random.default_rng(0).integers(
-        0, srv.cfg.vocab_size, (BATCH, PROMPT_LEN), dtype=np.int32)
+        0, srv.cfg.vocab_size, (BATCH, args.prompt_len), dtype=np.int32)
     wl = srv.workload(prompts)
     state = wl.init_state()                      # warm-up
     state, _ = wl.step(state, 0)
-    head = {"arch": args.arch, "n_layers": cfg.n_layers}
+    head = {"arch": args.arch, "n_layers": cfg.n_layers,
+            "prompt_len": args.prompt_len}
     print(json.dumps({**head, **trace("prefill", wl.init_state, card)}),
           flush=True)
 

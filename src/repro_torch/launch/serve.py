@@ -23,14 +23,19 @@ default), the zamba2-7b hybrid, whose state carries a recurrent Mamba
 state per block beside the attention rings (cloned like the rings), the
 mixtral MoE and the llama-3.2-vision VLM, whose prefill also reads image
 embeddings (zeros, as the reference's server feeds them) and whose state
-carries each group's cross K/V. ``ReplicatedServer`` takes an arch name
-or a ``ModelConfig`` (a depth-cut one, say).
+carries each group's cross K/V, whisper-tiny, whose prefill encodes frames
+(zeros, likewise) and whose state carries every decoder layer's cross K/V
+over them, and xlstm-350m, whose state is recurrent (no KV ring).
+``ReplicatedServer`` takes an arch name or a ``ModelConfig`` (a depth-cut
+one, say).
 
 Examples:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-7b \
       --batch 4 --prompt-len 32 --gen 16 --kill-at 8 --device cuda
   PYTHONPATH=src python -m repro_torch.launch.serve \
       --arch llama-3.2-vision-11b --device cpu --kill-at 3
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-tiny \
+      --no-reduced --prompt-len 416 --gen 32 --kill-at 8 --device cuda
   # replicated in-memory checkpoints: promote, then a pair death restored
   # from partner memory (8 logical ranks, 4 a node)
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
@@ -168,11 +173,15 @@ class ReplicatedServer:
         self.last_report = None
 
     def _extras(self, tokens: torch.Tensor) -> dict:
-        """The prefill batch: the tokens and, for the VLM, the image
-        embeddings [B, n_image_tokens, d] as zeros in bf16 on the server's
-        device (the reference's ``_extras``; its vision frontend is a
-        stub). The frames of the audio family wait for its port."""
+        """The prefill batch: the tokens and, for the audio family, the
+        frames [B, n_frames, d], for the VLM the image embeddings [B,
+        n_image_tokens, d], as zeros in bf16 on the server's device (the
+        reference's ``_extras``; its frontends are stubs)."""
         batch = {"tokens": tokens}
+        if self.cfg.family == "audio":
+            batch["frames"] = torch.zeros(
+                (tokens.shape[0], self.cfg.n_frames, self.cfg.d_model),
+                dtype=torch.bfloat16, device=self.device)
         if self.cfg.family == "vlm":
             batch["image_embeds"] = torch.zeros(
                 (tokens.shape[0], self.cfg.n_image_tokens, self.cfg.d_model),

@@ -11,11 +11,12 @@ import torch
 
 from repro_torch.configs.base import RunConfig
 from repro_torch.models import api as model_api
-from repro_torch.models import transformer, zamba
+from repro_torch.models import transformer, whisper, xlstm, zamba
 from repro_torch.optim import adamw
 
 # each trainable family's loss over the train state's params
-LOSS_FNS = {"dense": transformer.loss_fn, "hybrid": zamba.loss_fn}
+LOSS_FNS = {"dense": transformer.loss_fn, "hybrid": zamba.loss_fn,
+            "audio": whisper.loss_fn, "ssm": xlstm.loss_fn}
 
 
 def make_model(run: RunConfig, device=None):
@@ -33,10 +34,10 @@ def make_train_step(run: RunConfig):
     loss)``: the loss and every parameter's gradient, then one AdamW step
     written into ``params`` and the moments in place (the counterpart of
     the reference's donated jit); the grads are freed before it returns.
-    ``batch`` holds ``tokens`` and ``labels`` as tensors on the params'
-    device. The loss is the family's (``LOSS_FNS``). Returns the step and
-    the model's config (the reference returns its model; here the weights
-    live in the state)."""
+    ``batch`` holds ``tokens`` and ``labels`` (and, for audio,
+    ``frames``) as tensors on the params' device. The loss is the
+    family's (``LOSS_FNS``). Returns the step and the model's config (the
+    reference returns its model; here the weights live in the state)."""
     cfg = run.model
     transformer.check_trainable(cfg)
     loss_fn = LOSS_FNS[cfg.family]
@@ -49,8 +50,11 @@ def make_train_step(run: RunConfig):
         leaves = {k: p.detach().requires_grad_(True)
                   for k, p in params.items()}
         loss = loss_fn(cfg, leaves, batch, seq_chunk)
-        grads = dict(zip(leaves, torch.autograd.grad(loss,
-                                                     list(leaves.values()))))
+        # a leaf the loss never reads (whisper's cross gates) gets a zero
+        # gradient, as jax.grad gives it
+        grads = dict(zip(leaves, torch.autograd.grad(
+            loss, list(leaves.values()), allow_unused=True,
+            materialize_grads=True)))
         del leaves
         opt_state = adamw.update(opt_cfg, grads, opt_state, params)
         del grads

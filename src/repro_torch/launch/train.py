@@ -1,16 +1,18 @@
 """Training entry point of the port (port of ``repro/launch/train.py``): any
-dense or hybrid arch, any FT mode, on one device.
+dense, hybrid, audio or SSM arch, any FT mode, on one device.
 
 ``build_workload`` wraps the train step as a ``TrainWorkload``;
 ``build_session`` pairs it with an ``FTSession``; ``build_trainer`` keeps
 the legacy FTTrainer surface. The batches are the reference's token ids bit
-for bit (``data.TokenSource``); the weights come from ``torch.Generator``
+for bit (``data.TokenSource``), with zero bf16 frames for the audio family as
+the reference feeds them; the weights come from ``torch.Generator``
 seeded by ``seed`` on the device (the reference's distribution, not its
 bits), or from the reference's own init (``init_params``, numpy leaves, as
 ``models.convert.params_from_jax`` takes them).
 
 Example (reduced qwen3-8b on the CPU, a promotion then a pair death; the
-hybrid with ``--arch zamba2-7b``):
+hybrid with ``--arch zamba2-7b``, the others with ``--arch whisper-tiny``
+or ``--arch xlstm-350m``):
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
       --steps 10 --seq 32 --batch 4 --ft-mode combined --ckpt-interval 3 \\
       --ckpt-dir /tmp/ck --kill 3:0 --kill 6:8
@@ -69,8 +71,12 @@ def build_workload(arch: Union[str, ModelConfig], *, reduced: bool = True,
                                   global_batch=batch, seed=seed))
 
     def batch_fn(step):
-        b = data.batch_at(step)
-        return {k: torch.from_numpy(v).to(dev) for k, v in b.items()}
+        b = {k: torch.from_numpy(v).to(dev)
+             for k, v in data.batch_at(step).items()}
+        if cfg.family == "audio":       # the stub frontend's frames
+            b["frames"] = torch.zeros((batch, cfg.n_frames, cfg.d_model),
+                                      dtype=torch.bfloat16, device=dev)
+        return b
 
     def init_state():
         if jax_params is not None:
@@ -124,7 +130,8 @@ def build_trainer(arch: Union[str, ModelConfig], *, reduced: bool = True,
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="qwen3-8b",
-                    help="a dense or hybrid arch (qwen3-8b, zamba2-7b, ...)")
+                    help="a dense, hybrid, audio or SSM arch (qwen3-8b, "
+                         "zamba2-7b, whisper-tiny, xlstm-350m, ...)")
     ap.add_argument("--reduced", action="store_true", default=True)
     ap.add_argument("--full", dest="reduced", action="store_false")
     ap.add_argument("--steps", type=int, default=50)

@@ -1,11 +1,9 @@
 """Model factory and parameter count (port of ``repro/models/api.py``:
-the dense, MoE, VLM and hybrid families)."""
+every family of the reference)."""
 from __future__ import annotations
 
 from repro_torch.configs.base import ModelConfig
 
-# where each family not ported yet stands in ROADMAP.md's Queue 1
-_NOT_PORTED = {"audio": 7, "ssm": 8}
 # the expert weights under a layer's ``ffn`` (``models.moe.moe_params``)
 _EXPERT_LEAVES = ("wi", "wg", "wo")
 
@@ -16,13 +14,15 @@ def build_model(cfg: ModelConfig, *, device=None):
     if cfg.family in ("dense", "moe", "vlm"):
         from repro_torch.models.transformer import Transformer
         return Transformer(cfg, device=device)
+    if cfg.family == "audio":
+        from repro_torch.models.whisper import Whisper
+        return Whisper(cfg, device=device)
+    if cfg.family == "ssm":
+        from repro_torch.models.xlstm import XLSTM
+        return XLSTM(cfg, device=device)
     if cfg.family == "hybrid":
         from repro_torch.models.zamba import Zamba
         return Zamba(cfg, device=device)
-    if cfg.family in _NOT_PORTED:
-        raise NotImplementedError(
-            f"the {cfg.family!r} family is not ported to PyTorch yet "
-            f"(ROADMAP.md, Queue 1 item {_NOT_PORTED[cfg.family]})")
     raise ValueError(f"unknown family {cfg.family!r}")
 
 

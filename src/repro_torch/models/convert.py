@@ -8,8 +8,12 @@ layer's experts ``layers/ffn/wi[3]`` [E, d, f] -> ``layers.3.ffn.wi``;
 the VLM's ``layers/attn/wq[g, j]`` -> ``layers.g.j.attn.wq`` and
 ``cross/gate[g]`` -> ``cross.g.gate``; the hybrid's
 ``mamba/in_x[g, j]`` -> ``mamba.g.j.in_x`` and ``mamba_tail/a_log[i]`` ->
-``mamba_tail.i.a_log``), and every dtype is kept (the hybrid's f32
-``a_log``, ``d_skip`` and ``dt_bias`` stay f32 in a bf16 model). numpy
+``mamba_tail.i.a_log``; whisper's ``enc_layers/attn/wq[i]`` ->
+``enc_layers.i.attn.wq`` and ``dec_layers/xattn/gate[i]`` ->
+``dec_layers.i.xattn.gate``; xlstm's ``mlstm/w_up[g, j]`` ->
+``mlstm.g.j.w_up`` and ``slstm/r_gates[g]`` -> ``slstm.g.r_gates``), and
+every dtype is kept (the hybrid's f32 ``a_log``, ``d_skip`` and
+``dt_bias`` stay f32 in a bf16 model). numpy
 has no bfloat16 of its own, so bf16 leaves arrive as ``ml_dtypes.bfloat16``
 arrays or as their ``uint16`` bit views (the trick ``repro/checkpoint/io.py``
 uses); both become ``torch.bfloat16`` bit for bit.
@@ -61,14 +65,19 @@ def _stacked(cfg: ModelConfig) -> Dict[str, Tuple[int, ...]]:
     if cfg.family == "vlm":
         groups = cfg.n_layers // cfg.cross_attn_every
         return {"layers": (groups, cfg.cross_attn_every), "cross": (groups,)}
+    if cfg.family == "audio":
+        return {"enc_layers": (cfg.n_encoder_layers,),
+                "dec_layers": (cfg.n_layers,)}
+    if cfg.family == "ssm":
+        groups = cfg.n_layers // cfg.slstm_every
+        return {"mlstm": (groups, cfg.slstm_every - 1), "slstm": (groups,)}
     return {"layers": (cfg.n_layers,)}
 
 
 def params_from_jax(tree: dict, cfg: ModelConfig, device=None
                     ) -> Dict[str, torch.Tensor]:
-    """JAX params (numpy leaves) of the transformer (dense, MoE, VLM) or
-    the hybrid -> the port's state dict, for the model's
-    ``load_state_dict``."""
+    """JAX params (numpy leaves) of any family's model -> the port's
+    state dict, for the model's ``load_state_dict``."""
     stacked = _stacked(cfg)
     out: Dict[str, torch.Tensor] = OrderedDict()
     for name, arr in _leaves(tree):

@@ -1,6 +1,6 @@
 """Shared layers of the decoders, in PyTorch (port of
-``repro/models/layers.py``: the dense layers and the gated
-cross-attention).
+``repro/models/layers.py``: the dense layers and the cross-attention,
+gated for the VLM and ungated for whisper).
 
 Conventions (kept from the JAX package so the two compare like with like)
 ---------------------------------------------------------------------------
@@ -146,15 +146,18 @@ def _scores_block(q, k, q_pos, k_pos, window: int, causal: bool = True):
     return torch.where(mask[:, None, None, :, :], s, NEG_INF)
 
 
-def prefill_attention(q, k, v, *, window: int = 0) -> torch.Tensor:
+def prefill_attention(q, k, v, *, window: int = 0,
+                      causal: bool = True) -> torch.Tensor:
     """Causal (optionally sliding-window) attention over one prompt whose
-    positions run from 0. q: [B, S, Hq, Dh]; k, v: [B, S, Hkv, Dh].
+    positions run from 0, or with ``causal=False`` every query over every
+    key (whisper's encoder; a cross-attention, where k and v are the
+    memory's, Skv != Sq). q: [B, Sq, Hq, Dh]; k, v: [B, Skv, Hkv, Dh].
 
     The kernel reads the [B, S, H, Dh] tensors through their strides (the
     transposes below are views) and writes [B, S, Hq, Dh] storage, so
     neither side makes a transposed copy on the card."""
     out = ops.attention(q.transpose(1, 2), k.transpose(1, 2),
-                        v.transpose(1, 2), causal=True, window=window)
+                        v.transpose(1, 2), causal=causal, window=window)
     return out.transpose(1, 2)
 
 
@@ -281,12 +284,12 @@ def empty_cache(cfg: ModelConfig, batch: int, cache_len: int, dtype,
 
 
 # ---------------------------------------------------------------------------
-# Gated cross-attention (VLM image layers)
+# Cross-attention (VLM image layers, gated; whisper decoder, ungated)
 # ---------------------------------------------------------------------------
 
 def cross_attention_params(cfg: ModelConfig, dtype, device) -> dict:
     """Attention weights and a scalar ``gate`` (``init`` zeroes it, as the
-    reference initialises it)."""
+    reference initialises it; whisper carries it unread)."""
     p = attention_params(cfg, dtype, device)
     p["gate"] = torch.zeros((), dtype=dtype, device=device)
     return p
@@ -305,25 +308,27 @@ def cross_attention_kv(cfg: ModelConfig, p, memory):
     return k, v
 
 
-def cross_attention_apply(cfg: ModelConfig, p, x, kv):
-    """x: [B, S, d] queries; kv: the memory's (k, v) from
-    ``cross_attention_kv``. Every query sees every memory position: the
-    prompt goes through ``ops.attention(causal=False)`` (K2 on the card,
-    Sq != Skv), a decode token through the plain path, as decode
-    self-attention does. y is scaled by tanh(gate), the tanh in f32 (the
-    reference's ungated form waits for its audio caller, ROADMAP Queue 1
-    item 7)."""
-    k, v = kv
+def cross_attention_apply(cfg: ModelConfig, p, x, memory=None, *, kv=None,
+                          gated: bool = True):
+    """x: [B, S, d] queries over ``memory`` [B, M, d] (no RoPE), or over
+    its (k, v) from ``cross_attention_kv`` given as ``kv``. Every query
+    sees every memory position: the prompt goes through
+    ``ops.attention(causal=False)`` (K2 on the card, Sq != Skv), a decode
+    token through the plain path, as decode self-attention does. ``gated``
+    (the VLM) scales y by tanh(gate), the tanh in f32; whisper's layers
+    are ungated."""
+    k, v = cross_attention_kv(cfg, p, memory) if kv is None else kv
     q = _heads(x, p["wq"])
     if cfg.qk_norm:
         q = rmsnorm(p["q_norm"], q, cfg.norm_eps)
     if x.shape[1] == 1:
         out = decode_attention(q, k, v, None, None)
     else:
-        out = ops.attention(q.transpose(1, 2), k.transpose(1, 2),
-                            v.transpose(1, 2), causal=False).transpose(1, 2)
+        out = prefill_attention(q, k, v, causal=False)
     y = attention_out(p, out)
-    return y * torch.tanh(p["gate"].to(F32)).to(y.dtype)
+    if gated:
+        y = y * torch.tanh(p["gate"].to(F32)).to(y.dtype)
+    return y
 
 
 # ---------------------------------------------------------------------------

@@ -119,7 +119,7 @@ def _cross_apply(cfg: ModelConfig, cp, x, r, kv):
     first (the layer reads the stream), its gated output the new r."""
     if r is not None:
         x = x + r
-    return x, L.cross_attention_apply(cfg, cp, x, kv)
+    return x, L.cross_attention_apply(cfg, cp, x, kv=kv)
 
 
 class Transformer(nn.Module):
@@ -293,9 +293,9 @@ def loss_fn(cfg: ModelConfig, params: Dict[str, torch.Tensor], batch: dict,
 
 def check_trainable(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` naming the roadmap item unless the
-    port trains ``cfg``'s family (the dense one and the hybrid; MoE and
+    port trains ``cfg``'s family (dense, hybrid, audio and SSM; MoE and
     the VLM serve but do not train yet)."""
-    if cfg.family not in ("dense", "hybrid"):
+    if cfg.family not in ("dense", "hybrid", "audio", "ssm"):
         raise NotImplementedError(_TRAIN_NOT_PORTED.get(
             cfg.family, f"training the {cfg.family!r} family is not "
                         f"ported"))
@@ -304,6 +304,4 @@ def check_trainable(cfg: ModelConfig) -> None:
 _TRAIN_NOT_PORTED = {
     "moe": "training MoE is not ported yet (ROADMAP.md, Queue 1 item 5)",
     "vlm": "training the VLM is not ported yet (ROADMAP.md, Queue 1 item 6)",
-    "audio": "training audio is not ported yet (ROADMAP.md, Queue 1 item 7)",
-    "ssm": "training the SSM is not ported yet (ROADMAP.md, Queue 1 item 8)",
 }

@@ -193,3 +193,32 @@ def test_train_state_to_jax_is_the_reference_tree(jax_state):
             for k in path:
                 node = node[k.key]
             np.testing.assert_array_equal(node, _bits(a))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_stacked_scalar_leaves_round_trip(dtype, tmp_path):
+    """A stack of 0-d blocks (the VLM's ``cross.<g>.gate``, whisper's
+    ``dec_layers.<i>.xattn.gate``) saves as one [n] leaf and restores
+    bitwise through either package (before the fix the port's save took a
+    numpy scalar for a view of the block and raised)."""
+    vals = torch.tensor([0.5, -1.25, 3.0, 7.5]).to(dtype)
+    state = {"params": {f"dec_layers.{i}.xattn.gate": vals[i].clone()
+                        for i in range(4)} | {"ln_f.scale": vals.clone()}}
+    ck = Checkpointer(str(tmp_path / "port"), n_bands=2)
+    ck.save(3, state)
+    like = {"params": {k: torch.zeros_like(v)
+                       for k, v in state["params"].items()}}
+    got, step, _ = ck.restore(like)
+    assert step == 3
+    for k, v in state["params"].items():
+        assert got["params"][k].shape == v.shape and torch.equal(
+            got["params"][k], v), k
+    jlike = {"params": {"dec_layers": {"xattn": {"gate": np.zeros(
+        4, np.float32 if dtype == torch.float32 else ml_dtypes.bfloat16)}},
+        "ln_f": {"scale": np.zeros(
+            4, np.float32 if dtype == torch.float32 else ml_dtypes.bfloat16)}}}
+    jgot, jstep, _ = JCheckpointer(str(tmp_path / "port")).restore(jlike)
+    assert jstep == 3
+    np.testing.assert_array_equal(
+        _bits(jgot["params"]["dec_layers"]["xattn"]["gate"]),
+        _bits(convert.to_numpy(vals)))

@@ -180,15 +180,6 @@ def test_init_matches_jax_distribution():
     assert torch.all(model.ln_f["scale"] == 1)
 
 
-@pytest.mark.parametrize("arch", ["xlstm-350m", "whisper-tiny"])
-def test_other_families_not_ported_yet(arch):
-    """Each names its item of ROADMAP.md's Queue 1 (audio 7, SSM 8)."""
-    item = {"whisper-tiny": 7, "xlstm-350m": 8}[arch]
-    with pytest.raises(NotImplementedError,
-                       match=rf"ROADMAP\.md, Queue 1 item {item}\)"):
-        api.build_model(get_arch(arch).reduced(), device="cpu")
-
-
 @pytest.mark.parametrize("arch,names", [
     ("mixtral-8x7b", ["layers.3.ffn.router", "layers.3.ffn.wi",
                       "layers.3.ffn.wg", "layers.3.ffn.wo"]),

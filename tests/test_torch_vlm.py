@@ -93,7 +93,7 @@ def test_cross_attention_matches_the_reference(s, dtype, tol, f32_pv):
         assert got.dtype == tx.dtype
         _close(got, want, tol)
     want = JL.cross_attention_apply(jc, jp, jx, kv=jkv)
-    got = L.cross_attention_apply(tc, tp, tx, tkv)
+    got = L.cross_attention_apply(tc, tp, tx, kv=tkv)
     assert got.shape == (B, s, jc.d_model) and got.dtype == tx.dtype
     _close(got, want, tol)
 
@@ -108,7 +108,8 @@ def test_cross_attention_with_a_zero_gate_adds_zero():
     x = torch.randn(B, S, tc.d_model, generator=torch.Generator()
                     .manual_seed(1)).to(torch.bfloat16)
     mem = torch.randn(B, tc.n_image_tokens, tc.d_model).to(torch.bfloat16)
-    y = L.cross_attention_apply(tc, cp, x, L.cross_attention_kv(tc, cp, mem))
+    y = L.cross_attention_apply(tc, cp, x,
+                                kv=L.cross_attention_kv(tc, cp, mem))
     assert torch.equal(y, torch.zeros_like(y))
 
 
