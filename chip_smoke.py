@@ -116,16 +116,31 @@ Phases (each a function; any failure exits non-zero):
      number of times (14.5 GB checkpoints; the hybrid's checkpoint
      schedule runs on the CPU only, see ``phase_train_zamba``);
   8c. train, whisper-tiny (full size, batch 4 x 448, zero frames) and
-     xlstm-350m (full size, 4 x 64: its gradient overflows past ~96
-     tokens, ROADMAP.md F7): the same 12 steps, clean,
+     xlstm-350m (full width, 6 of its 24 blocks, 4 x 64: its gradient
+     overflows past ~96 tokens, ROADMAP.md F7): the same 12 steps, clean,
      replication and combined under the same gates (K2's backward at D 64
      non-causal with Sq != Skv on whisper's path); phase 8's checks and
      times include K2's backward at whisper's three shapes and K1's at d
-     384 and 1024.
+     384 and 1024;
+  9. simrt: the simulated runtime with HPCG (16 ranks of 104^3), CloverLeaf
+     (8 slabs of 3,840 x 240) and PIC (8 ranks of 4,096 cells and
+     1,048,576 particles) in float64 on the card, 4 workers a node, 12
+     steps under tests/test_simrt_apps.py's schedules (none; replication,
+     three promotions; checkpoint, a restart from disk; combined, a
+     promotion then a pair death restarted from disk): every rank's final
+     state bitwise the none run's, the counters, the virtual time and
+     counters equal to the CPU run of the same schedule at the tests'
+     size, the replication run again with the divergence tripwire armed
+     (bitwise, silent); HPCG combined with in-memory checkpoints under
+     fattree pricing, restored from partner memory bitwise; each app at
+     full per-rank size on 4 ranks for 4 steps on the card against the
+     CPU (``SIMRT_TOL``, particle counts equal); the traced HPCG demo
+     (spans closed and nested); ``SimAppWorkload`` under ``FTSession``,
+     bitwise after a promotion (``simrt`` lines).
 
 Prints JSON lines as it goes (``comm``, ``fanout``, ``serve``,
-``serve.ckpt``, ``obs``, ``store``, ``times``, ``train.kernels`` and
-``train`` lines among them, and each phase's seconds), then
+``serve.ckpt``, ``obs``, ``store``, ``times``, ``train.kernels``,
+``train`` and ``simrt`` lines among them, and each phase's seconds), then
 ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": {...}}``.
 Exits non-zero without CUDA, and when run outside the repository (the
 port's package must be beside it in ``src``).
@@ -158,15 +173,20 @@ import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
 from repro_torch import comm as comm_lib  # noqa: E402
+from repro_torch.apps.cloverleaf import CloverLeaf  # noqa: E402
+from repro_torch.apps.hpcg import HPCG  # noqa: E402
+from repro_torch.apps.pic import PIC  # noqa: E402
 from repro_torch.comm.collectives import TAG_BCAST  # noqa: E402
 from repro_torch.comm.worlds import (  # noqa: E402
     PORT_FABRIC, CommZoo, canon, run_world, tensor_maker)
 from repro_torch.configs import get_arch  # noqa: E402
 from repro_torch.configs.base import FTConfig  # noqa: E402
 from repro_torch.core.coordinator import ClusterTopology  # noqa: E402
+from repro_torch.core.failure_sim import FailureEvent  # noqa: E402
 from repro_torch.core.replica_map import (  # noqa: E402
     ApplicationDead, ReplicaMap)
-from repro_torch.ft import DecodeWorkload, FTSession  # noqa: E402
+from repro_torch.ft import (  # noqa: E402
+    DecodeWorkload, FTSession, SimAppWorkload)
 from repro_torch.kernels import build, ref  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention, flash_attention_bwd)
@@ -183,6 +203,8 @@ from repro_torch.models import xlstm as xlstm_lib  # noqa: E402
 from repro_torch.models.transformer import Transformer  # noqa: E402
 from repro_torch.models.zamba import Zamba  # noqa: E402
 from repro_torch.obs import write_chrome_trace  # noqa: E402
+from repro_torch.obs.demo import traced_hpcg_run  # noqa: E402
+from repro_torch.simrt import CostModel, SimRuntime  # noqa: E402
 from repro_torch.store import MemStore, StoreUnrecoverable  # noqa: E402
 from repro_torch.store.backend import (  # noqa: E402
     MemBackend, from_host, to_host)
@@ -2490,6 +2512,10 @@ TRAIN_SEQ_WHISPER = 448
 # tools/xlstm_grad_check.py), so at 4 x 512 the first update is NaN; at 64
 # tokens the gradient and AdamW's f32 second moment (g^2) stay finite
 TRAIN_SEQ_XLSTM = 64
+# xlstm-350m trains at full width with its depth cut from 24 to 6 blocks
+# (one group of 5 mLSTM + 1 sLSTM): the script's cut to stay within its
+# time limit (PERF.md §4)
+TRAIN_XLSTM_BLOCKS = 6
 
 
 def train_config():
@@ -2631,13 +2657,15 @@ def phase_train_whisper(state):
 
 
 def phase_train_xlstm(state):
-    """xlstm-350m trained at full size (265.8 M parameters, 24 blocks) for
-    TRAIN_STEPS steps at batch 4 x TRAIN_SEQ_XLSTM (64: the longest
-    power-of-two sequence whose gradient stays finite in the reference's
-    arithmetic), clean, under replication and combined, under qwen3-8b's
-    gates (K1 and its backward the only kernels: the mLSTM and the sLSTM
-    scan are plain, as in the reference)."""
-    _train_phase(state, XLSTM, TRAIN_RUNS_CARD, seq=TRAIN_SEQ_XLSTM)
+    """xlstm-350m trained at full width, depth cut to TRAIN_XLSTM_BLOCKS
+    (6 of 24 blocks), for TRAIN_STEPS steps at batch 4 x TRAIN_SEQ_XLSTM
+    (64: the longest power-of-two sequence whose gradient stays finite in
+    the reference's arithmetic), clean, under replication and combined,
+    under qwen3-8b's gates (K1 and its backward the only kernels: the
+    mLSTM and the sLSTM scan are plain, as in the reference)."""
+    _train_phase(state, dataclasses.replace(XLSTM,
+                                            n_layers=TRAIN_XLSTM_BLOCKS),
+                 TRAIN_RUNS_CARD, seq=TRAIN_SEQ_XLSTM)
 
 
 def _train_phase(state, cfg, runs, seq=S):
@@ -2752,6 +2780,335 @@ def _train_runs(state, cfg, runs, seq):
     state.setdefault("train_launches", {})[cfg.name] = totals
 
 
+# ---------------------------------------------------------------- phase 9
+#
+# The simulated runtime and the paper's three apps (float64, no kernel of
+# their own) at their published per-rank sizes; ranks cut to what one card
+# holds (PERF.md §4), 4 workers a node.
+
+# The ranks are cut (32, 16 and 32 planned) to keep the script within its
+# time limit; the per-rank sizes are the sources' own.
+SIMRT_APPS = {
+    # HPCG's shipped hpcg.dat: a 104^3 local grid, ranks stacked along z
+    "hpcg": (HPCG, 16, dict(nx=104, ny=104, nz=104)),
+    # CloverLeaf's InputDecks/clover_bm16.in: 3,840 x 3,840 cells in 16
+    # slabs of 3,840 x 240, of which 8
+    "cloverleaf": (CloverLeaf, 8, dict(nx=3840, ny_local=240)),
+    # 4,096 cells and 1,048,576 particles (256 a cell) a rank
+    "pic": (PIC, 8, dict(cells_per_rank=4096, particles_per_rank=1 << 20)),
+}
+# tests/test_simrt_apps.py's per-rank sizes: the CPU run whose virtual
+# time and counters each card run must equal (virtual time does not
+# depend on the grid)
+SIMRT_TEST_SIZES = {"hpcg": dict(nx=8, ny=8, nz=4),
+                    "cloverleaf": dict(nx=16, ny_local=8),
+                    "pic": dict(cells_per_rank=32, particles_per_rank=96)}
+SIMRT_STEPS, SIMRT_WPN = 12, 4
+# HPCG's in-memory checkpoint run: fewer ranks, the same per-rank grid
+SIMRT_MEMSTORE_RANKS = 8
+SIMRT_CKPT = os.path.join(ROOT, "build", "simrt_ckpt")
+# card against CPU (4 ranks, full per-rank size, 4 steps), of each state
+# tensor's largest magnitude: float64 sums in other orders on the card
+# (cuBLAS dots, reductions, the deposit's sorted runs, the scan's matrix
+# products), ~1e-16 relative a sum, carried a few steps (fixed in
+# PERF.md §6 before the first card run)
+SIMRT_TOL = 1e-10
+SIMRT_COUNTERS = ("failures", "promotions", "restarts", "replays",
+                  "duplicates_skipped", "store_restores", "store_fallbacks",
+                  "steps_done")
+
+
+def simrt_schedules(n):
+    """tests/test_simrt_apps.py:26-120's schedules for n ranks: mode ->
+    (kills [(time s, workers)], replication degree). Combined kills rank
+    1's computational worker, then its promoted replica (worker n + 1)."""
+    return {"none": ([], 1.0),
+            "replication": ([(2.5, (0,)), (5.5, (2,)), (8.5, (1,))], 1.0),
+            "checkpoint": ([(6.5, (2,))], 0.0),
+            "combined": ([(3.2, (1,)), (6.3, (n + 1,))], 1.0)}
+
+
+def simrt_runtime(app, mode, kills, rep, ckpt_dir=None, **kw):
+    ft_kw = {k: kw.pop(k) for k in ("ckpt_backend", "topology") if k in kw}
+    ft = FTConfig(mode=mode, replication_degree=rep, mtbf_s=1e9,
+                  ckpt_interval_s=4.0, **ft_kw)
+    return SimRuntime(app, ft,
+                      costs=CostModel(step_time_s=1.0, ckpt_cost_s=0.2,
+                                      restore_cost_s=0.3),
+                      ckpt_dir=ckpt_dir, workers_per_node=SIMRT_WPN,
+                      failure_events=[FailureEvent(t, w) for t, w in kills],
+                      **kw)
+
+
+def _cached_init(app, cache):
+    """``app`` whose ``init_state(rank)`` draws each rank's state once per
+    phase (numpy on the host, then one copy to the card) and hands every
+    worker its own clone: set-up, kept out of the timed runs' way."""
+    draw = app.init_state
+
+    def init_state(rank):
+        if rank not in cache:
+            cache[rank] = draw(rank)
+        return copy_tree(cache[rank])
+    app.init_state = init_state
+    return app
+
+
+def _simrt_counters(res):
+    return {k: getattr(res, k) for k in SIMRT_COUNTERS}
+
+
+def _states_bitwise(got, want):
+    if sorted(got) != sorted(want):
+        return False
+    for r, st in want.items():
+        for key, w in st.items():
+            g = got[r][key]
+            if isinstance(w, torch.Tensor):
+                if g.device != w.device or not torch.equal(g, w):
+                    return False
+            elif g != w:
+                return False
+    return True
+
+
+def _timed_simrt(make):
+    """(runtime, result, wall s, peak bytes) of ``make()``'s run: the peak
+    counts what the runtime allocates, its workers' initial states
+    included, above what the phase already holds."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    rt = make()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = rt.run(SIMRT_STEPS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return rt, res, wall, torch.cuda.max_memory_allocated() - held
+
+
+def _simrt_app_runs(state, name):
+    """Every schedule of one app at full per-rank size: the FT theorem
+    (final states bitwise the none run's), the counters, the virtual time
+    and the counters of the CPU run at the tests' size, then the
+    replication run again with the divergence tripwire armed (bitwise,
+    silent). A replicated run without failures beside the none run, after
+    a one-step warm-up, times the replica's re-execution."""
+    cls, n, size = SIMRT_APPS[name]
+    card_name = state.get("card") or card()
+    cache, split = {}, state.setdefault("simrt_split", {})
+    t0 = time.perf_counter()
+
+    def app():
+        return _cached_init(cls(n_ranks=n, device="cuda", **size), cache)
+    simrt_runtime(app(), "none", [], 1.0).run(1)
+    split[f"{name}.warmup"] = time.perf_counter() - t0
+    runs = [(mode, mode, kills, rep)
+            for mode, (kills, rep) in simrt_schedules(n).items()]
+    runs.insert(1, ("replication.failure_free", "replication", [], 1.0))
+    clean, walls = None, {}
+    for label, mode, kills, rep in runs:
+        ckpt_dir = os.path.join(SIMRT_CKPT, name, label)
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+        t0 = time.perf_counter()
+        rt, res, wall, peak = _timed_simrt(lambda: simrt_runtime(
+            app(), mode, kills, rep, ckpt_dir=ckpt_dir))
+        t1 = time.perf_counter()
+        cpu = simrt_runtime(cls(n_ranks=n, device="cpu",
+                                **SIMRT_TEST_SIZES[name]),
+                            mode, kills, rep).run(SIMRT_STEPS)
+        split[f"{name}.{label}"] = t1 - t0
+        split[f"{name}.{label}.cpu_test_size"] = time.perf_counter() - t1
+        equal = True if clean is None else _states_bitwise(res.states,
+                                                           clean)
+        executed = SIMRT_STEPS + round(res.time.rollback)
+        walls[label] = wall
+        emit({"phase": "simrt", "app": name, "mode": label, "ranks": n,
+              "workers": n + rt.m, "per_rank": size, "steps": SIMRT_STEPS,
+              "executed_steps": executed, "wall_s": wall,
+              "wall_ms_a_step": 1e3 * wall / SIMRT_STEPS,
+              **_simrt_counters(res),
+              "rollback_s": res.time.rollback,
+              "time": res.time.as_dict(),
+              "time_equal_cpu": res.time.as_dict() == cpu.time.as_dict(),
+              "counters_equal_cpu":
+                  _simrt_counters(res) == _simrt_counters(cpu),
+              "final_state_equal": equal,
+              "peak_memory_bytes": peak, "card": card_name})
+        want = {"none": (0, 0), "replication.failure_free": (0, 0),
+                "replication": (3, 0), "checkpoint": (0, 1),
+                "combined": (None, 1)}[label]
+        if not equal:
+            raise AssertionError(f"simrt {name} {label}: final state "
+                                 f"differs from the failure-free run's")
+        if res.time.as_dict() != cpu.time.as_dict() or \
+                _simrt_counters(res) != _simrt_counters(cpu):
+            raise AssertionError(f"simrt {name} {label}: virtual time or "
+                                 f"counters differ from the CPU run's")
+        if res.restarts != want[1] or (want[0] is not None and
+                                       res.promotions != want[0]) or \
+                (label == "combined" and res.promotions < 1):
+            raise AssertionError(f"simrt {name} {label}: promotions "
+                                 f"{res.promotions}, restarts "
+                                 f"{res.restarts}")
+        if label in ("checkpoint", "combined") and res.time.rollback <= 0:
+            raise AssertionError(f"simrt {name} {label}: nothing rolled "
+                                 f"back")
+        if name == "pic" and label == "replication" and res.replays <= 0:
+            raise AssertionError("simrt pic replication: no replay")
+        if label == "none":
+            clean = res.states
+        elif label == "replication":
+            first = res.states
+        del rt, res
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    # the replication run again, with the divergence tripwire armed
+    kills, rep = simrt_schedules(n)["replication"]
+    t0 = time.perf_counter()
+    rt, res, wall, _peak = _timed_simrt(lambda: simrt_runtime(
+        app(), "replication", kills, rep, detect_divergence=True))
+    split[f"{name}.rerun"] = time.perf_counter() - t0
+    rerun = _states_bitwise(res.states, first)
+    emit({"phase": "simrt.rerun", "app": name, "mode": "replication",
+          "detect_divergence": True, "wall_s": wall,
+          "compared_sends": rt.divergence.compared,
+          "divergences": len(rt.divergence.divergences),
+          "bitwise_equal_first_run": rerun,
+          "replica_wall_over_none":
+              walls["replication.failure_free"] / walls["none"],
+          "card": card_name})
+    if not rerun or rt.divergence.divergences or not rt.divergence.compared:
+        raise AssertionError(f"simrt {name}: rerun not bitwise or the "
+                             f"tripwire fired")
+
+
+def _simrt_hpcg_memstore(state):
+    """HPCG at full size, combined, in-memory checkpoints under fattree
+    pricing, a pair death: restored from partner memory, bitwise the
+    failure-free run under the same pricing (fattree's collectives are
+    trees and rings, which sum in another order than the flat ones)."""
+    cls, _n, size = SIMRT_APPS["hpcg"]
+    n, cache = SIMRT_MEMSTORE_RANKS, {}
+
+    def app():
+        return _cached_init(cls(n_ranks=n, device="cuda", **size), cache)
+    clean = simrt_runtime(app(), "none", [], 1.0,
+                          topology="fattree").run(SIMRT_STEPS).states
+    kills, rep = simrt_schedules(n)["combined"]
+    rt, res, wall, peak = _timed_simrt(lambda: simrt_runtime(
+        app(), "combined", kills, rep, ckpt_backend="memory",
+        topology="fattree"))
+    equal = _states_bitwise(res.states, clean)
+    del clean
+    emit({"phase": "simrt", "app": "hpcg", "mode": "combined.memory",
+          "topology": "fattree", "ranks": n, "wall_s": wall,
+          **_simrt_counters(res), "time": res.time.as_dict(),
+          "store_committed_bytes": rt.store.committed_bytes,
+          "final_state_equal": equal, "peak_memory_bytes": peak,
+          "card": state.get("card") or card()})
+    if not equal or res.restarts != 1 or res.store_restores != 1 or \
+            res.store_fallbacks:
+        raise AssertionError("simrt hpcg memory: not restored from partner "
+                             "memory bitwise")
+
+
+def _simrt_card_vs_cpu(state):
+    """Each app at full per-rank size on 4 ranks for 4 steps, on the card
+    and on the CPU: every state tensor within SIMRT_TOL of its largest
+    magnitude, particle counts equal."""
+    out = {}
+    for name, (cls, _n, size) in SIMRT_APPS.items():
+        res = {}
+        for dev in ("cuda", "cpu"):
+            rt = simrt_runtime(cls(n_ranks=4, device=dev, **size), "none",
+                               [], 1.0)
+            res[dev] = rt.run(4).states
+        worst = 0.0
+        for r, st in res["cpu"].items():
+            for key, want in st.items():
+                got = res["cuda"][r][key]
+                if not isinstance(want, torch.Tensor):
+                    if not math.isclose(float(got), float(want),
+                                        rel_tol=SIMRT_TOL):
+                        raise AssertionError(f"simrt {name}: {key} card "
+                                             f"{got} CPU {want}")
+                    continue
+                if got.shape != want.shape:
+                    raise AssertionError(f"simrt {name}: rank {r} {key} "
+                                         f"{tuple(got.shape)} on the card, "
+                                         f"{tuple(want.shape)} on the CPU")
+                scale = float(want.abs().max()) if want.numel() else 0.0
+                err = float((got.cpu() - want).abs().max()) \
+                    if want.numel() else 0.0
+                if err > SIMRT_TOL * scale:
+                    raise AssertionError(f"simrt {name}: rank {r} {key} "
+                                         f"differs by {err} (scale {scale})")
+                if scale:
+                    worst = max(worst, err / (SIMRT_TOL * scale))
+        out[name] = worst
+        del res
+    emit({"phase": "simrt.card_vs_cpu", "ranks": 4, "steps": 4,
+          "tolerance": SIMRT_TOL, "share_of_tolerance": out,
+          "card": state.get("card") or card()})
+
+
+def phase_simrt(state):
+    """The simulated runtime and HPCG, CloverLeaf and PIC on the card
+    (``SIMRT_APPS``), 12 steps under tests/test_simrt_apps.py's schedules
+    (none, replication, checkpoint with rep 0, combined with a pair death;
+    disk checkpoints under build/simrt_ckpt, a rank's baseline and latest
+    there at a time): final states bitwise the none run's, the counters,
+    virtual time and counters equal to the CPU run at the tests' size, a
+    bitwise rerun with the divergence tripwire silent; HPCG in partner
+    memory under fattree pricing; the card against the CPU; the traced
+    HPCG demo; ``SimAppWorkload`` under ``FTSession``."""
+    card_name = state.get("card") or card()
+    split = state.setdefault("simrt_split", {})
+    shutil.rmtree(SIMRT_CKPT, ignore_errors=True)
+    try:
+        for name in SIMRT_APPS:
+            _simrt_app_runs(state, name)
+        t0 = time.perf_counter()
+        _simrt_hpcg_memstore(state)
+        split["hpcg.memstore"] = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(SIMRT_CKPT, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    _simrt_card_vs_cpu(state)
+    split["card_vs_cpu"] = time.perf_counter() - t0
+    # the traced demo at its default size (64 ranks, a node killed)
+    t0 = time.perf_counter()
+    _rt, res, obs = traced_hpcg_run(device="cuda")
+    traced = {"spans": len(obs.tracer.spans),
+              "nested_and_closed": _nested_and_closed(obs.tracer),
+              "failures": res.failures, "promotions": res.promotions,
+              "replays": res.replays,
+              "wall_s": time.perf_counter() - t0}
+    # SimAppWorkload under FTSession: bitwise the clean run after a
+    # promotion (HPCG, 4 ranks at full per-rank size)
+    cls, _n, size = SIMRT_APPS["hpcg"]
+
+    def workload():
+        return SimAppWorkload(cls(n_ranks=4, device="cuda", **size))
+    clean = FTSession(ft=FTConfig(mode="none"),
+                      n_logical_workers=4).run(workload(), 6).final_state
+    rep = FTSession(ft=FTConfig(mode="replication"), injector={3: [0]},
+                    n_logical_workers=4).run(workload(), 6)
+    session_equal = _states_bitwise(rep.final_state, clean)
+    split["obs_session"] = time.perf_counter() - t0
+    emit({"phase": "simrt.obs_session", "traced_hpcg": traced,
+          "session_promotions": rep.promotions,
+          "session_final_state_equal": session_equal, "card": card_name})
+    emit({"phase": "simrt.split", "seconds": split})
+    if not traced["nested_and_closed"] or not res.promotions or \
+            rep.promotions != 1 or not session_equal:
+        raise AssertionError("simrt: traced demo or SimAppWorkload failed")
+
+
 PHASES = [phase_device_and_build, phase_comm, phase_rmsnorm, phase_attention,
           phase_mamba_scan, phase_reference, phase_reference_zamba,
           phase_reference_families, phase_reference_audio_ssm, phase_serve,
@@ -2759,7 +3116,8 @@ PHASES = [phase_device_and_build, phase_comm, phase_rmsnorm, phase_attention,
           phase_serve_zamba, phase_serve_ckpt_zamba, phase_times_zamba,
           phase_serve_mixtral, phase_serve_vlm, phase_serve_whisper,
           phase_serve_xlstm, phase_train_kernels, phase_train,
-          phase_train_zamba, phase_train_whisper, phase_train_xlstm]
+          phase_train_zamba, phase_train_whisper, phase_train_xlstm,
+          phase_simrt]
 
 REPLACES = {"rmsnorm": "src/repro/kernels/rmsnorm.py:31",
             "flash_attention": "src/repro/kernels/flash_attention.py:97",

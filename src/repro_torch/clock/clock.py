@@ -9,7 +9,8 @@
     a ledger-only charge (FTSession's repair and replica share);
   * ``charge_comm(transport)`` drains a priced ``ReplicaTransport``: the
     max per-sender α‑β message time accrued since the last take is charged
-    to ``comm``;
+    to ``comm``; ``drain_comm`` discards it (a measurement reset);
+  * ``advance_to`` pins the schedule clock to a step boundary;
   * ``injection_horizon`` is the failure-injection horizon with slack;
   * ``obs`` (``obs.ObsRecorder.bind_clock``) mirrors every charge, with
     its ``label``, to ``obs.on_charge``; None (the default) costs one
@@ -68,7 +69,18 @@ class VirtualClock:
             self.obs.on_charge(component, seconds, label)
         return seconds
 
+    def advance_to(self, t: float) -> None:
+        """Set the schedule clock to an absolute step boundary (SimRuntime
+        pins step ends to ``t0 + step_time`` regardless of mid-step repair
+        charges)."""
+        self.now = t
+
     # -- priced-transport draining -------------------------------------------
+
+    def drain_comm(self, transport) -> float:
+        """Discard the transport's accrued comm time (reset before a
+        measurement window); returns the discarded seconds."""
+        return transport.take_comm_time()
 
     def charge_comm(self, transport, *, component: str = "comm",
                     advance: bool = True) -> float:

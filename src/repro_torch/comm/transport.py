@@ -43,15 +43,14 @@ every delivery — the computational copy, the intercomm fill-in, a replay —
 carries a clone of its own (``own_tensors``), so a receiver's in-place
 write reaches neither the log nor its twin.  Routing, matching, send-IDs
 and pricing are the reference's line for line, and so are the observer
-list and the per-link utilization accumulator (``link_usage``).  The
-scheduler's wake hook and elastic rebinding come with the ports that use
-them.
+list, the per-link utilization accumulator (``link_usage``), the
+scheduler's wake hook (``waker``) and elastic rebinding (``rebind``).
 """
 from __future__ import annotations
 
 import copy
 from collections import deque
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 
@@ -160,8 +159,11 @@ class Endpoint:
 
 
 class ReplicaTransport:
-    """Routing + matching over a ReplicaMap world; endpoints are
-    registered by the scheduler for every alive worker."""
+    """Routing + matching over a ReplicaMap world.
+
+    ``rebind`` swaps the replica map after an elastic restart; endpoints are
+    registered by the scheduler for every alive worker.
+    """
 
     def __init__(self, rmap: ReplicaMap, n_ranks: int,
                  log_limit_bytes: int = 1 << 28, cost_model=None,
@@ -195,8 +197,8 @@ class ReplicaTransport:
         # with msg_cost_workers); None keeps the transport cost-free
         self.cost_model = cost_model
         self.comm_time: Dict[int, float] = {}   # sender wid -> accrued s
-        # ordered send observers (obs.ObsRecorder; the divergence detector
-        # comes with the analyze port): each is called once per logical send
+        # ordered send observers (analyze.DivergenceDetector,
+        # obs.ObsRecorder): each is called once per logical send
         # with (role, src, dst, tag, send_id, payload, step) BEFORE role
         # routing, so replica-side skipped sends are still observed.
         # Ordering contract (docs/comm_api.md): the divergence detector
@@ -208,6 +210,10 @@ class ReplicaTransport:
         # alongside the α‑β pricing; None (default) adds one attribute
         # check per priced message
         self.link_usage = None
+        # delivery wake hook: the ready-queue scheduler registers a
+        # callable(wid) and gets woken per delivery and per wildcard-order
+        # append (the two events that can unblock a parked worker)
+        self.waker: Optional[Callable[[int], None]] = None
 
     # ------------------------------------------------------------ lifecycle
 
@@ -215,6 +221,11 @@ class ReplicaTransport:
         ep = Endpoint(wid)
         self.endpoints[wid] = ep
         return ep
+
+    def rebind(self, rmap: ReplicaMap) -> None:
+        """Adopt a rebuilt world (elastic restart); endpoints re-register."""
+        self.rmap = rmap
+        self.endpoints = {}
 
     def drop(self, wid: int) -> None:
         self.endpoints.pop(wid, None)
@@ -235,16 +246,28 @@ class ReplicaTransport:
             else:
                 self.observers.append(obs)
 
+    def remove_observer(self, obs) -> None:
+        try:
+            self.observers.remove(obs)
+        except ValueError:
+            pass
+
     # -------------------------------------------------------------- sending
 
     def deliver(self, ep: Endpoint, msg: LoggedMessage) -> None:
         ep.admit(msg)
         self.activity += 1
+        if self.waker is not None:
+            self.waker(ep.wid)
 
     def deliver_bulk(self, ep: Endpoint, msgs) -> None:
         """Deliver many messages to one endpoint (log replay): a single
-        activity bump instead of one per message."""
-        self.activity += ep.admit_bulk(msgs)
+        activity bump and ONE waker call instead of one per message."""
+        count = ep.admit_bulk(msgs)
+        if count:
+            self.activity += count
+            if self.waker is not None:
+                self.waker(ep.wid)
 
     def _charge(self, src_wid: int, dst_wid: int, nbytes: int,
                 tag: Optional[int] = None) -> None:
@@ -391,6 +414,12 @@ class ReplicaTransport:
             self.wc_order[rank].append((got.src, got.tag, got.send_id))
             ep.wc_consumed += 1
             ep.wc_matches.append((got.src, got.tag, got.send_id))
+            # the order entry may be the only thing a parked replica
+            # twin was waiting on (its copy already arrived)
+            if self.waker is not None:
+                rep_wid = self.rmap.rep.get(rank)
+                if rep_wid is not None:
+                    self.waker(rep_wid)
         return got
 
     def _take(self, ep: Endpoint, src_rank: Optional[int],

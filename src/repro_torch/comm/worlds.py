@@ -8,9 +8,9 @@ package's), so one scheduler drives any implementation of the same
 interfaces and their results can be compared with ``canon``.
 ``CommZoo`` is an app whose step runs every collective of
 ``COLLECTIVE_OPS`` once; ``tensor_maker`` turns its numpy-made values
-into tensors of a dtype on a device.  The simulated runtime, which
-schedules apps with a ready queue, virtual time and checkpoints, is a
-later port.
+into tensors of a dtype on a device.  ``simrt.SimRuntime`` is the full
+scheduler (a ready queue, virtual time, checkpoints and restarts) over the
+same fabric.
 """
 from __future__ import annotations
 

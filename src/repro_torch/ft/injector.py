@@ -1,30 +1,35 @@
-"""Failure injection (port of the parts of ``repro/ft/injector.py`` the
-serving path uses). Every injector is driven the same way:
+"""Unified failure injection (port of ``repro/ft/injector.py``).
+
+One interface subsumes the three mechanisms:
+  * step-indexed kill schedules ({step: [workers]} dicts; the serve
+    driver's ``kill_at``),
+  * Weibull(0.7) process-failure schedules (``core.failure_sim``, paper §7),
+  * Tsubame-style node-failure log replay (paper Fig 13).
+
+Consumers (FTSession, SimRuntime, the figure benchmarks) drive every
+injector the same way:
 
     injector.prepare(horizon_s, workers)       # once, at run start
     events = injector.poll(step_idx, now_s)    # each step; drained events
 
-``poll`` returns each ``FailureEvent`` exactly once per run; ``prepare``
-resets the drain state so one injector can serve repeated runs. The
-time-indexed, Weibull and log-replay injectors wait for a later slice.
+``poll`` returns the ``FailureEvent``s that fire at this step (step-indexed
+injectors) or at/before this virtual time (time-indexed injectors); each
+event is returned exactly once per run.  ``prepare`` resets the drain state
+(and redraws stochastic schedules), so one injector can serve repeated
+``FTSession.run`` calls.  ``FailureEvent`` lives in ``core.failure_sim``
+and is re-exported here.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
-from typing import Dict, List, Sequence, Tuple, Union
+from typing import Dict, Iterable, List, Optional, Sequence, Tuple, Union
 
-
-@dataclass
-class FailureEvent:
-    """Workers killed at one instant (copy of
-    ``repro.core.failure_sim.FailureEvent``)."""
-
-    time_s: float
-    workers: Tuple[int, ...]
+from repro_torch.core.failure_sim import (FailureEvent,
+                                          LogReplayInjector, WeibullInjector)
 
 
 class FailureInjector:
-    """Base: injects nothing."""
+    """Base: injects nothing. Subclasses override ``poll`` (and ``prepare``
+    when the schedule depends on the horizon or the worker set)."""
 
     def prepare(self, horizon_s: float, workers: Sequence[int]) -> None:
         """Called once before the run; horizon_s bounds virtual time."""
@@ -38,8 +43,8 @@ class NoFailures(FailureInjector):
 
 
 class StepKillInjector(FailureInjector):
-    """Step-indexed kills: {step_idx: [worker ids]} — the serve driver's
-    ``kill_at``."""
+    """Step-indexed kills: {step_idx: [worker ids]} — the trainer's
+    ``kill_schedule`` and the serve driver's ``kill_at``, unified."""
 
     def __init__(self, kill_schedule: Dict[int, Sequence[int]]):
         self._original = {int(s): list(ws)
@@ -56,16 +61,74 @@ class StepKillInjector(FailureInjector):
         return [FailureEvent(time_s=now_s, workers=tuple(ws))]
 
 
-InjectorSpec = Union[FailureInjector, Dict[int, Sequence[int]], None]
+class TimedEventInjector(FailureInjector):
+    """Wraps a pre-computed ``FailureEvent`` list; drains by virtual time."""
+
+    def __init__(self, events: Iterable[FailureEvent]):
+        self.events = sorted(events or [], key=lambda e: e.time_s)
+        self._i = 0
+
+    def prepare(self, horizon_s: float, workers: Sequence[int]) -> None:
+        self._i = 0
+
+    def poll(self, step_idx: int, now_s: float) -> List[FailureEvent]:
+        out = []
+        while self._i < len(self.events) and \
+                self.events[self._i].time_s <= now_s:
+            out.append(self.events[self._i])
+            self._i += 1
+        return out
+
+
+class WeibullFailureInjector(FailureInjector):
+    """Weibull(shape) process-level failures (paper §7); the schedule is
+    drawn at ``prepare`` time against the run horizon and worker set."""
+
+    def __init__(self, mtbf_s: float, shape: float = 0.7, seed: int = 0):
+        self.inner = WeibullInjector(mtbf_s, shape=shape, seed=seed)
+        self._timed: Optional[TimedEventInjector] = None
+
+    def prepare(self, horizon_s: float, workers: Sequence[int]) -> None:
+        self._timed = TimedEventInjector(
+            self.inner.schedule(horizon_s, list(workers)))
+
+    def poll(self, step_idx: int, now_s: float) -> List[FailureEvent]:
+        return self._timed.poll(step_idx, now_s) if self._timed else []
+
+
+class LogReplayFailureInjector(FailureInjector):
+    """Node-failure log replay (paper Fig 13), time-scaled."""
+
+    def __init__(self, log: Sequence[Tuple[float, str]],
+                 workers_per_node: int, n_workers: int,
+                 time_scale: float = 1.0):
+        self.inner = LogReplayInjector(log, workers_per_node, n_workers,
+                                       time_scale=time_scale)
+        self._timed: Optional[TimedEventInjector] = None
+
+    def prepare(self, horizon_s: float, workers: Sequence[int]) -> None:
+        self._timed = TimedEventInjector(
+            self.inner.schedule(horizon_s, list(workers)))
+
+    def poll(self, step_idx: int, now_s: float) -> List[FailureEvent]:
+        return self._timed.poll(step_idx, now_s) if self._timed else []
+
+
+InjectorSpec = Union[FailureInjector, Dict[int, Sequence[int]],
+                     Iterable[FailureEvent], None]
 
 
 def as_injector(spec: InjectorSpec) -> FailureInjector:
-    """None -> NoFailures, dict -> StepKillInjector, FailureInjector ->
-    itself."""
+    """Coerce the injection specs into one FailureInjector:
+    None -> NoFailures, dict -> StepKillInjector, FailureEvent list ->
+    TimedEventInjector, FailureInjector -> itself."""
     if spec is None:
         return NoFailures()
     if isinstance(spec, FailureInjector):
         return spec
     if isinstance(spec, dict):
         return StepKillInjector(spec)
-    raise TypeError(f"cannot build a FailureInjector from {spec!r}")
+    events = list(spec)
+    if events and not all(isinstance(e, FailureEvent) for e in events):
+        raise TypeError(f"cannot build a FailureInjector from {spec!r}")
+    return TimedEventInjector(events)

@@ -14,10 +14,10 @@ fan-out — and produces:
 
 Every span is host-side bookkeeping in virtual seconds (with wall-clock
 annotations), as in the reference: the recorder adds no work on the card.
-Default off: ``FTSession``/``ReplicatedServer`` take ``obs=None`` and the
-wired hot paths then cost one falsy check and zero allocations.  The
-reference's demo and CLI drive its simulated runtime and come with that
-port (ROADMAP.md, Queue 1 item 9).
+Default off: ``FTSession``/``ReplicatedServer``/``SimRuntime`` take
+``obs=None`` and the wired hot paths then cost one falsy check and zero
+allocations.  ``obs.demo.traced_hpcg_run`` (HPCG on the simulated runtime,
+a node killed mid-run) is the scenario behind ``python -m repro_torch.obs``.
 """
 from repro_torch.obs.exporters import (chrome_trace, text_flamegraph,
                                        write_chrome_trace)

@@ -34,11 +34,14 @@ and on load puts a tensor back on whatever device it came from):
     the backend keeps per generation (bookkeeping like the store's own
     generation table), and ``restore`` rebuilds each tensor with its
     recorded dtype and shape on the device of the tensor at the same place
-    in ``like`` (the recorded device where ``like`` has none).  Every
-    restored tensor owns its storage.
+    in ``like`` (the recorded device where ``like`` has none), or on the
+    ``device`` the caller names.  Every restored tensor owns its storage;
+  * dataclass instances are walked field by field (the simulated
+    runtime's checkpoints hold the sender logs' messages).
 """
 from __future__ import annotations
 
+import dataclasses
 import pickle
 import time
 from typing import (Any, Dict, List, NamedTuple, Optional, Protocol,
@@ -98,9 +101,9 @@ def _to_numpy(t: torch.Tensor, path: Path):
 
 def to_host(tree) -> Tuple[Any, List[TensorRecord]]:
     """``tree`` with every tensor (inside dict/list/tuple/NamedTuple
-    containers) as a host numpy array or ``BF16Bits``, and the manifest of
-    those tensors. Containers holding no tensor are returned as they
-    are."""
+    containers and dataclass instances) as a host numpy array or
+    ``BF16Bits``, and the manifest of those tensors. Containers holding no
+    tensor are returned as they are."""
     manifest: List[TensorRecord] = []
 
     def walk(x, path):
@@ -117,9 +120,25 @@ def to_host(tree) -> Tuple[Any, List[TensorRecord]]:
             if all(a is b for a, b in zip(items, x)):
                 return x
             return _rebuild_seq(t, items)
+        if _is_dataclass(x):
+            return _replace_fields(x, walk, path)
         return x
 
     return walk(tree, ()), manifest
+
+
+def _is_dataclass(x) -> bool:
+    return dataclasses.is_dataclass(x) and not isinstance(x, type)
+
+
+def _replace_fields(x, walk, path):
+    """The dataclass instance ``x`` with ``walk`` applied to each field;
+    ``x`` itself when no field changed."""
+    old = {f.name: getattr(x, f.name) for f in dataclasses.fields(x)}
+    new = {k: walk(v, path + (k,)) for k, v in old.items()}
+    if all(new[k] is v for k, v in old.items()):
+        return x
+    return dataclasses.replace(x, **new)
 
 
 def _is_namedtuple(x) -> bool:
@@ -143,7 +162,7 @@ def _at(tree, path: Path):
     return tree
 
 
-def _rebuild(leaf, rec: TensorRecord, like) -> torch.Tensor:
+def _rebuild(leaf, rec: TensorRecord, like, device) -> torch.Tensor:
     bits = isinstance(leaf, BF16Bits)
     arr = leaf.bits if bits else leaf
     if not isinstance(arr, np.ndarray) or bits != (rec.dtype ==
@@ -151,9 +170,10 @@ def _rebuild(leaf, rec: TensorRecord, like) -> torch.Tensor:
             or tuple(arr.shape) != rec.shape:
         raise ValueError(f"restored leaf at {rec.path} does not match its "
                          f"record ({rec.dtype}, {rec.shape})")
-    target = _at(like, rec.path)
-    device = target.device if isinstance(target, torch.Tensor) \
-        else rec.device
+    if device is None:
+        target = _at(like, rec.path)
+        device = target.device if isinstance(target, torch.Tensor) \
+            else rec.device
     if bits:
         t = torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
     else:
@@ -165,22 +185,25 @@ def _rebuild(leaf, rec: TensorRecord, like) -> torch.Tensor:
     return t.to(device)
 
 
-def from_host(tree, manifest: List[TensorRecord], like=None):
+def from_host(tree, manifest: List[TensorRecord], like=None, device=None):
     """Inverse of ``to_host`` on an unpickled host tree: every recorded
-    tensor rebuilt with its dtype and shape on the device of ``like``'s
-    tensor at the same place (else its recorded device)."""
+    tensor rebuilt with its dtype and shape on ``device``, else on the
+    device of ``like``'s tensor at the same place, else on its recorded
+    device."""
     records = {rec.path: rec for rec in manifest}
 
     def walk(x, path):
         rec = records.get(path)
         if rec is not None:
-            return _rebuild(x, rec, like)
+            return _rebuild(x, rec, like, device)
         t = type(x)
         if t is dict:
             return {k: walk(v, path + (k,)) for k, v in x.items()}
         if t in (list, tuple) or _is_namedtuple(x):
             return _rebuild_seq(t, [walk(v, path + (i,))
                                     for i, v in enumerate(x)])
+        if _is_dataclass(x):
+            return _replace_fields(x, walk, path)
         return x
 
     return walk(tree, ())

@@ -1,7 +1,9 @@
 """The port on the card: each CUDA kernel (forward and backward) against
 its plain PyTorch version, the kernel path of the
-reduced model (serving and a train step) against its CPU path, and the
-in-memory checkpoint store and the recorder on card state.
+reduced model (serving and a train step) against its CPU path, the
+in-memory checkpoint store and the recorder on card state, and the
+simulated runtime's apps (HPCG, CloverLeaf, PIC: bitwise reruns, the card
+against the CPU within ``SIMRT_TOL``, checkpoints across devices).
 
 Every test here carries the ``cuda`` marker and skips without a card. The
 file imports neither jax nor the JAX package, so it runs on a machine that
@@ -15,9 +17,15 @@ rounds its softmax weights p to bf16 before the PV product) —
 ``tests/test_kernels.py``'s; the Mamba2 scan 3e-4 on f32 outputs (the
 chunked scan against the exact recurrence, that file's sweep tolerance);
 its backward 3e-4 of each output's largest |plain| + 3e-4 |plain|, the
-bf16 tolerance on top for a bf16 output (``tests/test_torch_mamba_bwd.py``).
+bf16 tolerance on top for a bf16 output (``tests/test_torch_mamba_bwd.py``);
+the apps ``SIMRT_TOL`` of each state tensor's largest magnitude (float64
+sums in other orders on the card: cuBLAS dots, reductions, the deposit's
+sorted runs, the scan's products; ~1e-16 relative a sum, carried a few
+steps), and the same particle count on every rank.
 """
 import dataclasses
+import os
+import tempfile
 
 import numpy as np
 import pytest
@@ -39,6 +47,9 @@ from repro_torch.models import transformer, zamba
 from repro_torch.models.transformer import Transformer
 from repro_torch.models.zamba import Zamba
 from repro_torch.store.backend import MemBackend
+
+# cuBLAS reproducibility under deterministic algorithms (the apps' tests)
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 RTOL = {"float32": 2e-5, "bfloat16": 2e-2}
 ATOL = {"float32": 2e-5, "bfloat16": 3e-2}
@@ -788,3 +799,126 @@ def test_reduced_hybrid_train_step_on_card_matches_cpu(cuda_device):
     loss_2, g_2 = grads("cuda")
     assert torch.equal(loss_2, loss_g)
     assert all(torch.equal(a, b) for a, b in zip(g_2, g_g))
+
+
+# ------------------------------------------------ simulated runtime, apps
+
+SIMRT_TOL = 1e-10
+SIMRT_APPS = {"hpcg": dict(nx=32, ny=32, nz=16),
+              "cloverleaf": dict(nx=128, ny_local=32),
+              "pic": dict(cells_per_rank=256, particles_per_rank=16384)}
+
+
+@pytest.fixture
+def deterministic(cuda_device):
+    torch.use_deterministic_algorithms(True)
+    yield cuda_device
+    torch.use_deterministic_algorithms(False)
+
+
+def _simrt_app(name, device, n=4):
+    from repro_torch.apps.cloverleaf import CloverLeaf
+    from repro_torch.apps.hpcg import HPCG
+    from repro_torch.apps.pic import PIC
+    cls = {"hpcg": HPCG, "cloverleaf": CloverLeaf, "pic": PIC}[name]
+    return cls(n_ranks=n, device=device, **SIMRT_APPS[name])
+
+
+def _simrt_run(name, device, mode="replication", steps=4, ckpt_dir=None,
+               kills=((1.5, (0,)),)):
+    from repro_torch.core.failure_sim import FailureEvent
+    from repro_torch.simrt import CostModel, SimRuntime
+    rt = SimRuntime(_simrt_app(name, device),
+                    FTConfig(mode=mode, replication_degree=1.0, mtbf_s=1e9,
+                             ckpt_interval_s=2.0),
+                    costs=CostModel(step_time_s=1.0), ckpt_dir=ckpt_dir,
+                    failure_events=[FailureEvent(t, w) for t, w in kills],
+                    workers_per_node=2)
+    return rt, rt.run(steps)
+
+
+def _states_close(card, cpu):
+    for r, st in cpu.items():
+        for key, want in st.items():
+            got = card[r][key]
+            if not isinstance(want, torch.Tensor):
+                assert got == pytest.approx(want, rel=SIMRT_TOL), key
+                continue
+            assert got.device.type == "cuda" and got.shape == want.shape
+            scale = float(want.abs().max()) if want.numel() else 0.0
+            err = float((got.cpu() - want).abs().max()) if want.numel() \
+                else 0.0
+            assert err <= SIMRT_TOL * scale, (r, key, err, scale)
+
+
+@pytest.mark.parametrize("name", sorted(SIMRT_APPS))
+def test_app_on_card_reruns_bitwise_and_matches_cpu(deterministic, name):
+    """Four steps with a promotion: a rerun on the card is bitwise, the
+    card agrees with the CPU within SIMRT_TOL, and the runtime left every
+    state on the card."""
+    _, a = _simrt_run(name, "cuda")
+    _, b = _simrt_run(name, "cuda")
+    _, c = _simrt_run(name, "cpu")
+    assert a.promotions == 1 and a.time.as_dict() == c.time.as_dict()
+    for r in range(4):
+        for key, v in a.states[r].items():
+            if isinstance(v, torch.Tensor):
+                assert torch.equal(v, b.states[r][key]), (r, key)
+            else:
+                assert v == b.states[r][key]
+    _states_close(a.states, c.states)
+
+
+def test_pic_deposit_and_migration_on_card_match_cpu(deterministic):
+    from repro_torch.apps.pic import inclusive_scan, migrate_blocks
+    rng = np.random.default_rng(3)
+    nc, n = 4096, 8
+    x = torch.from_numpy(rng.random(1 << 20) * nc)
+
+    def deposit(dev):
+        xd = x.to(dev)
+        cell = torch.floor(xd).to(torch.int64)
+        frac = xd - cell
+        rho = torch.zeros(nc + 2, dtype=torch.float64, device=dev)
+        rho.index_put_((cell + 1,), 1.0 - frac, accumulate=True)
+        rho.index_put_((cell + 2,), frac, accumulate=True)
+        return rho, inclusive_scan(rho)
+
+    (g, gs), (g2, gs2), (c, cs) = deposit("cuda"), deposit("cuda"), \
+        deposit("cpu")
+    assert torch.equal(g, g2) and torch.equal(gs, gs2)
+    for got, want in ((g, c), (gs, cs)):
+        assert float((got.cpu() - want).abs().max()) <= \
+            SIMRT_TOL * float(want.abs().max())
+    vel = torch.from_numpy(rng.standard_normal(x.numel()))
+    owner = torch.floor(x / (nc / n)).to(torch.int64) % n
+    card = migrate_blocks(x.cuda(), vel.cuda(), owner.cuda(), n)
+    cpu = migrate_blocks(x, vel, owner, n)
+    assert [b.shape for b in card] == [b.shape for b in cpu]
+    assert all(torch.equal(a.cpu(), b) for a, b in zip(card, cpu))
+
+
+@pytest.mark.parametrize("writer,reader", [("cuda", "cpu"),
+                                           ("cpu", "cuda")])
+def test_simrt_disk_checkpoint_restores_across_devices(deterministic,
+                                                        writer, reader):
+    """A rank checkpoint written by a runtime on one device restores onto
+    the other (host arrays and a manifest on disk, never a pickled
+    tensor), bitwise the writer's snapshot."""
+    with tempfile.TemporaryDirectory() as d:
+        rt_w, _ = _simrt_run("hpcg", writer, mode="checkpoint", steps=3,
+                             ckpt_dir=d, kills=())
+        rt_r = _simrt_run("hpcg", reader, mode="checkpoint", steps=0,
+                          ckpt_dir=os.path.join(d, "reader"), kills=())[0]
+        rt_r.ckpt_dir = d
+        rt_r._restore_checkpoint()
+        want = rt_w._ckpt_mem
+        assert rt_r.step_idx == want["step"] > 0
+        for r in range(4):
+            state = rt_r.workers[rt_r.rmap.cmp[r]].state
+            for key, v in want["ranks"][r]["state"].items():
+                if isinstance(v, torch.Tensor):
+                    assert state[key].device.type == reader
+                    assert torch.equal(state[key].cpu(), v.cpu())
+                else:
+                    assert state[key] == v

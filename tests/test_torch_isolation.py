@@ -40,12 +40,12 @@ def test_no_jax_or_reference_imports(path):
 @pytest.mark.parametrize("package", ["analyze", "obs", "store", "ft",
                                      "core", "comm", "clock", "data",
                                      "optim", "checkpoint", "launch",
-                                     "kernels", "models"])
+                                     "kernels", "models", "simrt", "apps"])
 def test_scan_covers_the_package(package):
     """The AST scan and the blocked import walk every module of each
-    package of the port, the observability layer, the checkpoint store and
+    package of the port, the observability layer, the checkpoint store,
     the training path (data, optim, checkpoint, launch.train, the
-    kernels' autograd) included."""
+    kernels' autograd), the simulated runtime and the apps included."""
     files = sorted((ROOT / "src" / "repro_torch" / package).glob("*.py"))
     assert files and all(f in PORT_FILES for f in files)
 
@@ -88,6 +88,32 @@ def test_serve_cli_on_cpu_and_without_cuda():
                            env=NO_GPU, cwd=ROOT, capture_output=True,
                            text=True, timeout=300)
     assert fatal.returncode != 0 and "RuntimeError" in fatal.stderr
+    no_gpu = subprocess.run(cmd, env=NO_GPU, cwd=ROOT, capture_output=True,
+                            text=True, timeout=300)
+    assert no_gpu.returncode != 0
+    assert "CUDA is not available" in no_gpu.stderr
+
+
+def test_simulated_runtime_on_cpu_and_without_cuda(monkeypatch, tmp_path):
+    """The apps, and so the simulated runtime and ``python -m
+    repro_torch.obs``, run on the card unless told otherwise: without CUDA
+    they raise; with ``--device cpu`` the CLI runs."""
+    from repro_torch.apps.cloverleaf import CloverLeaf
+    from repro_torch.apps.hpcg import HPCG
+    from repro_torch.apps.pic import PIC
+    from repro_torch.obs.demo import traced_hpcg_run
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for app in (HPCG, CloverLeaf, PIC):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            app(n_ranks=2)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        traced_hpcg_run(4, steps=2, grid=(2, 2, 2))
+    cmd = [sys.executable, "-m", "repro_torch.obs", "metrics",
+           str(tmp_path / "m.json"), "--ranks", "4", "--steps", "3"]
+    ok = subprocess.run(cmd + ["--device", "cpu"], env=NO_GPU, cwd=ROOT,
+                        capture_output=True, text=True, timeout=300)
+    assert ok.returncode == 0, ok.stderr
+    assert "wrote metrics snapshot" in ok.stdout
     no_gpu = subprocess.run(cmd, env=NO_GPU, cwd=ROOT, capture_output=True,
                             text=True, timeout=300)
     assert no_gpu.returncode != 0

@@ -10,14 +10,19 @@ the metrics snapshots and Chrome traces exactly, except for the wall-clock
 fields (``args.wall_ms``): the virtual times are the same arithmetic in
 the same order, the counters integer or float sums in the same order.
 
-Ported from ``tests/test_obs.py``: every test that does not need the
-simulated runtime, the divergence detector or the lint pass. Waiting for
-their ports (ROADMAP.md, Queue 1 item 9): ``test_fig9_uses_the_shared_
-accounting``, ``test_divergence_detector_and_recorder_coexist``, the
-``killed_run`` HPCG tests, ``test_cli_trace_and_metrics`` and the
-``no-print`` lint tests; ``test_observer_list_ordering_...`` and
-``test_obs_off_wires_nothing`` are ported onto the port's transport,
-session and server instead of the simulated runtime.
+Ported from ``tests/test_obs.py``: every test but the ``no-print`` lint
+tests, which wait for the lint pass (ROADMAP.md, Queue 1 item 9b);
+``test_fig9_uses_the_shared_accounting`` runs in
+``tests/test_torch_fig_digests.py``, which binds ``repro`` to the port.
+The ``killed_run`` tests drive the port's ``obs.demo.traced_hpcg_run``
+(HPCG on the simulated runtime, on the CPU): its snapshot and Chrome trace
+equal the reference's except where the in-memory store's bytes enter.
+The port pickles a rank's checkpoint with HPCG's ``rr`` a 0-d array (the
+reference's is a numpy scalar) and its sender log's messages under the
+port's module path, so the store's bands are longer (``STORE_BYTES``);
+without a topology nothing else moves, and under fattree pricing the
+measured checkpoint cost C moves with them, shifting every later span by
+at most the ``ckpt_write`` gap.
 """
 import json
 
@@ -29,6 +34,7 @@ from repro.analyze import tags as ref_tags
 from repro.clock import VirtualClock as RefClock
 from repro.clock import pricing_from_ft as ref_pricing_from_ft
 from repro.configs.base import FTConfig as RefFTConfig
+from repro.obs.demo import traced_hpcg_run as ref_traced_hpcg_run
 from repro.core.coordinator import ClusterTopology as RefClusterTopology
 from repro.ft import FTSession as RefFTSession
 from repro.obs import LinkUsage as RefLinkUsage
@@ -40,6 +46,7 @@ from repro_torch.clock import VirtualClock, pricing_from_ft
 from repro_torch.comm import ReplicaTransport
 from repro_torch.configs.base import FTConfig
 from repro_torch.core.coordinator import ClusterTopology
+from repro_torch.core.failure_sim import FailureEvent
 from repro_torch.core.replica_map import ReplicaMap
 from repro_torch.ft import FTSession
 from repro_torch.launch.serve import ReplicatedServer
@@ -47,6 +54,14 @@ from repro_torch.obs import (RUNTIME_TID, Histogram, LinkUsage,
                              MetricsRegistry, ObsRecorder, SpanTracer,
                              chrome_trace, text_flamegraph,
                              time_distribution, write_chrome_trace)
+from repro_torch.obs.demo import traced_hpcg_run
+from repro_torch.simrt import SimRuntime
+
+# bands the sender logs record (store pushes are sent with log=False)
+LOGGED_BANDS = ("app", "coll", "topo", "reserved")
+# the snapshot entries the store's band bytes enter (module docstring)
+STORE_BYTES = {"counters": ("comm.bytes.store.cmp", "comm.bytes.store.rep"),
+               "gauges": ("store.committed_bytes",)}
 
 
 def _port_name(owner):
@@ -391,6 +406,13 @@ def test_obs_off_wires_nothing():
     assert srv.fanout.transport.link_usage is None
     assert srv.fanout.engine.obs is None
     assert srv.session().obs is None
+    rt = SimRuntime(PingApp(), FTConfig(mode="replication",
+                                        replication_degree=1.0))
+    assert rt.obs is None and rt.transport.observers == []
+    assert rt.transport.link_usage is None
+    assert rt.clock.obs is None and rt.engine.obs is None
+    res = rt.run(2)
+    assert res.obs is None and res.obs_metrics is None
 
 
 # ---------------------------------------------------------- serving path
@@ -456,3 +478,219 @@ def test_serve_cli_checkpoint_modes(argv, want, capsys):
     out = capsys.readouterr().out
     for text in want:
         assert text in out
+
+
+# ------------------------------------------------------- simulated runtime
+
+class PingApp:
+    """Two ranks swap their state vector every step."""
+
+    def __init__(self, n_ranks: int = 2):
+        self.n_ranks = n_ranks
+
+    def init_state(self, rank: int) -> dict:
+        return {"v": torch.arange(4, dtype=torch.float64) + rank}
+
+    def step(self, rank, state, t):
+        peer = 1 - rank
+        yield ("send", peer, 0, state["v"])
+        got = yield ("recv", peer, 0)
+        return {"v": state["v"] + got}
+
+
+def test_divergence_detector_and_recorder_coexist():
+    """The divergence tripwire and the recorder both see every send of a
+    killed-and-replayed run, with the detector ordered first."""
+    ft = FTConfig(mode="replication", replication_degree=1.0, mtbf_s=1e9)
+    events = [FailureEvent(time_s=2.5, workers=(0,))]
+    rt = SimRuntime(PingApp(), ft, detect_divergence=True,
+                    failure_events=events, obs=True)
+    assert rt.transport.observers[0] is rt.divergence
+    assert rt.transport.observers[1] is rt.obs
+    res = rt.run(6)
+    assert res.failures == 1 and res.promotions == 1 and res.replays > 0
+    assert rt.divergence.compared > 0 and rt.divergence.divergences == []
+    c = rt.obs.metrics.counters
+    assert c["comm.msgs.app.cmp"] > 0
+    assert c["recovery.promotions"] == 1
+    assert res.obs_metrics is not None
+
+
+KILLED = dict(n_ranks=16, steps=8, grid=(4, 4, 2))
+
+
+@pytest.fixture(scope="module")
+def killed_run():
+    """HPCG, combined strategy, fat-tree pricing, one node killed mid-run
+    (the acceptance scenario at a test-sized scale), on the CPU."""
+    return traced_hpcg_run(device="cpu", **KILLED)
+
+
+@pytest.fixture(scope="module")
+def ref_killed_run():
+    return ref_traced_hpcg_run(**KILLED)
+
+
+def _without(snapshot, skip):
+    return {key: ({k: v for k, v in val.items() if k not in skip[key]}
+                  if key in skip else val)
+            for key, val in snapshot.items()}
+
+
+def test_killed_run_unpriced_equals_the_reference():
+    """Without a topology the whole snapshot and the Chrome trace, wall
+    fields aside, equal the reference's; only the store's band bytes
+    differ (module docstring)."""
+    _rt, ours, obs_ours = traced_hpcg_run(device="cpu", topology=None,
+                                          **KILLED)
+    _rt, theirs, obs_theirs = ref_traced_hpcg_run(topology=None, **KILLED)
+    a, b = ours.obs_metrics, theirs.obs_metrics
+    assert _without(a, STORE_BYTES) == _without(b, STORE_BYTES)
+    for key, names in STORE_BYTES.items():
+        for name in names:
+            assert a[key][name] > 0 and b[key][name] > 0
+    trace_a = strip_wall(chrome_trace(obs_ours.tracer, a))
+    trace_b = strip_wall(ref_chrome_trace(obs_theirs.tracer, b))
+    assert trace_a["traceEvents"] == trace_b["traceEvents"]
+    assert _without(trace_a["otherData"], STORE_BYTES) == \
+        _without(trace_b["otherData"], STORE_BYTES)
+    assert ours.time.as_dict() == theirs.time.as_dict()
+
+
+def test_killed_run_equals_the_reference(killed_run, ref_killed_run):
+    """Under fattree pricing: the counters but the store's bytes and the
+    checkpoint seconds equal; every trace event equals the reference's but
+    for its times, which move by at most the ``ckpt_write`` gap."""
+    _rt, ours, obs_ours = killed_run
+    _rt, theirs, obs_theirs = ref_killed_run
+    a, b = ours.obs_metrics, theirs.obs_metrics
+    skip = {"counters": STORE_BYTES["counters"] + ("time.ckpt_write_s",),
+            "gauges": STORE_BYTES["gauges"]}
+    for key in ("counters", "gauges", "histograms", "world"):
+        assert _without(a, skip)[key] == _without(b, skip)[key]
+    gap = abs(ours.time.ckpt_write - theirs.time.ckpt_write)
+    assert 0 < gap < 1e-6          # seconds, over every checkpoint write
+    got = {k: v for k, v in ours.time.as_dict().items() if k != "total"}
+    want = dict(theirs.time.as_dict(), ckpt_write=ours.time.ckpt_write)
+    del want["total"]
+    assert got == pytest.approx(want, rel=0, abs=1e-12)
+    ev_a = strip_wall(chrome_trace(obs_ours.tracer, a))["traceEvents"]
+    ev_b = strip_wall(ref_chrome_trace(obs_theirs.tracer, b))["traceEvents"]
+    assert len(ev_a) == len(ev_b)
+    for x, y in zip(ev_a, ev_b):
+        assert {k: v for k, v in x.items() if k not in ("ts", "dur")} == \
+            {k: v for k, v in y.items() if k not in ("ts", "dur")}
+        for k in ("ts", "dur"):
+            if k in y:
+                assert abs(x[k] - y[k]) <= gap * 1e6 + 1e-6, (x, y)
+
+
+def test_killed_run_exercised_recovery(killed_run):
+    _rt, res, obs = killed_run
+    assert res.failures > 0 and res.promotions > 0 and res.replays > 0
+    c = obs.metrics.counters
+    assert c["failures.kills.node"] == res.failures
+    assert c["recovery.promotions"] == res.promotions
+    assert c["steps.executed"] >= 8
+
+
+def test_trace_spans_all_closed_and_nested(killed_run):
+    assert_nested_and_closed(killed_run[2].tracer)
+
+
+def test_recovery_arcs_have_drain_replay_promotion(killed_run):
+    tr = killed_run[2].tracer
+    promotes = [i for i, s in enumerate(tr.spans)
+                if s.name == "recovery.promote"]
+    assert promotes
+    for idx in promotes:
+        kids = {s.name for s in tr.children_of(idx)}
+        assert {"drain", "replay", "promotion"} <= kids
+    assert tr.find("failure") and tr.find("ckpt.write") \
+        and tr.find("store.push")
+
+
+def test_chrome_trace_round_trip_monotone(killed_run):
+    _rt, _res, obs = killed_run
+    data = json.loads(json.dumps(chrome_trace(obs.tracer, obs.snapshot())))
+    events = data["traceEvents"]
+    names = {e["name"] for e in events}
+    assert {"failure", "recovery.promote", "drain", "replay",
+            "promotion"} <= names
+    # thread_name metadata labels every track
+    meta = {e["tid"]: e["args"]["name"] for e in events
+            if e.get("ph") == "M"}
+    assert meta[RUNTIME_TID] == "runtime" and meta[0] == "rank 0"
+    last = {}
+    for e in events:
+        if e.get("ph") not in ("X", "i"):
+            continue
+        assert e["ts"] >= last.get(e["tid"], float("-inf"))
+        last[e["tid"]] = e["ts"]
+
+
+def test_text_flamegraph_renders(killed_run):
+    out = text_flamegraph(killed_run[2].tracer)
+    assert "step" in out and "recovery.promote" in out
+    assert text_flamegraph(SpanTracer()) == "(no closed spans)\n"
+
+
+def test_band_bytes_reconcile_with_sender_logs(killed_run):
+    """The per-band cmp counters and the sender logs price the same
+    traffic: store pushes are log=False, everything else is recorded."""
+    rt, _res, obs = killed_run
+    c = obs.metrics.counters
+    obs_bytes = sum(c.get(f"comm.bytes.{b}.cmp", 0) for b in LOGGED_BANDS)
+    obs_msgs = sum(c.get(f"comm.msgs.{b}.cmp", 0) for b in LOGGED_BANDS)
+    log_bytes = sum(lg.recorded_bytes
+                    for lg in rt.transport.send_logs.values())
+    log_msgs = sum(lg.recorded_msgs
+                   for lg in rt.transport.send_logs.values())
+    assert obs_bytes == log_bytes > 0
+    assert obs_msgs == log_msgs > 0
+    # and the store band saw the checkpoint pushes the logs don't record
+    assert c["comm.bytes.store.cmp"] > 0
+
+
+def test_link_usage_measured(killed_run):
+    rt, _res, obs = killed_run
+    links = obs.links
+    assert links is rt.transport.link_usage
+    worst = links.max_contended()
+    assert worst is not None and worst[1] > 0
+    rows = links.table(top=5)
+    assert rows and all(rows[i]["busy_s"] >= rows[i + 1]["busy_s"]
+                        for i in range(len(rows) - 1))
+    # traffic classes attributed: app halos + store pushes at minimum
+    assert "app" in links.by_label
+    assert any(lbl != "app" for lbl in links.by_label)
+    d = links.as_dict()
+    json.loads(json.dumps(d))
+    assert d["max_contended"]["busy_s"] == worst[1]
+
+
+def test_snapshot_time_distribution(killed_run):
+    _rt, res, _obs = killed_run
+    snap = res.obs_metrics
+    td = snap["time_distribution"]
+    # fully replicated run: useful == redundant by construction
+    assert td["useful"] == pytest.approx(td["redundant"])
+    assert sum(td.values()) == pytest.approx(100.0)
+    assert snap["world"]["n"] == 16 and snap["world"]["m"] == 16
+    json.loads(json.dumps(snap))
+
+
+def test_cli_trace_and_metrics(tmp_path):
+    from repro_torch.obs.__main__ import main
+    trace_path = str(tmp_path / "run.json")
+    metrics_path = str(tmp_path / "metrics.json")
+    common = ["--ranks", "8", "--steps", "6", "--device", "cpu"]
+    assert main(["trace", trace_path] + common) == 0
+    assert main(["metrics", metrics_path] + common) == 0
+    with open(trace_path) as f:
+        trace = json.load(f)
+    assert trace["traceEvents"]
+    with open(metrics_path) as f:
+        metrics = json.load(f)
+    assert metrics["counters"]["steps.executed"] >= 6
+    assert "time_distribution" in metrics
