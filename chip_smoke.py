@@ -136,11 +136,21 @@ Phases (each a function; any failure exits non-zero):
      full per-rank size on 4 ranks for 4 steps on the card against the
      CPU (``SIMRT_TOL``, particle counts equal); the traced HPCG demo
      (spans closed and nested); ``SimAppWorkload`` under ``FTSession``,
-     bitwise after a promotion (``simrt`` lines).
+     bitwise after a promotion (``simrt`` lines);
+  10. pool: Fig 16's grid (3 MTTIs x 4 FT configurations, 24 tasks on 6
+     workers, 60 rounds of 60 s, fattree) through ``repro_torch.pool`` with
+     the tasks computing on the card: the rows' digest the pinned
+     ``fig16_taskpool``, every value the CPU run's (mc_pi exactly,
+     train_surrogate within ``POOL_LOSS_RTOL``), every cell's result table
+     bitwise the failure-free one, no kernel launched (a ``pool`` line);
+  11. analyze: ``repro_torch.analyze``'s ``all`` (the lint, the apps'
+     schedules traced on the card) and ``divergence`` (a bit flipped on
+     the card, caught) both return 0 (an ``analyze`` line).
 
 Prints JSON lines as it goes (``comm``, ``fanout``, ``serve``,
 ``serve.ckpt``, ``obs``, ``store``, ``times``, ``train.kernels``,
-``train`` and ``simrt`` lines among them, and each phase's seconds), then
+``train``, ``simrt``, ``pool`` and ``analyze`` lines among them, and each
+phase's seconds), then
 ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": {...}}``.
 Exits non-zero without CUDA, and when run outside the repository (the
 port's package must be beside it in ``src``).
@@ -3109,6 +3119,168 @@ def phase_simrt(state):
         raise AssertionError("simrt: traced demo or SimAppWorkload failed")
 
 
+# Fig 16's grid (benchmarks/fig16_taskpool.py, whose module imports the
+# reference): W worker ranks, STEPS rounds of POOL_STEP_S, fattree pricing
+POOL_W, POOL_STEPS, POOL_STEP_S, POOL_CKPT_S = 6, 60, 60.0, 600.0
+POOL_CONFIGS = (
+    ("rep1.0", {"mode": "replication", "replication_degree": 1.0}),
+    ("rep0.5", {"mode": "replication", "replication_degree": 0.5}),
+    ("comb1.0", {"mode": "combined", "replication_degree": 1.0,
+                 "ckpt_interval_s": POOL_CKPT_S}),
+    ("ckpt", {"mode": "checkpoint", "ckpt_interval_s": POOL_CKPT_S}),
+)
+POOL_MTTIS = (("mtti=inf", None), ("mtti=1h", 3600.0), ("mtti=20m", 1200.0))
+# train_surrogate's loss, card against CPU (tests/test_torch_pool.py):
+# theta is the same float64 arithmetic, the final dot of eight positive
+# squares may sum in another order (<= 7 * 2**-53 relative)
+POOL_LOSS_RTOL = 1e-15
+
+
+def _pool_cell(cfg, mtbf_s, device):
+    """One Fig 16 cell: (derived row string, results table, stats,
+    wall s)."""
+    from repro_torch.pool import (hyperparameter_sweep_tasks,
+                                  monte_carlo_tasks, run_pool)
+    tasks = hyperparameter_sweep_tasks(pool_seed=3) + \
+        monte_carlo_tasks(n_tasks=12, pool_seed=4)
+    t0 = time.perf_counter()
+    report, pool = run_pool(
+        tasks, n_workers=POOL_W, n_steps=POOL_STEPS,
+        step_time_s=POOL_STEP_S, mtbf_s=mtbf_s, seed=23, policy="lpt",
+        topology="fattree", device=device, **cfg)
+    if device != "cpu":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    stats = pool.pool_stats(report.final_state)
+    t = report.time
+    makespan_s = t.total - t.redundant
+    goodput = stats["completed"] / (makespan_s / 3600.0) if makespan_s \
+        else 0.0
+    p99_s = stats["latency_p99_rounds"] * POOL_STEP_S
+    derived = (f"goodput={goodput:.2f}/h p99={p99_s:.0f}s "
+               f"completed={stats['completed']} "
+               f"reassigned={stats['reassigned']} "
+               f"covered={stats['replica_covered']} "
+               f"promotions={report.promotions} "
+               f"restarts={report.restarts} "
+               f"rolled_back={report.rolled_back_steps} "
+               f"eff={report.efficiency:.3f}")
+    return derived, report.final_state["ms"]["results"], stats, wall, \
+        report.steps
+
+
+def _pool_digest(rows):
+    """benchmarks/pin_digests.py's digest of (name, derived) rows."""
+    import hashlib
+    h = hashlib.sha256()
+    for name, derived in rows:
+        h.update(name.encode())
+        h.update(b"\x00")
+        h.update(derived.encode())
+        h.update(b"\n")
+    return h.hexdigest()
+
+
+def _pool_values_match(got, want):
+    """mc_pi exactly, train_surrogate's loss within POOL_LOSS_RTOL."""
+    if sorted(got) != sorted(want):
+        return False
+    for tid, w in want.items():
+        g = got[tid]
+        if sorted(g) != sorted(w):
+            return False
+        for key, v in w.items():
+            if type(g[key]) is not type(v):
+                return False
+            if key == "loss":
+                if abs(g[key] - v) > POOL_LOSS_RTOL * abs(v):
+                    return False
+            elif g[key] != v:
+                return False
+    return True
+
+
+def phase_pool(state):
+    """Slice 15: Fig 16's 12-cell grid (3 MTTIs x 4 FT configurations,
+    24 tasks, W 6, 60 rounds of 60 s, fattree) through
+    ``repro_torch.pool.run_pool`` with the tasks computing on the card.
+    Fails unless the rows' digest is the pinned ``fig16_taskpool``, every
+    completed task's value equals the same grid's on the CPU (mc_pi
+    exactly, train_surrogate within POOL_LOSS_RTOL), each cell's result
+    table is bitwise the failure-free run's, and no hand-written kernel
+    ran (the pool's path has none)."""
+    card_name = state.get("card") or card()
+    with open(os.path.join(ROOT, "benchmarks", "fig_digests.json")) as f:
+        pinned = json.load(f)["fig16_taskpool"]
+    cpu = {}
+    t0 = time.perf_counter()
+    for mtti, mtbf_s in POOL_MTTIS:
+        for label, cfg in POOL_CONFIGS:
+            cpu[(mtti, label)] = _pool_cell(dict(cfg), mtbf_s, "cpu")[1]
+    cpu_s = time.perf_counter() - t0
+    reset_launches()
+    rows, cells = [], []
+    clean = None
+    values_equal = table_equal = True
+    t0 = time.perf_counter()
+    for mtti, mtbf_s in POOL_MTTIS:
+        for label, cfg in POOL_CONFIGS:
+            derived, results, stats, wall, rounds = _pool_cell(
+                dict(cfg), mtbf_s, "cuda")
+            name = f"fig16/{mtti}/{label}"
+            rows.append((name, derived))
+            if clean is None:
+                clean = results
+            same_cpu = _pool_values_match(results, cpu[(mtti, label)])
+            same_clean = results == clean
+            values_equal &= same_cpu
+            table_equal &= same_clean
+            cells.append({"cell": name, "rounds": rounds,
+                          "completed": stats["completed"],
+                          "wall_s": wall,
+                          "tasks_per_s": stats["completed"] / wall,
+                          "values_equal_cpu": same_cpu,
+                          "table_equal_clean": same_clean})
+    card_s = time.perf_counter() - t0
+    launches = read_launches()
+    digest = _pool_digest(rows)
+    emit({"phase": "pool", "cells": cells, "digest": digest,
+          "digest_equal": digest == pinned,
+          "values_equal_cpu": values_equal,
+          "tables_equal_clean": table_equal, "launches": launches,
+          "card_s": card_s, "cpu_s": cpu_s, "card": card_name})
+    if digest != pinned or not values_equal or not table_equal or \
+            any(launches.values()):
+        raise AssertionError("pool: Fig 16's grid disagrees")
+
+
+def phase_analyze(state):
+    """Slice 15: ``python -m repro_torch.analyze all`` (the lint over
+    src/repro_torch, the three apps' schedules traced at n_ranks=4 on the
+    card) and ``divergence`` (one mantissa bit of a replica's halo plane
+    flipped on the card): both must return 0, the flip caught."""
+    import io
+
+    from repro_torch.analyze.__main__ import main as analyze_main
+    card_name = state.get("card") or card()
+    out = {}
+    for argv in (["all"], ["divergence"]):
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = analyze_main(argv)
+        out[argv[0]] = {"rc": rc, "seconds": time.perf_counter() - t0,
+                        "lines": buf.getvalue().splitlines()}
+    caught = [line.strip() for line in out["divergence"]["lines"]
+              if line.strip().startswith("caught:")]
+    emit({"phase": "analyze", "all": out["all"],
+          "divergence": out["divergence"], "caught": bool(caught),
+          "card": card_name})
+    if out["all"]["rc"] or out["divergence"]["rc"] or not caught:
+        raise AssertionError("analyze: a pass failed or the flip was "
+                             "not caught")
+
+
 PHASES = [phase_device_and_build, phase_comm, phase_rmsnorm, phase_attention,
           phase_mamba_scan, phase_reference, phase_reference_zamba,
           phase_reference_families, phase_reference_audio_ssm, phase_serve,
@@ -3117,7 +3289,7 @@ PHASES = [phase_device_and_build, phase_comm, phase_rmsnorm, phase_attention,
           phase_serve_mixtral, phase_serve_vlm, phase_serve_whisper,
           phase_serve_xlstm, phase_train_kernels, phase_train,
           phase_train_zamba, phase_train_whisper, phase_train_xlstm,
-          phase_simrt]
+          phase_simrt, phase_pool, phase_analyze]
 
 REPLACES = {"rmsnorm": "src/repro/kernels/rmsnorm.py:31",
             "flash_attention": "src/repro/kernels/flash_attention.py:97",

@@ -49,8 +49,8 @@ class FTTrainer:
         self.session = FTSession(ft=ft, ckpt_dir=ckpt_dir,
                                  injector=dict(kill_schedule or {}),
                                  n_logical_workers=n_logical_workers,
-                                 workers_per_node=workers_per_node)
-        self.session.step_time_s = step_time_s
+                                 workers_per_node=workers_per_node,
+                                 step_time_s=step_time_s)
         self.ft = ft
         # legacy attribute surface
         self.train_step = train_step

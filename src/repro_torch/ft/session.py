@@ -14,9 +14,12 @@ recovery and checkpoint spans, per-step spans, every clock charge, and the
 store's counters at the end (``RunReport.obs_metrics``).  With ``obs=None``
 every hook is one falsy check.
 
-Left for the task pool's port (ROADMAP.md, Queue 1 item 9): the hooks its
-self-repairing workloads use (``absorb_failures``, ``apply_plan``,
-``repair_transport``, ``bind_session``, ``replicable_ranks``).
+Workloads that own their transport (the task pool, ``pool/``) use the
+session's elastic hooks: ``bind_session`` (called before ``init_state``),
+``absorb_failures`` (take an unreplicated death forward instead of a
+world restart), ``apply_plan`` (the strategy's transport repair) and
+``repair_transport`` (the measured repair cost of a promotion);
+``replicable_ranks`` keeps a placement-pinned rank unreplicated.
 """
 from __future__ import annotations
 
@@ -68,6 +71,12 @@ class RunReport:
     obs_metrics: Optional[dict] = None
 
     @property
+    def efficiency(self) -> float:
+        """Useful fraction of the ledger."""
+        t = self.time.total
+        return self.time.useful / t if t > 0 else 1.0
+
+    @property
     def losses(self) -> List[float]:
         """Scalar metrics as floats (train workloads emit the loss)."""
         return [float(m) for m in self.metrics if m is not None]
@@ -84,9 +93,7 @@ class FTSession:
     redundantly — the exact semantics (bit-identical states, O(1)
     promotion) at 2x local cost, so FT-theorem tests can compare failure
     runs against failure-free runs for equality. The schedule clock
-    advances ``step_time_s`` (1 s, the JAX session's default) a step."""
-
-    step_time_s = 1.0
+    advances ``step_time_s`` (1 s by default) a step."""
 
     def __init__(self, *, ft: Optional[FTConfig] = None,
                  strategy: Optional[FTStrategy] = None,
@@ -95,6 +102,8 @@ class FTSession:
                  n_logical_workers: int = 8,
                  workers_per_node: int = 4,
                  allow_restart: bool = True,
+                 step_time_s: float = 1.0,
+                 replicable_ranks: Optional[int] = None,
                  obs=None):
         if strategy is None:
             strategy = make_strategy(ft or FTConfig())
@@ -104,6 +113,12 @@ class FTSession:
         self.n_logical_workers = n_logical_workers
         self.workers_per_node = workers_per_node
         self.allow_restart = allow_restart
+        self.step_time_s = step_time_s
+        # cap on how many logical ranks the replication degree applies to:
+        # a workload with a placement-pinned unreplicated rank (the pool
+        # master) passes n-1 so replicas cover exactly the worker ranks
+        # (replicas attach to ranks 0..m-1)
+        self.replicable_ranks = replicable_ranks
         # a directory selects the disk backend for a disk-checkpointable
         # workload (store.make_backend)
         self.ckpt_dir = ckpt_dir
@@ -116,7 +131,9 @@ class FTSession:
 
     def _init_fabric(self):
         n = self.n_logical_workers
-        self.rmap = ReplicaMap(n, self.strategy.n_replica_workers(n))
+        base = n if self.replicable_ranks is None \
+            else max(0, min(self.replicable_ranks, n))
+        self.rmap = ReplicaMap(n, self.strategy.n_replica_workers(base))
         self.topology = ClusterTopology(self.rmap.world_size,
                                         self.workers_per_node)
         self.coords = CoordinatorSet(self.topology, float("inf"))
@@ -130,6 +147,7 @@ class FTSession:
 
     def run(self, workload, n_steps: int) -> RunReport:
         rep = RunReport()
+        # repro: allow[wallclock] -- genuine wall measurement
         wall0 = time.perf_counter()
         self._init_fabric()                       # re-entrant sessions
         clock = self.clock = VirtualClock(breakdown=rep.time,
@@ -139,6 +157,11 @@ class FTSession:
             obs.bind_clock(clock)
             obs.set_world(self.rmap.n, self.rmap.m,
                           injector_kind=type(self.injector).__name__)
+        # session-aware workloads (the pool) build their transport over
+        # this run's fabric before init_state builds the world state
+        bind = getattr(workload, "bind_session", None)
+        if bind is not None:
+            bind(self)
         state = workload.init_state()
         strat = self.strategy
         strat.on_start(workload, state, rep)
@@ -161,6 +184,14 @@ class FTSession:
                     obs.metrics.inc("failures.kills.worker", len(fresh))
                     obs.mark("failure", "failure", workers=tuple(fresh),
                              step=step)
+                # an elastic workload (the pool) can take an unreplicated
+                # death forward — retire the rank, reassign its work —
+                # instead of the world restart plan_recovery would force
+                absorb = getattr(workload, "absorb_failures", None)
+                if absorb is not None:
+                    state, fresh = absorb(state, list(fresh), step, rep)
+                    if not fresh:
+                        continue
                 self.rmap, plan = plan_recovery(
                     self.rmap, fresh,
                     last_ckpt_step=strat.last_ckpt_step, current_step=step,
@@ -175,8 +206,16 @@ class FTSession:
                 state, step = strat.handle_plan(workload, state, plan,
                                                 step, rep)
                 # shrink + message recovery (paper Fig 9 'repair'),
-                # ledger-only: the step-indexed schedule clock ignores it
-                clock.charge("repair", plan.repair_cost_s, advance=False,
+                # ledger-only: the step-indexed schedule clock ignores it.
+                # A workload that repairs its own priced transport in
+                # apply_plan (the pool) reports the measured drain/replay
+                # traffic; everyone else gets the planner's flat estimate
+                repair_s = plan.repair_cost_s
+                rtrans = getattr(workload, "repair_transport", None)
+                if plan.kind == "promote" and rtrans is not None \
+                        and rtrans.cost_model is not None:
+                    repair_s = rtrans.take_comm_time()
+                clock.charge("repair", repair_s, advance=False,
                              label=plan.kind)
                 if obs is not None:
                     obs.end_span(resumed_step=step)
@@ -205,6 +244,7 @@ class FTSession:
             strat.maybe_checkpoint(workload, state, step, clock.now, rep)
 
         rep.final_state = state
+        # repro: allow[wallclock] -- genuine wall measurement
         rep.wall_s = time.perf_counter() - wall0
         if obs is not None:
             store = strat.recovery_store()

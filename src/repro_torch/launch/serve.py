@@ -263,6 +263,7 @@ def main(argv=None):
                            device=args.device, topology=args.topology)
     prompts = np.random.default_rng(0).integers(
         0, srv.cfg.vocab_size, (args.batch, args.prompt_len), dtype=np.int32)
+    # repro: allow[wallclock] -- genuine wall measurement
     t0 = time.perf_counter()
     if args.ckpt_mode:
         kills = {}
@@ -286,6 +287,7 @@ def main(argv=None):
         toks = srv.generate(prompts, args.gen, kill_at=args.kill_at)
         rep = srv.last_report
         summary = f"failures={srv.failures} promotions={srv.promotions}"
+    # repro: allow[wallclock] -- genuine wall measurement
     dt = time.perf_counter() - t0
     print(f"arch={args.arch} device={srv.device} generated={toks.shape} "
           f"{summary} comm_s={rep.time.comm} "

@@ -13,23 +13,36 @@ JAX package's, on the CPU.
   the same values (numpy's dtype string, the shape, the C-order bytes),
   inside containers too.
 
-Ported from ``tests/test_analyze.py``: the schedule tests (``:27-142``)
-and the divergence tests (``:331-443``), with tensor payloads and states;
-nothing of the lint pass, which waits for the next slice.
+* ``lint_source``/``lint_paths`` give the reference's findings (rule,
+  line, severity) on the source of every lint test of
+  ``tests/test_analyze.py``, each ``src/repro/...`` path mapped to
+  ``src/repro_torch/...``: the port's path rules (deepcopy, per-rank-loop,
+  the CLI exemption of the pool demo) police the port's paths.
+
+Ported from ``tests/test_analyze.py``: the schedule tests (``:27-142``),
+the lint tests (``:145-328``), the divergence tests (``:331-443``), with
+tensor payloads and states, and the two CLI tests (``--device cpu``).
 """
+import os
+import re
+
 import numpy as np
 import pytest
 import torch
 
+from _hypothesis_compat import given, settings, st
+from repro.analyze import lint_paths as ref_lint_paths
+from repro.analyze import lint_source as ref_lint_source
 from repro.analyze import payload_crc as ref_payload_crc
 from repro.analyze import trace_app as ref_trace_app
 from repro.analyze import verify_schedule as ref_verify_schedule
 from repro.apps.cloverleaf import CloverLeaf as RefCloverLeaf
 from repro.apps.hpcg import HPCG as RefHPCG
 from repro.apps.pic import PIC as RefPIC
-from repro_torch.analyze import (DivergenceDetector, ReplicaDivergence,
-                                 band_owner, errors, payload_crc,
-                                 reserved_tags, trace_app, verify_app,
+from repro_torch.analyze import (RULES, DivergenceDetector,
+                                 ReplicaDivergence, band_owner, errors,
+                                 lint_paths, lint_source, parse_allows,
+                                 payload_crc, reserved_tags, trace_app, verify_app,
                                  verify_schedule, warnings)
 from repro_torch.apps.cloverleaf import CloverLeaf
 from repro_torch.apps.hpcg import HPCG, TAG_HALO
@@ -384,3 +397,230 @@ def test_wc_matches_snapshot_roundtrip_and_legacy_load():
     legacy = {k: v for k, v in snap.items() if k != "wc_matches"}
     rt.transport.load_rank(0, ep, legacy)
     assert ep.wc_matches == []
+
+
+# --------------------------------------------------------------------- lint
+
+PORT_ROOT = os.path.dirname(os.path.abspath(
+    __import__("repro_torch").__file__))
+
+
+def _port_path(path):
+    return path.replace("src/repro/", "src/repro_torch/")
+
+
+def _key(findings):
+    return [(f.rule, f.line, f.severity) for f in findings]
+
+
+def lint(source, path="<string>"):
+    """The port's findings on ``source`` at the port's ``path``, after
+    checking them against the reference's at the reference's path."""
+    ours = lint_source(source, _port_path(path))
+    assert _key(ours) == _key(ref_lint_source(source, path))
+    return ours
+
+
+def test_lint_rules_equal_the_reference():
+    from repro.analyze import RULES as REF_RULES
+    assert RULES == REF_RULES
+
+
+def test_lint_wallclock_and_alias_resolution():
+    fs = lint("import time\nt0 = time.perf_counter()\n")
+    assert rules(fs) == {"wallclock"}
+    fs = lint("import time as _t\nt0 = _t.time()\n")
+    assert rules(fs) == {"wallclock"}
+    fs = lint("from time import perf_counter\nt0 = perf_counter()\n")
+    assert rules(fs) == {"wallclock"}
+
+
+def test_lint_suppression_same_line_and_above():
+    base = "import time\n"
+    line = "t0 = time.perf_counter()"
+    assert lint(base + line + "  # repro: allow[wallclock]\n") == []
+    assert lint(base + "# repro: allow[wallclock]\n" + line + "\n") == []
+    assert lint(base + "# repro: allow[*]\n" + line + "\n") == []
+    # wrong rule id does not suppress
+    assert rules(lint(
+        base + line + "  # repro: allow[set-order]\n")) == {"wallclock"}
+
+
+def test_lint_unseeded_rng():
+    fs = lint("import numpy as np\nx = np.random.rand(3)\n")
+    assert rules(fs) == {"unseeded-rng"}
+    fs = lint("import random\nx = random.random()\n")
+    assert rules(fs) == {"unseeded-rng"}
+    fs = lint("import numpy as np\nr = np.random.default_rng()\n")
+    assert rules(fs) == {"unseeded-rng"}
+    assert lint("import numpy as np\nr = np.random.default_rng(0)\n") == []
+    assert lint("import random\nr = random.Random(7)\n") == []
+    assert lint("import numpy as np\n"
+                "r = np.random.default_rng(0)\nx = r.random()\n") == []
+
+
+def test_lint_deepcopy_on_comm_hot_path():
+    src = "import copy\ny = copy.deepcopy(x)\n"
+    fs = lint(src, path="src/repro/comm/transport.py")
+    assert rules(fs) == {"deepcopy"}
+    assert fs[0].path == "src/repro_torch/comm/transport.py"
+    fs = lint("import copy as _c\ny = _c.deepcopy(x)\n",
+              path="src/repro/comm/anything.py")
+    assert rules(fs) == {"deepcopy"}
+    # only the comm hot path is policed
+    assert lint(src, path="src/repro/simrt/runtime.py") == []
+    assert lint(src) == []
+    assert lint(
+        "import copy\ny = copy.deepcopy(x)  # repro: allow[deepcopy]\n",
+        path="src/repro/comm/payload.py") == []
+    # the port's rule names the port's paths, not the reference's
+    assert lint_source(src, "src/repro/comm/transport.py") == []
+
+
+def test_lint_per_rank_loop_in_collectives():
+    src = ("def f(self):\n"
+           "    for r in range(self.n):\n"
+           "        pass\n")
+    fs = lint(src, path="src/repro/comm/collectives.py")
+    assert rules(fs) == {"per-rank-loop"}
+    fs = lint("def f(e, r):\n"
+              "    return [x for x in range(r + 1, e.n)]\n",
+              path="src/repro/comm/collectives.py")
+    assert rules(fs) == {"per-rank-loop"}
+    assert lint(src, path="src/repro/comm/transport.py") == []
+    assert lint("def f(n):\n    for r in range(n):\n        pass\n",
+                path="src/repro/comm/collectives.py") == []
+    assert lint("def f(self):\n"
+                "    # repro: allow[per-rank-loop]\n"
+                "    for dst in range(self.n):\n"
+                "        pass\n",
+                path="src/repro/comm/collectives.py") == []
+    assert lint_source(src, "src/repro/comm/collectives.py") == []
+
+
+def test_lint_set_iteration_order():
+    fs = lint("s = {1, 2}\nfor x in s:\n    pass\n")
+    assert rules(fs) == {"set-order"}
+    fs = lint("xs = [p for p in {1, 2}]\n")
+    assert rules(fs) == {"set-order"}
+    fs = lint("s = set([1, 2])\nxs = list(s)\n")
+    assert rules(fs) == {"set-order"}
+    assert lint("s = {1, 2}\nfor x in sorted(s):\n    pass\n") == []
+    assert lint("s = {1, 2}\nn = len(s)\nm = max(s)\n") == []
+    assert lint("s = {1, 2}\nxs = sorted(list(s))\n") == []
+
+
+def test_lint_unpriced_transport():
+    src = ("from repro_torch.comm.transport import ReplicaTransport\n"
+           "t = ReplicaTransport(rmap, 4)\n")
+    assert rules(lint(src)) == {"unpriced-transport"}
+    assert lint("from repro_torch.comm.transport import ReplicaTransport\n"
+                "t = ReplicaTransport(rmap, 4, cost_model=cm)\n") == []
+
+
+def test_lint_tag_band_membership():
+    fs = lint("TAG_BOGUS = -99\n", "src/repro/comm/fake.py")
+    assert rules(fs) == {"tag-range"}
+    fs = lint("TAG_HALO = -11\n", "src/repro/apps/fake.py")
+    assert rules(fs) == {"tag-range"}
+    assert any("repro_torch.comm.collectives" in f.message for f in fs)
+    assert lint("TAG_HALO = 1\n", "src/repro/apps/fake.py") == []
+    assert lint("TAG_X = -12\n", "src/repro/comm/fake.py") == []
+    assert lint("TAG_POOL_X = -43\n", "src/repro/pool/fake.py") == []
+
+
+def test_lint_tag_collision_across_files(tmp_path):
+    comm = tmp_path / "comm"
+    comm.mkdir()
+    (comm / "a.py").write_text("TAG_A = -11\n")
+    (comm / "b.py").write_text("TAG_B = -11\n")
+    fs = lint_paths([str(tmp_path)])
+    assert rules(fs) == {"tag-range"}
+    assert any("collides" in f.message for f in fs)
+    assert _key(fs) == _key(ref_lint_paths([str(tmp_path)]))
+    (comm / "b.py").write_text(
+        "TAG_B = -11  # repro: allow[tag-range]\n")
+    assert lint_paths([str(tmp_path)]) == []
+    assert ref_lint_paths([str(tmp_path)]) == []
+
+
+def test_port_tree_lints_clean():
+    """``python -m repro_torch.analyze lint``'s property: src/repro_torch
+    carries no unsuppressed violation."""
+    assert lint_paths([PORT_ROOT]) == []
+
+
+def test_port_pragmas_are_policed():
+    """The port's pragmas are checked now: with them stripped, the lint
+    finds the per-destination loops of the collective engine and the wall
+    reads of the FT session and strategies, each at a line the pragma
+    covered."""
+    allow = re.compile(r"#\s*repro:\s*allow\[[^\]]*\].*$", re.M)
+    for rel, rule, least in (("comm/collectives.py", "per-rank-loop", 5),
+                             ("ft/session.py", "wallclock", 2),
+                             ("ft/strategy.py", "wallclock", 4)):
+        path = os.path.join(PORT_ROOT, rel)
+        with open(path) as f:
+            source = f.read()
+        fs = lint_source(allow.sub("", source), path)
+        assert len(fs) >= least and rules(fs) == {rule}, (rel, _key(fs))
+        covered = parse_allows(source)
+        for f in fs:
+            assert any(rule in covered.get(at, ()) for at in
+                       (f.line, f.line - 1)), (rel, f.line)
+
+
+def test_pool_demo_is_a_cli_module():
+    src = "def run():\n    print('x')\n"
+    assert lint(src, "src/repro/pool/demo.py") == []
+    assert rules(lint(src, "src/repro/pool/master.py")) == {"no-print"}
+
+
+@settings(max_examples=30, deadline=None)
+@given(allowed=st.lists(st.sampled_from(
+    ["wallclock", "unseeded-rng", "set-order", "unpriced-transport",
+     "tag-range", "*"]), min_size=0, max_size=3),
+    same_line=st.booleans())
+def test_lint_suppression_round_trip(allowed, same_line):
+    annot = "# repro: allow[" + ",".join(allowed) + "]"
+    line = "t0 = time.perf_counter()"
+    if same_line:
+        src = f"import time\n{line}  {annot}\n"
+    else:
+        src = f"import time\n{annot}\n{line}\n"
+    fs = [f for f in lint(src) if f.rule == "wallclock"]
+    suppressed = "wallclock" in allowed or "*" in allowed
+    assert (fs == []) == suppressed
+
+
+# ---------------------------------------------------------------------- CLI
+
+def test_cli_schedule_pass_exits_clean(capsys):
+    from repro_torch.analyze.__main__ import main
+    assert main(["schedule", "--steps", "1", "--device", "cpu"]) == 0
+    out = capsys.readouterr().out
+    assert "0 error(s)" in out
+
+
+def test_cli_lint_detects_violation(tmp_path):
+    from repro_torch.analyze.__main__ import main
+    bad = tmp_path / "bad.py"
+    bad.write_text("import time\nt = time.time()\n")
+    assert main(["lint", "--path", str(bad)]) == 1
+
+
+def test_cli_divergence_demo_catches_the_flip(capsys):
+    from repro_torch.analyze.__main__ import main
+    assert main(["divergence", "--device", "cpu"]) == 0
+    out = capsys.readouterr().out
+    assert "caught: replica divergence" in out and "tag=1" in out
+
+
+def test_cli_default_lints_the_port_and_needs_the_card(monkeypatch,
+                                                       capsys):
+    from repro_torch.analyze.__main__ import main
+    assert main(["lint"]) == 0
+    assert PORT_ROOT in capsys.readouterr().out
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        main(["schedule"])

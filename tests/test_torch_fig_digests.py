@@ -3,11 +3,12 @@
 
 The figure modules (``benchmarks/common.py``, ``fig13_log_replay``,
 ``fig14_memstore``, ``fig15_topology``, ``fig9_time_distribution``,
-``fig7_8_hpcg``) import ``repro`` at module level and inside functions.
-For the length of a test, the fixture ``repro_is_the_port`` takes every
-``repro`` module out of ``sys.modules``, binds each name they import to its
-port counterpart (the apps through ``functools.partial(..., device="cpu")``;
-the packages ``repro``, ``repro.apps``, ``repro.configs`` and
+``fig7_8_hpcg``, ``fig16_taskpool``) import ``repro`` at module level and
+inside functions.  For the length of a test, the fixture
+``repro_is_the_port`` takes every ``repro`` module out of ``sys.modules``,
+binds each name they import to its port counterpart (the apps and the
+pool's ``run_pool`` through ``functools.partial(..., device="cpu")``; the
+packages ``repro``, ``repro.apps``, ``repro.configs`` and
 ``repro.core`` as stand-ins whose attributes are the port's modules, since
 ``from repro.core import ckpt_policy`` reads an attribute of the package),
 and puts a finder first on ``sys.meta_path`` that refuses any other
@@ -21,7 +22,11 @@ see the reference.  Nothing in ``benchmarks/`` is edited.
 
 The digests hash only the derived (virtual-time) columns, which do not
 depend on the numbers the apps compute, so the port's torch apps give the
-reference's digests exactly.
+reference's digests exactly.  Fig 16's rows read the pool's counters and
+its priced ledger under fattree, where the in-memory checkpoints' bytes
+enter C: the port's pickles are the reference's but for the module path of
+the sender log's message class (``repro_torch.`` against ``repro.``, six
+bytes a pickle), which moves no printed digit.
 """
 import functools
 import importlib
@@ -35,18 +40,27 @@ import pytest
 from repro_torch.apps import cloverleaf, hpcg, pic
 from repro_torch.configs import base as configs_base
 from repro_torch.core import ckpt_policy, failure_sim
-from repro_torch import obs, simrt, topo
+from repro_torch import obs, pool, simrt, topo
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PINNED = json.loads((ROOT / "benchmarks" / "fig_digests.json").read_text())
 FIGURES = ["fig13_log_replay", "fig14_memstore", "fig15_topology",
-           "fig9_time_distribution", "fig7_8_hpcg"]
+           "fig9_time_distribution", "fig7_8_hpcg", "fig16_taskpool"]
 
 
 def _stand_in(name, **attrs):
     mod = types.ModuleType(f"{name} (bound to repro_torch)")
     mod.__dict__.update(attrs)
     mod.__path__ = []                   # a package: submodules resolve
+    return mod
+
+
+def _cpu_pool():
+    mod = types.ModuleType("repro_torch.pool (device='cpu')")
+    mod.__dict__.update(
+        hyperparameter_sweep_tasks=pool.hyperparameter_sweep_tasks,
+        monte_carlo_tasks=pool.monte_carlo_tasks,
+        run_pool=functools.partial(pool.run_pool, device="cpu"))
     return mod
 
 
@@ -94,10 +108,12 @@ def repro_is_the_port(monkeypatch):
         "repro.simrt": simrt,
         "repro.topo": topo,
         "repro.obs": obs,
+        "repro.pool": _cpu_pool(),
     }
     bound["repro"] = _stand_in(
         "repro", apps=bound["repro.apps"], configs=bound["repro.configs"],
-        core=bound["repro.core"], simrt=simrt, topo=topo, obs=obs)
+        core=bound["repro.core"], simrt=simrt, topo=topo, obs=obs,
+        pool=bound["repro.pool"])
     before = [name for name in sys.modules if _bound_here(name)]
     for name in before:
         monkeypatch.delitem(sys.modules, name)

@@ -40,12 +40,14 @@ def test_no_jax_or_reference_imports(path):
 @pytest.mark.parametrize("package", ["analyze", "obs", "store", "ft",
                                      "core", "comm", "clock", "data",
                                      "optim", "checkpoint", "launch",
-                                     "kernels", "models", "simrt", "apps"])
+                                     "kernels", "models", "simrt", "apps",
+                                     "pool"])
 def test_scan_covers_the_package(package):
     """The AST scan and the blocked import walk every module of each
     package of the port, the observability layer, the checkpoint store,
     the training path (data, optim, checkpoint, launch.train, the
-    kernels' autograd), the simulated runtime and the apps included."""
+    kernels' autograd), the simulated runtime, the apps and the task pool
+    included."""
     files = sorted((ROOT / "src" / "repro_torch" / package).glob("*.py"))
     assert files and all(f in PORT_FILES for f in files)
 

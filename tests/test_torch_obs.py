@@ -10,21 +10,30 @@ the metrics snapshots and Chrome traces exactly, except for the wall-clock
 fields (``args.wall_ms``): the virtual times are the same arithmetic in
 the same order, the counters integer or float sums in the same order.
 
-Ported from ``tests/test_obs.py``: every test but the ``no-print`` lint
-tests, which wait for the lint pass (ROADMAP.md, Queue 1 item 9b);
-``test_fig9_uses_the_shared_accounting`` runs in
+Ported from ``tests/test_obs.py``: every test (the ``no-print`` lint tests
+run through both lints); ``test_fig9_uses_the_shared_accounting`` runs in
 ``tests/test_torch_fig_digests.py``, which binds ``repro`` to the port.
 The ``killed_run`` tests drive the port's ``obs.demo.traced_hpcg_run``
 (HPCG on the simulated runtime, on the CPU): its snapshot and Chrome trace
 equal the reference's except where the in-memory store's bytes enter.
-The port pickles a rank's checkpoint with HPCG's ``rr`` a 0-d array (the
-reference's is a numpy scalar) and its sender log's messages under the
-port's module path, so the store's bands are longer (``STORE_BYTES``);
-without a topology nothing else moves, and under fattree pricing the
-measured checkpoint cost C moves with them, shifting every later span by
-at most the ``ckpt_write`` gap.
+A rank's checkpoint pickles to the reference's bytes (``store.backend.
+to_host`` hands the pickler a numpy scalar for a 0-d tensor and a
+read-only array for a logged message's payload, as the reference's state
+holds them) but for one kept share: the sender log's message class is
+named ``repro_torch.core.message_log``, six bytes longer than the
+reference's ``repro.core.message_log``, in every pickle that holds one.
+The store's counters (``STORE_BYTES``) differ by exactly that share: the
+same run with the class under a module path of the reference's length
+(``message_class_path_of_reference_length``) equals the reference in
+every counter, gauge, ledger entry and trace event.  Without a topology
+nothing else moves; under fattree pricing the measured checkpoint cost C
+moves with the share, shifting every later span by the ``ckpt_write``
+gap that the share alone makes.
 """
+import contextlib
 import json
+import sys
+import types
 
 import numpy as np
 import pytest
@@ -47,6 +56,7 @@ from repro_torch.comm import ReplicaTransport
 from repro_torch.configs.base import FTConfig
 from repro_torch.core.coordinator import ClusterTopology
 from repro_torch.core.failure_sim import FailureEvent
+from repro_torch.core.message_log import LoggedMessage
 from repro_torch.core.replica_map import ReplicaMap
 from repro_torch.ft import FTSession
 from repro_torch.launch.serve import ReplicatedServer
@@ -62,6 +72,8 @@ LOGGED_BANDS = ("app", "coll", "topo", "reserved")
 # the snapshot entries the store's band bytes enter (module docstring)
 STORE_BYTES = {"counters": ("comm.bytes.store.cmp", "comm.bytes.store.rep"),
                "gauges": ("store.committed_bytes",)}
+# bytes a pickle that names the port's message class is longer
+CLASS_PATH_SHARE = len("repro_torch") - len("repro")
 
 
 def _port_name(owner):
@@ -97,18 +109,18 @@ def assert_nested_and_closed(tracer):
 # ----------------------------------------------------------------- tags
 
 def test_tag_bands_equal_the_reference():
-    """The band table (the pool's band included) and the registered tags
-    equal the reference's, owners under the port's module names; the
-    pool's tags join when the pool is ported."""
+    """The band table and the registered tags (the pool's included) equal
+    the reference's, owners under the port's module names."""
     assert tags.RESERVED_BANDS == tuple(
         (_port_name(o), lo, hi) for o, lo, hi in ref_tags.RESERVED_BANDS)
+    assert (tags.RESERVED_MIN, tags.RESERVED_MAX) == \
+        (ref_tags.RESERVED_MIN, ref_tags.RESERVED_MAX)
     for tag in range(-50, 6):
         want = ref_tags.band_owner(tag)
         assert tags.band_owner(tag) == (want and _port_name(want))
-    want = {t: _port_name(name) for t, name in ref_tags.reserved_tags().items()
-            if not name.startswith("repro.pool.")}
+    want = {t: _port_name(name) for t, name in ref_tags.reserved_tags().items()}
     assert tags.reserved_tags() == want
-    assert len(want) == 20
+    assert len(want) == 22
 
 
 # --------------------------------------------------------------- metrics
@@ -519,6 +531,25 @@ def test_divergence_detector_and_recorder_coexist():
 KILLED = dict(n_ranks=16, steps=8, grid=(4, 4, 2))
 
 
+@contextlib.contextmanager
+def message_class_path_of_reference_length():
+    """The port's sender-log message class pickled under a module path as
+    long as the reference's (``xxxxx.core.message_log``), so a checkpoint's
+    bytes can be held to the reference's exactly."""
+    root = "x" * len("repro")
+    names = (root, f"{root}.core", f"{root}.core.message_log")
+    for name in names:
+        sys.modules[name] = types.ModuleType(name)
+    sys.modules[names[-1]].LoggedMessage = LoggedMessage
+    LoggedMessage.__module__ = names[-1]
+    try:
+        yield
+    finally:
+        LoggedMessage.__module__ = "repro_torch.core.message_log"
+        for name in names:
+            del sys.modules[name]
+
+
 @pytest.fixture(scope="module")
 def killed_run():
     """HPCG, combined strategy, fat-tree pricing, one node killed mid-run
@@ -537,18 +568,47 @@ def _without(snapshot, skip):
             for key, val in snapshot.items()}
 
 
+def _store_share(ours, theirs):
+    """The store's bytes in ``ours`` less those in ``theirs``, by entry:
+    each a positive multiple of ``CLASS_PATH_SHARE``."""
+    share = {}
+    for key, names in STORE_BYTES.items():
+        for name in names:
+            d = ours[key][name] - theirs[key][name]
+            assert d > 0 and d % CLASS_PATH_SHARE == 0, (name, d)
+            share[name] = d
+    return share
+
+
+@pytest.mark.parametrize("topology", [None, "fattree"])
+def test_killed_run_checkpoints_differ_by_the_class_path_only(topology):
+    """With the message class under a path of the reference's length the
+    run equals the reference's everywhere: snapshot, ledger and Chrome
+    trace (wall fields aside), priced or not."""
+    with message_class_path_of_reference_length():
+        _rt, ours, obs_ours = traced_hpcg_run(device="cpu",
+                                              topology=topology, **KILLED)
+    _rt, theirs, obs_theirs = ref_traced_hpcg_run(topology=topology,
+                                                  **KILLED)
+    assert ours.obs_metrics == theirs.obs_metrics
+    assert ours.time.as_dict() == theirs.time.as_dict()
+    assert strip_wall(chrome_trace(obs_ours.tracer, ours.obs_metrics)) == \
+        strip_wall(ref_chrome_trace(obs_theirs.tracer, theirs.obs_metrics))
+
+
 def test_killed_run_unpriced_equals_the_reference():
     """Without a topology the whole snapshot and the Chrome trace, wall
-    fields aside, equal the reference's; only the store's band bytes
-    differ (module docstring)."""
+    fields aside, equal the reference's; the store's band bytes differ by
+    the class-path share alone, the same share as under fattree."""
     _rt, ours, obs_ours = traced_hpcg_run(device="cpu", topology=None,
                                           **KILLED)
     _rt, theirs, obs_theirs = ref_traced_hpcg_run(topology=None, **KILLED)
     a, b = ours.obs_metrics, theirs.obs_metrics
     assert _without(a, STORE_BYTES) == _without(b, STORE_BYTES)
-    for key, names in STORE_BYTES.items():
-        for name in names:
-            assert a[key][name] > 0 and b[key][name] > 0
+    with message_class_path_of_reference_length():
+        _rt, same, _obs = traced_hpcg_run(device="cpu", topology=None,
+                                          **KILLED)
+    assert _store_share(a, b) == _store_share(a, same.obs_metrics)
     trace_a = strip_wall(chrome_trace(obs_ours.tracer, a))
     trace_b = strip_wall(ref_chrome_trace(obs_theirs.tracer, b))
     assert trace_a["traceEvents"] == trace_b["traceEvents"]
@@ -559,8 +619,10 @@ def test_killed_run_unpriced_equals_the_reference():
 
 def test_killed_run_equals_the_reference(killed_run, ref_killed_run):
     """Under fattree pricing: the counters but the store's bytes and the
-    checkpoint seconds equal; every trace event equals the reference's but
-    for its times, which move by at most the ``ckpt_write`` gap."""
+    checkpoint seconds equal; the store's bytes differ by the class-path
+    share, the checkpoint seconds by that share's priced cost, and every
+    trace event equals the reference's but for its times, which move by at
+    most that gap."""
     _rt, ours, obs_ours = killed_run
     _rt, theirs, obs_theirs = ref_killed_run
     a, b = ours.obs_metrics, theirs.obs_metrics
@@ -568,8 +630,13 @@ def test_killed_run_equals_the_reference(killed_run, ref_killed_run):
             "gauges": STORE_BYTES["gauges"]}
     for key in ("counters", "gauges", "histograms", "world"):
         assert _without(a, skip)[key] == _without(b, skip)[key]
+    with message_class_path_of_reference_length():
+        _rt, same, _obs = traced_hpcg_run(device="cpu", **KILLED)
+    assert _store_share(a, b) == _store_share(a, same.obs_metrics)
     gap = abs(ours.time.ckpt_write - theirs.time.ckpt_write)
-    assert 0 < gap < 1e-6          # seconds, over every checkpoint write
+    assert gap == abs(ours.time.ckpt_write - same.time.ckpt_write)
+    # six bytes a pickle, priced over the fat tree's links: a few ns
+    assert 0 < gap < 1e-8
     got = {k: v for k, v in ours.time.as_dict().items() if k != "total"}
     want = dict(theirs.time.as_dict(), ckpt_write=ours.time.ckpt_write)
     del want["total"]
@@ -694,3 +761,47 @@ def test_cli_trace_and_metrics(tmp_path):
         metrics = json.load(f)
     assert metrics["counters"]["steps.executed"] >= 6
     assert "time_distribution" in metrics
+
+
+# ------------------------------------------------------------ no-print lint
+
+def _no_print(source, path):
+    """The port's no-print findings on ``source`` at the port's ``path``,
+    checked line for line against the reference lint at the reference's
+    path."""
+    from repro.analyze import lint_source as ref_lint_source
+    from repro_torch.analyze import lint_source
+    port_path = path.replace("src/repro/", "src/repro_torch/")
+    ours = [f.line for f in lint_source(source, port_path)
+            if f.rule == "no-print"]
+    theirs = [f.line for f in ref_lint_source(source, path)
+              if f.rule == "no-print"]
+    assert ours == theirs
+    return ours
+
+
+def test_no_print_flags_library_modules():
+    assert _no_print("def f():\n    print('hi')\n", "src/repro/x/mod.py")
+
+
+def test_no_print_exempts_cli_modules():
+    src = "def f():\n    print('hi')\n"
+    assert not _no_print(src, "src/repro/x/__main__.py")
+    cli = "def main(argv=None):\n    print('hi')\n    return 0\n"
+    assert not _no_print(cli, "src/repro/x/serve.py")
+
+
+def test_no_print_allow_comment():
+    src = ("def f():\n"
+           "    # repro: allow[no-print] -- operator-facing\n"
+           "    print('hi')\n")
+    assert not _no_print(src, "src/repro/x/mod.py")
+
+
+def test_no_print_ignores_method_named_main():
+    src = ("class C:\n"
+           "    def main(self):\n"
+           "        pass\n"
+           "def f():\n"
+           "    print('x')\n")
+    assert _no_print(src, "src/repro/x/mod.py")
