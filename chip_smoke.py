@@ -94,34 +94,49 @@ Phases (each a function; any failure exits non-zero):
      pass, a chunk pass and a reduce; bf16 on the tensor cores, f32 on
      FMAs, every entry in the ptxas gate; at zamba2-7b's train shape
      with x, B, C as views of the conv output, chunk 64, the reduced
-     config's P 64 / N 16 / chunk 16 and a ragged head count) against
+     config's P 64 / N 16 / chunk 16 and a ragged head count; K2 also at
+     the VLM's cross shape, q 512 over k/v 1,600, D 128, GQA 8,
+     non-causal, and codeqwen1.5-7b's MHA) against
      autograd of their plain versions at the train shapes and the other
      cases, reruns bitwise, the forward's logsumexp against
      ``ref.flash_attention_lse_ref`` with o bitwise the same with and
      without it, their ptxas lines (no spills) and times (a
      ``train.kernels`` line); then qwen3-8b at full width, depth cut to 2
-     layers, trained 12 steps at batch 4 x 512 through ``launch.train``:
-     clean, and under replication (a promotion), combined (a promotion,
-     then a pair death restored from the on-disk checkpoint) and
-     checkpoint (a death restored from disk), each final state (params,
-     m, v) bitwise the clean run's, its bytes those its tensors' dtypes
-     give, and each kernel's launches the count the executed steps imply
-     (a ``train`` line per run). The disk runs write their checkpoints
-     (16.3 GB each) under ``build/train_ckpt`` and keep at most two there
-     at a time;
+     layers, trained 9 steps (``TRAIN_STEPS``) at batch 4 x 512 through
+     ``launch.train``:
+     clean, and under replication (a promotion) and combined (a
+     promotion, then a pair death restored from the on-disk checkpoint),
+     each final state (params, m, v) bitwise the clean run's, its bytes
+     those its tensors' dtypes give, and each kernel's launches the count
+     the executed steps imply (a ``train`` line per run; the checkpoint
+     schedule runs on the CPU only, see ``phase_train``). The disk run
+     writes its checkpoints (16.3 GB each) under ``build/train_ckpt`` and
+     keeps at most two there at a time;
   8b. train, zamba2-7b: full width, depth cut to 13 Mamba blocks (two
      groups of 6 behind the shared attention block and a tail of 1), the
-     same 12 steps, clean, replication and combined under the same gates,
+     same 9 steps, clean, replication and combined under the same gates,
      every kernel of the path and its backward launched the counted
      number of times (14.5 GB checkpoints; the hybrid's checkpoint
      schedule runs on the CPU only, see ``phase_train_zamba``);
   8c. train, whisper-tiny (full size, batch 4 x 448, zero frames) and
      xlstm-350m (full width, 6 of its 24 blocks, 4 x 64: its gradient
-     overflows past ~96 tokens, ROADMAP.md F7): the same 12 steps, clean,
+     overflows past ~96 tokens, ROADMAP.md F7): the same 9 steps, clean,
      replication and combined under the same gates (K2's backward at D 64
      non-causal with Sq != Skv on whisper's path); phase 8's checks and
      times include K2's backward at whisper's three shapes and K1's at d
      384 and 1024;
+  8d. train, llama-3.2-vision-11b (slice 16): full width, one group of a
+     gated cross layer and 5 self layers, batch 4 x 512, zero image
+     embeddings: clean and replication under the same gates, K2 launched
+     at the cross shape once a group and forward (its disk schedules run
+     on the CPU only, see ``phase_train_vlm``);
+  8e. fig10 (slice 16): the paper's Fig 10 through
+     ``repro_torch.figures.fig10_overhead`` with codeqwen1.5-7b, at the
+     reference's configuration (reduced, 4 x 64) and at full width with 2
+     layers (4 x 512): bare and FT ms a step and the overhead beside the
+     paper's 1.3%, the FT run's final state bitwise the bare loop's, the
+     virtual-time row the reference's, one execution a step (``fig10``
+     lines); K2's forward at codeqwen1.5-7b's MHA shape timed;
   9. simrt: the simulated runtime with HPCG (16 ranks of 104^3), CloverLeaf
      (8 slabs of 3,840 x 240) and PIC (8 ranks of 4,096 cells and
      1,048,576 particles) in float64 on the card, 4 workers a node, 12
@@ -149,7 +164,8 @@ Phases (each a function; any failure exits non-zero):
 
 Prints JSON lines as it goes (``comm``, ``fanout``, ``serve``,
 ``serve.ckpt``, ``obs``, ``store``, ``times``, ``train.kernels``,
-``train``, ``simrt``, ``pool`` and ``analyze`` lines among them, and each
+``train``, ``fig10``, ``simrt``, ``pool`` and ``analyze`` lines among
+them, and each
 phase's seconds), then
 ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": {...}}``.
 Exits non-zero without CUDA, and when run outside the repository (the
@@ -195,6 +211,7 @@ from repro_torch.core.coordinator import ClusterTopology  # noqa: E402
 from repro_torch.core.failure_sim import FailureEvent  # noqa: E402
 from repro_torch.core.replica_map import (  # noqa: E402
     ApplicationDead, ReplicaMap)
+from repro_torch.figures import fig10_overhead  # noqa: E402
 from repro_torch.ft import (  # noqa: E402
     DecodeWorkload, FTSession, SimAppWorkload)
 from repro_torch.kernels import build, ref  # noqa: E402
@@ -257,6 +274,7 @@ ZAMBA = get_arch("zamba2-7b")
 # bf16 weights; 32 layers would be 93.4 GB, more than the card holds)
 MIXTRAL = dataclasses.replace(get_arch("mixtral-8x7b"), n_layers=16)
 VISION = get_arch("llama-3.2-vision-11b")       # full size, 20.2 GB
+CODEQWEN = get_arch("codeqwen1.5-7b")            # MHA with the QKV bias
 WHISPER = get_arch("whisper-tiny")               # full size, 56.4 M params
 XLSTM = get_arch("xlstm-350m")                   # full size, 265.8 M params
 # whisper's served stream ends at its published text context (openai/whisper
@@ -606,7 +624,9 @@ def phase_attention(state):
         dict(b=B, hq=VISION.n_heads, hkv=VISION.n_kv_heads, s=S,
              skv=VISION.n_image_tokens, d=VISION.resolved_head_dim,
              causal=False, window=0, dtype=torch.float32),
-    ] + [dict(c, dtype=dt) for c in _whisper_k2_cases()
+    ] + [dict(c, dtype=dt)
+         for c in _whisper_k2_cases() + [_codeqwen_case(),
+                                         _codeqwen_reduced_case()]
          for dt in (torch.bfloat16, torch.float32)]
     worst = 0.0
     for c in cases:
@@ -2156,12 +2176,36 @@ def _k3_bwd_cases():
                ((1, 256, 5, 64, 64), 128, bf, f32, True, False)])
 
 
+def _vlm_cross_case():
+    """The VLM's cross-attention in training: q [4, 32, 512, 128] over
+    k/v [4, 8, 1600, 128] (the image memory), non-causal."""
+    return dict(b=B, hq=VISION.n_heads, hkv=VISION.n_kv_heads, s=S,
+                skv=VISION.n_image_tokens, d=VISION.resolved_head_dim,
+                causal=False, window=0)
+
+
+def _codeqwen_case():
+    """codeqwen1.5-7b's causal MHA (32 q and 32 KV heads of 128), Fig 10's
+    model."""
+    return dict(b=B, hq=CODEQWEN.n_heads, hkv=CODEQWEN.n_kv_heads, s=S,
+                d=CODEQWEN.resolved_head_dim, causal=True, window=0)
+
+
+def _codeqwen_reduced_case():
+    """codeqwen1.5-7b reduced at Fig 10's reference configuration (4 x 64):
+    MHA, 4 q and 4 KV heads of 32 (group 1 at D 32)."""
+    cfg = CODEQWEN.reduced()
+    return dict(b=4, hq=cfg.n_heads, hkv=cfg.n_kv_heads, s=64,
+                d=cfg.resolved_head_dim, causal=True, window=0)
+
+
 def _k2_bwd_cases():
     cases = [
         dict(b=B, hq=QWEN.n_heads, hkv=QWEN.n_kv_heads, s=S,
              d=QWEN.resolved_head_dim, causal=True, window=0),  # qwen3-8b
         dict(b=B, hq=ZAMBA.n_heads, hkv=ZAMBA.n_kv_heads, s=S,
              d=ZAMBA.resolved_head_dim, causal=True, window=0),  # zamba2-7b
+        _vlm_cross_case(), _codeqwen_case(), _codeqwen_reduced_case(),
         dict(b=2, hq=8, hkv=2, s=200, d=128, causal=True, window=0),
         dict(b=1, hq=4, hkv=2, s=256, d=64, causal=True, window=100),
         dict(b=1, hq=2, hkv=2, s=130, d=112, causal=False, window=0),
@@ -2226,9 +2270,11 @@ def phase_train_kernels(state):
         do = _bshd(gen, c["b"], c["s"], c["hq"], c["d"], dtype)
         mask = {"causal": c["causal"], "window": c["window"]}
         shape = {k_: v_ for k_, v_ in c.items() if k_ != "dtype"}
-        # the forward's logsumexp (f32 sums in another order), and o the
-        # same bits with and without it
+        # the forward's o against its plain version, its logsumexp (f32
+        # sums in another order), and o the same bits with and without it
         o, lse = flash_attention(q, k, v, **mask, return_lse=True)
+        compare("flash_attention", o, ref.flash_attention_ref(q, k, v, **mask),
+                dtype, **shape)
         compare("flash_attention_lse", lse,
                 ref.flash_attention_lse_ref(q, k, **mask), torch.float32,
                 tol=LSE_TOL, **shape, of=str(dtype)[6:])
@@ -2398,12 +2444,17 @@ def _train_kernel_times(card_name, gen):
     del q, k, v, do, o, lse
     rows["attention_d64"] = [_k2_bwd_times(card_name, gen, flush, c)
                              for c in _whisper_k2_cases()]
+    rows["attention_cross"] = _k2_bwd_times(card_name, gen, flush,
+                                            _vlm_cross_case())
+    rows["attention_mha"] = _k2_bwd_times(card_name, gen, flush,
+                                          _codeqwen_case())
     rows["scan"] = _scan_bwd_times(card_name, gen, flush)
     return rows
 
 
 def _k2_bwd_times(card_name, gen, flush, c):
-    """K2's backward (bf16) at one of whisper-tiny's train shapes, beside
+    """K2's backward (bf16) at one train shape (whisper-tiny's, the VLM's
+    cross-attention, codeqwen1.5-7b's MHA), beside
     its plain version, SDPA's backward and its bound (the visible pairs'
     five products of 2 D flops, or the bytes if they take longer)."""
     bf = torch.bfloat16
@@ -2491,7 +2542,11 @@ def _scan_bwd_times(card_name, gen, flush):
 
 
 
-TRAIN_LAYERS, TRAIN_STEPS, TRAIN_LR, TRAIN_SEED = 2, 12, 1e-3, 0
+# 9 steps, not the reference's 12 (tests/test_ft_trainer.py, which the
+# CPU tests keep): the least that holds the pair death at step 8; the
+# combined runs then write two checkpoints after the baseline, not three,
+# which saves a ~40 s save of a 16.3 GB state (14.5 GB for zamba2-7b)
+TRAIN_LAYERS, TRAIN_STEPS, TRAIN_LR, TRAIN_SEED = 2, 9, 1e-3, 0
 # zamba2-7b's depth in training: two groups of 6 Mamba blocks behind the
 # shared attention block, and a tail of 1
 TRAIN_ZAMBA_BLOCKS = 13
@@ -2508,10 +2563,15 @@ TRAIN_RUNS = [
     ("checkpoint", dict(mode="checkpoint", ckpt_interval_s=3.0),
      {7: [2]}, True),
 ]
-# the hybrid's, whisper's and xlstm's on the card: their checkpoint
-# schedule runs on the CPU only (tests/test_torch_zamba_train.py,
-# tests/test_torch_train.py; see phase_train_zamba)
+# every model's on the card: the checkpoint schedule runs on the CPU only
+# (tests/test_torch_train.py, tests/test_torch_zamba_train.py,
+# tests/test_torch_vlm_train.py; see phase_train)
 TRAIN_RUNS_CARD = [run for run in TRAIN_RUNS if run[0] != "checkpoint"]
+# the VLM's: no disk run (see phase_train_vlm)
+TRAIN_RUNS_VLM = [run for run in TRAIN_RUNS_CARD if not run[3]]
+# llama-3.2-vision-11b trains at full width with one group (a gated cross
+# layer and 5 self layers), the least depth the model takes
+TRAIN_VLM_LAYERS = VISION.cross_attn_every
 # whisper-tiny trains at its published text context (n_text_ctx 448)
 TRAIN_SEQ_WHISPER = 448
 # xlstm-350m trains at 64 tokens: at full width the reference's sLSTM is
@@ -2546,10 +2606,13 @@ def train_config_zamba():
 
 def train_launches_per_step(cfg):
     """Kernel launches of one train step (forward and backward), each
-    backward once per forward call. Dense (L layers): each layer's
-    qk-norms and, in layer 0, ln1 are plain norms (2 L + 1); ln2, the
+    backward once per forward call. Dense (L layers): layer 0's ln1 and,
+    with qk-norm, each layer's two are plain norms (1 + 2 L); ln2, the
     later ln1s and ln_f fuse the residual add (2 L); one attention a
-    layer. Hybrid (n Mamba blocks, G groups): every block's out_norm and
+    layer. VLM (L self layers in G groups, no qk-norm): the cross
+    output is pending when each group's first ln1 runs, so every ln1, ln2
+    and ln_f fuses the add (2 L + 1) and none is plain; L causal
+    self-attentions and G cross-attentions over the image memory. Hybrid (n Mamba blocks, G groups): every block's out_norm and
     the first attn_ln are plain norms (n + 1); the later attn_lns, every
     attn_mlp_ln, every block's ln and ln_f fuse the add (2 G + n); one
     attention a group, one scan a block. Whisper (e encoder, n decoder
@@ -2570,8 +2633,14 @@ def train_launches_per_step(cfg):
     elif cfg.family == "ssm":
         fwd = {"rmsnorm": 1, "add_rmsnorm": n, "flash_attention": 0,
                "mamba_scan": 0}
+    elif cfg.family == "vlm":
+        if cfg.qk_norm:
+            raise ValueError("the VLM's count takes no qk-norm")
+        fwd = {"rmsnorm": 0, "add_rmsnorm": 2 * n + 1,
+               "flash_attention": n + n // cfg.cross_attn_every,
+               "mamba_scan": 0}
     else:
-        fwd = {"rmsnorm": 2 * n + 1, "add_rmsnorm": 2 * n,
+        fwd = {"rmsnorm": 1 + 2 * n * cfg.qk_norm, "add_rmsnorm": 2 * n,
                "flash_attention": n, "mamba_scan": 0}
     return {**fwd, "rmsnorm_bwd": fwd["rmsnorm"],
             "add_rmsnorm_bwd": fwd["add_rmsnorm"],
@@ -2594,6 +2663,17 @@ def _train_state_tensors(state):
             + [(f"params/{k}", v) for k, v in state["params"].items()]
             + [(f"opt/.m/{k}", v) for k, v in opt.m.items()]
             + [(f"opt/.v/{k}", v) for k, v in opt.v.items()])
+
+
+def _keep_clean(final, state_bytes):
+    """The clean run's final state, held for the later runs' bitwise
+    checks: a copy on the card where it fits beside a promotion's three
+    states (qwen3-8b, zamba2-7b and the small models), else one host copy
+    (the VLM: 4 x 21.8 GB)."""
+    total = torch.cuda.get_device_properties(0).total_memory
+    if 4 * state_bytes <= 0.85 * total:
+        return [(k, t.clone()) for k, t in final]
+    return [(k, t.cpu()) for k, t in final]
 
 
 def _prune_to_latest(ckpt_dir):
@@ -2638,10 +2718,13 @@ def _timed_steps(workload, ckpt_dir=None):
 
 def phase_train(state):
     """qwen3-8b trained at full width for TRAIN_STEPS steps, batch 4 x 512,
-    clean and under replication (a promotion), combined (a promotion then
-    a pair death, restarted from disk) and checkpoint (restarted from
-    disk); each run's final params and moments bitwise the clean run's."""
-    _train_phase(state, train_config(), TRAIN_RUNS)
+    clean and under replication (a promotion) and combined (a promotion
+    then a pair death, restarted from disk); each run's final params and
+    moments bitwise the clean run's. Its checkpoint schedule runs on the
+    CPU only (``tests/test_torch_train.py``): on the card it took ~210 s
+    (four saves and a restore of the 16.3 GB state), which the VLM's and
+    Fig 10's phases need within the script's time limit."""
+    _train_phase(state, train_config(), TRAIN_RUNS_CARD)
 
 
 def phase_train_zamba(state):
@@ -2678,6 +2761,28 @@ def phase_train_xlstm(state):
                  TRAIN_RUNS_CARD, seq=TRAIN_SEQ_XLSTM)
 
 
+def train_config_vlm():
+    """llama-3.2-vision-11b at full width (d 4096, 32 q / 8 KV heads of
+    128, d_ff 14336, vocab 128256 untied, 1,600 image tokens, bf16), depth
+    cut from 8 groups to 1: 2,183,180,289 parameters, a 21.8 GB train
+    state."""
+    return dataclasses.replace(VISION, n_layers=TRAIN_VLM_LAYERS)
+
+
+def phase_train_vlm(state):
+    """llama-3.2-vision-11b trained at full width (``train_config_vlm``)
+    for TRAIN_STEPS steps, batch 4 x 512, on zero image embeddings as the
+    reference's trainer feeds them, clean and under replication (a
+    promotion), under qwen3-8b's gates, and K2 launched at the cross
+    shape (512 x 1,600, non-causal) once a group and forward, as its
+    wrapper's tally counts. Its combined and checkpoint schedules need a
+    21.8 GB disk checkpoint and run on the CPU only, at the reduced size
+    (``tests/test_torch_vlm_train.py``). With the embeddings zero and the
+    gates at 0 the cross path's gradient is exactly 0, so K2's backward at
+    this shape is held on random data in ``phase_train_kernels``."""
+    _train_phase(state, train_config_vlm(), TRAIN_RUNS_VLM)
+
+
 def _train_phase(state, cfg, runs, seq=S):
     shutil.rmtree(TRAIN_CKPT, ignore_errors=True)     # a killed run's
     try:
@@ -2692,31 +2797,42 @@ def _train_runs(state, cfg, runs, seq):
     counters = {**KERNELS, **BWD_KERNELS}
     n_params = api.param_count(cfg)
     state_bytes = train_state_bytes(cfg)
+    # a promotion holds three states at once (the session's, the promoted
+    # replica's and the new replica's copy of it): the replicated peak
     emit({"phase": "train.build", "arch": cfg.name, "n_layers": cfg.n_layers,
           "d_model": cfg.d_model, "vocab": cfg.vocab_size, "params": n_params,
           "state_bytes": state_bytes, "batch": B, "seq": seq,
           "steps": TRAIN_STEPS, "lr": TRAIN_LR,
-          "launches_per_step": per_step, "card": card_name})
+          "launches_per_step": per_step,
+          "replication_peak_predicted_bytes": 3 * state_bytes,
+          "card": card_name})
     clean = None
     totals = dict.fromkeys(counters, 0)
     for mode, ft, kills, disk in runs:
         ckpt_dir = os.path.join(TRAIN_CKPT, mode) if disk else None
         if ckpt_dir:
             shutil.rmtree(ckpt_dir, ignore_errors=True)
+        t0 = time.perf_counter()
         tr = train_lib.build_trainer(
             cfg, batch=B, seq=seq, seed=TRAIN_SEED, lr=TRAIN_LR, device="cuda",
             ft=FTConfig(**ft), ckpt_dir=ckpt_dir,
             kill_schedule=kills)
+        build_s = time.perf_counter() - t0
         times, held = _timed_steps(tr.workload, ckpt_dir)
         gc.collect()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         for fn in counters.values():
             fn.launches = 0
+        flash_attention.by_shape.clear()
         t0 = time.perf_counter()
         rep = tr.run(TRAIN_STEPS)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+        # the run's own peak: without the clean state held on the card
+        held_on_card = sum(t.numel() * t.element_size() for _, t in clean
+                           if t.is_cuda) if clean else 0
+        peak = torch.cuda.max_memory_allocated() - held_on_card
         launches = {k: fn.launches for k, fn in counters.items()}
         expected = {k: v * len(times) for k, v in per_step.items()}
         backend = tr.session.strategy.backend
@@ -2727,18 +2843,30 @@ def _train_runs(state, cfg, runs, seq):
         if launches != expected:
             raise AssertionError(f"train {mode}: launches {launches} != "
                                  f"{expected}")
+        k2_shapes = dict(flash_attention.by_shape)
+        if cfg.family == "vlm":
+            groups = cfg.n_layers // cfg.cross_attn_every
+            want_shapes = {(seq, seq, True): cfg.n_layers * len(times),
+                           (seq, cfg.n_image_tokens, False):
+                               groups * len(times)}
+            if k2_shapes != want_shapes:
+                raise AssertionError(f"train {mode}: K2 by shape "
+                                     f"{k2_shapes} != {want_shapes}")
         final = _train_state_tensors(rep.final_state)
         held_bytes = sum(t.numel() * t.element_size() for _, t in final)
         if held_bytes != state_bytes:
             raise AssertionError(f"train {mode}: the state holds "
                                  f"{held_bytes} B, not {state_bytes}")
+        t0 = time.perf_counter()
         if clean is None:
-            clean = [(k, t.cpu()) for k, t in final]   # one host copy
+            clean = _keep_clean(final, state_bytes)
             equal = True
         else:
             equal = all(k == kc and t.dtype == c.dtype
-                        and torch.equal(t.cpu(), c)
+                        and torch.equal(t.to(c.device), c)
                         for (k, t), (kc, c) in zip(final, clean))
+        torch.cuda.synchronize()
+        hold_s = time.perf_counter() - t0
         want = {"none": (0, 0), "replication": (1, 0), "combined": (1, 1),
                 "checkpoint": (0, 1)}[mode]
         line = {
@@ -2752,10 +2880,13 @@ def _train_runs(state, cfg, runs, seq):
             "restore_backend": getattr(backend, "kind", None),
             "final_state_equal": equal, "launches": launches,
             "launches_expected": expected,
+            "k2_by_shape": _shape_rows(k2_shapes),
             "step_ms_median": 1e3 * statistics.median(times),
-            "wall_s": wall,
+            "wall_s": wall, "build_s": build_s,
+            # holding the final state for, or against, the clean run's
+            "hold_s": hold_s, "clean_on": str(clean[0][1].device),
             "state_bytes": held_bytes,
-            "max_memory_allocated": torch.cuda.max_memory_allocated(),
+            "max_memory_allocated": peak,
             "host_rss_peak_bytes":
                 resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024,
             "card": card_name}
@@ -2788,6 +2919,98 @@ def _train_runs(state, cfg, runs, seq):
         if ckpt_dir:
             shutil.rmtree(ckpt_dir)
     state.setdefault("train_launches", {})[cfg.name] = totals
+
+
+# Fig 10 (the FT layer's failure-free overhead) through
+# ``repro_torch.figures.fig10_overhead``: the reference's configuration
+# (codeqwen1.5-7b reduced, 4 x 64) and full width with the depth cut to
+# FIG10_FULL_LAYERS layers at 4 x 512 (1,221,636,096 parameters, a 12.2 GB
+# train state; no replica copy: simulate_replica is off)
+FIG10_FULL_LAYERS = 2
+FIG10_STEPS, FIG10_WARM = 40, 6
+# the reference's virtual-time row at 40 steps (tests/test_torch_figures.py
+# holds the same row live against the reference's script)
+FIG10_BREAKDOWN = "useful=40s redundant=40s total=80s"
+FIG10_RUNS = (("reduced", dict(reduced=True, batch=4, seq=64)),
+              ("full", dict(reduced=False, n_layers=FIG10_FULL_LAYERS,
+                            batch=B, seq=S)))
+
+
+def phase_fig10(state):
+    """Fig 10 on the card at both FIG10_RUNS configurations: the bare loop
+    and the FT session, the least of 3 runs of 40 steps each, after 6 warm
+    steps. Fails unless the FT run's final state is bitwise the bare
+    loop's, the ``fig10/ft_time_breakdown`` row is the reference's, the
+    launches count one execution a step (no replica), and the losses are
+    finite. Then K2's forward at codeqwen1.5-7b's MHA shape, timed. Both
+    configurations' K2 shapes are held against the plain version by
+    ``phase_attention`` (forward) and ``phase_train_kernels`` (backward);
+    the reduced run puts K1 and K2 at D 32, group 1, on the card under the
+    FT session, which the CPU test of Fig 10 cannot."""
+    card_name = state["card"]
+    counters = {**KERNELS, **BWD_KERNELS}
+    totals = dict.fromkeys(counters, 0)
+    for label, kw in FIG10_RUNS:
+        cfg = CODEQWEN.reduced() if kw["reduced"] else dataclasses.replace(
+            CODEQWEN, n_layers=kw["n_layers"])
+        per_step = train_launches_per_step(cfg)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        for fn in counters.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        m = fig10_overhead.measure(CODEQWEN.name, steps=FIG10_STEPS,
+                                   warm=FIG10_WARM, device="cuda", **kw)
+        wall = time.perf_counter() - t0
+        launches = {k: fn.launches for k, fn in counters.items()}
+        executions = FIG10_WARM + 6 * FIG10_STEPS
+        expected = {k: v * executions for k, v in per_step.items()}
+        rows = m.rows()
+        ft_final = _train_state_tensors(m.report.final_state)
+        bare_final = _train_state_tensors(m.bare_state)
+        equal = [k for k, _ in ft_final] == [k for k, _ in bare_final] and \
+            all(a.dtype == b.dtype and torch.equal(a, b)
+                for (_, a), (_, b) in zip(ft_final, bare_final))
+        losses = m.report.losses
+        emit({"phase": "fig10", "config": label, "arch": cfg.name,
+              "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+              "params": api.param_count(cfg),
+              "state_bytes": train_state_bytes(cfg), "batch": kw["batch"],
+              "seq": kw["seq"], "steps": FIG10_STEPS, "warm": FIG10_WARM,
+              "bare_ms_per_step": 1e3 * m.bare_s / FIG10_STEPS,
+              "ft_ms_per_step": 1e3 * m.ft_s / FIG10_STEPS,
+              "overhead_pct": m.overhead_pct,
+              "paper_overhead_pct": fig10_overhead.PAPER_OVERHEAD_PCT,
+              "init_ms": 1e3 * m.init_s,
+              "overhead_without_init_pct": m.overhead_without_init_pct,
+              "rows": [[name, derived] for name, _, derived in rows],
+              "breakdown_equal": rows[1][2] == FIG10_BREAKDOWN,
+              "final_state_equal": equal, "launches": launches,
+              "launches_expected": expected, "loss_first": losses[0],
+              "loss_last": losses[-1],
+              "max_memory_allocated": torch.cuda.max_memory_allocated(),
+              "wall_s": wall, "card": card_name})
+        if not equal:
+            raise AssertionError(f"fig10 {label}: the FT run's final state "
+                                 f"differs from the bare loop's")
+        if rows[1][2] != FIG10_BREAKDOWN:
+            raise AssertionError(f"fig10 {label}: breakdown {rows[1][2]!r}")
+        if launches != expected:
+            raise AssertionError(f"fig10 {label}: launches {launches} != "
+                                 f"{expected}")
+        if len(losses) != FIG10_STEPS or not np.isfinite(losses).all():
+            raise AssertionError(f"fig10 {label}: losses {losses}")
+        for k in totals:
+            totals[k] += launches[k]
+        del m, ft_final, bare_final
+        gc.collect()
+        torch.cuda.empty_cache()
+    state.setdefault("train_launches", {})[f"fig10 {CODEQWEN.name}"] = totals
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    state["fig10_k2"] = _attention_times(
+        card_name, _L2Flush(), gen, CODEQWEN.n_heads, CODEQWEN.n_kv_heads,
+        CODEQWEN.resolved_head_dim)
 
 
 # ---------------------------------------------------------------- phase 9
@@ -3289,7 +3512,8 @@ PHASES = [phase_device_and_build, phase_comm, phase_rmsnorm, phase_attention,
           phase_serve_mixtral, phase_serve_vlm, phase_serve_whisper,
           phase_serve_xlstm, phase_train_kernels, phase_train,
           phase_train_zamba, phase_train_whisper, phase_train_xlstm,
-          phase_simrt, phase_pool, phase_analyze]
+          phase_train_vlm, phase_fig10, phase_simrt, phase_pool,
+          phase_analyze]
 
 REPLACES = {"rmsnorm": "src/repro/kernels/rmsnorm.py:31",
             "flash_attention": "src/repro/kernels/flash_attention.py:97",
@@ -3312,7 +3536,8 @@ def kernels_line(state):
     Mamba block's add + ln) and each served path's launches of both; the
     flash-attention row also lists every served prefill shape (qwen3-8b's,
     zamba2-7b's, mixtral-8x7b's, llama-3.2-vision-11b's self and cross,
-    whisper-tiny's encoder, self and cross) with each path's launches."""
+    whisper-tiny's encoder, self and cross) with each path's launches,
+    and codeqwen1.5-7b's MHA shape (Fig 10's model) timed."""
     launches, times = state["launches"][ZAMBA.name], state["times"][ZAMBA.name]
     rows = []
     for name, replaces in REPLACES.items():
@@ -3339,6 +3564,9 @@ def kernels_line(state):
             rows[-1]["by_shape"] = [
                 _k2_shape(state, arch, key) for arch in SERVED
                 for key in K2_TIMES if key in state["times"][arch]]
+            rows[-1]["fig10_mha"] = {
+                key: state["fig10_k2"][key] for key in TIMED + (
+                    "library_deterministic_ms", "shape", "kv_heads")}
     rows += _backward_rows(state)
     return {"kernels": rows}
 
@@ -3369,7 +3597,8 @@ def _backward_rows(state):
     TPU kernel whose function they differentiate. The K1 row sums one call
     of each timed entry (q_norm, k_norm, add+ln) and lists zamba2-7b's
     out_norm at d 7168 and whisper-tiny's and xlstm-350m's widths beside
-    them; the K2 row lists whisper-tiny's three shapes at D 64."""
+    them; the K2 row lists whisper-tiny's three shapes at D 64, the VLM's
+    cross-attention (512 x 1,600) and codeqwen1.5-7b's MHA."""
     launches = {name: sum(runs[name]
                           for runs in state["train_launches"].values())
                 for name in BWD_KERNELS}
@@ -3407,8 +3636,10 @@ def _backward_rows(state):
          **{key: att[key] for key in TIMED + ("library_deterministic_ms",)},
          "shape": att["shape"],
          "by_shape": [{key: r[key] for key in TIMED + (
-             "library_deterministic_ms", "shape", "skv", "causal")}
-             for r in times["attention_d64"]]},
+             "library_deterministic_ms", "shape", "skv", "kv_heads",
+             "causal")}
+             for r in times["attention_d64"] + [times["attention_cross"],
+                                                times["attention_mha"]]]},
         {"name": "mamba_scan_bwd", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/mamba_scan_bwd.cu",
          "replaces": REPLACES["mamba_scan"], "backward_of": "mamba_scan",

@@ -28,8 +28,8 @@ __all__ = ["FTTrainer", "TrainReport", "RunReport", "StepEvent",
 
 class FTTrainer:
     """Thin adapter: (train_step, init_state, batch_fn) -> TrainWorkload,
-    (ft, kill_schedule, ...) -> FTSession. The replica is always executed
-    on the same device (``simulate_replica`` must stay True)."""
+    (ft, kill_schedule, ...) -> FTSession. ``simulate_replica`` executes
+    the replica slice on the same device (False: no replica is kept)."""
 
     def __init__(self, *, train_step: Callable, init_state: Callable,
                  batch_fn: Callable[[int], dict], ft: FTConfig,
@@ -39,10 +39,6 @@ class FTTrainer:
                  simulate_replica: bool = True,
                  kill_schedule: Optional[Dict[int, List[int]]] = None,
                  step_time_s: float = 1.0):
-        if not simulate_replica:
-            raise ValueError("the port executes the replica slice on the "
-                             "same device; simulate_replica=False has no "
-                             "counterpart")
         self.workload = TrainWorkload(train_step=train_step,
                                       init_state=init_state,
                                       batch_fn=batch_fn)
@@ -50,12 +46,21 @@ class FTTrainer:
                                  injector=dict(kill_schedule or {}),
                                  n_logical_workers=n_logical_workers,
                                  workers_per_node=workers_per_node,
+                                 simulate_replica=simulate_replica,
                                  step_time_s=step_time_s)
         self.ft = ft
         # legacy attribute surface
         self.train_step = train_step
         self.init_state = init_state
         self.batch_fn = batch_fn
+
+    @property
+    def simulate_replica(self) -> bool:
+        return self.session.simulate_replica
+
+    @simulate_replica.setter
+    def simulate_replica(self, value: bool):
+        self.session.simulate_replica = value
 
     @property
     def rmap(self):

@@ -89,11 +89,14 @@ TrainReport = RunReport
 class FTSession:
     """Drives a Workload under an FTStrategy with failure injection.
 
-    Both slices live on one device and the replica step is executed
-    redundantly — the exact semantics (bit-identical states, O(1)
-    promotion) at 2x local cost, so FT-theorem tests can compare failure
-    runs against failure-free runs for equality. The schedule clock
-    advances ``step_time_s`` (1 s by default) a step."""
+    Both slices live on one device and, with ``simulate_replica`` (the
+    default), the replica step is executed redundantly — the exact
+    semantics (bit-identical states, O(1) promotion) at 2x local cost, so
+    FT-theorem tests can compare failure runs against failure-free runs
+    for equality. With it off no replica is kept or executed (the replica
+    slice stands on another pod): a promotion continues the computational
+    slice's state. The schedule clock advances ``step_time_s`` (1 s by
+    default) a step."""
 
     def __init__(self, *, ft: Optional[FTConfig] = None,
                  strategy: Optional[FTStrategy] = None,
@@ -101,6 +104,7 @@ class FTSession:
                  ckpt_dir: Optional[str] = None,
                  n_logical_workers: int = 8,
                  workers_per_node: int = 4,
+                 simulate_replica: bool = True,
                  allow_restart: bool = True,
                  step_time_s: float = 1.0,
                  replicable_ranks: Optional[int] = None,
@@ -112,6 +116,7 @@ class FTSession:
         self.injector: FailureInjector = as_injector(injector)
         self.n_logical_workers = n_logical_workers
         self.workers_per_node = workers_per_node
+        self.simulate_replica = simulate_replica and strategy.wants_replica
         self.allow_restart = allow_restart
         self.step_time_s = step_time_s
         # cap on how many logical ranks the replication degree applies to:

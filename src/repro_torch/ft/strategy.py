@@ -98,28 +98,35 @@ class _ReplicaMixin:
     replica's state is a ``copy_tree`` (clone) of the computational one, so
     a step that writes its state in place cannot reach the other copy.
     A ``self_replicating`` workload (the pool) runs its replica endpoints
-    inside its own step, so it gets no whole-state shadow copy."""
+    inside its own step, so it gets no whole-state shadow copy. With the
+    session's ``simulate_replica`` off no shadow copy is kept or executed:
+    the replica is taken to be current on another pod, so a promotion
+    continues the computational slice's state."""
 
     wants_replica = True
 
     def n_replica_workers(self, n: int) -> int:
         return int(round(self.ft.replication_degree * n))
 
+    def _simulating(self) -> bool:
+        return self.session.simulate_replica
+
     def on_start(self, workload, state, rep) -> None:
         super().on_start(workload, state, rep)
         self.replica_state = None if getattr(
-            workload, "self_replicating", False) else copy_tree(state)
+            workload, "self_replicating", False) or not self._simulating() \
+            else copy_tree(state)
 
     def step(self, workload, state, t):
         state, metrics = super().step(workload, state, t)
-        if self.replica_state is not None:
+        if self._simulating() and self.replica_state is not None:
             # the replica slice executes the same step on the same data
             self.replica_state, _ = workload.step(self.replica_state, t)
         return state, metrics
 
     def _on_promote(self, workload, state, plan, step, rep):
         state, step = super()._on_promote(workload, state, plan, step, rep)
-        if self.replica_state is not None:
+        if self._simulating() and self.replica_state is not None:
             # replica slice state is CURRENT: swap, no rollback
             state = self.replica_state
             self.replica_state = copy_tree(state) \
@@ -131,7 +138,8 @@ class _ReplicaMixin:
         # restore brings a new one onto the device
         self.replica_state = None
         state, step = super()._on_restart(workload, state, step, rep)
-        if not getattr(workload, "self_replicating", False):
+        if self._simulating() and \
+                not getattr(workload, "self_replicating", False):
             self.replica_state = copy_tree(state)
         return state, step
 

@@ -15,8 +15,9 @@ from repro_torch.models import transformer, whisper, xlstm, zamba
 from repro_torch.optim import adamw
 
 # each trainable family's loss over the train state's params
-LOSS_FNS = {"dense": transformer.loss_fn, "hybrid": zamba.loss_fn,
-            "audio": whisper.loss_fn, "ssm": xlstm.loss_fn}
+LOSS_FNS = {"dense": transformer.loss_fn, "vlm": transformer.loss_fn,
+            "hybrid": zamba.loss_fn, "audio": whisper.loss_fn,
+            "ssm": xlstm.loss_fn}
 
 
 def make_model(run: RunConfig, device=None):
@@ -35,7 +36,8 @@ def make_train_step(run: RunConfig):
     written into ``params`` and the moments in place (the counterpart of
     the reference's donated jit); the grads are freed before it returns.
     ``batch`` holds ``tokens`` and ``labels`` (and, for audio,
-    ``frames``) as tensors on the params' device. The loss is the
+    ``frames``; for the VLM, ``image_embeds``) as tensors on the params'
+    device. The loss is the
     family's (``LOSS_FNS``). Returns the step and the model's config (the
     reference returns its model; here the weights live in the state)."""
     cfg = run.model

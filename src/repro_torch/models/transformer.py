@@ -1,5 +1,6 @@
 """Decoder-only transformer: the dense, MoE and VLM families (port of
-``repro/models/transformer.py:29-268``, serving and the dense loss).
+``repro/models/transformer.py:29-268``, serving and the dense and VLM
+loss).
 
 The JAX model stacks its layers on a leading ``L`` axis and scans over
 them; here each layer is one module of an ``nn.ModuleList`` and the forward
@@ -24,7 +25,8 @@ Training differentiates ``loss_fn(cfg, params, batch)``: the weights it
 takes are the train state's (a flat dict under the state-dict names), not
 the module's, and it runs the same layer functions as ``prefill``. The
 module's own parameters never need grads; ``prefill`` and ``decode_step``
-run under ``no_grad``. Only the dense family trains yet.
+run under ``no_grad``. The dense family and the VLM train; MoE does not
+yet.
 
 The residual stream is carried as (x, r): r is the last branch output not
 yet added, and the next norm adds it (``layers.add_rmsnorm``, one launch on
@@ -274,10 +276,13 @@ def nest(params: Dict[str, torch.Tensor]) -> dict:
 def loss_fn(cfg: ModelConfig, params: Dict[str, torch.Tensor], batch: dict,
             seq_chunk: int = 2048) -> torch.Tensor:
     """The f32 mean LM loss of ``params`` (state-dict names) on ``batch``
-    (``tokens``, ``labels``: [B, S] integer tensors on the params' device):
-    the reference's ``loss_fn`` (``transformer.py:138-152``) for the dense
-    family, through the same residual stream (x, r) and fused norms as
-    ``prefill``, differentiable."""
+    (``tokens``, ``labels``: [B, S] integer tensors on the params' device;
+    for the VLM also ``image_embeds`` [B, M, d]): the reference's
+    ``loss_fn`` (``transformer.py:110-152``) for the dense family and the
+    VLM, through the same residual stream (x, r) and fused norms as
+    ``prefill``, differentiable. A VLM group is the reference's: the
+    memory's K/V, the gated cross output added to the stream, then the
+    group's self layers."""
     check_trainable(cfg)
     p = nest(params)
     tokens, labels = batch["tokens"], batch["labels"]
@@ -285,17 +290,27 @@ def loss_fn(cfg: ModelConfig, params: Dict[str, torch.Tensor], batch: dict,
     positions = torch.arange(s, dtype=torch.int32,
                              device=tokens.device).expand(b, s)
     x, r = L.embed_lookup(p["embed"], tokens), None
-    for i in range(cfg.n_layers):
-        x, r, _ = _layer_apply(cfg, p["layers"][str(i)], x, r, positions)
+    if cfg.family == "vlm":
+        for g in range(cfg.n_layers // cfg.cross_attn_every):
+            cp = p["cross"][str(g)]
+            kv = L.cross_attention_kv(cfg, cp, batch["image_embeds"])
+            x, r = _cross_apply(cfg, cp, x, r, kv)
+            for k in range(cfg.cross_attn_every):
+                x, r, _ = _layer_apply(cfg, p["layers"][str(g)][str(k)], x,
+                                       r, positions)
+    else:
+        for i in range(cfg.n_layers):
+            x, r, _ = _layer_apply(cfg, p["layers"][str(i)], x, r,
+                                   positions)
     _, x = L.add_rmsnorm(p["ln_f"], x, r, cfg.norm_eps)
     return L.chunked_lm_loss(cfg, p["embed"], x, labels, seq_chunk)
 
 
 def check_trainable(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` naming the roadmap item unless the
-    port trains ``cfg``'s family (dense, hybrid, audio and SSM; MoE and
-    the VLM serve but do not train yet)."""
-    if cfg.family not in ("dense", "hybrid", "audio", "ssm"):
+    port trains ``cfg``'s family (dense, VLM, hybrid, audio and SSM; MoE
+    serves but does not train yet)."""
+    if cfg.family not in ("dense", "vlm", "hybrid", "audio", "ssm"):
         raise NotImplementedError(_TRAIN_NOT_PORTED.get(
             cfg.family, f"training the {cfg.family!r} family is not "
                         f"ported"))
@@ -303,5 +318,4 @@ def check_trainable(cfg: ModelConfig) -> None:
 
 _TRAIN_NOT_PORTED = {
     "moe": "training MoE is not ported yet (ROADMAP.md, Queue 1 item 5)",
-    "vlm": "training the VLM is not ported yet (ROADMAP.md, Queue 1 item 6)",
 }

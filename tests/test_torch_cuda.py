@@ -1,6 +1,7 @@
 """The port on the card: each CUDA kernel (forward and backward) against
 its plain PyTorch version, the kernel path of the
-reduced model (serving and a train step) against its CPU path, the
+reduced models (serving, and a train step of the dense model, the VLM and
+the hybrid) against its CPU path, the
 in-memory checkpoint store and the recorder on card state, and the
 simulated runtime's apps (HPCG, CloverLeaf, PIC: bitwise reruns, the card
 against the CPU within ``SIMRT_TOL``, checkpoints across devices).
@@ -165,6 +166,9 @@ def test_add_rmsnorm_scalar_path(cuda_device, dtype):
     (1, 4, 2, 192, 128, False, 0),
     # rows whose first 64-key tile lies wholly before their window
     (3, 5, 5, 300, 64, True, 70),
+    # codeqwen1.5-7b's MHA (group 1) at full width and reduced (Fig 10)
+    (4, 32, 32, 512, 128, True, 0),
+    (4, 4, 4, 64, 32, True, 0),
 ])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_attention_kernel_matches_plain(cuda_device, b, hq, hkv, s, d,
@@ -570,6 +574,8 @@ ATTENTION_BWD_CASES = [
     (1, 4, 2, 256, 64, True, 100),             # sliding window
     (1, 2, 2, 130, 112, False, 0),             # non-causal, D 112
     (1, 8, 2, 40, 32, True, 0),                # shorter than a tile
+    (4, 32, 32, 512, 128, True, 0),            # codeqwen1.5-7b's MHA
+    (4, 4, 4, 64, 32, True, 0),                # codeqwen1.5-7b reduced
 ]
 
 
@@ -618,6 +624,24 @@ def test_attention_lse_matches_plain_and_leaves_o_alone(
         rtol=1e-5, atol=1e-5)
     assert torch.equal(o, flash_attention(q, k, v, causal=causal,
                                           window=window))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_attention_bwd_sq_ne_skv_matches_plain(cuda_device, dtype):
+    """The VLM's cross-attention in training: q [4, 32, 512, 128] over k/v
+    [4, 8, 1600, 128] (the image memory), non-causal; a rerun bitwise."""
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    dt = getattr(torch, dtype)
+    q, do = (_bshd_cuda(gen, 4, 512, 32, 128, dt) for _ in range(2))
+    k, v = (_bshd_cuda(gen, 4, 1600, 8, 128, dt) for _ in range(2))
+    o, lse = flash_attention(q, k, v, causal=False, return_lse=True)
+    got = flash_attention_bwd(q, k, v, o, do, lse, causal=False)
+    _bwd_close(got, ref.flash_attention_bwd_ref(q, k, v, do, causal=False),
+               dtype)
+    for g, t in zip(got, (q, k, v)):
+        assert g.shape == t.shape and g.stride() == t.stride()
+    again = flash_attention_bwd(q, k, v, o, do, lse, causal=False)
+    assert all(torch.equal(a, b_) for a, b_ in zip(got, again))
 
 
 def test_attention_bwd_bf16_needs_the_forward_lse(cuda_device):
@@ -684,6 +708,48 @@ def test_reduced_train_step_on_card_matches_cpu(cuda_device):
     for a, b in zip(g_g, g_c):
         scale = float(b.abs().max())
         assert float((a.cpu() - b).abs().max()) <= 1e-4 * scale + 1e-7
+    loss_2, g_2 = grads("cuda")
+    assert torch.equal(loss_2, loss_g)
+    assert all(torch.equal(a, b) for a, b in zip(g_2, g_g))
+
+
+def test_reduced_vlm_train_step_on_card_matches_cpu(cuda_device):
+    """The reduced llama-3.2-vision-11b in f32 on random image embeddings
+    with the gates at 0.5 (so the cross path carries gradient): loss and
+    every gradient through the kernels (K2 non-causal over the memory,
+    forward and backward) on the card against the plain path on the CPU,
+    from the same weights; a rerun on the card is bitwise."""
+    cfg = dataclasses.replace(get_arch("llama-3.2-vision-11b").reduced(),
+                              dtype="float32")
+    params = train.init_params(cfg, 0, "cpu")
+    for k in params:
+        if k.endswith(".gate"):
+            params[k] = torch.full_like(params[k], 0.5)
+    rng = np.random.default_rng(0)
+    batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 64),
+                                              dtype=np.int32))
+             for k in ("tokens", "labels")}
+    batch["image_embeds"] = torch.from_numpy(rng.standard_normal(
+        (2, cfg.n_image_tokens, cfg.d_model), dtype=np.float32))
+
+    def grads(device):
+        leaves = {k: v.to(device).requires_grad_(True)
+                  for k, v in params.items()}
+        loss = transformer.loss_fn(cfg, leaves, {
+            k: v.to(device) for k, v in batch.items()}, seq_chunk=64)
+        return loss, torch.autograd.grad(loss, list(leaves.values()))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    flash_attention_bwd.launches = 0
+    loss_c, g_c = grads("cpu")
+    loss_g, g_g = grads("cuda")
+    groups = cfg.n_layers // cfg.cross_attn_every
+    assert flash_attention_bwd.launches == cfg.n_layers + groups
+    torch.testing.assert_close(loss_g.cpu(), loss_c, rtol=1e-5, atol=1e-6)
+    for name, a, b in zip(params, g_g, g_c):
+        scale = float(b.abs().max())
+        assert float((a.cpu() - b).abs().max()) <= 1e-4 * scale + 1e-7, name
+        if ".gate" in name or name.startswith("cross."):
+            assert scale > 0, name
     loss_2, g_2 = grads("cuda")
     assert torch.equal(loss_2, loss_g)
     assert all(torch.equal(a, b) for a, b in zip(g_2, g_g))

@@ -41,13 +41,13 @@ def test_no_jax_or_reference_imports(path):
                                      "core", "comm", "clock", "data",
                                      "optim", "checkpoint", "launch",
                                      "kernels", "models", "simrt", "apps",
-                                     "pool"])
+                                     "pool", "figures", "examples"])
 def test_scan_covers_the_package(package):
     """The AST scan and the blocked import walk every module of each
     package of the port, the observability layer, the checkpoint store,
     the training path (data, optim, checkpoint, launch.train, the
-    kernels' autograd), the simulated runtime, the apps and the task pool
-    included."""
+    kernels' autograd), the simulated runtime, the apps, the task pool,
+    the figures and the examples included."""
     files = sorted((ROOT / "src" / "repro_torch" / package).glob("*.py"))
     assert files and all(f in PORT_FILES for f in files)
 

@@ -176,9 +176,9 @@ def test_loss_and_every_gradient_match(dtype, tol, monkeypatch):
 
 def test_families_without_a_train_port_raise():
     """Each names its item of ROADMAP.md's Queue 1 (the hybrid trains:
-    ``tests/test_torch_zamba_train.py``)."""
-    for arch, item in (("mixtral-8x7b", "item 5"),
-                       ("llama-3.2-vision-11b", "item 6")):
+    ``tests/test_torch_zamba_train.py``; the VLM:
+    ``tests/test_torch_vlm_train.py``)."""
+    for arch, item in (("mixtral-8x7b", "item 5"),):
         cfg = get_arch(arch).reduced()
         run = RunConfig(model=cfg, shape=ShapeConfig("t", seq_len=8,
                                                     global_batch=1,
@@ -460,7 +460,7 @@ def test_replica_and_snapshots_own_their_storage():
                            twin["params"]["layers.0.attn.wq"])
 
 
-def test_workload_surface():
+def test_workload_surface(jax_workloads):
     wl = train.build_workload(ARCH, batch=2, seq=8, device="cpu")
     assert isinstance(wl, TrainWorkload) and wl.disk_checkpointable
     tr = FTTrainer(train_step=wl.train_step, init_state=wl.init_state_fn,
@@ -469,9 +469,54 @@ def test_workload_surface():
     assert tr.session.step_time_s == 2.0 and tr.rmap.n == 8
     rep = tr.run(3)
     assert rep.promotions == 1 and len(rep.losses) == 3
-    with pytest.raises(ValueError, match="simulate_replica"):
-        FTTrainer(train_step=wl.train_step, init_state=wl.init_state_fn,
-                  batch_fn=wl.batch_fn, ft=FTConfig(), simulate_replica=False)
+    # simulate_replica=False (the reference's FTSession/FTTrainer
+    # parameter): no replica is kept or executed, a promotion continues the
+    # computational slice's state, and nothing is rolled back. The
+    # reference's trainer, the port's trainer and the port's session run
+    # the same schedule from the reference's init: the same counters,
+    # events and virtual-time breakdown, losses within the bf16
+    # trajectory's 2e-3, and the port's final state bitwise its clean run's
+    from repro.core.ft_runtime import FTTrainer as JFTTrainer
+    from repro_torch.ft import FTSession
+    kills, steps = {5: [0]}, 8
+    jwl = jax_workloads(ARCH)
+    jparams = jax.device_get(jwl.init_state()["params"])
+    jtr = JFTTrainer(train_step=jwl.train_step, init_state=jwl.init_state_fn,
+                     batch_fn=jwl.batch_fn, ft=JFTConfig(mode="replication"),
+                     kill_schedule=kills, simulate_replica=False)
+    assert jtr.simulate_replica is False
+    jrep = jtr.run(steps)
+    wl = train.build_workload(ARCH, batch=B, seq=S, device="cpu",
+                              jax_params=jparams)
+    executed = []
+    inner = wl.train_step
+    wl.train_step = lambda st, b: executed.append(1) or inner(st, b)
+    tr = FTTrainer(train_step=wl.train_step, init_state=wl.init_state_fn,
+                   batch_fn=wl.batch_fn, ft=FTConfig(mode="replication"),
+                   kill_schedule=kills, simulate_replica=False)
+    assert tr.simulate_replica is False and \
+        tr.session.simulate_replica is False
+    reps = [tr.run(steps)]
+    assert tr.session.strategy.replica_state is None
+    assert len(executed) == steps              # no replica step executed
+    reps.append(FTSession(ft=FTConfig(mode="replication"), injector=kills,
+                          simulate_replica=False).run(wl, steps))
+    assert len(executed) == 2 * steps
+    clean = FTSession(ft=FTConfig(mode="none")).run(wl, steps)
+    for rep in reps:
+        assert {c: getattr(rep, c) for c in COUNTERS} == \
+            {c: getattr(jrep, c) for c in COUNTERS}
+        assert (rep.promotions, rep.restarts, rep.rolled_back_steps) == \
+            (1, 0, 0)
+        assert [(e.step, e.kind, e.detail) for e in rep.events] == \
+            [(e.step, e.kind, e.detail) for e in jrep.events]
+        assert rep.time.as_dict() == jrep.time.as_dict()
+        np.testing.assert_allclose(rep.losses, jrep.losses, rtol=2e-3)
+        for (k, a), (_, b) in zip(_state_tensors(rep.final_state),
+                                  _state_tensors(clean.final_state)):
+            assert a.dtype == b.dtype and torch.equal(a, b), k
+    tr.simulate_replica = True
+    assert tr.session.simulate_replica is True
 
 
 # -------------------------------------------------------------- the CLI
