@@ -137,6 +137,18 @@ Phases (each a function; any failure exits non-zero):
      paper's 1.3%, the FT run's final state bitwise the bare loop's, the
      virtual-time row the reference's, one execution a step (``fig10``
      lines); K2's forward at codeqwen1.5-7b's MHA shape timed;
+  8f. train, mixtral-8x7b (slice 17): full width, one layer (1.71 B
+     parameters), batch 4 x 512: clean and replication under the same
+     gates (the sort-based dispatch's backward bitwise across runs), the
+     loss with 0.01 x the router's load-balancing loss, its value at step
+     0 printed (a ``train.moe`` line);
+  8g. dryrun (slice 17): on the card,
+     qwen3-8b's train step at 2 layers, its full-depth prefill and the
+     MoE's train step, each at 4 x 512: ``FlopCounterMode``'s count plus
+     each kernel's ``kernels/cost.py`` work times its launches equal to
+     the dry run's count on one device exactly, beside the dry run's
+     bound and the step's time and its argument bytes beside the state's
+     (``dryrun.card`` lines);
   9. simrt: the simulated runtime with HPCG (16 ranks of 104^3), CloverLeaf
      (8 slabs of 3,840 x 240) and PIC (8 ranks of 4,096 cells and
      1,048,576 particles) in float64 on the card, 4 workers a node, 12
@@ -160,12 +172,17 @@ Phases (each a function; any failure exits non-zero):
      bitwise the failure-free one, no kernel launched (a ``pool`` line);
   11. analyze: ``repro_torch.analyze``'s ``all`` (the lint, the apps'
      schedules traced on the card) and ``divergence`` (a bit flipped on
-     the card, caught) both return 0 (an ``analyze`` line).
+     the card, caught) both return 0 (an ``analyze`` line);
+  12. dryrun_sweep (slice 17), after every timed phase: the host's dry run
+     of every applicable cell on both production meshes (``python -m
+     repro_torch.launch.dryrun``, one CPU process a shape and mesh, all at
+     once; JSON, logs and the 16 x 16 table in ``build/dryrun``), all OK
+     (a ``dryrun.sweep`` line).
 
 Prints JSON lines as it goes (``comm``, ``fanout``, ``serve``,
 ``serve.ckpt``, ``obs``, ``store``, ``times``, ``train.kernels``,
-``train``, ``fig10``, ``simrt``, ``pool`` and ``analyze`` lines among
-them, and each
+``train``, ``train.moe``, ``fig10``, ``dryrun.card``, ``dryrun.sweep``,
+``simrt``, ``pool`` and ``analyze`` lines among them, and each
 phase's seconds), then
 ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": {...}}``.
 Exits non-zero without CUDA, and when run outside the repository (the
@@ -173,6 +190,7 @@ port's package must be beside it in ``src``).
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import copy
 import dataclasses
@@ -214,17 +232,20 @@ from repro_torch.core.replica_map import (  # noqa: E402
 from repro_torch.figures import fig10_overhead  # noqa: E402
 from repro_torch.ft import (  # noqa: E402
     DecodeWorkload, FTSession, SimAppWorkload)
-from repro_torch.kernels import build, ref  # noqa: E402
+from repro_torch.kernels import build, cost, ref  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention, flash_attention_bwd)
 from repro_torch.kernels.mamba_scan import (  # noqa: E402
     mamba_chunk_scan, mamba_chunk_scan_bwd)
 from repro_torch.kernels.rmsnorm import (  # noqa: E402
     add_rmsnorm, add_rmsnorm_bwd, rmsnorm, rmsnorm_bwd)
+from repro_torch.configs.base import ShapeConfig  # noqa: E402
+from repro_torch.launch import dryrun  # noqa: E402
 from repro_torch.launch import train as train_lib  # noqa: E402
 from repro_torch.launch.serve import (  # noqa: E402
     BatchFanout, ReplicatedServer)
 from repro_torch.models import api, mamba2  # noqa: E402
+from repro_torch.models import moe as moe_lib  # noqa: E402
 from repro_torch.models import layers as mlayers  # noqa: E402
 from repro_torch.models import xlstm as xlstm_lib  # noqa: E402
 from repro_torch.models.transformer import Transformer  # noqa: E402
@@ -237,9 +258,6 @@ from repro_torch.store.backend import (  # noqa: E402
     MemBackend, from_host, to_host)
 from repro_torch.tree import copy_tree, tree_map  # noqa: E402
 
-HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
-BF16_FLOPS = 989e12                # dense bf16 tensor-core peak
-F32_FLOPS = 67e12                  # f32 outside the tensor cores
 # |kernel - plain| <= atol + rtol * |plain| (tests/test_kernels.py's
 # tolerances): f32 differs only by summation order; bf16 by at most one
 # rounding of the f32 result (and, in the bf16 attention kernel, by the
@@ -300,7 +318,17 @@ def card() -> str:
 def reset_launches():
     for fn in KERNELS.values():
         fn.launches = 0
-    flash_attention.by_shape.clear()
+    flash_attention.calls.clear()
+
+
+def k2_by_shape():
+    """K2's launches by (Sq, Skv, causal), from its wrapper's tally by
+    ``kernels.cost.attention``'s arguments."""
+    out = collections.Counter()
+    for (_, _, _, sq, skv, _, _, causal, _), n in \
+            flash_attention.calls.items():
+        out[(sq, skv, causal)] += n
+    return out
 
 
 def read_launches():
@@ -1183,7 +1211,7 @@ def serve(state, cfg, prompt_len=S):
         raise AssertionError("an unreplicated kill did not raise")
     torch.cuda.synchronize()
     counts = read_launches()
-    shapes = flash_attention.by_shape.copy()
+    shapes = k2_by_shape()
     del unreplicated
     gc.collect()
     torch.cuda.empty_cache()
@@ -1218,7 +1246,7 @@ def serve(state, cfg, prompt_len=S):
     torch.cuda.synchronize()
     later = read_launches()
     counts = {k: counts[k] + later[k] for k in counts}
-    shapes = dict(shapes + flash_attention.by_shape)
+    shapes = dict(shapes + k2_by_shape())
 
     if clean.shape != (B, GEN) or clean.min() < 0 or \
             clean.max() >= cfg.vocab_size:
@@ -1754,15 +1782,11 @@ def kernel_split(fn, calls=10):
     return {name: total[name] / seen[name] / 1e3 for name in total}
 
 
-def bound(n_bytes, n_ops, dtype=torch.bfloat16):
-    """Least time (ms) for work that moves ``n_bytes`` once and does
-    ``n_ops`` operations of ``dtype`` (bf16 on the tensor cores, f32 on
-    the FMA units), and which of the two sets it."""
-    by_bytes = 1e3 * n_bytes / HBM_BYTES_PER_S
-    by_ops = 1e3 * n_ops / (BF16_FLOPS if dtype == torch.bfloat16
-                            else F32_FLOPS)
-    return {"bound_ms": max(by_bytes, by_ops),
-            "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
+def bound(work):
+    """Least time (ms) on the card for a kernel's ``cost.Work`` (the bytes
+    and operations that ``kernels/cost.py`` charges its arguments), and
+    which of the two sets it."""
+    return cost.bound(work)
 
 
 def _rmsnorm_times(card_name, flush, calls, eps):
@@ -1779,17 +1803,15 @@ def _rmsnorm_times(card_name, flush, calls, eps):
             fns = (lambda: rmsnorm(x, w, eps=eps),
                    lambda: ref.rmsnorm_ref(x, w, eps=eps),
                    lambda: F.rms_norm(x, (d,), w, eps))
-            # x and w read once, y written once; ~4 operations an element
-            work = ((2 * x.numel() + d) * x.element_size(), 4 * x.numel())
+            work = cost.rmsnorm(x.shape, x.dtype)
         else:
             fns = (lambda: add_rmsnorm(x, r, w, eps=eps),
                    lambda: ref.add_rmsnorm_ref(x, r, w, eps=eps),
                    lambda: F.rms_norm(x + r, (d,), w, eps))
-            # x, r and w read once, s and y written once
-            work = ((4 * x.numel() + d) * x.element_size(), 5 * x.numel())
+            work = cost.add_rmsnorm(x.shape, x.dtype)
         row = {"ms": time_ms(fns[0], flush),
                "plain_ms": time_ms(fns[1], flush),
-               "library_ms": time_ms(fns[2], flush), **bound(*work)}
+               "library_ms": time_ms(fns[2], flush), **bound(work)}
         emit({"time": "rmsnorm" if r is None else "add_rmsnorm",
               "call": name, "shape": list(x.shape), **row,
               "card": card_name})
@@ -1807,6 +1829,33 @@ def _launch_floor(card_name, flush):
     ms = time_ms(lambda: torch.cuda._sleep(0), flush)
     emit({"time": "launch_floor", "ms": ms, "card": card_name})
     return ms
+
+
+def _tally_host_us(card_name, x, w, eps):
+    """Host microseconds of one call of K1's wrapper at a decode shape
+    (the launch queued, not waited for) and of the launch tally's line
+    alone (``calls[(shape, dtype)] += 1``, on a Counter of its own): what
+    the tally adds to each launch on the host-bound decode path. Each the
+    median of 5 loops of 2,000 calls."""
+    tally = collections.Counter()
+
+    def bump():
+        tally[(x.shape, x.dtype)] += 1
+
+    def loop(fn, n=2000):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        us = 1e6 * (time.perf_counter() - t0) / n
+        torch.cuda.synchronize()
+        return us
+    wrapper = statistics.median(loop(lambda: rmsnorm(x, w, eps=eps))
+                                for _ in range(5))
+    line = statistics.median(loop(bump) for _ in range(5))
+    emit({"time": "launch_tally", "shape": list(x.shape),
+          "wrapper_host_us": wrapper, "tally_host_us": line,
+          "tally_share": line / wrapper, "card": card_name})
 
 
 def _sdpa_ms(q, k, v, flush, deterministic, causal=True):
@@ -1839,8 +1888,6 @@ def _attention_times(card_name, flush, gen, hq, hkv, dh, skv=S, causal=True,
     q = _bshd(gen, B, sq, hq, dh, bf)
     k = _bshd(gen, B, skv, hkv, dh, bf)
     v = _bshd(gen, B, skv, hkv, dh, bf)
-    # unmasked (q, k) pairs
-    pairs = B * hq * (sq * (sq + 1) // 2 if causal else sq * skv)
     kw = dict(causal=causal, window=window)
     k2 = {
         "shape": list(q.shape), "kv_heads": hkv, "skv": skv,
@@ -1850,9 +1897,7 @@ def _attention_times(card_name, flush, gen, hq, hkv, dh, skv=S, causal=True,
             lambda: ref.flash_attention_ref(q, k, v, **kw), flush),
         "library_ms": _sdpa_ms(q, k, v, flush, False, causal),
         "library_deterministic_ms": _sdpa_ms(q, k, v, flush, True, causal),
-        # q, k, v read once, o written once; QK and PV: 4 D per pair
-        **bound((2 * q.numel() + k.numel() + v.numel()) * q.element_size(),
-                4 * dh * pairs),
+        **bound(cost.attention(B, hq, hkv, sq, skv, dh, bf, causal, window)),
     }
     emit({"time": "flash_attention", **k2, "card": card_name})
     return k2
@@ -2017,6 +2062,7 @@ def phase_times(state):
     emit({"time": "rmsnorm", "call": "decode as served: add+ln1, q_norm",
           **k1_decode_fused, "card": card_name})
     _launch_floor(card_name, flush)
+    _tally_host_us(card_name, act(B, 1, d), ln1, cfg.norm_eps)
     k2 = _attention_times(card_name, flush, gen, hq, hkv, dh)
     _path_times(state, cfg, flush)
     state.setdefault("times", {})[cfg.name] = {"rmsnorm": k1,
@@ -2082,18 +2128,13 @@ def phase_times_zamba(state):
     # K3 as the model calls it: bf16 x, B, C; f32 dt, da; y in f32
     T = cfg.ssm_chunk
     x, bm, cm, dt, da = _mamba_inputs(gen, B, S, nh, p, n, bf)
-    pairs = T * (T + 1) // 2                     # causal (t, s) pairs
-    per_chunk = 2 * (pairs * n + pairs * p + 2 * T * p * n)
-    n_bytes = (x.numel() * 2 + (bm.numel() + cm.numel()) * 2
-               + (dt.numel() + da.numel()) * 4     # inputs read once
-               + x.numel() * 4 + B * nh * p * n * 4)   # y f32, h written
     k3 = {
         "ms": time_ms(lambda: mamba_chunk_scan(x, bm, cm, dt, da, chunk=T,
                                                out_dtype=f32), flush),
         "plain_ms": time_ms(lambda: ref.mamba_chunk_scan_ref(
             x, bm, cm, dt, da, out_dtype=f32), flush, reps=5, warmup=1),
         "library_ms": None,      # no single PyTorch call computes the scan
-        **bound(n_bytes, per_chunk * (S // T) * B * nh),
+        **bound(cost.mamba_scan(B, S, nh, p, n, T, bf, f32)),
     }
     emit({"time": "mamba_scan", "shape": list(x.shape), "n": n, "chunk": T,
           **k3, "card": card_name})
@@ -2404,8 +2445,7 @@ def _train_kernel_times(card_name, gen):
                        dy, ds, x, w, eps=eps), flush),
                    "library_ms": _grad_ms([ls, ly], [lx, lr, lw], [ds, dy],
                                           flush),
-                   # s, dy, ds and w read once, dsum and dw written once
-                   **bound((4 * n + 2 * shape[-1]) * 2, 8 * n, bf)}
+                   **bound(cost.add_rmsnorm_bwd(shape, bf))}
             name = "add_rmsnorm_bwd"
         else:
             lx, lw = (t.detach().requires_grad_(True) for t in (x, w))
@@ -2415,15 +2455,13 @@ def _train_kernel_times(card_name, gen):
                    "plain_ms": time_ms(lambda: ref.rmsnorm_bwd_ref(
                        dy, x, w, eps=eps), flush),
                    "library_ms": _grad_ms([ly], [lx, lw], [dy], flush),
-                   # x, dy and w read once, dx and dw written once
-                   **bound((3 * n + 2 * shape[-1]) * 2, 7 * n, bf)}
+                   **bound(cost.rmsnorm_bwd(shape, bf))}
             name = "rmsnorm_bwd"
         row.update(kernel=name, call=call, shape=list(shape))
         emit({"time": name, **row, "card": card_name})
         rows[call] = row
     q, k, v, do = (_bshd(gen, B, S, h, dh, bf) for h in (hq, hkv, hkv, hq))
     o, lse = flash_attention(q, k, v, causal=True, return_lse=True)
-    pairs = B * hq * S * (S + 1) // 2            # unmasked (q, k) pairs
     lib, lib_note = _sdpa_bwd_ms(q, k, v, do, flush, deterministic=False)
     lib_det, det_note = _sdpa_bwd_ms(q, k, v, do, flush, deterministic=True)
     row = {"kernel": "flash_attention_bwd", "shape": list(q.shape),
@@ -2434,11 +2472,7 @@ def _train_kernel_times(card_name, gen):
                q, k, v, do), flush),
            "library_ms": lib, "library_deterministic_ms": lib_det,
            "library_notes": [lib_note, det_note],
-           # q, k, v, o, dO read once, dq, dk, dv written once; S, dP, dV,
-           # dQ and dK: five products of 2 D flops per visible pair
-           **bound((3 * q.numel() + 2 * k.numel()) * 2
-                         + (q.numel() + 2 * k.numel()) * 2,
-                         10 * dh * pairs, bf)}
+           **bound(cost.attention_bwd(B, hq, hkv, S, S, dh, bf))}
     emit({"time": "flash_attention_bwd", **row, "card": card_name})
     rows["attention"] = row
     del q, k, v, do, o, lse
@@ -2462,7 +2496,6 @@ def _k2_bwd_times(card_name, gen, flush, c):
     q, do = (_bshd(gen, c["b"], sq, c["hq"], c["d"], bf) for _ in range(2))
     k, v = (_bshd(gen, c["b"], skv, c["hkv"], c["d"], bf) for _ in range(2))
     o, lse = flash_attention(q, k, v, causal=causal, return_lse=True)
-    pairs = c["b"] * c["hq"] * (sq * (sq + 1) // 2 if causal else sq * skv)
     lib, lib_note = _sdpa_bwd_ms(q, k, v, do, flush, False, causal)
     lib_det, det_note = _sdpa_bwd_ms(q, k, v, do, flush, True, causal)
     row = {"kernel": "flash_attention_bwd", "shape": list(q.shape),
@@ -2473,10 +2506,8 @@ def _k2_bwd_times(card_name, gen, flush, c):
                q, k, v, do, causal=causal), flush),
            "library_ms": lib, "library_deterministic_ms": lib_det,
            "library_notes": [lib_note, det_note],
-           # q, o, dO, k, v read once; dq, dk, dv written once
-           **bound((3 * q.numel() + 2 * k.numel()) * 2
-                   + (q.numel() + 2 * k.numel()) * 2,
-                   10 * c["d"] * pairs, bf)}
+           **bound(cost.attention_bwd(c["b"], c["hq"], c["hkv"], sq, skv,
+                                      c["d"], bf, causal))}
     emit({"time": "flash_attention_bwd", **row, "card": card_name})
     return row
 
@@ -2514,15 +2545,8 @@ def _scan_bwd_times(card_name, gen, flush):
     x, bm, cm, dt, da = _scan_inputs(gen, B, S, nh, p, n, torch.bfloat16,
                                      fused=True)
     dy = _rand(gen, (B, S, nh, p), torch.float32)
-    pairs = T * (T + 1) // 2                     # causal (t, s) pairs
-    # per (batch, head, chunk): the causal products C B^T, dy x^T, SE^T dy,
-    # K^T C, K B (3 N + 2 P a pair) and five T x P x N ones (h_k, G_k,
-    # G B, x^T G, dy^T h), 2 flops a multiply-add
-    per_chunk = 2 * (pairs * (3 * n + 2 * p) + 5 * T * p * n)
-    flops = per_chunk * (S // T) * B * nh
-    n_bytes = (2 * x.numel() * 2 + 2 * 2 * bm.numel() * 2   # x, B, C, dx,
-               + 4 * dt.numel() * 4                          # dB, dC; dt,
-               + dy.numel() * 4)                             # da, ddt, dda
+    work = cost.mamba_scan_bwd(B, S, nh, p, n, T, torch.bfloat16,
+                               torch.float32)
 
     def call():
         return mamba_chunk_scan_bwd(x, bm, cm, dt, da, dy, chunk=T)
@@ -2533,8 +2557,9 @@ def _scan_bwd_times(card_name, gen, flush):
                x, bm, cm, dt, da, dy), flush, reps=5, warmup=1),
            # no single PyTorch call computes the SSD scan's gradient
            "library_ms": None,
-           **bound(n_bytes, flops, torch.bfloat16),
-           "bound_fp32_ms": bound(n_bytes, flops, torch.float32)["bound_ms"],
+           **bound(work),
+           "bound_fp32_ms": bound(dataclasses.replace(
+               work, dtype=torch.float32))["bound_ms"],
            "wgmma_tflops": 2 * scan_bwd_tc_macs(B, S, nh, T) / ms / 1e9,
            "kernels_ms": kernel_split(call)}
     emit({"time": "mamba_scan_bwd", **row, "card": card_name})
@@ -2824,7 +2849,7 @@ def _train_runs(state, cfg, runs, seq):
         torch.cuda.reset_peak_memory_stats()
         for fn in counters.values():
             fn.launches = 0
-        flash_attention.by_shape.clear()
+        flash_attention.calls.clear()
         t0 = time.perf_counter()
         rep = tr.run(TRAIN_STEPS)
         torch.cuda.synchronize()
@@ -2843,7 +2868,7 @@ def _train_runs(state, cfg, runs, seq):
         if launches != expected:
             raise AssertionError(f"train {mode}: launches {launches} != "
                                  f"{expected}")
-        k2_shapes = dict(flash_attention.by_shape)
+        k2_shapes = dict(k2_by_shape())
         if cfg.family == "vlm":
             groups = cfg.n_layers // cfg.cross_attn_every
             want_shapes = {(seq, seq, True): cfg.n_layers * len(times),
@@ -2919,6 +2944,253 @@ def _train_runs(state, cfg, runs, seq):
         if ckpt_dir:
             shutil.rmtree(ckpt_dir)
     state.setdefault("train_launches", {})[cfg.name] = totals
+
+
+# ------------------------------------------------- MoE training (slice 17)
+# mixtral-8x7b at full width (d 4096, 8 experts of d_ff 14336, top-2, 32 q /
+# 8 KV heads of 128, window 4096, vocab 32000), depth cut from 32 layers to
+# 1: 1,713,418,240 parameters, a 17.1 GB train state (a replicated one at
+# 2 layers, 3 x 31.6 GB at a promotion, would not fit the card)
+TRAIN_MOE_LAYERS = 1
+
+
+def train_config_moe():
+    return dataclasses.replace(get_arch("mixtral-8x7b"),
+                               n_layers=TRAIN_MOE_LAYERS)
+
+
+def phase_train_moe(state):
+    """mixtral-8x7b trained at full width (``train_config_moe``) for
+    TRAIN_STEPS steps, batch 4 x 512, clean and under replication (a
+    promotion), under qwen3-8b's gates (final state bitwise the clean
+    run's, launches as the steps imply: K1 and K2 forward and backward at
+    mixtral's shapes); the loss adds 0.01 x the router's load-balancing
+    loss, whose value at step 0 is printed. The sort-based dispatch's
+    backward is a scatter-add (``index_select``'s and the advanced
+    index's), which the bitwise gate holds to deterministic."""
+    cfg = train_config_moe()
+    inner, seen = moe_lib.moe_aux_loss, []
+
+    def recorded(*args, **kwargs):
+        out = inner(*args, **kwargs)
+        if not seen:                        # step 0 of the clean run
+            seen.append(float(out.detach()))
+        return out
+    moe_lib.moe_aux_loss = recorded
+    try:
+        _train_phase(state, cfg, TRAIN_RUNS_VLM)
+    finally:
+        moe_lib.moe_aux_loss = inner
+    line = {"phase": "train.moe", "arch": cfg.name, "n_layers": cfg.n_layers,
+            "params": api.param_count(cfg), "aux_loss_step0": seen[0],
+            "aux_weight": 0.01, "card": state["card"]}
+    emit(line)
+    # E * sum(frac * imp) is 1 for a balanced router and at most E
+    if not 0.0 < seen[0] <= cfg.n_experts:
+        raise AssertionError(f"train.moe: aux loss {seen[0]}")
+
+
+# ------------------------------------------------------ the dry run
+# on the card, the dry run's count of three steps cut to one card against
+# the card's own count; after the last timed phase, python -m
+# repro_torch.launch.dryrun over every applicable cell on both production
+# meshes on the host (it needs no card), one process a (shape, mesh), so
+# that no timed phase runs beside it (its JSON lands in build/dryrun)
+DRYRUN_DIR = os.path.join(ROOT, "build", "dryrun")
+COST_KERNELS = {"rmsnorm": rmsnorm, "add_rmsnorm": add_rmsnorm,
+                "rmsnorm_bwd": rmsnorm_bwd,
+                "add_rmsnorm_bwd": add_rmsnorm_bwd,
+                "flash_attention": flash_attention,
+                "flash_attention_bwd": flash_attention_bwd,
+                "mamba_scan": mamba_chunk_scan,
+                "mamba_scan_bwd": mamba_chunk_scan_bwd}
+# the dry run's op names of the kernels (kernels/meta.py)
+META_NAMES = {"mamba_scan": "mamba_chunk_scan",
+              "mamba_scan_bwd": "mamba_chunk_scan_bwd"}
+
+
+def _card_count(step):
+    """One call of ``step`` on the card: FlopCounterMode's count (the
+    ATen ops; the kernels' ctypes launches are invisible to it), each
+    kernel's ``kernels/cost.py`` work times its launches by argument, and
+    their sum."""
+    from torch.utils.flop_counter import FlopCounterMode
+    for fn in COST_KERNELS.values():
+        fn.calls.clear()
+    torch.cuda.synchronize()
+    with FlopCounterMode(display=False) as fc:
+        step()
+        torch.cuda.synchronize()
+    kernels = {name: cost.tally_work(name, fn.calls).flops
+               for name, fn in COST_KERNELS.items() if fn.calls}
+    aten = fc.get_total_flops()
+    return aten + sum(kernels.values()), aten, kernels
+
+
+def _step_ms(step, reps=3):
+    step()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return statistics.median(times)
+
+
+def _dry_check(card_name, what, cfg, kind, step, state_bytes, seq_chunk):
+    """The dry run's count of ``cfg``'s ``kind`` step at B x S on one
+    device (no mesh) against the card's count of ``step``, exactly; its
+    bound time (compute or HBM bytes) against the step's measured ms; its
+    argument bytes against the state the card holds."""
+    shape = ShapeConfig(what, seq_len=S, global_batch=B, kind=kind)
+    t0 = time.perf_counter()
+    dry = dryrun.lower_cell(cfg.name, what, cfg=cfg, shape=shape,
+                            one_device=True, seq_chunk=seq_chunk)
+    trace_s = time.perf_counter() - t0
+    total, aten, kernels = _card_count(step)
+    ms = _step_ms(step)
+    t = dry["terms"]
+    want = {name: dry["kernel_flops"].get(META_NAMES.get(name, name), 0)
+            for name in COST_KERNELS}
+    got = {name: kernels.get(name, 0) for name in COST_KERNELS}
+    mem = t["memory_per_device"]
+    args = mem["argument_parts"]
+    line = {"phase": "dryrun.card", "step": what, "arch": cfg.name,
+            "n_layers": cfg.n_layers, "batch": B, "seq": S,
+            "dry_flops": t["flops_per_device"], "card_flops": total,
+            "card_aten_flops": aten, "card_kernel_flops": got,
+            "dry_kernel_flops": want,
+            "flops_equal": t["flops_per_device"] == total and got == want,
+            "units": dry["units"], "traces": dry["traces"],
+            "trace_s": trace_s, "dry_bytes_lb": t["bytes_per_device"],
+            "dry_bytes_ub": t["bytes_per_device_ub"],
+            "bound_ms": 1e3 * t["bound_time_s"],
+            "bound_by": "compute" if t["compute_s"] >= t["memory_s"]
+            else "memory",
+            "step_ms": ms, "bound_over_step": 1e3 * t["bound_time_s"] / ms,
+            "model_flops": t["model_flops_global"],
+            "useful_ratio": t["useful_ratio"],
+            "argument_bytes": {k: args[k] for k in ("params", "opt")
+                               if k in args},
+            "state_bytes_measured": state_bytes,
+            "argument_equal": args["params"] + args.get("opt", 0)
+            == state_bytes,
+            "card": card_name}
+    emit(line)
+    if not line["flops_equal"]:
+        raise AssertionError(f"dryrun.card {what}: the dry run's "
+                             f"{t['flops_per_device']} FLOPs != the card's "
+                             f"{total} ({got} vs {want})")
+    if not line["argument_equal"]:
+        raise AssertionError(f"dryrun.card {what}: argument bytes {args} "
+                             f"!= the card's {state_bytes}")
+    return line
+
+
+def _train_check(card_name, what, cfg):
+    wl = train_lib.build_workload(cfg, reduced=False, batch=B, seq=S,
+                                  seed=TRAIN_SEED, lr=TRAIN_LR,
+                                  device="cuda")
+    st = wl.init_state()
+    held = sum(t.numel() * t.element_size()
+               for _, t in _train_state_tensors(st))
+    batch = wl.batch_fn(0)
+    try:
+        return _dry_check(card_name, what, cfg, "train",
+                          lambda: wl.train_step(st, batch), held,
+                          seq_chunk=min(S, 512))
+    finally:
+        del wl, st, batch
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def _prefill_check(card_name, what, cfg):
+    model = Transformer(cfg, device="cuda")
+    model.init(torch.Generator(device="cuda").manual_seed(TRAIN_SEED))
+    held = sum(p.numel() * p.element_size() for p in model.parameters())
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (B, S),
+                                     generator=gen, device="cuda",
+                                     dtype=torch.int32)}
+    try:
+        return _dry_check(card_name, what, cfg, "prefill",
+                          lambda: model.prefill(batch), held, seq_chunk=2048)
+    finally:
+        del model, batch
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def phase_dryrun(state):
+    """On the card: qwen3-8b's train step at 2 layers, its full-depth
+    prefill and the MoE's train step (``train_config_moe``), each at
+    4 x 512 on one device, counted by the dry run and by the card, equal
+    to the FLOP; the dry run's bound against each step's time."""
+    card_name = state["card"]
+    state["dryrun"] = [
+        _train_check(card_name, "train_2_layers", train_config()),
+        _prefill_check(card_name, "prefill", QWEN),
+        _train_check(card_name, "train_moe", train_config_moe())]
+
+
+def phase_dryrun_sweep(state):
+    """The host's sweep, after every timed phase: every applicable cell
+    OK on both production meshes, in one CPU-only process of one thread a
+    (shape, mesh), all at once; the count, the wall, the 16 x 16 table
+    (``build/dryrun/report.md``) and the hill-climb cells."""
+    shutil.rmtree(DRYRUN_DIR, ignore_errors=True)
+    os.makedirs(DRYRUN_DIR)
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
+               CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1")
+    jobs = []
+    t0 = time.perf_counter()
+    try:
+        for shape in sorted({s for _, s in dryrun.applicable_cells()}):
+            for mesh in ("single", "multi"):
+                stem = os.path.join(DRYRUN_DIR, f"cells_{shape}_{mesh}")
+                log = open(stem + ".log", "w")
+                jobs.append((stem + ".json", log, subprocess.Popen(
+                    [sys.executable, "-m", "repro_torch.launch.dryrun",
+                     "--shape", shape, "--mesh", mesh, "--out",
+                     stem + ".json"],
+                    stdout=log, stderr=subprocess.STDOUT, env=env,
+                    cwd=ROOT)))
+        rcs = [proc.wait(timeout=600) for _, _, proc in jobs]
+    finally:
+        for _, log, proc in jobs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            log.close()
+    wall = time.perf_counter() - t0
+    cells = []
+    for path, _, _ in jobs:
+        with open(path) as f:
+            cells += json.load(f)
+    bad = [c["cell"] for c in cells if not c["ok"]]
+    by_mesh = {}
+    for c in cells:
+        if c["ok"]:
+            by_mesh[c["terms"]["mesh"]] = by_mesh.get(c["terms"]["mesh"],
+                                                      0) + 1
+    with open(os.path.join(DRYRUN_DIR, "report.md"), "w") as f:
+        f.write(dryrun.markdown_table(cells) + "\n")
+    emit({"phase": "dryrun.sweep", "cells": len(cells),
+          "ok": len(cells) - len(bad), "by_mesh": by_mesh,
+          "processes": len(jobs), "rc": max(rcs), "wall_s": wall,
+          "trace_s": sum(c.get("trace_s", 0) for c in cells),
+          "dominant": {d: sum(1 for c in cells if c["ok"]
+                              and c["terms"]["dominant"] == d)
+                       for d in ("compute", "memory", "collective")},
+          "hillclimb": dryrun.pick_hillclimb_cells(cells),
+          "torch": sorted({c["torch"] for c in cells if c["ok"]}),
+          "failed": bad, "card": state["card"]})
+    if max(rcs) != 0 or bad or \
+            len(cells) != 2 * len(dryrun.applicable_cells()):
+        raise AssertionError(f"dryrun.sweep: rcs {rcs}, failed {bad}")
 
 
 # Fig 10 (the FT layer's failure-free overhead) through
@@ -3512,8 +3784,8 @@ PHASES = [phase_device_and_build, phase_comm, phase_rmsnorm, phase_attention,
           phase_serve_mixtral, phase_serve_vlm, phase_serve_whisper,
           phase_serve_xlstm, phase_train_kernels, phase_train,
           phase_train_zamba, phase_train_whisper, phase_train_xlstm,
-          phase_train_vlm, phase_fig10, phase_simrt, phase_pool,
-          phase_analyze]
+          phase_train_vlm, phase_train_moe, phase_fig10, phase_dryrun,
+          phase_simrt, phase_pool, phase_analyze, phase_dryrun_sweep]
 
 REPLACES = {"rmsnorm": "src/repro/kernels/rmsnorm.py:31",
             "flash_attention": "src/repro/kernels/flash_attention.py:97",
@@ -3663,7 +3935,8 @@ def main() -> int:
     for phase in PHASES:
         t0 = time.perf_counter()
         phase(state)
-        emit({"phase": phase.__name__, "seconds": time.perf_counter() - t0})
+        emit({"phase": phase.__name__,
+              "seconds": time.perf_counter() - t0})
     emit(kernels_line(state))
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

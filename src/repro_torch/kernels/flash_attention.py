@@ -77,7 +77,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     tensor; with ``return_lse`` (o, lse), lse the natural-log logsumexp of
     each row's scaled, masked scores, f32 [B, Hq, Sq] (o is the same bits
     either way). Each launch adds one to ``flash_attention.launches`` and
-    one to ``flash_attention.by_shape[(Sq, Skv, causal)]``."""
+    one to ``flash_attention.calls`` at its ``kernels.cost.attention``
+    arguments (B, Hq, Hkv, Sq, Skv, D, dtype, causal, window)."""
     dev = q.device
     if dev.type != "cuda" or k.device != dev or v.device != dev:
         raise ValueError("flash attention kernel needs q, k, v on one CUDA "
@@ -118,12 +119,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
              torch.cuda.current_stream(dev).cuda_stream)
     build.check("flash_attention", err)
     flash_attention.launches += 1
-    flash_attention.by_shape[(sq, skv, bool(causal))] += 1
+    flash_attention.calls[(b, hq, hkv, sq, skv, d, q.dtype, bool(causal),
+                           int(window))] += 1
     return (o, lse) if return_lse else o
 
 
 flash_attention.launches = 0
-flash_attention.by_shape = collections.Counter()
+# launches by ``kernels.cost.attention``'s arguments
+flash_attention.calls = collections.Counter()
 
 
 # ---------------------------------------------------------------------------
@@ -198,10 +201,13 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
              torch.cuda.current_stream(dev).cuda_stream)
     build.check("flash_attention_bwd", err)
     flash_attention_bwd.launches += 1
+    flash_attention_bwd.calls[(b, hq, hkv, sq, skv, d, q.dtype, bool(causal),
+                               int(window))] += 1
     return dq, dk, dv
 
 
 flash_attention_bwd.launches = 0
+flash_attention_bwd.calls = collections.Counter()
 
 
 def bwd_scratch_floats(dtype: torch.dtype, b: int, hq: int, sq: int) -> int:

@@ -24,6 +24,7 @@ routes by dtype as the forward does: bf16 to the tensor-core kernels
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 from typing import Optional, Tuple
 
@@ -140,10 +141,13 @@ def mamba_chunk_scan(x: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
              chunk, *strides, torch.cuda.current_stream(dev).cuda_stream)
     build.check("mamba_scan", err)
     mamba_chunk_scan.launches += 1
+    mamba_chunk_scan.calls[(bsz, s, h, p, n, chunk, x.dtype, out_dtype)] += 1
     return y, h_out
 
 
 mamba_chunk_scan.launches = 0
+# launches by ``kernels.cost.mamba_scan``'s arguments
+mamba_chunk_scan.calls = collections.Counter()
 
 
 # ---------------------------------------------------------------------------
@@ -211,7 +215,10 @@ def mamba_chunk_scan_bwd(x: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
              torch.cuda.current_stream(dev).cuda_stream)
     build.check("mamba_scan_bwd", err)
     mamba_chunk_scan_bwd.launches += 1
+    mamba_chunk_scan_bwd.calls[(bsz, s, h, p, n, chunk, x.dtype,
+                                dy.dtype)] += 1
     return dx, db, dc, ddt, dda
 
 
 mamba_chunk_scan_bwd.launches = 0
+mamba_chunk_scan_bwd.calls = collections.Counter()

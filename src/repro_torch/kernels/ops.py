@@ -7,13 +7,16 @@ take. There is no fallback from the kernel to the plain version: a build or
 launch failure surfaces. A CUDA call that autograd must differentiate
 (grad mode on and an input that requires grad) goes through the
 ``kernels.autograd`` Function, whose backward is a kernel too; any other
-CUDA call launches the forward kernel alone.
+CUDA call launches the forward kernel alone. A ``meta`` tensor goes to
+``kernels.meta``: one op a kernel call, the kernel's output shapes and
+dtypes and its work from ``kernels/cost.py`` (for the dry run); the CPU and
+CUDA routes never reach it.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import autograd, ref
+from repro_torch.kernels import autograd, meta, ref
 from repro_torch.kernels.flash_attention import flash_attention as _flash_cuda
 from repro_torch.kernels.mamba_scan import mamba_chunk_scan as _mamba_cuda
 from repro_torch.kernels.rmsnorm import add_rmsnorm as _add_rmsnorm_cuda
@@ -22,7 +25,12 @@ from repro_torch.kernels.rmsnorm import rmsnorm as _rmsnorm_cuda
 BACKENDS = ("auto", "ref")
 
 
-def _use_kernel(x: torch.Tensor, backend: str) -> bool:
+_META = "meta"
+
+
+def _use_kernel(x: torch.Tensor, backend: str):
+    """True for the CUDA kernel, False for the plain version, ``_META``
+    for the shape-only op of a meta tensor."""
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r}; expected one of "
                          f"{BACKENDS}")
@@ -30,6 +38,8 @@ def _use_kernel(x: torch.Tensor, backend: str) -> bool:
         return False
     if x.device.type == "cuda":
         return True
+    if x.device.type == "meta":
+        return _META
     raise ValueError(f"no kernel for tensors on {x.device}")
 
 
@@ -42,7 +52,10 @@ def attention(q, k, v, *, causal: bool = True, window: int = 0,
     """Flash attention. q: [B,Hq,Sq,D]; k, v: [B,Hkv,Skv,D] (any strides;
     Skv may differ from Sq, as in the VLM's cross-attention over its image
     memory, non-causal). Positions start at 0 on both sides."""
-    if _use_kernel(q, backend):
+    route = _use_kernel(q, backend)
+    if route is _META:
+        return meta.flash_attention(q, k, v, causal, window)[0]
+    if route:
         if _needs_grad(q, k, v):
             return autograd.FlashAttention.apply(q, k, v, causal, window)
         return _flash_cuda(q, k, v, causal=causal, window=window)
@@ -51,7 +64,10 @@ def attention(q, k, v, *, causal: bool = True, window: int = 0,
 
 def rmsnorm(x, w, *, eps: float = 1e-5, backend: str = "auto"):
     """RMSNorm over the last dimension of x with weight w."""
-    if _use_kernel(x, backend):
+    route = _use_kernel(x, backend)
+    if route is _META:
+        return meta.rmsnorm(x, w, eps)
+    if route:
         if _needs_grad(x, w):
             return autograd.RMSNorm.apply(x, w, eps)
         return _rmsnorm_cuda(x, w, eps=eps)
@@ -61,7 +77,10 @@ def rmsnorm(x, w, *, eps: float = 1e-5, backend: str = "auto"):
 def add_rmsnorm(x, r, w, *, eps: float = 1e-5, backend: str = "auto"):
     """The residual add and the RMSNorm after it: (s = x + r in x's dtype,
     rmsnorm(s, w)), one launch on the card."""
-    if _use_kernel(x, backend):
+    route = _use_kernel(x, backend)
+    if route is _META:
+        return meta.add_rmsnorm(x, r, w, eps)
+    if route:
         if _needs_grad(x, r, w):
             return autograd.AddRMSNorm.apply(x, r, w, eps)
         return _add_rmsnorm_cuda(x, r, w, eps=eps)
@@ -77,7 +96,11 @@ def mamba_chunk_scan(x, b, c, dt, da, *, chunk: int = 128, out_dtype=None,
     if chunk <= 0 or x.shape[1] % chunk:
         raise ValueError(f"sequence length {x.shape[1]} must divide by "
                          f"chunk={chunk}")
-    if _use_kernel(x, backend):
+    route = _use_kernel(x, backend)
+    if route is _META:
+        return meta.mamba_chunk_scan(
+            x, b, c, dt, da, chunk, x.dtype if out_dtype is None else out_dtype)
+    if route:
         if _needs_grad(x, b, c, dt, da):
             return autograd.MambaChunkScan.apply(x, b, c, dt, da, chunk,
                                                  out_dtype)

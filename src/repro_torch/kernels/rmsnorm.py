@@ -20,6 +20,7 @@ path of three); ``kernels.autograd`` calls them from the backward of its
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 from typing import Optional, Tuple
 
@@ -100,10 +101,13 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor, *, eps: float = 1e-5
              torch.cuda.current_stream(x.device).cuda_stream)
     build.check("rmsnorm", err)
     rmsnorm.launches += 1
+    rmsnorm.calls[(x.shape, x.dtype)] += 1
     return y
 
 
 rmsnorm.launches = 0
+# launches by ``kernels.cost.rmsnorm``'s arguments
+rmsnorm.calls = collections.Counter()
 
 
 def add_rmsnorm(x: torch.Tensor, r: torch.Tensor, w: torch.Tensor, *,
@@ -129,10 +133,12 @@ def add_rmsnorm(x: torch.Tensor, r: torch.Tensor, w: torch.Tensor, *,
              torch.cuda.current_stream(x.device).cuda_stream)
     build.check("rmsnorm", err)
     add_rmsnorm.launches += 1
+    add_rmsnorm.calls[(x.shape, x.dtype)] += 1
     return s, y
 
 
 add_rmsnorm.launches = 0
+add_rmsnorm.calls = collections.Counter()
 
 
 # ---------------------------------------------------------------------------
@@ -183,10 +189,12 @@ def rmsnorm_bwd(dy: torch.Tensor, x: torch.Tensor, w: torch.Tensor, *,
     dimensions (any two-level row view, as the forward takes)."""
     out = _bwd("rmsnorm_bwd", dy, x, None, w, eps)
     rmsnorm_bwd.launches += 1
+    rmsnorm_bwd.calls[(x.shape, x.dtype)] += 1
     return out
 
 
 rmsnorm_bwd.launches = 0
+rmsnorm_bwd.calls = collections.Counter()
 
 
 def add_rmsnorm_bwd(dy: torch.Tensor, ds: Optional[torch.Tensor],
@@ -199,7 +207,9 @@ def add_rmsnorm_bwd(dy: torch.Tensor, ds: Optional[torch.Tensor],
     means no gradient reaches s from elsewhere."""
     out = _bwd("add_rmsnorm_bwd", dy, s, ds, w, eps)
     add_rmsnorm_bwd.launches += 1
+    add_rmsnorm_bwd.calls[(s.shape, s.dtype)] += 1
     return out
 
 
 add_rmsnorm_bwd.launches = 0
+add_rmsnorm_bwd.calls = collections.Counter()

@@ -1,1 +1,2 @@
-"""Entry points of the port: the serving driver and its step functions."""
+"""Entry points of the port: serving and training with their step
+functions, and the dry run with its meshes, cost model and roofline."""

@@ -10,12 +10,14 @@ from typing import Dict
 import torch
 
 from repro_torch.configs.base import RunConfig
+from repro_torch.distributed import parallel
 from repro_torch.models import api as model_api
 from repro_torch.models import transformer, whisper, xlstm, zamba
 from repro_torch.optim import adamw
 
 # each trainable family's loss over the train state's params
-LOSS_FNS = {"dense": transformer.loss_fn, "vlm": transformer.loss_fn,
+LOSS_FNS = {"dense": transformer.loss_fn, "moe": transformer.loss_fn,
+            "vlm": transformer.loss_fn,
             "hybrid": zamba.loss_fn, "audio": whisper.loss_fn,
             "ssm": xlstm.loss_fn}
 
@@ -58,11 +60,27 @@ def make_train_step(run: RunConfig):
             loss, list(leaves.values()), allow_unused=True,
             materialize_grads=True)))
         del leaves
-        opt_state = adamw.update(opt_cfg, grads, opt_state, params)
+        _update(opt_cfg, grads, opt_state, params)
         del grads
         return params, opt_state, loss.detach()
 
     return train_step, cfg
+
+
+def _update(opt_cfg, grads, opt_state, params) -> None:
+    """One AdamW step in place on each leaf's local tensor. A DTensor leaf
+    (the dry run on a mesh) has its gradient redistributed to the
+    parameter's placements first (the data-parallel reduction) and is
+    updated on its local shard; a plain tensor is its own local tensor,
+    so the card's step is ``adamw.update`` on the state as it stands."""
+    grads = parallel.reduce_grads(grads, params)
+    local = parallel.to_local
+    adamw.update(opt_cfg, {k: local(g) for k, g in grads.items()},
+                 adamw.AdamWState(
+                     opt_state.step,
+                     {k: local(t) for k, t in opt_state.m.items()},
+                     {k: local(t) for k, t in opt_state.v.items()}),
+                 {k: local(p) for k, p in params.items()})
 
 
 def make_prefill_step(run: RunConfig, device=None):

@@ -27,6 +27,8 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
+from repro_torch.distributed import parallel
+from repro_torch.distributed.context import current_mesh
 
 F32 = torch.float32
 NEG_INF = -1e30
@@ -343,7 +345,30 @@ def mlp_apply(p, x: torch.Tensor) -> torch.Tensor:
 
 
 def embed_lookup(p, tokens: torch.Tensor) -> torch.Tensor:
+    """The rows of ``p["embed"]`` at ``tokens``; under an active mesh
+    (the dry run) the vocab-parallel lookup."""
+    mesh = current_mesh()
+    if mesh is not None:
+        return parallel.sharded_lookup(p["embed"], tokens, mesh)
     return p["embed"][tokens]
+
+
+def split_heads(t, *shape):
+    """``t`` [..., H * dh] viewed as ``shape`` [..., H, dh]; under an
+    active mesh first gathered where its shards would split a head."""
+    mesh = current_mesh()
+    if mesh is not None:
+        t = parallel.whole_heads(t, shape[-2], mesh)
+    return t.view(*shape)
+
+
+def batch_parallel(fn, args, batched, n_out: int = 1):
+    """``fn(*args)``; under an active mesh run on each rank's batch shard
+    (``parallel.batch_parallel``)."""
+    mesh = current_mesh()
+    if mesh is None:
+        return fn(*args)
+    return parallel.batch_parallel(fn, args, batched, n_out, mesh)
 
 
 def unembed(cfg: ModelConfig, p, x: torch.Tensor) -> torch.Tensor:
@@ -357,7 +382,11 @@ def _chunk_loss(cfg: ModelConfig, p, xc: torch.Tensor,
     logits in f32."""
     logits = unembed(cfg, p, xc).to(F32)
     lse = torch.logsumexp(logits, dim=-1)
-    pick = logits.gather(-1, lc[..., None].long())[..., 0]
+    mesh = current_mesh()
+    if mesh is not None:
+        pick = parallel.sharded_pick(logits, lc, mesh)
+    else:
+        pick = logits.gather(-1, lc[..., None].long())[..., 0]
     return (lse - pick).sum()
 
 

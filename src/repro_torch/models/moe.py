@@ -22,14 +22,26 @@ its rows reach the output only times a weight of 0). The combine adds the k
 weighted expert rows of a token one at a time in the model dtype, from
 zero, as the reference's ``zeros.at[tok].add`` does.
 
-Not ported here: the mesh path ``_moe_apply_sharded`` (ROADMAP.md, Queue 1
-item 10) and ``moe_aux_loss``, which only training reads (item 5).
+Training reads ``moe_aux_loss``, the reference's load-balancing loss on
+the first layer's router (``moe.py:144-152``). The backward of the
+gathers is a scatter-add (``index_select``'s and the advanced index's):
+under ``torch.use_deterministic_algorithms(True)`` PyTorch runs both as a
+sorted, ordered accumulation, so a train step is bitwise the same each
+run (``chip_smoke.py``'s MoE train phase holds a clean and a replicated
+run to one final state).
+
+On a mesh (``distributed.context.activate_mesh``) ``moe_apply`` takes the
+reference's shard_map path, ``_moe_apply_sharded`` (``moe.py:95-118``):
+the batch over the data axes, the experts' d_ff over ``model``, the local
+dispatch on each rank's shards, and one all-reduce over ``model`` after
+the down-projection (a functional collective, so a traced step sees it).
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import context, parallel
 
 F32 = torch.float32
 
@@ -110,6 +122,66 @@ def buffers(x: torch.Tensor, order, sorted_e, e: int, k: int, cap: int):
 
 
 def moe_apply(cfg: ModelConfig, p, x: torch.Tensor) -> torch.Tensor:
+    """x: [B, S, d] -> [B, S, d]: ``_moe_apply_sharded`` when a mesh with
+    a ``model`` axis of more than one device is active, as the reference
+    takes it under ``_mesh_for_shard_map()``, else the local path."""
+    mesh = _mesh_for_shard_map()
+    if mesh is not None:
+        return _moe_apply_sharded(cfg, p, x, mesh)
+    return _moe_apply_local(cfg, p, x)
+
+
+def _mesh_for_shard_map():
+    """The active mesh if it has a ``model`` axis of more than one device
+    (the explicit-TP path), else None."""
+    mesh = context.current_mesh()
+    if mesh is None or "model" not in (mesh.mesh_dim_names or ()) or \
+            mesh.size(mesh.mesh_dim_names.index("model")) <= 1:
+        return None
+    return mesh
+
+
+def _moe_apply_sharded(cfg: ModelConfig, p, x, mesh):
+    """The reference's shard_map path over DTensors: x's batch over the
+    data axes (replicated where the batch does not divide, as tiny decode
+    batches), the router replicated, ``wi``/``wg`` [E, d, f] and ``wo``
+    [E, f, d] sharded on f over ``model``; each rank runs the local
+    dispatch on its shards and the partial outputs are summed over
+    ``model``."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    names = mesh.mesh_dim_names
+    batch = tuple(a for a in context.current_batch_axes() if a in names
+                  and mesh.size(names.index(a)) > 1)
+    bsz = 1
+    for a in batch:
+        bsz *= mesh.size(names.index(a))
+    if x.shape[0] % max(bsz, 1):
+        batch = ()
+    model = names.index("model")
+
+    def place(dim=None, sharded=()):
+        return tuple(Shard(dim) if a in sharded else Replicate()
+                     for a in names) if dim is not None else \
+            tuple(Replicate() for _ in names)
+    bspec = place(0, batch)
+    ff = {"wi": place(2, ("model",)), "wg": place(2, ("model",)),
+          "wo": place(1, ("model",))}
+
+    def inner(xs, router, wi, wg, wo):
+        y = _moe_apply_local(
+            cfg, {"router": router, "wi": wi, "wg": wg, "wo": wo}, xs)
+        return parallel.AllReduce.apply(y, (mesh, model))
+
+    f = local_map(inner, out_placements=list(bspec),
+                  in_placements=tuple(list(pl) for pl in (
+                      bspec, place(), ff["wi"], ff["wg"], ff["wo"])),
+                  device_mesh=mesh, redistribute_inputs=True)
+    return f(x, p["router"], p["wi"], p["wg"], p["wo"])
+
+
+def _moe_apply_local(cfg: ModelConfig, p, x: torch.Tensor) -> torch.Tensor:
     """x: [B, S, d] -> [B, S, d] (the reference's ``_moe_apply_local``)."""
     b, s, d = x.shape
     e, k = cfg.n_experts, cfg.n_experts_per_tok
@@ -128,3 +200,20 @@ def moe_apply(cfg: ModelConfig, p, x: torch.Tensor) -> torch.Tensor:
     for j in range(k):                  # one add an assignment, in order
         y = y + gathered[:, :, j]
     return y
+
+
+def moe_aux_loss(cfg: ModelConfig, p, x: torch.Tensor) -> torch.Tensor:
+    """The Switch-style load-balancing loss of the reference
+    (``moe.py:144-152``): E * sum(frac * imp), frac the share of the top-k
+    assignments each expert gets (a one-hot mean, no gradient) and imp its
+    mean router probability; the router product in the model dtype, then
+    f32."""
+    logits = (x @ p["router"]).to(F32)
+    probs = torch.softmax(logits, dim=-1)
+    # lax.top_k's order: larger first, the lower index first among equals
+    top_e = torch.argsort(probs, dim=-1, descending=True,
+                          stable=True)[..., :cfg.n_experts_per_tok]
+    frac = torch.nn.functional.one_hot(top_e, cfg.n_experts).to(F32) \
+        .mean(dim=(0, 1, 2))
+    imp = probs.mean(dim=(0, 1))
+    return cfg.n_experts * torch.sum(frac * imp)

@@ -25,8 +25,8 @@ Training differentiates ``loss_fn(cfg, params, batch)``: the weights it
 takes are the train state's (a flat dict under the state-dict names), not
 the module's, and it runs the same layer functions as ``prefill``. The
 module's own parameters never need grads; ``prefill`` and ``decode_step``
-run under ``no_grad``. The dense family and the VLM train; MoE does not
-yet.
+run under ``no_grad``. Every family here trains; the MoE's loss adds
+the reference's load-balancing term (``moe.moe_aux_loss``).
 
 The residual stream is carried as (x, r): r is the last branch output not
 yet added, and the next norm adds it (``layers.add_rmsnorm``, one launch on
@@ -278,11 +278,13 @@ def loss_fn(cfg: ModelConfig, params: Dict[str, torch.Tensor], batch: dict,
     """The f32 mean LM loss of ``params`` (state-dict names) on ``batch``
     (``tokens``, ``labels``: [B, S] integer tensors on the params' device;
     for the VLM also ``image_embeds`` [B, M, d]): the reference's
-    ``loss_fn`` (``transformer.py:110-152``) for the dense family and the
-    VLM, through the same residual stream (x, r) and fused norms as
+    ``loss_fn`` (``transformer.py:110-152``) for the dense, MoE and VLM
+    families, through the same residual stream (x, r) and fused norms as
     ``prefill``, differentiable. A VLM group is the reference's: the
     memory's K/V, the gated cross output added to the stream, then the
-    group's self layers."""
+    group's self layers. MoE adds 0.01 times the aux loss of the first
+    layer's router on the normed backbone output, as the reference does
+    (``transformer.py:148-151``)."""
     check_trainable(cfg)
     p = nest(params)
     tokens, labels = batch["tokens"], batch["labels"]
@@ -303,19 +305,19 @@ def loss_fn(cfg: ModelConfig, params: Dict[str, torch.Tensor], batch: dict,
             x, r, _ = _layer_apply(cfg, p["layers"][str(i)], x, r,
                                    positions)
     _, x = L.add_rmsnorm(p["ln_f"], x, r, cfg.norm_eps)
-    return L.chunked_lm_loss(cfg, p["embed"], x, labels, seq_chunk)
+    loss = L.chunked_lm_loss(cfg, p["embed"], x, labels, seq_chunk)
+    if cfg.n_experts:
+        loss = loss + 0.01 * MOE.moe_aux_loss(cfg, p["layers"]["0"]["ffn"],
+                                              x)
+    return loss
+
+
+TRAINABLE = ("dense", "moe", "vlm", "hybrid", "audio", "ssm")
 
 
 def check_trainable(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` naming the roadmap item unless the
-    port trains ``cfg``'s family (dense, VLM, hybrid, audio and SSM; MoE
-    serves but does not train yet)."""
-    if cfg.family not in ("dense", "vlm", "hybrid", "audio", "ssm"):
-        raise NotImplementedError(_TRAIN_NOT_PORTED.get(
-            cfg.family, f"training the {cfg.family!r} family is not "
-                        f"ported"))
-
-
-_TRAIN_NOT_PORTED = {
-    "moe": "training MoE is not ported yet (ROADMAP.md, Queue 1 item 5)",
-}
+    """Raise ``NotImplementedError`` unless the port trains ``cfg``'s
+    family (every family of the reference: ``TRAINABLE``)."""
+    if cfg.family not in TRAINABLE:
+        raise NotImplementedError(f"training the {cfg.family!r} family is "
+                                  f"not ported")

@@ -36,6 +36,7 @@ from repro_torch import device as device_lib
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models.transformer import ParamTree, nest
+from repro_torch.models.trips import pad, trips
 
 F32 = torch.float32
 CHUNK = 256
@@ -77,9 +78,9 @@ def _mlstm_qkvif(cfg: ModelConfig, p, xn):
     b, s, d = xn.shape
     h, dh = _heads(cfg)
     v_in, z = (xn @ p["w_up"]).chunk(2, dim=-1)
-    q = (v_in @ p["wq"]).view(b, s, h, dh)
-    k = (v_in @ p["wk"]).view(b, s, h, dh)
-    v = (v_in @ p["wv"]).view(b, s, h, dh)
+    q = L.split_heads(v_in @ p["wq"], b, s, h, dh)
+    k = L.split_heads(v_in @ p["wk"], b, s, h, dh)
+    v = L.split_heads(v_in @ p["wv"], b, s, h, dh)
     k = k / _key_scale(dh, k.dtype)
     ig = torch.sigmoid((xn @ p["wi"]).to(F32))
     fg = F.logsigmoid((xn @ p["wf"] + p["bf"]).to(F32))
@@ -121,6 +122,21 @@ def _mlstm_chunk(qc, kc, vc, ic, fc, c, n, tri):
     return y, c, n
 
 
+def _mlstm_scan(q, k, v, ig, fg, c, n, chunk: int):
+    """The chunks in order from the state (C, n): (y [B, S, H, dv], C,
+    n)."""
+    s = q.shape[1]
+    tri = torch.ones((chunk, chunk), dtype=torch.bool,
+                     device=q.device).tril()
+    ys = []
+    for i in range(trips("mlstm", s // chunk)):
+        sl = slice(i * chunk, (i + 1) * chunk)
+        y, c, n = _mlstm_chunk(q[:, sl], k[:, sl], v[:, sl], ig[:, sl],
+                               fg[:, sl], c, n, tri)
+        ys.append(y)
+    return torch.cat(pad(ys, s // chunk), dim=1), c, n
+
+
 def mlstm_block(cfg: ModelConfig, p, x, r, *, chunk: int = CHUNK,
                 state: Optional[dict] = None):
     """One mLSTM block on the stream (x, r), chunkwise over the sequence
@@ -142,15 +158,9 @@ def mlstm_block(cfg: ModelConfig, p, x, r, *, chunk: int = CHUNK,
         n = torch.zeros((b, h, dh), dtype=F32, device=x.device)
     else:
         c, n = state["C"].to(F32), state["n"].to(F32)
-    tri = torch.ones((chunk, chunk), dtype=torch.bool,
-                     device=x.device).tril()
-    ys = []
-    for i in range(s // chunk):
-        sl = slice(i * chunk, (i + 1) * chunk)
-        y, c, n = _mlstm_chunk(q[:, sl], k[:, sl], v[:, sl], ig[:, sl],
-                               fg[:, sl], c, n, tri)
-        ys.append(y)
-    y = torch.cat(ys, dim=1).reshape(b, s, d).to(x.dtype)
+    y, c, n = L.batch_parallel(_mlstm_scan, (q, k, v, ig, fg, c, n, chunk),
+                               (True,) * 7 + (None,), n_out=3)
+    y = y.reshape(b, s, d).to(x.dtype)
     y = y * F.silu(z.to(F32)).to(x.dtype)
     return x, y @ p["w_down"], {"C": c, "n": n}
 
@@ -216,7 +226,7 @@ def _slstm_scan(cfg: ModelConfig, p, gx, h0, c0, n0, m0):
         .contiguous()                                     # [S, H, B, 4dh]
     hp, cp, np_, mp = (t.transpose(0, 1) for t in (h0, c0, n0, m0))
     ys = []
-    for t in range(s):
+    for t in range(trips("slstm", s)):
         g = g_all[t] + torch.bmm(hp, rg)
         z, i_, f, o = g.chunk(4, dim=-1)
         z = torch.tanh(z)
@@ -230,8 +240,14 @@ def _slstm_scan(cfg: ModelConfig, p, gx, h0, c0, n0, m0):
         hp = o * cp / np_
         mp = m_new
         ys.append(hp)
-    y = torch.stack(ys).permute(2, 0, 1, 3).reshape(b, s, h * dh)
+    y = torch.stack(pad(ys, s)).permute(2, 0, 1, 3).reshape(b, s, h * dh)
     return y, tuple(t.transpose(0, 1) for t in (hp, cp, np_, mp))
+
+
+def _slstm_steps(cfg: ModelConfig, r_gates, gx, h0, c0, n0, m0):
+    """``_slstm_scan`` with its outputs flat: (y, h, c, n, m)."""
+    y, state = _slstm_scan(cfg, {"r_gates": r_gates}, gx, h0, c0, n0, m0)
+    return (y, *state)
 
 
 def _slstm_start(cfg: ModelConfig, b: int, device):
@@ -248,8 +264,10 @@ def slstm_block(cfg: ModelConfig, p, x, r, *, state: Optional[dict] = None):
     x, xn = L.add_rmsnorm(p["ln"], x, r, cfg.norm_eps)
     gx = xn @ p["w_gates"] + p["b_gates"]
     st = _slstm_start(cfg, x.shape[0], x.device) if state is None else state
-    y, (hf, cf, nf, mf) = _slstm_scan(cfg, p, gx, st["h"], st["c"],
-                                      st["n"], st["m"])
+    y, hf, cf, nf, mf = L.batch_parallel(
+        lambda *a: _slstm_steps(cfg, *a),
+        (p["r_gates"], gx, st["h"], st["c"], st["n"], st["m"]),
+        (False,) + (True,) * 5, n_out=5)
     out = L.mlp_apply(p["up"], y.to(x.dtype))
     return x, out, {"h": hf, "c": cf, "n": nf, "m": mf}
 

@@ -201,10 +201,11 @@ def test_attention_kernel_sq_ne_skv_matches_plain(cuda_device, b, hq, hkv,
                .to(getattr(torch, dtype)).transpose(1, 2)
                for h, s in ((hq, sq), (hkv, skv), (hkv, skv)))
     before = flash_attention.launches
-    at_shape = flash_attention.by_shape[(sq, skv, False)]
+    key = (b, hq, hkv, sq, skv, d, q.dtype, False, 0)
+    at_shape = flash_attention.calls[key]
     got = ops.attention(q, k, v, causal=False)
     assert flash_attention.launches == before + 1
-    assert flash_attention.by_shape[(sq, skv, False)] == at_shape + 1
+    assert flash_attention.calls[key] == at_shape + 1
     assert got.shape == q.shape
     _close(got, ref.flash_attention_ref(q, k, v, causal=False), dtype)
     assert torch.equal(got, ops.attention(q, k, v, causal=False))

@@ -9,6 +9,8 @@ chunked scan against the exact recurrence in f32). Inputs are made once with
 numpy and handed to both sides. The CUDA kernels themselves are compared
 with the plain versions in ``test_torch_cuda.py``, which runs on a card.
 """
+import types
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -662,12 +664,17 @@ def test_ops_ref_backend_equals_auto_on_cpu():
 
 
 def test_ops_rejects_unknown_backend_and_device():
+    """An unknown backend or device raises; a meta tensor takes the
+    shape-only op of ``kernels/meta.py`` (the dry run's route)."""
     x = torch.randn(3, 16)
     with pytest.raises(ValueError, match="backend"):
         ops.rmsnorm(x, x[0], backend="pallas")
+    other = types.SimpleNamespace(device=torch.device("xpu"))
+    with pytest.raises(ValueError, match="xpu"):
+        ops._use_kernel(other, "auto")
     meta = torch.empty(3, 16, device="meta")
-    with pytest.raises(ValueError, match="meta"):
-        ops.rmsnorm(meta, meta[0])
+    y = ops.rmsnorm(meta, meta[0])
+    assert y.device.type == "meta" and y.shape == meta.shape
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():

@@ -50,7 +50,7 @@ from repro.data import TokenSource as JTokenSource
 from repro.launch.step_fns import make_model as jmake_model
 from repro.launch.train import build_trainer as jbuild_trainer
 from repro.launch.train import build_workload as jbuild_workload
-from repro_torch.configs import get_arch
+from repro_torch.configs import ARCHS, get_arch
 from repro_torch.configs.base import FTConfig
 from repro_torch.core.ft_runtime import FTTrainer, _copy_tree
 from repro_torch.ft import TrainReport, TrainWorkload
@@ -175,16 +175,15 @@ def test_loss_and_every_gradient_match(dtype, tol, monkeypatch):
 
 
 def test_families_without_a_train_port_raise():
-    """Each names its item of ROADMAP.md's Queue 1 (the hybrid trains:
-    ``tests/test_torch_zamba_train.py``; the VLM:
-    ``tests/test_torch_vlm_train.py``)."""
-    for arch, item in (("mixtral-8x7b", "item 5"),):
-        cfg = get_arch(arch).reduced()
-        run = RunConfig(model=cfg, shape=ShapeConfig("t", seq_len=8,
-                                                    global_batch=1,
-                                                    kind="train"))
-        with pytest.raises(NotImplementedError, match=item):
-            make_train_step(run)
+    """Every family of the registry trains since the MoE does
+    (``tests/test_torch_moe_train.py``); a family the port does not know
+    raises."""
+    shape = ShapeConfig("t", seq_len=8, global_batch=1, kind="train")
+    for cfg in ARCHS.values():
+        make_train_step(RunConfig(model=cfg.reduced(), shape=shape))
+    odd = dataclasses.replace(get_arch("qwen3-8b").reduced(), family="rnn")
+    with pytest.raises(NotImplementedError, match="'rnn'"):
+        make_train_step(RunConfig(model=odd, shape=shape))
 
 
 # ------------------------------------------------------------- trajectory

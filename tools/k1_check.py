@@ -195,14 +195,12 @@ def backward_rows(card, flush, gen, source):
         else:
             ly = torch.nn.functional.rms_norm(lx, (shape[-1],), lw, eps)
             outs, ins, grads = [ly], [lx, lw], [dy]
-        n = x.numel()
         cs.emit({"time": "add_rmsnorm_bwd" if fused else "rmsnorm_bwd",
                  "call": call, "shape": list(shape), "source": source,
                  "ms": cs.time_ms(lambda: bwd(dy, x, ds, w, eps), flush),
                  "library_ms": cs._grad_ms(outs, ins, grads, flush),
-                 # as chip_smoke.py counts: inputs once, dx and dw once
-                 **cs.bound(((4 if fused else 3) * n + 2 * shape[-1]) * 2,
-                            (8 if fused else 7) * n, BF),
+                 **cs.bound((cs.cost.add_rmsnorm_bwd if fused
+                             else cs.cost.rmsnorm_bwd)(shape, BF)),
                  "share_of_tolerance": share,
                  "reruns_bitwise": all(torch.equal(a, b_)
                                        for a, b_ in zip(got, again)),

@@ -118,7 +118,6 @@ def main() -> int:
         again = bwd(q, k, v, o, do, lse)
         bitwise = all(torch.equal(a, b) for a, b in zip(got, again))
         del want, again
-        pairs = cs.B * hq * cs.S * (cs.S + 1) // 2
         lib, _ = cs._sdpa_bwd_ms(q, k, v, do, flush, deterministic=False)
         lib_det, _ = cs._sdpa_bwd_ms(q, k, v, do, flush, deterministic=True)
         cs.emit({"time": "flash_attention_bwd", "arch": arch,
@@ -126,10 +125,8 @@ def main() -> int:
                  "reads_lse": reads_lse,
                  "ms": cs.time_ms(lambda: bwd(q, k, v, o, do, lse), flush),
                  "library_ms": lib, "library_deterministic_ms": lib_det,
-                 # as chip_smoke.py counts: five products, operands once
-                 **cs.bound((3 * q.numel() + 2 * k.numel()) * 2
-                            + (q.numel() + 2 * k.numel()) * 2,
-                            10 * dh * pairs, BF),
+                 **cs.bound(cs.cost.attention_bwd(cs.B, hq, hkv, cs.S,
+                                                  cs.S, dh, BF)),
                  "share_of_tolerance": {"dq": shares[0], "dk": shares[1],
                                         "dv": shares[2]},
                  "reruns_bitwise": bitwise,
