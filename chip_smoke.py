@@ -523,10 +523,11 @@ def phase_rmsnorm(state):
     worst = worst_add = 0.0
     dq, dh, hq, hkv = (QWEN.d_model, QWEN.resolved_head_dim, QWEN.n_heads,
                        QWEN.n_kv_heads)
-    # ragged row counts, widths of the generic kernels (a warp; 256
-    # threads of up to 8 chunks) and a row longer than registers hold
+    # ragged row counts, widths of the generic kernels (a warp of 1, 2 or
+    # 4 chunks a lane; 128 threads of 2; 256 threads of 2, 4 or 8) and a
+    # row longer than registers hold
     other = [(B * S * hq + 5, dh), (1000 + 3, dq), (37, 200), (9, 1000),
-             (3, 40960)]
+             (5, 1600), (2, 2400), (3, 5600), (3, 40960)]
     for dtype in (torch.bfloat16, torch.float32):
         for rows, d in _k1_shapes() + other:
             x = _rand(gen, (rows, d), dtype)

@@ -21,9 +21,21 @@
 //   compile time for the row widths of the served models, so that every
 //   thread does the same loads: a 128-wide bf16 row (the qk-norm heads) is
 //   16 lanes of one chunk, two rows a warp and 16 rows a block; d = 3584,
-//   4096 and 7168 are 224, 256 and 448 threads of two chunks. A generic
-//   single-pass kernel (a warp, or 256 threads of up to 8 chunks, with
-//   predicated loads) takes any other aligned row up to 2048 chunks.
+//   4096 and 7168 are 224, 256 and 448 threads of two chunks.
+// * The narrow widths (whisper-tiny's d 384, xlstm-350m's d 1024) are
+//   rows of 48 and 128 bf16 chunks, too few for a block of their own: a
+//   row there is 16 lanes of three chunks (16 rows a block) or 32 lanes of
+//   four (8 rows a block); in f32, 32 lanes of three or eight. What bounds
+//   them is the number of rows in flight: one row a 256-thread block with
+//   eight chunk slots a thread (the generic layout before) held 171-211
+//   registers a thread, one block an SM, and ran [4, 1500, 384] in ~45
+//   waves of one load round each; sized to the row, a thread holds 3-4
+//   chunks of x, r and w (62-80 registers) and a block 8-16 rows.
+// * Any other aligned row up to 2048 chunks takes the generic single-pass
+//   kernel with the smallest layout that covers it (predicated loads): a
+//   warp of 1, 2 or 4 chunks a lane up to 128 chunks, then 128 threads of
+//   two, then 256 threads of 2, 4 or 8, so that every lane of a row holds
+//   at least one chunk.
 // * Rows that are not 16-byte aligned (the scalar path) or longer than
 //   that take the two-pass kernels: the sum of squares, then a second read
 //   of the row (an L1 hit; the fused form reads back the s it wrote).
@@ -45,7 +57,7 @@
 namespace {
 
 constexpr int kThreads = 256;       // block of the warp and generic kernels
-constexpr int kGenericCpt = 8;      // chunks per thread, generic kernel
+constexpr int kRegsMaxChunks = 2048;  // one pass in registers up to here
 constexpr int kWarpRowsMaxD = 1024; // two-pass: a warp per row up to here
 
 __device__ __forceinline__ float to_float(float v) { return v; }
@@ -317,11 +329,18 @@ void launch(const Args<T>& a, cudaStream_t stream) {
     return;
   }
   // the served widths: every thread does the same number of loads
-  switch (a.d / kVec) {
+  const int nchunk = a.d / kVec;
+  switch (nchunk) {
     case 16:    // d 128 bf16
       return launch_regs<T, kVec, 16, 1, true, kAdd>(a, stream);
     case 32:    // d 256 bf16, d 128 f32
       return launch_regs<T, kVec, 32, 1, true, kAdd>(a, stream);
+    case 48:    // d 384 bf16 (whisper-tiny): 16 rows a block
+      return launch_regs<T, kVec, 16, 3, true, kAdd>(a, stream);
+    case 96:    // d 384 f32: 8 rows a block
+      return launch_regs<T, kVec, 32, 3, true, kAdd>(a, stream);
+    case 128:   // d 1024 bf16 (xlstm-350m): 8 rows a block
+      return launch_regs<T, kVec, 32, 4, true, kAdd>(a, stream);
     case 448:   // d 3584 bf16
       return launch_regs<T, kVec, 224, 2, true, kAdd>(a, stream);
     case 512:   // d 4096 bf16
@@ -335,11 +354,25 @@ void launch(const Args<T>& a, cudaStream_t stream) {
     default:
       break;
   }
-  const int nchunk = a.d / kVec;
+  if constexpr (sizeof(T) == 4) {
+    if (nchunk == 256)  // d 1024 f32: 8 rows a block
+      return launch_regs<T, kVec, 32, 8, true, kAdd>(a, stream);
+  }
+  // the generic layouts: the fewest chunk slots a thread that cover the row
   if (nchunk <= 32)
     launch_regs<T, kVec, 32, 1, false, kAdd>(a, stream);
-  else if (nchunk <= kThreads * kGenericCpt)
-    launch_regs<T, kVec, kThreads, kGenericCpt, false, kAdd>(a, stream);
+  else if (nchunk <= 64)
+    launch_regs<T, kVec, 32, 2, false, kAdd>(a, stream);
+  else if (nchunk <= 128)
+    launch_regs<T, kVec, 32, 4, false, kAdd>(a, stream);
+  else if (nchunk <= 256)
+    launch_regs<T, kVec, 128, 2, false, kAdd>(a, stream);
+  else if (nchunk <= 512)
+    launch_regs<T, kVec, kThreads, 2, false, kAdd>(a, stream);
+  else if (nchunk <= 1024)
+    launch_regs<T, kVec, kThreads, 4, false, kAdd>(a, stream);
+  else if (nchunk <= kRegsMaxChunks)
+    launch_regs<T, kVec, kThreads, 8, false, kAdd>(a, stream);
   else
     launch_two_pass<T, kVec, kAdd>(a, stream);
 }

@@ -18,7 +18,7 @@
 // read once and dx written once, so the least time is (3 rows d + d) bytes
 // / 3.35 TB/s, fused (4 rows d + d).
 //
-// Design: two launches.
+// Design: two launches at the wide widths, one at the narrow ones.
 // * rms_bwd_regs, one pass with the row in registers, as the forward's
 //   rmsnorm_regs: each thread issues all its 16-byte loads of x, dy (and
 //   ds) before the reductions (loading the next row ahead of the current
@@ -34,8 +34,31 @@
 //   columns in float64 over the run, and the block writes one float64 dw
 //   partial [d] (rows sharing a block's columns are summed through shared
 //   memory in slot order).
-// * rms_bwd_dw_reduce sums the partials of each column in a fixed order
-//   (eight strided groups, then the groups) and rounds once to w's dtype.
+// * The narrow widths (whisper-tiny's d 384, xlstm-350m's d 1024; 48 and
+//   128 bf16 chunks) take rms_bwd_narrow, one pass in the same way but
+//   with many rows a block: 16 lanes of three chunks (16 rows an
+//   iteration) or 32 lanes of four (8 rows), in f32 32 lanes of three or
+//   eight. What bounds them is the rows in flight, so registers: the
+//   rms_bwd_regs layout at these widths needed 244-246 registers a thread
+//   at d 1024 (one block an SM, and 24-32 float64 accumulators a thread).
+//   rms_bwd_narrow holds x, dy, ds and w as the raw 16-byte chunks it
+//   loaded (4 registers a chunk, widened where used) and keeps the block's
+//   dw column sums with the thread that owns the column: each iteration
+//   every thread writes its float64 products dy x rstd to shared memory,
+//   one chunk slot k at a time, and each owner adds them in slot order.
+//   The slots of one k take kThreads * VEC doubles (16 KB in bf16; two
+//   buffers, 32 KB, so one barrier a k), not the [slots][d] array that
+//   rms_bwd_regs's slot sum would need at these widths (48-64 KB, above
+//   the 48 KB of static shared memory a block may have). Its launch is
+//   cooperative: after a grid barrier the same blocks sum the partials
+//   into dw (8 columns at a time, 32 strided groups of partials, then the
+//   groups, in order), so the narrow widths take one launch; a second
+//   launch cost ~2.3 us more at xlstm-350m's [4, 512, 1024] on the H100,
+//   a quarter of the whole. The grid is at most regs_blocks_target(d)
+//   blocks and no more than fit the card at once (two an SM in bf16).
+// * rms_bwd_dw_reduce (after rms_bwd_regs) sums the partials of each
+//   column in a fixed order (eight strided groups, then the groups) and
+//   rounds once to w's dtype.
 //   The sums across rows stay in float64: an f32 sum missed the dw
 //   tolerance by 2.8x at 65,536 rows.
 // Rows that are not 16-byte aligned or of other widths take the generic
@@ -43,13 +66,15 @@
 // row read twice, rstd to scratch), rms_bwd_dw_part (a thread per column
 // over a fixed chunk of rows, float64) and the same reduce.
 // The run of rows a block takes is a function of (rows, d) and the route,
-// which (dtype, d, alignment) fix, and nothing is atomic, so reruns are
-// bitwise identical.
+// which (dtype, d, alignment) fix (and, for the cooperative grid, the
+// card's SM count), and no sum is atomic, so reruns are bitwise
+// identical.
 //
 // Rows are addressed as the forward addresses them: row_offset =
 // (row / inner_n) * outer_stride + (row % inner_n) * inner_stride, for x,
 // dy and ds each. dx is contiguous [rows, d].
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
@@ -336,8 +361,150 @@ rms_bwd_regs(Args<T> a) {
   }
 }
 
-// Rows a block of the one-pass kernel takes: about kRegsBlocks(d) blocks,
-// a whole number of the kernel's row slots. A function of (rows, d, slots).
+// ------------------------------------------- one pass, narrow rows
+
+// Raw 16-byte chunks, widened to f32 where they are used: a chunk held
+// across the reductions costs 4 registers, not VEC.
+__device__ __forceinline__ uint4 load_raw(const void* p) {
+  return *reinterpret_cast<const uint4*>(p);
+}
+
+template <typename T>
+__device__ __forceinline__ float elem(const uint4& raw, int i) {
+  return to_float(reinterpret_cast<const T*>(&raw)[i]);
+}
+
+// The narrow widths (d 384 and 1024), launched cooperatively: rows of
+// CPT > 1 chunks a lane on TPR <= 32 lanes, kSlots = kThreads / TPR rows
+// an iteration, block b taking rows [b rows_per_block, (b + 1)
+// rows_per_block), then, after a grid barrier, dw. As rms_bwd_regs,
+// but sized so that two blocks fit an SM: x, dy, ds and w are held as
+// loaded (raw chunks), and the block's dw column sums are kept by the
+// thread that owns the column (CPT doubles a thread) instead of CPT * VEC
+// float64 accumulators in every thread. Each iteration, for each chunk
+// slot k, every thread writes its products dy x rstd (float64) to shared
+// memory and each column's owner adds the live slots in slot order (two
+// buffers, one barrier a k); the sums run over the block's rows in row
+// order, and each owner writes its columns' sums as the block's partial.
+template <typename T, int VEC, int TPR, int CPT, bool kDs>
+__global__ void __launch_bounds__(kThreads) rms_bwd_narrow(Args<T> a) {
+  constexpr int kSlots = kThreads / TPR;
+  constexpr int kSpan = TPR * VEC;  // the columns of one chunk slot k
+  static_assert(TPR <= 32 && kSpan <= kThreads, "a narrow layout");
+  // red[buf][slot][i * TPR + lane]: element i of the lane's chunk; a
+  // warp's stores (one i) and the owners' reads are consecutive doubles.
+  // 2 x 16 KB in bf16, 2 x 8 KB in f32.
+  __shared__ double red[2][kSlots][kSpan];
+  const int lane = threadIdx.x % TPR, slot = threadIdx.x / TPR;
+  const int r0 = blockIdx.x * a.rows_per_block;
+  const int r1 = min(a.rows, r0 + a.rows_per_block);
+  const float inv_d = 1.f / static_cast<float>(a.d);
+  // thread t < kSpan owns column k kSpan + (t % TPR) VEC + t / TPR of each k
+  const bool owner = threadIdx.x < kSpan;
+  const int own_col = (threadIdx.x % TPR) * VEC + threadIdx.x / TPR;
+
+  uint4 w[CPT];
+  double colsum[CPT];
+#pragma unroll
+  for (int k = 0; k < CPT; ++k) {
+    w[k] = load_raw(a.w + (lane + k * TPR) * VEC);
+    colsum[k] = 0.0;
+  }
+  int buf = 0;
+  for (int base = r0; base < r1; base += kSlots) {
+    const int row = base + slot;
+    const int nlive = min(kSlots, r1 - base);
+    const bool live = slot < nlive;  // the group stays for the shuffles
+    uint4 x[CPT], dy[CPT], ds[kDs ? CPT : 1];
+    float sxx = 0.f, sxg = 0.f;
+    if (live) {
+      // every load of the row is issued before any of them is used
+      const T* xr = a.x + a.vx.row(row);
+      const T* dyr = a.dy + a.vdy.row(row);
+      const T* dsr = kDs ? a.ds + a.vds.row(row) : nullptr;
+#pragma unroll
+      for (int k = 0; k < CPT; ++k) {
+        const int c = (lane + k * TPR) * VEC;
+        x[k] = load_raw(xr + c);
+        dy[k] = load_raw(dyr + c);
+        if constexpr (kDs) ds[k] = load_raw(dsr + c);
+      }
+#pragma unroll
+      for (int k = 0; k < CPT; ++k) {
+#pragma unroll
+        for (int i = 0; i < VEC; ++i) {
+          const float xv = elem<T>(x[k], i);
+          sxx = fmaf(xv, xv, sxx);
+          sxg = fmaf(xv, elem<T>(dy[k], i) * elem<T>(w[k], i), sxg);
+        }
+      }
+    }
+    sxx = group_sum<TPR>(sxx);
+    sxg = group_sum<TPR>(sxg);
+    const float rstd = rsqrtf(sxx * inv_d + a.eps);
+    const float coef = rstd * rstd * rstd * sxg * inv_d;
+    T* dxr = a.dx + static_cast<int64_t>(row) * a.d;
+#pragma unroll
+    for (int k = 0; k < CPT; ++k) {
+      if (live) {
+        float v[VEC];
+#pragma unroll
+        for (int i = 0; i < VEC; ++i) {
+          const float xv = elem<T>(x[k], i), dyv = elem<T>(dy[k], i);
+          v[i] = rstd * (dyv * elem<T>(w[k], i)) - xv * coef;
+          if constexpr (kDs) v[i] += elem<T>(ds[k], i);
+          red[buf][slot][i * TPR + lane] =
+              static_cast<double>(dyv) * (static_cast<double>(xv) * rstd);
+        }
+        store_chunk<T, VEC>(dxr + (lane + k * TPR) * VEC, v);
+      }
+      // k's products are in; the barrier also means every owner has read
+      // the other buffer (k - 1), which k + 1 writes
+      __syncthreads();
+      if (owner) {
+        for (int sl = 0; sl < nlive; ++sl)
+          colsum[k] += red[buf][sl][threadIdx.x];
+      }
+      buf ^= 1;
+    }
+  }
+  if (owner) {
+    double* out = a.part + static_cast<int64_t>(blockIdx.x) * a.d;
+#pragma unroll
+    for (int k = 0; k < CPT; ++k) out[k * kSpan + own_col] = colsum[k];
+  }
+  // every block's partial is written (the grid barrier fences memory);
+  // then dw: the grid takes runs of kCols columns in turn, and in each
+  // run 32 groups sum the partials g, g + 32, ... in order, then one
+  // thread a column sums the 32 groups in order
+  cooperative_groups::this_grid().sync();
+  constexpr int kCols = 8, kGroups = kThreads / kCols;
+  __shared__ double grp[kGroups][kCols];
+  const int g = threadIdx.x / kCols, j = threadIdx.x % kCols;
+  const int n = gridDim.x;
+  for (int c0 = blockIdx.x * kCols; c0 < a.d; c0 += n * kCols) {
+    const int c = c0 + j;
+    double acc = 0.0;
+    if (c < a.d) {
+#pragma unroll 4
+      for (int p = g; p < n; p += kGroups)
+        acc += a.part[static_cast<int64_t>(p) * a.d + c];
+    }
+    grp[g][j] = acc;
+    __syncthreads();
+    if (g == 0 && c < a.d) {
+      double t = 0.0;
+#pragma unroll
+      for (int q = 0; q < kGroups; ++q) t += grp[q][j];
+      a.dw[c] = from_float<T>(static_cast<float>(t));
+    }
+    __syncthreads();
+  }
+}
+
+// Rows a block of the one-pass kernels takes: about `blocks` blocks, a
+// whole number of the kernel's row slots. A function of (rows, blocks,
+// slots); both kernels aim at regs_blocks_target(d).
 constexpr int kRegsBlocksNarrow = 512;   // d <= 256: partials are small
 constexpr int kRegsBlocksWide = 264;     // two blocks an SM on the H100
 
@@ -345,9 +512,8 @@ int regs_blocks_target(int d) {
   return d <= 256 ? kRegsBlocksNarrow : kRegsBlocksWide;
 }
 
-int regs_rows_per_block(int rows, int d, int slots) {
-  const int target = regs_blocks_target(d);
-  const int per = (rows + target - 1) / target;
+int rows_per_block(int rows, int blocks, int slots) {
+  const int per = (rows + blocks - 1) / blocks;
   return (per + slots - 1) / slots * slots;
 }
 
@@ -355,7 +521,7 @@ template <typename T, int VEC, int TPR, int CPT, bool kExact>
 void launch_regs(Args<T> a, cudaStream_t stream) {
   constexpr int kSlots = TPR <= 32 ? kThreads / TPR : 1;
   constexpr int kBlock = TPR <= 32 ? kThreads : TPR;
-  a.rows_per_block = regs_rows_per_block(a.rows, a.d, kSlots);
+  a.rows_per_block = rows_per_block(a.rows, regs_blocks_target(a.d), kSlots);
   const int blocks = (a.rows + a.rows_per_block - 1) / a.rows_per_block;
   if (a.ds)
     rms_bwd_regs<T, VEC, TPR, CPT, kExact, true>
@@ -365,6 +531,32 @@ void launch_regs(Args<T> a, cudaStream_t stream) {
         <<<blocks, kBlock, 0, stream>>>(a);
   rms_bwd_dw_reduce<T><<<(a.d + 31) / 32, kThreads, 0, stream>>>(
       a.part, a.dw, blocks, a.d);
+}
+
+// One cooperative launch (the grid barrier needs every block resident):
+// about regs_blocks_target(d) blocks, and no more than fit the card at
+// once.
+template <typename T, int VEC, int TPR, int CPT>
+void launch_narrow(Args<T> a, cudaStream_t stream) {
+  const void* fn =
+      a.ds ? reinterpret_cast<const void*>(
+                 &rms_bwd_narrow<T, VEC, TPR, CPT, true>)
+           : reinterpret_cast<const void*>(
+                 &rms_bwd_narrow<T, VEC, TPR, CPT, false>);
+  int dev = 0, sms = 0, per_sm = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+          cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, kThreads,
+                                                    0) != cudaSuccess)
+    return;  // the error stays for cudaGetLastError
+  const int fit = sms * per_sm, target = regs_blocks_target(a.d);
+  a.rows_per_block =
+      rows_per_block(a.rows, target < fit ? target : fit, kThreads / TPR);
+  const int blocks = (a.rows + a.rows_per_block - 1) / a.rows_per_block;
+  void* args[] = {&a};
+  cudaLaunchCooperativeKernel(fn, dim3(blocks), dim3(kThreads), args, 0,
+                              stream);
 }
 
 // ------------------------------------------------------------------ route
@@ -399,6 +591,12 @@ void run(Args<T> a, cudaStream_t st) {
         return launch_regs<T, kVec, 16, 1, true>(a, st);
       case 32:    // d 256 bf16, d 128 f32
         return launch_regs<T, kVec, 32, 1, true>(a, st);
+      case 48:    // d 384 bf16 (whisper-tiny): 16 rows an iteration
+        return launch_narrow<T, kVec, 16, 3>(a, st);
+      case 96:    // d 384 f32: 8 rows an iteration
+        return launch_narrow<T, kVec, 32, 3>(a, st);
+      case 128:   // d 1024 bf16 (xlstm-350m): 8 rows an iteration
+        return launch_narrow<T, kVec, 32, 4>(a, st);
       case 448:   // d 3584 bf16
         return launch_regs<T, kVec, 224, 2, true>(a, st);
       case 512:   // d 4096 bf16
@@ -408,7 +606,9 @@ void run(Args<T> a, cudaStream_t st) {
       default:
         break;
     }
-    if constexpr (sizeof(T) == 4) {  // four f32 chunks a thread
+    if constexpr (sizeof(T) == 4) {  // f32: d 1024 eight chunks a lane,
+                                     // 4096 and 7168 four a thread
+      if (a.d == 1024) return launch_narrow<T, kVec, 32, 8>(a, st);
       if (a.d == 4096) return launch_regs<T, kVec, 256, 4, true>(a, st);
       if (a.d == 7168) return launch_regs<T, kVec, 448, 4, true>(a, st);
     }

@@ -5,7 +5,12 @@ Replaces the Pallas TPU kernel ``repro/kernels/rmsnorm.py::rmsnorm``. It is
 memory-bound on the H100 (about 4 flops per element against two accesses),
 so its least time is (2 * rows * d + d) * bytes / 3.35 TB/s; the kernel
 reads each row once with 16-byte loads into registers, reduces in f32 and
-writes once (see the source for the design). ``add_rmsnorm`` is the same
+writes once, with threads per row and loads per thread fixed for each
+served width: a block of 256 threads holds one row at d 3584-7168 and
+8-16 rows at the narrow widths d 384 and 1024 (whisper-tiny, xlstm-350m),
+so that enough rows are in flight (see the source for the design; other
+aligned widths take the smallest generic layout that covers the row).
+``add_rmsnorm`` is the same
 kernel with the residual add before the norm fused in: s = x + r rounded
 to x's dtype, y = rmsnorm(s), one launch. ``ops.rmsnorm`` and
 ``ops.add_rmsnorm`` route CUDA tensors here and CPU tensors to ``ref``.
@@ -14,9 +19,12 @@ to x's dtype, y = rmsnorm(s), one launch. ``ops.rmsnorm`` and
 ``csrc/rmsnorm_bwd.cu`` (a library of their own, so the tuned forward
 library is untouched): one pass over the rows with 16-byte loads into
 registers that writes dx and float64 dw partials, then a reduce of the
-partials (two launches; other widths and unaligned rows take a generic
-path of three); ``kernels.autograd`` calls them from the backward of its
-``torch.autograd.Function``s.
+partials: two launches at the wide served widths, one cooperative launch
+at the narrow ones (d 384 and 1024: many rows a block, the reduce after a
+grid barrier); other widths and unaligned rows take a generic path of
+three. The scratch holds the partials of whichever route runs
+(``rmsnorm_bwd_scratch_bytes``); ``kernels.autograd`` calls them from the
+backward of its ``torch.autograd.Function``s.
 """
 from __future__ import annotations
 

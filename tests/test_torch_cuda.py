@@ -72,12 +72,17 @@ def _close(got, want, dtype):
 
 
 # (rows, d) of every K1 call of the served paths (qwen3-8b and zamba2-7b,
-# prefill at 4 x 512 rows and decode at 4), then ragged row counts, other
-# widths (the generic kernels) and a row longer than registers hold
+# prefill at 4 x 512 rows and decode at 4; whisper-tiny's encoder and
+# decoder prefill at d 384, xlstm-350m's at d 1024), then ragged row
+# counts, other widths (each generic layout: a warp of 1, 2 or 4 chunks a
+# lane, 128 threads of 2, 256 threads of 2, 4 or 8) and a row longer than
+# registers hold
 K1_SHAPES = [(2048, 4096), (4, 512, 32, 128), (16384, 128), (2048, 3584),
              (2048, 7168), (4, 4096), (4, 3584), (4, 7168), (4, 1, 32, 128),
              (32, 128), (1003, 128), (3, 5, 256), (65541, 128), (1003, 4096),
-             (37, 200), (9, 1000), (3, 40960)]
+             (37, 200), (9, 1000), (3, 40960), (4, 1500, 384),
+             (4, 416, 384), (4, 512, 1024), (5, 1600), (2, 2400), (3, 5600),
+             (2, 12000)]
 
 
 def _rand(gen, shape, dtype):
@@ -115,7 +120,8 @@ def test_rmsnorm_kernel_reads_strided_and_unaligned_views(cuda_device,
 
 @pytest.mark.parametrize("shape", [(4, 512, 4096), (4, 512, 3584),
                                    (4, 1, 4096), (4, 1, 3584), (1003, 4096),
-                                   (37, 200), (3, 40960)])
+                                   (37, 200), (3, 40960), (4, 1500, 384),
+                                   (4, 416, 384), (4, 512, 1024)])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_add_rmsnorm_is_bitwise_the_unfused_pair(cuda_device, shape, dtype):
     """The fused residual add + norm: s is bitwise ``x + r`` and y bitwise
@@ -530,7 +536,9 @@ def _bwd_close(got, want, dtype, rows=None):
 
 
 @pytest.mark.parametrize("shape", [(4, 512, 32, 128), (2048, 4096),
-                                   (2048, 3584), (1003, 128), (37, 200)],
+                                   (2048, 3584), (1003, 128), (37, 200),
+                                   (4, 1500, 384), (4, 416, 384),
+                                   (4, 512, 1024)],
                          ids=str)
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_rmsnorm_bwd_matches_plain(cuda_device, shape, dtype):

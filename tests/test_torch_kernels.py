@@ -590,7 +590,8 @@ def test_mamba_tma_layout_copies_what_the_maps_cannot_address(
 
 # ------------------------------------------------------------------- rmsnorm
 
-@pytest.mark.parametrize("shape", [(8, 128), (3, 5, 256), (1, 1, 64)])
+@pytest.mark.parametrize("shape", [(8, 128), (3, 5, 256), (1, 1, 64),
+                                   (6, 384), (2, 3, 1024)])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_rmsnorm_matches_ref_and_pallas(shape, dtype):
     rng = np.random.default_rng(5)
@@ -612,7 +613,8 @@ def test_rmsnorm_eps_reaches_plain_version(eps):
            jref.rmsnorm_ref(jx * 1e-3, jw, eps=eps), "float32")
 
 
-@pytest.mark.parametrize("shape", [(8, 128), (2, 3, 256), (4, 1, 96)])
+@pytest.mark.parametrize("shape", [(8, 128), (2, 3, 256), (4, 1, 96),
+                                   (6, 384), (2, 3, 1024)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_add_rmsnorm_cpu_route_is_the_add_then_the_norm(shape, dtype):
     """The plain route of the fused entry is bitwise the pair the models
@@ -627,7 +629,8 @@ def test_add_rmsnorm_cpu_route_is_the_add_then_the_norm(shape, dtype):
                                atol=0)
 
 
-@pytest.mark.parametrize("shape", [(8, 128), (3, 5, 256), (1, 1, 64)])
+@pytest.mark.parametrize("shape", [(8, 128), (3, 5, 256), (1, 1, 64),
+                                   (6, 384), (2, 3, 1024)])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_add_rmsnorm_matches_jax_add_and_pallas(shape, dtype):
     """Against JAX's ``x + h`` (the same rounding of the sum, bitwise) and
@@ -642,6 +645,36 @@ def test_add_rmsnorm_matches_jax_add_and_pallas(shape, dtype):
     _close(y, jref.rmsnorm_ref(js, jw), dtype)
     _close(y, jops.rmsnorm(js, jw, backend="interpret", block_rows=4),
            dtype)
+
+
+@pytest.mark.parametrize("shape", [(6, 128), (2, 3, 384), (4, 1024)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kind", ["plain", "fused", "fused_without_ds"])
+def test_rmsnorm_bwd_plain_matches_jax_vjp(shape, dtype, kind):
+    """The plain K1 backward (autograd of ``ref.rmsnorm_ref``, and of the
+    add before it), which the card's backward kernel is held to, against
+    ``jax.vjp`` of the JAX package's ``rmsnorm_ref`` on the same numpy
+    inputs: (dx, dw), and for the fused entry (dsum, dw) with ds given or
+    none (zeros on the JAX side). Tolerance, this file's: f32 2e-5, the
+    two autodiffs sum mean(x^2), sum(x g) and dw's rows in other orders;
+    bf16 rtol 2e-2 / atol 3e-2, one bf16 rounding of an f32 result (both
+    sides add ds to the norm's rounded gradient in bf16)."""
+    rng = np.random.default_rng(9)
+    (jdy, tdy), (jx, tx) = (_pair(rng, shape, dtype) for _ in range(2))
+    jw, tw = _pair(rng, shape[-1:], dtype)
+    if kind == "plain":
+        got = ref.rmsnorm_bwd_ref(tdy, tx, tw)
+        want = jax.vjp(jref.rmsnorm_ref, jx, jw)[1](jdy)
+    else:
+        jds, tds = _pair(rng, shape, dtype)
+        if kind == "fused_without_ds":
+            jds, tds = jnp.zeros_like(jds), None
+        got = ref.add_rmsnorm_bwd_ref(tdy, tds, tx, tw)
+        want = jax.vjp(lambda s, w: (s, jref.rmsnorm_ref(s, w)), jx,
+                       jw)[1]((jds, jdy))
+    for g, w_ in zip(got, want):
+        assert g.dtype == getattr(torch, dtype) and g.shape == w_.shape
+        _close(g, w_, dtype)
 
 
 def test_layers_add_rmsnorm_without_a_pending_branch_is_the_norm():

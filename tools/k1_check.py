@@ -3,24 +3,42 @@
 
     python3 tools/k1_check.py [--csrc DIR] [--cluster] [--backward]
 
-Builds K1 from ``src/repro_torch/kernels/csrc/rmsnorm.cu`` (or from
-``DIR/rmsnorm.cu``, another version of the source such as the parent
-commit's, unpacked under a directory that ``.gitignore`` lists; two
-versions go in two processes, since their libraries share symbols) and
-times, as ``chip_smoke.py`` does, the K1 calls of ``PERF.md``'s kernel
+Builds K1 from ``src/repro_torch/kernels/csrc/rmsnorm.cu``, prints what
+ptxas reported for each instantiation (registers, shared memory, spills)
+and times, as ``chip_smoke.py`` does, the K1 calls of ``PERF.md``'s kernel
 table at the served bf16 shapes: the qwen3-8b prefill layer's four norms,
-the zamba2-7b Mamba block's two and attention application's two, and the
-decode norms; where the source has the fused entry, the fused calls that
-the models now make as well; and the launch floor (an empty kernel).
+the zamba2-7b Mamba block's two and attention application's two, the
+decode norms, and the narrow widths: whisper-tiny's encoder ln1 and
+add+ln2 at [4, 1500, 384], its decoder add+ln_x at [4, 416, 384] and a
+decode add+ln2 at [4, 1, 384], xlstm-350m's ln and add+ln at
+[4, 512, 1024] and a decode add+ln at [4, 1, 1024]; where the source has
+the fused entry, the fused calls that the models now make as well; and the
+launch floor (an empty kernel). Each call's line carries a digest of its
+outputs (seeded inputs), so that two versions of the source can be
+compared bit for bit.
 
 With ``--backward`` it times the backward entries instead, from
 ``rmsnorm_bwd.cu`` of the same directory, at qwen3-8b's train shapes
 (q_norm [4, 512, 32, 128], k_norm [4, 512, 8, 128], the fused add+ln
-[4, 512, 4096]) beside their bounds and the library's backward (autograd
-of ``F.rms_norm``, after ``x + r`` for the fused entry), each first held
-against autograd of the plain version (share of the bf16 tolerance) and
-rerun bitwise. It calls the earlier interface (scratch sized by
-``rmsnorm_bwd_rows_per_chunk``) where the source has it.
+[4, 512, 4096]) and the narrow train shapes (whisper-tiny's encoder
+add+ln [4, 1500, 384] and decoder add+ln [4, 448, 384], xlstm-350m's
+add+ln and ln [4, 512, 1024]) beside their bounds and the library's
+backward (autograd of ``F.rms_norm``, after ``x + r`` for the fused
+entry), with the device time of each of its launches from a profiler
+trace, each first held against autograd of the plain version (share of
+the bf16 tolerance) and rerun bitwise. It calls the earlier interface
+(scratch sized by ``rmsnorm_bwd_rows_per_chunk``) where the source has it.
+
+``--csrc DIR`` compares another version of the source (``DIR/rmsnorm.cu``
+or, with ``--backward``, ``DIR/rmsnorm_bwd.cu``; such as the parent
+commit's, unpacked under a directory that ``.gitignore`` lists) with the
+tree's: it runs DIR, the tree, the tree and DIR again, each in a process
+of its own (their libraries share symbols), prints their lines, then one
+``compare`` line a call: both versions' times (first and second run) and
+whether their outputs are bitwise equal.
+
+    mkdir -p build/parent_csrc && for f in rmsnorm.cu rmsnorm_bwd.cu; do
+      git show HEAD:src/repro_torch/kernels/csrc/$f > build/parent_csrc/$f; done
 
 With ``--cluster`` it also builds ``tools/k1_cluster.cu`` (each decode row
 split over a thread-block cluster of 2-8 CTAs), checks it against the
@@ -31,6 +49,8 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import hashlib
+import json
 import os
 import subprocess
 import sys
@@ -83,7 +103,28 @@ def k1_calls(gen, fused):
             ("ln1_decode", act(B, 1, dq), None, ones(dq)),
             ("q_norm_decode", act(B, 1, 32, 128), None, ones(128))],
     }
+    dw, dx, m, p = (cs.WHISPER.d_model, cs.XLSTM.d_model,
+                    cs.WHISPER.n_frames, cs.WHISPER_PROMPT)
+    rows["whisper-tiny encoder: ln1"] = [
+        ("encoder ln1 d=384", act(B, m, dw), None, ones(dw))]
+    rows["xlstm-350m: ln"] = [("ln d=1024", act(B, S, dx), None, ones(dx))]
     if fused:
+        rows.update({
+            "whisper-tiny encoder: add+ln2": [
+                ("encoder add+ln2 d=384", act(B, m, dw), act(B, m, dw),
+                 ones(dw))],
+            "whisper-tiny decoder: add+ln_x": [
+                ("decoder add+ln_x d=384", act(B, p, dw), act(B, p, dw),
+                 ones(dw))],
+            "whisper-tiny decode: add+ln2": [
+                ("decode add+ln2 d=384", act(B, 1, dw), act(B, 1, dw),
+                 ones(dw))],
+            "xlstm-350m: add+ln": [
+                ("add+ln d=1024", act(B, S, dx), act(B, S, dx), ones(dx))],
+            "xlstm-350m decode: add+ln": [
+                ("decode add+ln d=1024", act(B, 1, dx), act(B, 1, dx),
+                 ones(dx))],
+        })
         rows.update({
             "qwen3-8b prefill layer as served: add+ln1, add+ln2, q, k": [
                 ("add+ln1", act(B, S, dq), act(B, S, dq), ones(dq)),
@@ -164,17 +205,33 @@ def backward_fn():
     return old
 
 
+def digest(*tensors):
+    """sha256 (first 16 hex digits) of the tensors' bytes, in order."""
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().contiguous().view(torch.uint8).cpu().numpy()
+                 .tobytes())
+    return h.hexdigest()[:16]
+
+
 def backward_rows(card, flush, gen, source):
-    """The backward entries at qwen3-8b's train shapes, as chip_smoke.py's
-    train.kernels phase times them."""
+    """The backward entries at qwen3-8b's train shapes and at the narrow
+    widths' (whisper-tiny's d 384, xlstm-350m's d 1024), as
+    chip_smoke.py's train.kernels phase times them."""
     build.build_all(["rmsnorm_bwd"])
     bwd = backward_fn()
     for row in cs.ptxas_report("rmsnorm_bwd"):
         cs.emit({**row, "source": source})
     d, eps = cs.QWEN.d_model, cs.QWEN.norm_eps
-    for call, shape, fused in [("add+ln", (B, S, d), True),
-                               ("q_norm", (B, S, 32, 128), False),
-                               ("k_norm", (B, S, 8, 128), False)]:
+    dw, dx = cs.WHISPER.d_model, cs.XLSTM.d_model
+    for call, shape, fused in [
+            ("add+ln", (B, S, d), True),
+            ("q_norm", (B, S, 32, 128), False),
+            ("k_norm", (B, S, 8, 128), False),
+            ("whisper enc add+ln d=384", (B, cs.WHISPER.n_frames, dw), True),
+            ("whisper dec add+ln d=384", (B, 448, dw), True),
+            ("xlstm add+ln d=1024", (B, S, dx), True),
+            ("xlstm ln d=1024", (B, S, dx), False)]:
         x, dy = cs._rand(gen, shape, BF), cs._rand(gen, shape, BF)
         w = cs._rand(gen, (shape[-1],), BF)
         ds = cs._rand(gen, shape, BF) if fused else None
@@ -201,15 +258,86 @@ def backward_rows(card, flush, gen, source):
                  "library_ms": cs._grad_ms(outs, ins, grads, flush),
                  **cs.bound((cs.cost.add_rmsnorm_bwd if fused
                              else cs.cost.rmsnorm_bwd)(shape, BF)),
+                 "split_ms": cs.kernel_split(lambda: bwd(dy, x, ds, w, eps)),
                  "share_of_tolerance": share,
                  "reruns_bitwise": all(torch.equal(a, b_)
                                        for a, b_ in zip(got, again)),
+                 "digest": digest(*got), "card": card})
+
+
+def forward_rows(card, flush, gen, source):
+    """The forward calls of ``k1_calls``: ptxas lines, each call's times
+    and output digest, each table row's sums, the launch floor."""
+    build.build_all(["rmsnorm"])
+    for row in cs.ptxas_report("rmsnorm"):
+        cs.emit({**row, "source": source})
+    fused = b"add_rmsnorm_fwd" in (build.source_dir("rmsnorm")
+                                   / "rmsnorm.cu").read_bytes()
+    for row, calls in k1_calls(gen, fused).items():
+        digests = {}
+        for call, x, r, w in calls:
+            out = (rmsnorm(x, w, eps=1e-6),) if r is None else \
+                rn.add_rmsnorm(x, r, w, eps=1e-6)
+            digests[call] = digest(*out)
+        tot = cs._rmsnorm_times(card, flush, calls, 1e-6)
+        for call, x, _, _ in calls:
+            cs.emit({"k1_call": call, "row": row, "shape": list(x.shape),
+                     "digest": digests[call], "source": source,
+                     **{k: tot["calls"][call][k]
+                        for k in ("ms", "library_ms", "bound_ms")}})
+        cs.emit({"row": row, "source": source,
+                 **{k: tot[k] for k in ("ms", "plain_ms", "library_ms",
+                                        "bound_ms")},
+                 "card": card})
+    cs._launch_floor(card, flush)
+
+
+def compare_sources(csrc, backward):
+    """DIR, the tree, the tree, DIR, each in a process of its own; then a
+    ``compare`` line a call: the two versions' times and whether their
+    outputs are bitwise equal."""
+    tree = os.path.join(ROOT, "src", "repro_torch", "kernels", "csrc")
+    runs = []
+    for source in (csrc, tree, tree, csrc):
+        cmd = [sys.executable, os.path.abspath(__file__), "--only", source]
+        if backward:
+            cmd.append("--backward")
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        sys.stdout.write(proc.stdout)
+        if proc.returncode != 0:
+            sys.stderr.write(proc.stderr)
+            raise RuntimeError(f"k1_check --only {source} failed "
+                               f"(exit {proc.returncode})")
+        runs.append([json.loads(line) for line in proc.stdout.splitlines()
+                     if line.startswith("{")])
+    by_call = {}
+    for i, lines in enumerate(runs):
+        version = "parent" if i in (0, 3) else "change"
+        for line in lines:
+            if "digest" not in line:
+                continue
+            key = (line.get("row"), line.get("k1_call", line.get("call")),
+                   tuple(line["shape"]))
+            e = by_call.setdefault(key, {"parent_ms": [], "change_ms": [],
+                                         "library_ms": [], "digests": {}})
+            e["digests"].setdefault(version, set()).add(line["digest"])
+            e[f"{version}_ms"].append(line["ms"])
+            e["library_ms"].append(line["library_ms"])
+            e["bound_ms"] = line["bound_ms"]
+    card = cs.card()
+    for (row, call, shape), e in by_call.items():
+        dg = e.pop("digests")
+        cs.emit({"compare": call, "row": row, "shape": list(shape), **e,
+                 "bitwise": dg.get("parent") == dg.get("change"),
+                 "runs_bitwise": all(len(v) == 1 for v in dg.values()),
                  "card": card})
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--csrc", help="directory holding another rmsnorm.cu")
+    ap.add_argument("--csrc", help="directory holding another rmsnorm.cu "
+                    "(or rmsnorm_bwd.cu) to compare with the tree's")
+    ap.add_argument("--only", help=argparse.SUPPRESS)  # one version, here
     ap.add_argument("--cluster", action="store_true",
                     help="also probe the cluster-split decode norm")
     ap.add_argument("--backward", action="store_true",
@@ -218,28 +346,21 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("k1_check: needs an NVIDIA GPU", file=sys.stderr)
         return 1
-    source = "src/repro_torch/kernels/csrc"
     if args.csrc:
-        build.use_source("rmsnorm_bwd" if args.backward else "rmsnorm",
-                         args.csrc)
-        source = args.csrc
-    card = cs.card()
-    if args.backward:
-        backward_rows(card, cs._L2Flush(),
-                      torch.Generator(device="cuda").manual_seed(5), source)
+        compare_sources(args.csrc, args.backward)
         return 0
-    build.build_all(["rmsnorm"])
-    fused = b"add_rmsnorm_fwd" in (build.source_dir("rmsnorm")
-                                   / "rmsnorm.cu").read_bytes()
+    source = "src/repro_torch/kernels/csrc"
+    if args.only:
+        build.use_source("rmsnorm_bwd" if args.backward else "rmsnorm",
+                         args.only)
+        source = args.only
+    card = cs.card()
     flush = cs._L2Flush()
     gen = torch.Generator(device="cuda").manual_seed(5)
-    for row, calls in k1_calls(gen, fused).items():
-        tot = cs._rmsnorm_times(card, flush, calls, 1e-6)
-        cs.emit({"row": row, "source": source,
-                 **{k: tot[k] for k in ("ms", "plain_ms", "library_ms",
-                                        "bound_ms")},
-                 "card": card})
-    cs._launch_floor(card, flush)
+    if args.backward:
+        backward_rows(card, flush, gen, source)
+        return 0
+    forward_rows(card, flush, gen, source)
     if args.cluster:
         cluster_probe(card, flush, gen)
     return 0
