@@ -391,6 +391,15 @@ def phase_device_and_build(state):
     for name in libs:
         for row in ptxas_report(name):
             emit(row)
+    # K2's tensor-core kernels: no spill, and no wgmma that ptxas
+    # serialised (its "Potential Performance Loss" notes: C7513 and kin)
+    bad = [row for name in ("flash_attention", "flash_attention_bwd")
+           for row in ptxas_report(name)
+           if "note" in row or not re.search(
+               r"0 bytes spill stores, 0 bytes spill loads",
+               row.get("spills", ""))]
+    if bad:
+        raise AssertionError(f"ptxas: K2 spills or serialises: {bad}")
 
 
 # ------------------------------------------------------------ phase 1b: comm
@@ -593,7 +602,19 @@ def _whisper_k2_cases():
     kernel's unpaired-head items): the encoder's non-causal 1,500 x 1,500
     (a ragged last key tile, 1,500 = 23 x 64 + 28), the cross-attention
     of the trained 448-token text over the 1,500 frames, the decoder's
-    causal 448 (its served prompt of 416 runs in the serve phase)."""
+    causal 448 (its served prompt of 416 runs in the serve phase).
+
+    The grids at batch 4 on the H100's 132 SMs (one CTA an SM). Forward:
+    the encoder 576 items of 64 rows (flash_fwd64_tc, its 12 key tiles of
+    128 shared 6 and 6 by the warpgroups) in 5 rounds; the cross 416 x
+    1,500 96 items of 128 rows in 1 round on 96 SMs (the last span's 32
+    rows leave its second warpgroup idle); causal 416 96 items
+    (flash_fwd_tc<64>) in 1 round. Backward: dq at the encoder 576 items
+    of 64 rows (the 24 key tiles shared 12 and 12) in 5 rounds, at 448 x
+    1,500 and causal 448 96 items of 128 rows in 1 round; dk/dv at both
+    non-causal shapes 288 items of 128 keys (flash_bwd_dkdv64_tc, a 64-key
+    tile a warpgroup) in 3 rounds, causal 448 168 items of 64 keys
+    (flash_bwd_dkdv_tc<64>) in 2 rounds."""
     w = dict(b=B, hq=WHISPER.n_heads, hkv=WHISPER.n_kv_heads,
              d=WHISPER.resolved_head_dim, window=0)
     return [dict(w, s=WHISPER.n_frames, causal=False),

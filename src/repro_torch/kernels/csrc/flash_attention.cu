@@ -65,6 +65,11 @@
 //     one warpgroup the products wait for the softmax: a software pipeline
 //     of the two products made ptxas serialise every wgmma (its C7513
 //     "Potential Performance Loss" note, which chip_smoke.py would print).
+//   At D 64 (whisper-tiny) rows that see every key go to flash_fwd64_tc
+//   instead: the same items, producer and epilogue with 128-key tiles, and
+//   the keys of long rows split between the two warpgroups where that
+//   fills the card's SMs better (its notes below); causal and windowed
+//   rows keep flash_fwd_tc<64>, whose 64-key tiles mask less.
 //
 // f32: flash_fwd, f32 FMAs on the FP32 pipes (the reduced card-vs-CPU checks
 //   hold the f32 kernel path to 1e-3 of the CPU path, which needs full-f32
@@ -617,6 +622,456 @@ flash_fwd_tc(const __grid_constant__ CUtensorMap tq,
   }
 }
 
+// ------------------------------------------------ bf16 at D 64: 128 keys
+
+// At D 64 a key tile's softmax weighs as much as its two products (a
+// 64 x 64 score tile: 4,096 exponentials a warpgroup, 256 clocks of the
+// SM's 16 a clock, against 2 x 64^3 multiply-adds, 256 clocks at the bf16
+// peak), and what a tile costs beyond its arithmetic (the row max and its
+// two shuffles, the factor, rescaling O, the barrier waits, the wgmma
+// issue and its latency) is paid per tile. flash_fwd64_tc keeps
+// flash_fwd_tc's items, producer, ring and epilogue but takes 128 keys a
+// tile: S = Q K^T is one m64n128k16 product a k-step (K's two 64-row
+// boxes adjacent in shared memory form one 128-row operand), the softmax
+// runs over the row's 32 columns a thread at once, and O += P V takes 8
+// k-steps of 16 keys. 64 + 32 + 32 floats a thread (S, P's fragments,
+// O) fit beside the addresses under the 168 registers of 288 threads.
+//
+// Long non-causal rows where the card's 132 SMs quantise the items badly
+// (the host's choice, kSplit): an item is 64 rows of one head,
+// warpgroup c takes the key tiles t with t % 2 == c, and warpgroup 1
+// hands its (m, l, O) to warpgroup 0 through shared memory, which merges
+// them in a fixed order (m = max(m0, m1), each part scaled by
+// 2^((m_c - m) c)) before the epilogue. At whisper-tiny's encoder (24
+// heads x 1,500 rows) that is 576 items of half the work in 5 rounds
+// instead of 288 in 3.
+constexpr int kKeys64 = 128;  // keys of a D 64 tile
+
+struct Cfg64 {
+  static constexpr int kQTile = kBoxBytes;       // 64 rows of Q, 8 KB
+  static constexpr int kKvTile = 2 * kBoxBytes;  // 128 keys of K or V
+  static constexpr int kStages = 4;              // K/V ring depth
+  // barriers: full then empty, for Q[2], K[kStages], V[kStages]
+  static constexpr int kBars = 2 * (2 + 2 * kStages);
+  // warpgroup 1's part of a split item: m[2], l[2], O[32] a thread
+  static constexpr int kMerge = 36 * 128 * 4;
+  static constexpr int kSmem = 1024 + 2 * kConsumers * kQTile +
+                               2 * kStages * kKvTile + kMerge + 8 * kBars;
+};
+
+// Named barriers of a split item's hand-over (1 and 2 are the epilogue's).
+constexpr int kBarMerge = 3;  // warpgroup 1's part is in shared memory
+constexpr int kBarFree = 4;   // warpgroup 0 has read it
+
+__device__ __forceinline__ void named_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;" ::"r"(id), "r"(threads) : "memory");
+}
+
+#define FA_D8(i)                                                        \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),          \
+      "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+
+// S[64 x 128] (+)= Q[64 x 16] K[128 x 16]^T, both K-major in shared
+// memory.
+__device__ __forceinline__ void wgmma_qk128(float (&d)[64], uint64_t da,
+                                            uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, "
+      "1, 0, 0;\n"
+      "}\n"
+      : FA_D8(0), FA_D8(8), FA_D8(16), FA_D8(24), FA_D8(32), FA_D8(40),
+        FA_D8(48), FA_D8(56)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+#undef FA_D8
+
+// An item of flash_fwd64_tc: item_at's rows and heads (64 rows of one head
+// when split); every row sees all Skv keys, in 128-key tiles.
+template <bool kSplit>
+__device__ __forceinline__ Item item64_at(int w, const Shape& sh) {
+  const int heads = sh.pair_heads ? sh.hq / 2 : sh.hq;
+  const int per = heads * sh.batch;
+  Item it;
+  it.span = sh.pair_heads || kSplit ? kRows : kRows * kConsumers;
+  it.q0 = (sh.n_qt - 1 - w / per) * it.span;
+  it.h = ((w % per) % heads) * (sh.pair_heads ? 2 : 1);
+  it.b = (w % per) / heads;
+  it.n = (sh.skv + kKeys64 - 1) / kKeys64;
+  return it;
+}
+
+// x[0] = the max (kMax) or the sum of x[0..15] by a pairwise tree, its
+// levels written out so that x stays in registers.
+template <bool kMax>
+__device__ __forceinline__ void tree16(float (&x)[16]) {
+  auto op = [](float a, float b) { return kMax ? fmaxf(a, b) : a + b; };
+#pragma unroll
+  for (int j = 0; j < 8; ++j) x[j] = op(x[j], x[j + 8]);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) x[j] = op(x[j], x[j + 4]);
+#pragma unroll
+  for (int j = 0; j < 2; ++j) x[j] = op(x[j], x[j + 2]);
+  x[0] = op(x[0], x[1]);
+}
+
+// softmax_tile over a 128-key tile (keys t0..t0+127) of rows that see
+// every key: keys past Skv masked, the same online update, the row max
+// over the thread's 32 columns by a pairwise tree, P's bf16 A fragments
+// for 8 k-steps (k-step kk: columns of j = 2 kk and 2 kk + 1).
+__device__ __forceinline__ void softmax_tile128(
+    float (&s)[64], uint32_t (&pf)[32], float (&m_run)[2], float (&l_run)[2],
+    float (&corr)[2], int t0, int col, int skv, float scale_log2) {
+  if (t0 + kKeys64 > skv) {
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+#pragma unroll
+      for (int c = 0; c < 2; ++c)
+        if (t0 + 8 * j + col + c >= skv)
+          s[4 * j + c] = s[4 * j + 2 + c] = kNegInf;
+  }
+  float neg[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    float mx[16];
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+      mx[j] = fmaxf(s[4 * j + 2 * i], s[4 * j + 2 * i + 1]);
+    tree16<true>(mx);
+    float m = fmaxf(mx[0], __shfl_xor_sync(0xffffffffu, mx[0], 1));
+    m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 2));
+    const float m_new = fmaxf(m_run[i], m);
+    corr[i] = ex2((m_run[i] - m_new) * scale_log2);
+    neg[i] = m_new == kNegInf ? 0.f : -m_new * scale_log2;
+    m_run[i] = m_new;
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    float ps[16];
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      float& x0 = s[4 * j + 2 * i];
+      float& x1 = s[4 * j + 2 * i + 1];
+      x0 = ex2(fmaf(x0, scale_log2, neg[i]));
+      x1 = ex2(fmaf(x1, scale_log2, neg[i]));
+      ps[j] = x0 + x1;
+    }
+    tree16<false>(ps);
+    l_run[i] = l_run[i] * corr[i] + ps[0];
+  }
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk) {
+    pf[4 * kk + 0] = pack_bf16(s[8 * kk + 0], s[8 * kk + 1]);
+    pf[4 * kk + 1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
+    pf[4 * kk + 2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
+    pf[4 * kk + 3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
+  }
+}
+
+template <bool kSplit>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_fwd64_tc(const __grid_constant__ CUtensorMap tq,
+               const __grid_constant__ CUtensorMap tk,
+               const __grid_constant__ CUtensorMap tv,
+               const __grid_constant__ CUtensorMap to, Shape sh, Perm pq,
+               Perm pk, Perm pv, Perm po, float scale_log2, float* lse,
+               float scale) {
+  using C = Cfg64;
+  constexpr int kSt = C::kStages;
+  extern __shared__ uint8_t smem[];
+  const uint32_t base = (smem_u32(smem) + 1023) & ~1023u;
+  const uint32_t kv_base = base + 2 * kConsumers * C::kQTile;
+  const uint32_t merge = kv_base + 2 * kSt * C::kKvTile;
+  const uint32_t bars = merge + C::kMerge;
+  float* const mbuf =
+      reinterpret_cast<float*>(smem + (merge - smem_u32(smem)));
+  auto q_tile = [&](int i, int c) {
+    return base + C::kQTile * ((i & 1) * kConsumers + c);
+  };
+  auto k_tile = [&](int st) { return kv_base + C::kKvTile * st; };
+  auto v_tile = [&](int st) { return kv_base + C::kKvTile * (kSt + st); };
+  auto q_full = [&](int i) { return bars + 8 * (i & 1); };
+  auto k_full = [&](int st) { return bars + 8 * (2 + st); };
+  auto v_full = [&](int st) { return bars + 8 * (2 + kSt + st); };
+  constexpr int kEmpty = 8 * (2 + 2 * kSt);
+  auto parity = [](int g) { return (uint32_t)((g / kSt) & 1); };
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  if (tid == 0) {
+    for (int i = 0; i < C::kBars / 2; ++i) {
+      mbar_init(bars + 8 * i, 1);
+      mbar_init(bars + kEmpty + 8 * i, kConsumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == kConsumers * 4) {  // the producer warp: one thread copies
+    if (lane != 0) return;
+    int g = 0;
+    for (int i = 0; item_of_round(i) < sh.n_items; ++i) {
+      const Item it = item64_at<kSplit>(item_of_round(i), sh);
+      const int hk = it.h / sh.group;
+      const int n_q = kSplit ? 1 : kConsumers;  // a split item's one Q
+      mbar_wait(q_full(i) + kEmpty, ((i / 2) & 1) ^ 1);
+      mbar_expect(q_full(i), n_q * C::kQTile);
+      for (int c = 0; c < n_q; ++c)
+        tma_load(q_tile(i, c), &tq, q_full(i), 0, rows_of(it, sh, c),
+                 head_of(it, sh, c), it.b, pq);
+      for (int t = 0; t < it.n; ++t, ++g) {
+        const int st = g % kSt, t0 = t * kKeys64;
+        // a second box wholly past Skv arrives as zeros
+        mbar_wait(k_full(st) + kEmpty, parity(g) ^ 1);
+        mbar_expect(k_full(st), C::kKvTile);
+        for (int x = 0; x < 2; ++x)
+          tma_load(k_tile(st) + x * kBoxBytes, &tk, k_full(st), 0,
+                   t0 + kBox * x, hk, it.b, pk);
+        mbar_wait(v_full(st) + kEmpty, parity(g) ^ 1);
+        mbar_expect(v_full(st), C::kKvTile);
+        for (int x = 0; x < 2; ++x)
+          tma_load(v_tile(st) + x * kBoxBytes, &tv, v_full(st), 0,
+                   t0 + kBox * x, hk, it.b, pv);
+      }
+    }
+    return;
+  }
+
+  const int wg = warp / 4, t128 = tid % 128;
+  float acc[32];
+  float s[64];
+  float m_run[2], l_run[2], corr[2];
+  uint32_t pa[32];
+  const int row = 16 * (warp % 4) + lane / 4;  // rows row, row + 8
+  const int col = 2 * (lane % 4);              // columns col, col + 1 of 8
+#pragma unroll
+  for (int i = 0; i < 64; ++i) s[i] = 0.f;
+  const bool signal = t128 == 0;
+  auto release = [&](uint32_t full_bar) {
+    if (signal) mbar_arrive(full_bar + kEmpty);
+  };
+  auto pass = [&](int g) {
+    const int st = g % kSt;
+    mbar_wait(k_full(st), parity(g));
+    release(k_full(st));
+    mbar_wait(v_full(st), parity(g));
+    release(v_full(st));
+  };
+
+  int g = 0;       // the CTA's K/V tiles consumed so far
+  int handed = 0;  // split items warpgroup 1 has handed over
+  for (int i = 0; item_of_round(i) < sh.n_items; ++i) {
+    const Item item = item64_at<kSplit>(item_of_round(i), sh);
+    const int qw = kSplit ? item.q0 : rows_of(item, sh, wg);
+    const int hw = kSplit ? item.h : head_of(item, sh, wg);
+    const int n = item.n;
+    const int last = qw >= sh.sq ? 0 : n;  // no tile if rows start past Sq
+#pragma unroll
+    for (int j = 0; j < 32; ++j) acc[j] = 0.f;
+    m_run[0] = m_run[1] = kNegInf;
+    l_run[0] = l_run[1] = 0.f;
+    mbar_wait(q_full(i), (i / 2) & 1);
+    const uint32_t qt = q_tile(i, kSplit ? 0 : wg);
+
+    // this warpgroup's tiles: tb, tb + step, ... below last (in a split
+    // item the other warpgroup's tiles lie between them)
+    const int step = kSplit ? 2 : 1;
+    const int tb = kSplit ? wg : 0;
+    int t = 0;
+    for (; t < min(tb, n); ++t) pass(g + t);
+    for (t = tb; t < last; t += step) {
+      if (kSplit && t > tb) pass(g + t - 1);
+      const int gt = g + t, st = gt % kSt;
+      mbar_wait(k_full(st), parity(gt));
+      // S = Q K^T over the tile's 128 keys
+      fence_regs(s);
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_qk128(s, sw128_desc(qt + kk * 32, 16, kAtomBytes),
+                    sw128_desc(k_tile(st) + kk * 32, 16, kAtomBytes),
+                    kk > 0);
+      wg_commit();
+      wg_wait_all();
+      fence_regs(s);
+      release(k_full(st));
+      softmax_tile128(s, pa, m_run, l_run, corr, t * kKeys64, col, sh.skv,
+                      scale_log2);
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          acc[4 * j + 2 * r] *= corr[r];
+          acc[4 * j + 2 * r + 1] *= corr[r];
+        }
+      // O += P V: 16 keys (two swizzle atoms of V's rows) a k-step
+      mbar_wait(v_full(st), parity(gt));
+      fence_regs(acc);
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < kKeys64 / 16; ++kk)
+        wgmma_pv<64>(acc, pa + 4 * kk,
+                     sw128_desc(v_tile(st) + kk * 2 * kAtomBytes, kBoxBytes,
+                                kAtomBytes));
+      wg_commit();
+      wg_wait_all();
+      fence_regs(acc);
+      release(v_full(st));
+    }
+    if (tb < last) t = tb + (last - 1 - tb) / step * step + 1;
+    for (; t < n; ++t) pass(g + t);
+    g += n;
+
+    if (kSplit) {  // warpgroup 1 hands (m, l, O) over; 0 merges
+      if (wg == 1) {
+        if (handed > 0) named_sync(kBarFree, 2 * 128);
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          mbuf[r * 128 + t128] = m_run[r];
+          mbuf[(2 + r) * 128 + t128] = l_run[r];
+        }
+#pragma unroll
+        for (int j = 0; j < 32; ++j) mbuf[(4 + j) * 128 + t128] = acc[j];
+        named_arrive(kBarMerge, 2 * 128);
+        ++handed;
+        release(q_full(i));  // warpgroup 0 stores O through this Q tile
+        continue;
+      }
+      named_sync(kBarMerge, 2 * 128);
+      float a0[2], a1[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const float m1 = mbuf[r * 128 + t128];
+        const float m = fmaxf(m_run[r], m1);
+        a0[r] = ex2((m_run[r] - m) * scale_log2);
+        a1[r] = ex2((m1 - m) * scale_log2);
+        l_run[r] = l_run[r] * a0[r] + mbuf[(2 + r) * 128 + t128] * a1[r];
+        m_run[r] = m;
+      }
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int r = 0; r < 2; ++r)
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            const int e = 4 * j + 2 * r + c;
+            acc[e] = acc[e] * a0[r] + mbuf[(4 + e) * 128 + t128] * a1[r];
+          }
+      named_arrive(kBarFree, 2 * 128);
+    }
+
+    // epilogue, as flash_fwd_tc's: O / l in bf16 into the Q tile, stored
+    // with TMA (rows past Sq dropped); the row's logsumexp when asked
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float l = l_run[r];
+      l += __shfl_xor_sync(0xffffffffu, l, 1);
+      l += __shfl_xor_sync(0xffffffffu, l, 2);
+      const float inv = 1.f / fmaxf(l, 1e-30f);
+      const int rr = row + 8 * r;
+      if (lse != nullptr && lane % 4 == 0 && qw + rr < sh.sq)
+        lse[((long long)item.b * sh.hq + hw) * sh.sq + qw + rr] =
+            l > 0.f ? fmaf(m_run[r], scale, logf(l)) : INFINITY;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const uint32_t at =
+            qt + rr * kRowBytes + (((j % 8) ^ (rr % 8)) * 16) + col * 2;
+        const uint32_t v = pack_bf16(acc[4 * j + 2 * r] * inv,
+                                     acc[4 * j + 2 * r + 1] * inv);
+        asm volatile("st.shared.b32 [%0], %1;" ::"r"(at), "r"(v)
+                     : "memory");
+      }
+    }
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+    asm volatile("bar.sync %0, 128;" ::"r"(1 + wg) : "memory");
+    if (signal) {
+      tma_store(&to, qt, 0, qw, hw, item.b, po);
+      asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+      asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
+      release(q_full(i));  // the tile may take the item after next's Q
+    }
+  }
+  // balance the hand-over barrier: warpgroup 0 freed the last part too
+  if (kSplit && wg == 1 && handed > 0) named_sync(kBarFree, 2 * 128);
+}
+
+// The grid: as many CTAs of ``kernel`` as are resident on the card at once
+// (all of L1 as shared memory).
+template <typename Kernel>
+int resident_ctas(Kernel kernel, int smem, int* out) {
+  if (*out) return 0;
+  int dev, sms, per_sm;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributePreferredSharedMemoryCarveout,
+                             (int)cudaSharedmemCarveoutMaxShared);
+  if (e == cudaSuccess) e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                      kThreads, smem);
+  if (e != cudaSuccess) return (int)e;
+  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+  *out = sms * per_sm;
+  return 0;
+}
+
+// D 64: flash_fwd64_tc. Long non-causal rows of unpaired heads split
+// their keys between the two warpgroups where that takes fewer item-times
+// on the resident grid (rounds of half an item against rounds of a whole
+// one); the choice depends on the shape alone, so reruns are bitwise.
+int launch64(const void* q, const void* k, const void* v, void* o,
+             float* lse, int batch, int hq, int hkv, int sq, int skv,
+             Strides qs, Strides ks, Strides vs, Strides os, float scale,
+             cudaStream_t stream) {
+  CUtensorMap tq, tk, tv, to;
+  Perm pq, pk, pv, po;
+  int err = make_map(&tq, &pq, q, 64, sq, hq, batch, qs);
+  if (!err) err = make_map(&tk, &pk, k, 64, skv, hkv, batch, ks);
+  if (!err) err = make_map(&tv, &pv, v, 64, skv, hkv, batch, vs);
+  if (!err) err = make_map(&to, &po, o, 64, sq, hq, batch, os);
+  static int resident = 0, resident_split = 0;
+  if (!err)
+    err = resident_ctas(flash_fwd64_tc<false>, Cfg64::kSmem, &resident);
+  if (!err)
+    err = resident_ctas(flash_fwd64_tc<true>, Cfg64::kSmem, &resident_split);
+  if (err) return err;
+  Shape sh{sq, skv, hq, batch, hq / hkv, 0, 0,
+           (hq / hkv) % 2 == 0 ? 1 : 0, 0, 0};
+  bool split = false;
+  if (!sh.pair_heads && skv > kKeys64) {
+    const long long whole = (long long)((sq + 2 * kRows - 1) / (2 * kRows)) *
+                            hq * batch;
+    const long long half = (long long)((sq + kRows - 1) / kRows) * hq * batch;
+    split = (half + resident - 1) / resident <
+            2 * ((whole + resident - 1) / resident);
+  }
+  const int span = sh.pair_heads || split ? kRows : kRows * kConsumers;
+  sh.n_qt = (sq + span - 1) / span;
+  sh.n_items = sh.n_qt * (sh.pair_heads ? hq / 2 : hq) * batch;
+  const float scale_log2 = scale * 1.4426950408889634f;
+  if (split)
+    flash_fwd64_tc<true><<<min(resident_split, sh.n_items), kThreads,
+                           Cfg64::kSmem, stream>>>(
+        tq, tk, tv, to, sh, pq, pk, pv, po, scale_log2, lse, scale);
+  else
+    flash_fwd64_tc<false><<<min(resident, sh.n_items), kThreads,
+                            Cfg64::kSmem, stream>>>(
+        tq, tk, tv, to, sh, pq, pk, pv, po, scale_log2, lse, scale);
+  return 0;
+}
+
 template <int D>
 int launch(const void* q, const void* k, const void* v, void* o, float* lse,
            int batch, int hq, int hkv, int sq, int skv, Strides qs,
@@ -698,9 +1153,14 @@ int launch_bf16(int d, const void* q, const void* k, const void* v, void* o,
     case 32:
       return tc::launch<32>(q, k, v, o, lse, batch, hq, hkv, sq, skv, qs, ks,
                             vs, os, causal, window, scale, stream);
-    case 64:
-      return tc::launch<64>(q, k, v, o, lse, batch, hq, hkv, sq, skv, qs, ks,
-                            vs, os, causal, window, scale, stream);
+    case 64:  // whisper-tiny's width: 128-key tiles for rows that see
+              // every key; causal and windowed rows keep 64-key tiles,
+              // which mask less
+      if (causal || window)
+        return tc::launch<64>(q, k, v, o, lse, batch, hq, hkv, sq, skv, qs,
+                              ks, vs, os, causal, window, scale, stream);
+      return tc::launch64(q, k, v, o, lse, batch, hq, hkv, sq, skv, qs, ks,
+                          vs, os, scale, stream);
     case 112:  // zamba2's shared attention: padded to two 64-column boxes
       return tc::launch<112>(q, k, v, o, lse, batch, hq, hkv, sq, skv, qs,
                              ks, vs, os, causal, window, scale, stream);

@@ -44,6 +44,14 @@
 //     from registers, dO and Q read MN-major. Each warpgroup stages its sum
 //     in the tile of the item's K/V buffer that only it reads and stores it
 //     with TMA.
+// At D 64 (whisper-tiny) a warpgroup can hold dK and dV of its own keys
+// beside S^T and dP^T, so rows that see every key (no causal limit, no
+// window) go to flash_bwd_dkdv64_tc instead of (2): 128-key items, a
+// 64-key tile a warpgroup, no P^T tile, the two warpgroups taking turns
+// to issue their products; and where it fills the card better the dq
+// kernel splits a row block's key tiles between its two warpgroups and
+// adds the two dQ parts in a fixed order. Causal rows keep (2)'s 64-key
+// items split by output, which balance the triangle better.
 // Rounding P and dS to bf16 before the products is this route's departure
 // from the plain version, as the forward's bf16 P is; it stays within the
 // bf16 tolerance (tests/test_torch_kernels.py emulates the arithmetic on
@@ -540,6 +548,13 @@ __device__ __forceinline__ int item_of_round(int r) {
 
 // Named barriers (0 is __syncthreads).
 constexpr int kBarWg = 1;      // + wg: one consumer warpgroup
+constexpr int kBarTurn = 3;    // + wg: this warpgroup may issue products
+constexpr int kBarMerge = 5;   // dq, split item: warpgroup 1's dQ is staged
+constexpr int kBarFree = 6;    // dq, split item: warpgroup 0 has read it
+
+__device__ __forceinline__ void named_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;" ::"r"(id), "r"(threads) : "memory");
+}
 
 // ------------------------------------------------------------- prep
 
@@ -699,24 +714,28 @@ struct DqCfg : Tiles<D> {
   static constexpr int kTiles = 4 * kConsumers + 2 * kStages;
   // a full and an empty barrier for each Q/dO buffer and each stage
   static constexpr int kBars = 2 * (2 + kStages);
-  static constexpr int kSmem =
-      1024 + T::kTile * kTiles + 2 * kConsumers * kVec + 8 * kBars;
+  // D 64: warpgroup 1's dQ of a split item, 32 floats a thread
+  static constexpr int kMerge = D == 64 ? 32 * 128 * 4 : 0;
+  static constexpr int kSmem = 1024 + T::kTile * kTiles +
+                               2 * kConsumers * kVec + 8 * kBars + kMerge;
 };
 
 // An item of the dq kernel, as the forward's: each consumer warpgroup c
 // takes 64 q rows of one head that read the same KV head (the same rows of
 // q heads 2p and 2p + 1 when the GQA group is even, else rows q0 and
-// q0 + 64 of one head); the longest causal rows first.
+// q0 + 64 of one head); the longest causal rows first. A split item (D 64)
+// is 64 rows of one head whose key tiles the two warpgroups share out.
 struct DqItem {
   int q0, h, b, span;
   int kv_lo, n;  // first key and 64-key tiles any row may see
 };
 
+template <bool kKeySplit>
 __device__ __forceinline__ DqItem dq_item(int w, const Shape& sh) {
   const int heads = sh.pair_heads ? sh.hq / 2 : sh.hq;
   const int per = heads * sh.batch;
   DqItem it;
-  it.span = sh.pair_heads ? kRows : kRows * kConsumers;
+  it.span = sh.pair_heads || kKeySplit ? kRows : kRows * kConsumers;
   it.q0 = (sh.n_t - 1 - w / per) * it.span;
   it.h = ((w % per) % heads) * (sh.pair_heads ? 2 : 1);
   it.b = (w % per) / heads;
@@ -736,10 +755,15 @@ __device__ __forceinline__ DqItem dq_item(int w, const Shape& sh) {
 // registers, dS rounded to bf16 as the register A operand of dQ += dS K
 // (K read MN-major).
 //
+// kKeySplit (D 64, rows that see every key): an item is 64 rows of one
+// head, warpgroup c takes its key tiles t with t % 2 == c, and warpgroup 1
+// hands its dQ to warpgroup 0 through shared memory, which adds it to its
+// own (dQ_even + dQ_odd) before the epilogue.
+//
 // Accumulator fragments of thread t = 32 w + lane of a warpgroup: rows
 // 16 w + lane / 4 (+ 8 for i = 1) of its 64, columns 8 j + 2 (lane % 4) + c,
 // held in d[4 j + 2 i + c].
-template <int D>
+template <int D, bool kKeySplit = false>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_bwd_dq_tc(const __grid_constant__ CUtensorMap tq,
                 const __grid_constant__ CUtensorMap tk,
@@ -758,6 +782,10 @@ flash_bwd_dq_tc(const __grid_constant__ CUtensorMap tq,
   const uint32_t base = (smem_u32(smem) + 1023) & ~1023u;
   const uint32_t vecs = base + kTile * C::kTiles;
   const uint32_t bars = vecs + C::kVec * 2 * kConsumers;
+  float* const mbuf =
+      reinterpret_cast<float*>(smem + (bars + 8 * C::kBars - smem_u32(smem)));
+  // a split item: both warpgroups read consumer 0's Q, dO, L and D_row
+  constexpr bool split = kKeySplit;
   // Q of consumer c in buffer i, and its dO beside it
   auto q_tile = [&](int i, int c) {
     return base + kTile * (2 * ((i & 1) * kConsumers + c));
@@ -789,14 +817,16 @@ flash_bwd_dq_tc(const __grid_constant__ CUtensorMap tq,
     if (lane != 0) return;
     int g = 0;
     for (int i = 0; item_of_round(i) < sh.n_items; ++i) {
-      const DqItem it = dq_item(item_of_round(i), sh);
+      const DqItem it = dq_item<kKeySplit>(item_of_round(i), sh);
       const int hk = it.h / sh.group;
       mbar_wait(qd_full(i) + kEmpty, ((i / 2) & 1) ^ 1);
       // a consumer whose rows start past sq has no tile to run and gets
       // no L and D_row (they would lie past its head's padded rows)
-      const int live = sh.pair_heads || it.q0 + kRows < sh.sq ? 2 : 1;
-      mbar_expect(qd_full(i), 2 * kConsumers * kTile + live * C::kVec);
-      for (int c = 0; c < kConsumers; ++c) {
+      const int n_q = split ? 1 : kConsumers;
+      const int live =
+          split ? 1 : sh.pair_heads || it.q0 + kRows < sh.sq ? 2 : 1;
+      mbar_expect(qd_full(i), 2 * n_q * kTile + live * C::kVec);
+      for (int c = 0; c < n_q; ++c) {
         const int q0 = sh.pair_heads ? it.q0 : it.q0 + kRows * c;
         const int h = sh.pair_heads ? it.h + c : it.h;
 #pragma unroll
@@ -839,11 +869,12 @@ flash_bwd_dq_tc(const __grid_constant__ CUtensorMap tq,
     if (signal) mbar_arrive(full_bar + kEmpty);
   };
 
-  int g = 0;  // the CTA's K/V tiles consumed so far
+  int g = 0;       // the CTA's K/V tiles consumed so far
+  int handed = 0;  // split items warpgroup 1 has handed over
   for (int i = 0; item_of_round(i) < sh.n_items; ++i) {
-    const DqItem item = dq_item(item_of_round(i), sh);
-    const int qw = sh.pair_heads ? item.q0 : item.q0 + kRows * wg;
-    const int hw = sh.pair_heads ? item.h + wg : item.h;
+    const DqItem item = dq_item<kKeySplit>(item_of_round(i), sh);
+    const int qw = sh.pair_heads || split ? item.q0 : item.q0 + kRows * wg;
+    const int hw = sh.pair_heads && !split ? item.h + wg : item.h;
     const int n = item.n;
     // the tiles that meet this warpgroup's rows: [first, first + n_act)
     const int lo = sh.window > 0 ? max(0, qw - sh.window + 1) : 0;
@@ -855,9 +886,10 @@ flash_bwd_dq_tc(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
     for (int j = 0; j < C::kAcc; ++j) acc[j] = 0.f;
     mbar_wait(qd_full(i), (i / 2) & 1);
-    const uint32_t qt = q_tile(i, wg), dot = qt + kTile;
+    const int cq = split ? 0 : wg;  // whose Q, dO, L and D_row
+    const uint32_t qt = q_tile(i, cq), dot = qt + kTile;
     const float* lv = reinterpret_cast<const float*>(
-        smem + (vec(i, wg) - smem_u32(smem)));
+        smem + (vec(i, cq) - smem_u32(smem)));
 
     for (int t = 0; t < first; ++t) {  // tiles without a row of ours
       mbar_wait(kv_full((g + t) % kStages), parity(g + t));
@@ -866,6 +898,11 @@ flash_bwd_dq_tc(const __grid_constant__ CUtensorMap tq,
     int gt = g + first;
     for (int t = 0; t < n_act; ++t, ++gt) {
       const int st = gt % kStages;
+      if (split && ((first + t) & 1) != wg) {  // the other warpgroup's
+        mbar_wait(kv_full(st), parity(gt));
+        release(kv_full(st));
+        continue;
+      }
       const uint32_t kt = k_tile(st), vt = kt + kTile;
       const int t0 = item.kv_lo + (first + t) * kCols;
       const bool edge = t0 + kCols > sh.skv ||
@@ -933,6 +970,23 @@ flash_bwd_dq_tc(const __grid_constant__ CUtensorMap tq,
     }
     g += n;
 
+    if (split) {  // warpgroup 1 hands its dQ over; 0 adds it to its own
+      const int t128 = tid % 128;
+      if (wg == 1) {
+        if (handed > 0) named_sync(kBarFree, 2 * 128);
+#pragma unroll
+        for (int j = 0; j < C::kAcc; ++j) mbuf[j * 128 + t128] = acc[j];
+        named_arrive(kBarMerge, 2 * 128);
+        ++handed;
+        release(qd_full(i));  // warpgroup 0 stores dQ through this Q tile
+        continue;
+      }
+      named_sync(kBarMerge, 2 * 128);
+#pragma unroll
+      for (int j = 0; j < C::kAcc; ++j) acc[j] += mbuf[j * 128 + t128];
+      named_arrive(kBarFree, 2 * 128);
+    }
+
     // epilogue: scale dQ into this warpgroup's Q tile (no longer read) and
     // store it with TMA, which drops rows past Sq and D 112's padding
     stage_bf16<C::kDP>(acc, qt, scale, row, col);
@@ -947,6 +1001,8 @@ flash_bwd_dq_tc(const __grid_constant__ CUtensorMap tq,
       release(qd_full(i));  // the buffer may take the item after next's
     }
   }
+  // balance the hand-over barrier: warpgroup 0 freed the last part too
+  if (split && wg == 1 && handed > 0) named_sync(kBarFree, 2 * 128);
 }
 
 // ------------------------------------------------------------- dk, dv
@@ -1197,6 +1253,274 @@ flash_bwd_dkdv_tc(const __grid_constant__ CUtensorMap tq,
   }
 }
 
+// ------------------------------------------------------------- dk, dv at D 64
+
+// At D 64 a warpgroup holds dK and dV of its own keys (32 + 32 f32 a
+// thread) beside S^T and dP^T (32 + 32), so the split by output and its
+// P^T tile are not needed: an item is 128 keys of one KV head, warpgroup c
+// owns keys k0 + 64 c .. k0 + 64 c + 63, and each Q/dO stage of the ring,
+// with its L and D_row vectors, serves both warpgroups' keys. (Items of 64
+// keys whose pairs the two warpgroups share out, 576 in 5 rounds at
+// whisper-tiny's encoder against these 288 in 3, ran 10-15% faster but
+// spilled under the 168 registers in every form tried.)
+struct Kv64Cfg {
+  static constexpr int kTile = kBoxBytes;  // 64 rows x 64 columns, 8 KB
+  static constexpr int kKeys = kRows * kConsumers;  // keys of an item
+  static constexpr int kStages = 6;                 // Q/dO ring depth
+  static constexpr int kVec = 2 * kCols * 4;        // a stage's L and D_row
+  // K and V of each warpgroup [2 buffers], then Q and dO [kStages]
+  static constexpr int kTiles = 2 * 2 * kConsumers + 2 * kStages;
+  // full and empty barriers: K/V buffers (2), stages
+  static constexpr int kBars = 2 * (2 + kStages);
+  static constexpr int kSmem =
+      1024 + kTile * kTiles + kVec * kStages + 8 * kBars;
+};
+
+// An item of the D 64 dk/dv kernel: keys k0 .. k0 + 127 of one KV head;
+// its work is the (q head of the group, q tile that sees any of the keys)
+// pairs, heads outer.
+__device__ __forceinline__ KvItem kv64_item(int w, const Shape& sh) {
+  const int per = sh.hkv * sh.batch;
+  KvItem it;
+  it.k0 = (w / per) * Kv64Cfg::kKeys;
+  it.hk = (w % per) % sh.hkv;
+  it.b = (w % per) / sh.hkv;
+  const int q_lo = sh.causal ? min(it.k0, sh.sq) : 0;
+  const int q_hi = sh.window > 0
+                       ? min(sh.sq, it.k0 + Kv64Cfg::kKeys - 1 + sh.window)
+                       : sh.sq;
+  it.qt_lo = q_lo / kCols;
+  const int qt_hi = q_hi > q_lo ? (q_hi + kCols - 1) / kCols : it.qt_lo;
+  it.n_qt = qt_hi - it.qt_lo;
+  it.n = sh.group * it.n_qt;
+  return it;
+}
+
+// dv = P^T dO and dk = scale dS^T q for 128-key items at D 64, for rows
+// that see every key (the host sends causal and windowed rows to
+// flash_bwd_dkdv_tc). A producer warp loads each item's two K and two V
+// tiles (double-buffered across items) and, through a ring of kStages,
+// each pair's Q and dO tiles (TMA) and its L and D_row vectors (a bulk
+// copy of 256 bytes each). Each consumer warpgroup, for the pairs that
+// meet its 64 keys: S^T = K Q^T and dP^T = V dO^T (one wgmma group,
+// retired before any read), P^T = 2^(S^T c - L) and dS^T = P^T (dP^T -
+// D_row) in f32 registers (L and D_row of the columns from shared
+// memory), both rounded to bf16 as register A operands of dV += P^T dO
+// and dK += dS^T Q (dO and Q read MN-major; one group, retired before the
+// stage is released). The warpgroups take turns to issue their products
+// (two named barriers), so that while one runs its exponentials the
+// other's products run. Each warpgroup then stages dV in its K tile and
+// dK in its V tile (only it read them) and stores them with TMA, which
+// drops rows past Skv.
+__global__ void __launch_bounds__(kThreads, 1)
+flash_bwd_dkdv64_tc(const __grid_constant__ CUtensorMap tq,
+                    const __grid_constant__ CUtensorMap tk,
+                    const __grid_constant__ CUtensorMap tv,
+                    const __grid_constant__ CUtensorMap tdo,
+                    const __grid_constant__ CUtensorMap tdk,
+                    const __grid_constant__ CUtensorMap tdv, Shape sh,
+                    Perm pq, Perm pk, Perm pv, Perm pdo, Perm pdk, Perm pdv,
+                    const float* __restrict__ lrow,
+                    const float* __restrict__ drow, float scale_log2,
+                    float scale) {
+  using C = Kv64Cfg;
+  constexpr int kTile = C::kTile, kStages = C::kStages;
+  extern __shared__ uint8_t smem[];
+  const uint32_t base = (smem_u32(smem) + 1023) & ~1023u;
+  uint8_t* const base_g = smem + (base - smem_u32(smem));
+  const uint32_t vecs = base + kTile * C::kTiles;
+  const uint32_t bars = vecs + C::kVec * kStages;
+  // K of warpgroup c in buffer i, its V beside it
+  auto k_tile = [&](int i, int c) {
+    return base + kTile * (2 * ((i & 1) * kConsumers + c));
+  };
+  // Q of stage st, dO beside it
+  auto q_tile = [&](int st) {
+    return base + kTile * (2 * 2 * kConsumers + 2 * st);
+  };
+  auto kv_full = [&](int i) { return bars + 8 * (i & 1); };
+  auto st_full = [&](int st) { return bars + 8 * (2 + st); };
+  constexpr int kEmpty = 8 * (2 + kStages);
+  auto parity = [](int g) { return (uint32_t)((g / kStages) & 1); };
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  if (tid == 0) {
+    for (int i = 0; i < C::kBars / 2; ++i) {  // TMA fills, two readers
+      mbar_init(bars + 8 * i, 1);
+      mbar_init(bars + kEmpty + 8 * i, kConsumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == kConsumers * 4) {  // the producer warp: one thread copies
+    if (lane != 0) return;
+    int g = 0;
+    for (int i = 0; item_of_round(i) < sh.n_items; ++i) {
+      const KvItem it = kv64_item(item_of_round(i), sh);
+      mbar_wait(kv_full(i) + kEmpty, ((i / 2) & 1) ^ 1);
+      // a second tile wholly past Skv arrives as zeros and is not used
+      mbar_expect(kv_full(i), 2 * kConsumers * kTile);
+      for (int c = 0; c < kConsumers; ++c) {
+        tma_load(k_tile(i, c), &tk, kv_full(i), 0, it.k0 + kRows * c,
+                 it.hk, it.b, pk);
+        tma_load(k_tile(i, c) + kTile, &tv, kv_full(i), 0,
+                 it.k0 + kRows * c, it.hk, it.b, pv);
+      }
+      for (int p = 0; p < it.n; ++p, ++g) {
+        const int st = g % kStages;
+        const int h = it.hk * sh.group + p / it.n_qt;
+        const int q0 = (it.qt_lo + p % it.n_qt) * kCols;
+        mbar_wait(st_full(st) + kEmpty, parity(g) ^ 1);
+        mbar_expect(st_full(st), 2 * kTile + C::kVec);
+        tma_load(q_tile(st), &tq, st_full(st), 0, q0, h, it.b, pq);
+        tma_load(q_tile(st) + kTile, &tdo, st_full(st), 0, q0, h, it.b,
+                 pdo);
+        const long long at =
+            ((long long)it.b * sh.hq + h) * sh.sq_pad + q0;
+        bulk_load(vecs + C::kVec * st, lrow + at, kCols * 4, st_full(st));
+        bulk_load(vecs + C::kVec * st + kCols * 4, drow + at, kCols * 4,
+                  st_full(st));
+      }
+    }
+    return;
+  }
+
+  const int wg = warp / 4;
+  float adk[32], adv[32];  // dK and dV of this warpgroup's keys
+  float s[32], dp[32];     // S^T then P^T; dP^T then dS^T
+  uint32_t pa[16], pd[16];
+  const int row = 16 * (warp % 4) + lane / 4;  // key rows row, row + 8
+  const int col = 2 * (lane % 4);              // q columns col, col + 1 of 8
+  const bool signal = tid % 128 == 0;
+
+  int g = 0;  // the CTA's pairs so far
+  for (int i = 0; item_of_round(i) < sh.n_items; ++i) {
+    const KvItem item = kv64_item(item_of_round(i), sh);
+    const int kc = item.k0 + kRows * wg;  // this warpgroup's first key
+    // the q rows that see any of its keys: [q_lo, q_hi)
+    const int q_lo = sh.causal ? kc : 0;
+    const int q_hi =
+        kc >= sh.skv ? 0
+        : sh.window > 0 ? min(sh.sq, kc + kRows - 1 + sh.window)
+                        : sh.sq;
+    zero(adk);
+    zero(adv);
+    mbar_wait(kv_full(i), (i / 2) & 1);
+    const uint32_t kt = k_tile(i, wg), vt = kt + kTile;
+    // the warpgroups take turns to issue their products, warpgroup 0
+    // first, two turns a pair each (a pair without our keys too), so that
+    // one warpgroup's exponentials run beside the other's products; the
+    // last turn of warpgroup 1 hands nothing on
+    int yields = 0;
+    auto turn = [&]() { named_sync(kBarTurn + wg, 2 * 128); };
+    auto yield_turn = [&]() {
+      ++yields;
+      if (wg == 0 || yields < 2 * item.n)
+        named_arrive(kBarTurn + 1 - wg, 2 * 128);
+    };
+    if (wg == 1 && item.n > 0) named_arrive(kBarTurn, 2 * 128);
+    for (int p = 0; p < item.n; ++p, ++g) {
+      const int st = g % kStages;
+      const int q0 = (item.qt_lo + p % item.n_qt) * kCols;
+      mbar_wait(st_full(st), parity(g));
+      if (q0 + kCols > q_lo && q0 < q_hi) {
+        const uint32_t qt = q_tile(st), dot = qt + kTile;
+        const float* lv = reinterpret_cast<const float*>(
+            base_g + (vecs + C::kVec * st - base));
+        // S^T = K Q^T and dP^T = V dO^T
+        zero(s);
+        zero(dp);
+        turn();
+        wg_fence();
+        mma_abt<64>(s, kt, qt);
+        mma_abt<64>(dp, vt, dot);
+        wg_commit();
+        yield_turn();
+        wg_wait_all();
+        fence_regs(s);
+        fence_regs(dp);
+        const bool edge =
+            kc + kRows > sh.skv || q0 + kCols > sh.sq ||
+            (sh.causal && kc + kRows - 1 > q0) ||
+            (sh.window > 0 && kc <= q0 + kCols - 1 - sh.window);
+        // P^T and dS^T, 16 columns (one k-step of the products) at a time
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+          for (int jj = 0; jj < 2; ++jj) {
+            const int j = 2 * kk + jj;
+            const float2 l2 =
+                *reinterpret_cast<const float2*>(lv + 8 * j + col);
+            const float2 d2 =
+                *reinterpret_cast<const float2*>(lv + kCols + 8 * j + col);
+#pragma unroll
+            for (int r = 0; r < 2; ++r)
+#pragma unroll
+              for (int c = 0; c < 2; ++c) {
+                const int e = 4 * j + 2 * r + c;
+                float x = s[e];
+                if (edge) {
+                  const int kj = kc + row + 8 * r;
+                  const int qi = q0 + 8 * j + col + c;
+                  bool keep = kj < sh.skv && qi < sh.sq;
+                  if (sh.causal) keep = keep && kj <= qi;
+                  if (sh.window > 0) keep = keep && kj > qi - sh.window;
+                  if (!keep) x = kMasked;
+                }
+                const float pr = ex2(fmaf(x, scale_log2, -(c ? l2.y : l2.x)));
+                s[e] = pr;
+                dp[e] = pr * (dp[e] - (c ? d2.y : d2.x));
+              }
+          }
+#pragma unroll
+          for (int x = 0; x < 4; ++x) {
+            pa[4 * kk + x] =
+                pack_bf16(s[8 * kk + 2 * x], s[8 * kk + 2 * x + 1]);
+            pd[4 * kk + x] =
+                pack_bf16(dp[8 * kk + 2 * x], dp[8 * kk + 2 * x + 1]);
+          }
+        }
+        // dV += P^T dO and dK += dS^T Q
+        fence_regs(adv);
+        fence_regs(adk);
+        turn();
+        wg_fence();
+        mma_pb<64>(adv, pa, dot);
+        mma_pb<64>(adk, pd, qt);
+        wg_commit();
+        yield_turn();
+        wg_wait_all();
+        fence_regs(adv);
+        fence_regs(adk);
+      } else {
+        turn();
+        yield_turn();
+        turn();
+        yield_turn();
+      }
+      if (signal) mbar_arrive(st_full(st) + kEmpty);
+    }
+
+    // epilogue: dV into this warpgroup's K tile and dK into its V tile (no
+    // other reader), stored with TMA (rows past Skv dropped)
+    stage_bf16<64>(adv, kt, 1.f, row, col);
+    stage_bf16<64>(adk, vt, scale, row, col);
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+    named_sync(kBarWg + wg, 128);
+    if (signal) {
+      if (kc < sh.skv) {
+        tma_store(&tdv, kt, 0, kc, item.hk, item.b, pdv);
+        tma_store(&tdk, vt, 0, kc, item.hk, item.b, pdk);
+        asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+        asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
+      }
+      mbar_arrive(kv_full(i) + kEmpty);  // the buffer may take K and V again
+    }
+  }
+}
+
 // ------------------------------------------------------------- host
 
 template <typename Kernel>
@@ -1250,30 +1574,73 @@ int launch(const void* q, const void* k, const void* v, const void* o,
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
 
-  static int resident_dq = 0, resident_kv = 0;
+  // D 64 without a causal limit or a window: flash_bwd_dkdv64_tc (128-key
+  // items, a 64-key tile a warpgroup)
+  bool kv64 = false;
+  if constexpr (D == 64) kv64 = !causal && !window;
+  static int resident_dq = 0, resident_kv = 0, resident_kv64 = 0,
+             resident_dq_split = 0;
   int err = resident_ctas(flash_bwd_dq_tc<D>, DqCfg<D>::kSmem, &resident_dq);
   if (!err)
     err = resident_ctas(flash_bwd_dkdv_tc<D>, KvCfg<D>::kSmem, &resident_kv);
+  if constexpr (D == 64) {
+    if (!err)
+      err = resident_ctas(flash_bwd_dkdv64_tc, Kv64Cfg::kSmem,
+                          &resident_kv64);
+    if (!err)
+      err = resident_ctas(flash_bwd_dq_tc<64, true>, DqCfg<64>::kSmem,
+                          &resident_dq_split);
+  }
   if (err) return err;
   Shape dq_sh = sh;
   dq_sh.pair_heads = sh.group % 2 == 0 ? 1 : 0;
-  const int span = dq_sh.pair_heads ? kRows : kRows * kConsumers;
+  bool dq_split = false;
+  if constexpr (D == 64) {
+    // rows that see every key split their key tiles between the two
+    // warpgroups where rounds of half an item take fewer item-times on the
+    // resident grid than rounds of whole ones (whisper-tiny's encoder: 576
+    // items in 5 rounds against 288 in 3); the shape alone decides
+    if (!causal && !window && !dq_sh.pair_heads && skv > kCols) {
+      const long long whole =
+          (long long)((sq + 2 * kRows - 1) / (2 * kRows)) * hq * batch;
+      const long long half = (long long)((sq + kRows - 1) / kRows) * hq *
+                             batch;
+      dq_split = (half + resident_dq - 1) / resident_dq <
+                 2 * ((whole + resident_dq - 1) / resident_dq);
+    }
+  }
+  const int span = dq_sh.pair_heads || dq_split ? kRows : kRows * kConsumers;
   dq_sh.n_t = (sq + span - 1) / span;
   dq_sh.n_items = dq_sh.n_t * (dq_sh.pair_heads ? hq / 2 : hq) * batch;
-  flash_bwd_dq_tc<D><<<min(resident_dq, dq_sh.n_items), kThreads,
-                       DqCfg<D>::kSmem, stream>>>(
-      m[0], m[1], m[2], m[3], m[4], dq_sh, pm[0], pm[1], pm[2], pm[3], pm[4],
-      lrow, drow, scale * kLog2e, scale);
+  if (dq_split)
+    flash_bwd_dq_tc<64, true><<<min(resident_dq_split, dq_sh.n_items),
+                                kThreads, DqCfg<64>::kSmem, stream>>>(
+        m[0], m[1], m[2], m[3], m[4], dq_sh, pm[0], pm[1], pm[2], pm[3],
+        pm[4], lrow, drow, scale * kLog2e, scale);
+  else
+    flash_bwd_dq_tc<D><<<min(resident_dq, dq_sh.n_items), kThreads,
+                         DqCfg<D>::kSmem, stream>>>(
+        m[0], m[1], m[2], m[3], m[4], dq_sh, pm[0], pm[1], pm[2], pm[3],
+        pm[4], lrow, drow, scale * kLog2e, scale);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
 
   Shape kv_sh = sh;
-  kv_sh.n_t = (skv + kRows - 1) / kRows;
-  kv_sh.n_items = kv_sh.n_t * hkv * batch;
-  flash_bwd_dkdv_tc<D><<<min(resident_kv, kv_sh.n_items), kThreads,
-                         KvCfg<D>::kSmem, stream>>>(
-      m[0], m[1], m[2], m[3], m[5], m[6], kv_sh, pm[0], pm[1], pm[2], pm[3],
-      pm[5], pm[6], lrow, drow, scale * kLog2e, scale);
+  if (kv64) {
+    kv_sh.n_t = (skv + Kv64Cfg::kKeys - 1) / Kv64Cfg::kKeys;
+    kv_sh.n_items = kv_sh.n_t * hkv * batch;
+    flash_bwd_dkdv64_tc<<<min(resident_kv64, kv_sh.n_items), kThreads,
+                          Kv64Cfg::kSmem, stream>>>(
+        m[0], m[1], m[2], m[3], m[5], m[6], kv_sh, pm[0], pm[1], pm[2],
+        pm[3], pm[5], pm[6], lrow, drow, scale * kLog2e, scale);
+  } else {
+    kv_sh.n_t = (skv + kRows - 1) / kRows;
+    kv_sh.n_items = kv_sh.n_t * hkv * batch;
+    flash_bwd_dkdv_tc<D><<<min(resident_kv, kv_sh.n_items), kThreads,
+                           KvCfg<D>::kSmem, stream>>>(
+        m[0], m[1], m[2], m[3], m[5], m[6], kv_sh, pm[0], pm[1], pm[2],
+        pm[3], pm[5], pm[6], lrow, drow, scale * kLog2e, scale);
+  }
   return (int)cudaGetLastError();
 }
 

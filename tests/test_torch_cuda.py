@@ -175,6 +175,11 @@ def test_add_rmsnorm_scalar_path(cuda_device, dtype):
     # codeqwen1.5-7b's MHA (group 1) at full width and reduced (Fig 10)
     (4, 32, 32, 512, 128, True, 0),
     (4, 4, 4, 64, 32, True, 0),
+    # whisper-tiny's D 64 MHA: the encoder (non-causal, its keys split
+    # between the two warpgroups) and the decoder's causal 416
+    (4, 6, 6, 1500, 64, False, 0),
+    (4, 6, 6, 416, 64, True, 0),
+    (2, 3, 3, 200, 64, False, 0),              # split keys, ragged tail
 ])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_attention_kernel_matches_plain(cuda_device, b, hq, hkv, s, d,
@@ -196,6 +201,8 @@ def test_attention_kernel_matches_plain(cuda_device, b, hq, hkv, s, d,
     (4, 32, 8, 512, 1600, 128),   # llama-3.2-vision's cross-attention
     (1, 4, 2, 40, 1000, 128),     # ragged on both sides
     (2, 8, 2, 96, 40, 64),        # more queries than keys
+    (4, 6, 6, 416, 1500, 64),     # whisper-tiny's cross-attention
+    (1, 4, 4, 100, 700, 64),      # split keys, ragged on both sides
 ])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_attention_kernel_sq_ne_skv_matches_plain(cuda_device, b, hq, hkv,
@@ -585,6 +592,11 @@ ATTENTION_BWD_CASES = [
     (1, 8, 2, 40, 32, True, 0),                # shorter than a tile
     (4, 32, 32, 512, 128, True, 0),            # codeqwen1.5-7b's MHA
     (4, 4, 4, 64, 32, True, 0),                # codeqwen1.5-7b reduced
+    (4, 6, 6, 1500, 64, False, 0),             # whisper-tiny's encoder
+    (4, 6, 6, 448, 64, True, 0),               # whisper-tiny's decoder
+    (2, 3, 3, 100, 64, False, 0),              # D 64: a ragged second tile
+    (1, 4, 2, 40, 64, False, 0),               # D 64: no second tile
+    (1, 2, 2, 150, 64, False, 0),              # D 64: dq's keys split 2/1
 ]
 
 
@@ -635,14 +647,20 @@ def test_attention_lse_matches_plain_and_leaves_o_alone(
                                           window=window))
 
 
+@pytest.mark.parametrize("hq,hkv,sq,skv,d", [
+    (32, 8, 512, 1600, 128),      # the VLM's prompt over its image memory
+    (6, 6, 448, 1500, 64),        # whisper-tiny's text over its frames
+])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_attention_bwd_sq_ne_skv_matches_plain(cuda_device, dtype):
-    """The VLM's cross-attention in training: q [4, 32, 512, 128] over k/v
-    [4, 8, 1600, 128] (the image memory), non-causal; a rerun bitwise."""
+def test_attention_bwd_sq_ne_skv_matches_plain(cuda_device, hq, hkv, sq, skv,
+                                               d, dtype):
+    """Cross-attention in training, batch 4, non-causal: the VLM's q
+    [4, 32, 512, 128] over k/v [4, 8, 1600, 128] and whisper-tiny's 448
+    text rows over its 1,500 frames at D 64; a rerun bitwise."""
     gen = torch.Generator(device="cuda").manual_seed(10)
     dt = getattr(torch, dtype)
-    q, do = (_bshd_cuda(gen, 4, 512, 32, 128, dt) for _ in range(2))
-    k, v = (_bshd_cuda(gen, 4, 1600, 8, 128, dt) for _ in range(2))
+    q, do = (_bshd_cuda(gen, 4, sq, hq, d, dt) for _ in range(2))
+    k, v = (_bshd_cuda(gen, 4, skv, hkv, d, dt) for _ in range(2))
     o, lse = flash_attention(q, k, v, causal=False, return_lse=True)
     got = flash_attention_bwd(q, k, v, o, do, lse, causal=False)
     _bwd_close(got, ref.flash_attention_bwd_ref(q, k, v, do, causal=False),

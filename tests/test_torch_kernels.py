@@ -348,7 +348,8 @@ def _emulate_tc_scan(x, b, c, dt, da, chunk, terms=3, f64_exponent=True):
     return torch.cat(ys, 1), h
 
 
-def _emulate_tc_attention_bwd(q, k, v, o, do, lse, causal, window):
+def _emulate_tc_attention_bwd(q, k, v, o, do, lse, causal, window,
+                              dq_parts=1):
     """The bf16 tensor-core backward's arithmetic (csrc/flash_attention_bwd.cu)
     in f32 on the CPU, for bf16 q, k, v, o, dO: L = lse log2(e) from the
     forward's logsumexp and D_row = rowsum(dO o o); S and dP as f32 sums of
@@ -357,8 +358,13 @@ def _emulate_tc_attention_bwd(q, k, v, o, do, lse, causal, window):
     before dQ = dS K and dK = dS^T Q, with f32 accumulation in the kernels'
     order: dQ over 32-key groups in key order, dK and dV over the (q head
     of the GQA group, 64-row q tile) pairs of each 64-key tile, heads outer;
-    dq and dk scaled by D^-1/2 last, each output rounded once to bf16.
-    Test-local: the port does not use it."""
+    dq and dk scaled by D^-1/2 last, each output rounded once to bf16. At
+    D 64 each warpgroup of the dk/dv kernel sums its own 64-key tile's
+    pairs in that order, and where the dq kernel splits a row block's key
+    tiles between its two warpgroups (``dq_parts`` 2: the even and the odd
+    64-key tiles) each sums its tiles in key order and the two parts are
+    added last. Sq and Skv may differ (a cross-attention). Test-local: the
+    port does not use it."""
     f32, bf = torch.float32, torch.bfloat16
     b_, hq, sq, d = q.shape
     hkv, skv = k.shape[1], k.shape[2]
@@ -383,9 +389,10 @@ def _emulate_tc_attention_bwd(q, k, v, o, do, lse, causal, window):
     ds = (p * (dp - drow)).to(bf).to(f32)
     pb = p.to(bf).to(f32)
     del sc, dp
-    dq = torch.zeros_like(qf)
+    dqs = [torch.zeros_like(qf) for _ in range(dq_parts)]
     for k0 in range(0, skv, 32):                          # dQ: key order
-        dq += ds[..., k0:k0 + 32] @ kr[:, :, k0:k0 + 32]
+        dqs[k0 // 64 % dq_parts] += ds[..., k0:k0 + 32] @ kr[:, :, k0:k0 + 32]
+    dq = dqs[0] if dq_parts == 1 else dqs[0] + dqs[1]
     dk = torch.zeros_like(kf)
     dv = torch.zeros_like(vf)
     qs = qf.view(b_, hkv, g, sq, d)
@@ -418,36 +425,121 @@ def _share(got, want):
     (4, 32, 8, 512, 128, True, 0),      # qwen3-8b's train shape
     (4, 32, 8, 512, 128, True, 100),    # the same, a window of 100
     (4, 32, 32, 512, 112, True, 0),     # zamba2-7b's train shape, D 112
+    # whisper-tiny's non-causal D 64 shapes at batch 1 of its 4 (batches
+    # are independent in the kernels): the encoder's 1,500 x 1,500, and
+    # the cross-attention of the 448 text rows over the 1,500 frames
+    (1, 6, 6, 1500, 64, False, 0),
+    pytest.param(1, 6, 6, (448, 1500), 64, False, 0,
+                 id="1-6-6-448x1500-64-False-0"),
 ])
 def test_tc_attention_bwd_numerics_keep_the_tolerance(b, hq, hkv, s, d,
                                                       causal, window):
     """The bf16 backward kernels round P and dS to bf16 before their
     products (their one departure from the plain version, as the forward
-    rounds P); emulated at the train shapes, that arithmetic stays within
-    the bf16 tolerance of autograd of the plain version and of the JAX
-    package's gradient of its jnp attention, on the same numpy inputs. The
-    shares (largest over dq, dk, dv) are printed: the card's checks in
-    ``chip_smoke.py`` report the kernels' own."""
+    rounds P); emulated at the train shapes (``s`` is Sq = Skv, or the
+    pair (Sq, Skv)), that arithmetic stays within the bf16 tolerance of
+    autograd of the plain version and of the JAX package's gradient of its
+    jnp attention, on the same numpy inputs. Each output's share is
+    printed: the card's checks in ``chip_smoke.py`` report the kernels'
+    own."""
+    sq, skv = s if isinstance(s, tuple) else (s, s)
+    # the dq kernel's split of each row block's key tiles, as its host
+    # chooses it at whisper-tiny's train batch of 4 on the H100's 132 SMs
+    dq_parts = 1
+    if d == 64 and not causal and not window and hq == hkv and skv > 64:
+        whole, half = (-(-sq // rows) * hq * 4 for rows in (128, 64))
+        dq_parts = 2 if -(-half // 132) < 2 * -(-whole // 132) else 1
     rng = np.random.default_rng(21)
     (jq, tq), (jk, tk), (jv, tv), (jdo, tdo) = (
-        _pair(rng, (b, h, s, d), "bfloat16") for h in (hq, hkv, hkv, hq))
+        _pair(rng, (b, h, n, d), "bfloat16")
+        for h, n in ((hq, sq), (hkv, skv), (hkv, skv), (hq, sq)))
     o = ref.flash_attention_ref(tq, tk, tv, causal=causal, window=window)
     lse = ref.flash_attention_lse_ref(tq, tk, causal=causal, window=window)
-    got = _emulate_tc_attention_bwd(tq, tk, tv, o, tdo, lse, causal, window)
+    got = _emulate_tc_attention_bwd(tq, tk, tv, o, tdo, lse, causal, window,
+                                    dq_parts)
     plain = ref.flash_attention_bwd_ref(tq, tk, tv, tdo, causal=causal,
                                         window=window)
     _, vjp = jax.vjp(lambda q_, k_, v_: jref.flash_attention_ref(
         q_, k_, v_, causal=causal, window=window), jq, jk, jv)
     jgrads = vjp(jdo)
-    shares = {"plain": max(_share(g_, w_.float()) for g_, w_ in
-                           zip(got, plain)),
-              "jax": max(_share(g_, np.asarray(w_, np.float32))
-                         for g_, w_ in zip(got, jgrads))}
-    print(f"tc attention bwd {(b, hq, hkv, s, d, causal, window)}: "
-          f"share of tolerance {shares}")
+    names = ("dq", "dk", "dv")
+    shares = {"plain": {n: _share(g_, w_.float())
+                        for n, g_, w_ in zip(names, got, plain)},
+              "jax": {n: _share(g_, np.asarray(w_, np.float32))
+                      for n, g_, w_ in zip(names, got, jgrads)}}
+    print(f"tc attention bwd {(b, hq, hkv, s, d, causal, window)}, dq in "
+          f"{dq_parts} part(s): share of tolerance {shares}")
     for g_, w_, j_ in zip(got, plain, jgrads):
         _close(g_, w_.float(), "bfloat16")
         _close(g_, np.asarray(j_, np.float32), "bfloat16")
+
+
+def _emulate_tc_attention_fwd64(q, k, v, parts):
+    """The D 64 bf16 forward kernel's arithmetic (``flash_fwd64_tc`` in
+    csrc/flash_attention.cu), non-causal, in f32 on the CPU: each of
+    ``parts`` warpgroups (2 where the kernel splits an item's keys, else 1)
+    runs the online softmax over its 128-key tiles (tile t goes to part
+    t % parts), in key order: S = Q K_t^T as f32 sums of exact bf16
+    products, the running max m, corr = 2^((m_old - m) c) and p =
+    2^(s c - m c) with c = D^-1/2 log2(e), l = l corr + rowsum(p), O =
+    O corr + bf16(p) V_t; then the parts are merged in a fixed order (m =
+    max(m0, m1), each part scaled by 2^((m_i - m) c)) and O / max(l,
+    1e-30) is rounded once to bf16. Test-local: the port does not use
+    it."""
+    f32, bf = torch.float32, torch.bfloat16
+    d, skv = q.shape[-1], k.shape[2]
+    c = torch.tensor(d ** -0.5, dtype=f32) * torch.tensor(
+        1.4426950408889634, dtype=f32)
+    qf, kf, vf = (t.to(f32) for t in (q, k, v))
+    neg_inf = torch.tensor(-1e30, dtype=f32)
+    state = []
+    for part in range(parts):
+        m = torch.full(q.shape[:-1] + (1,), -1e30, dtype=f32)
+        l = torch.zeros_like(m)
+        acc = torch.zeros_like(qf)
+        for t0 in range(128 * part, skv, 128 * parts):
+            kt, vt = kf[:, :, t0:t0 + 128], vf[:, :, t0:t0 + 128]
+            sc = qf @ kt.transpose(-1, -2)
+            m_new = torch.maximum(m, sc.amax(-1, keepdim=True))
+            corr = torch.exp2((m - m_new) * c)
+            neg = torch.where(m_new == neg_inf, 0.0, -m_new * c)
+            p = torch.exp2(sc * c + neg)
+            l = l * corr + p.sum(-1, keepdim=True)
+            acc = acc * corr + p.to(bf).to(f32) @ vt
+            m = m_new
+        state.append((m, l, acc))
+    m, l, acc = state[0]
+    if parts == 2:
+        (m0, l0, a0), (m1, l1, a1) = state
+        m = torch.maximum(m0, m1)
+        w0, w1 = torch.exp2((m0 - m) * c), torch.exp2((m1 - m) * c)
+        l, acc = l0 * w0 + l1 * w1, a0 * w0 + a1 * w1
+    return (acc / torch.clamp(l, min=1e-30)).to(bf)
+
+
+@pytest.mark.parametrize("sq,skv", [(1500, 1500), (416, 1500)],
+                         ids=["encoder", "cross"])
+@pytest.mark.parametrize("parts", [1, 2])
+def test_tc_attention_fwd64_numerics_keep_the_tolerance(sq, skv, parts):
+    """The D 64 forward kernel at whisper-tiny's non-causal shapes (six
+    heads, batch 1 of its 4: batches are independent in the kernel),
+    emulated with its keys in one part or split between its two
+    warpgroups and merged (at batch 4 on the H100's 132 SMs the host
+    splits the encoder's 1,500 rows and not the cross-attention's 416),
+    stays within the bf16 tolerance of the plain version and of the JAX
+    package's reference on the same numpy inputs; each share printed."""
+    rng = np.random.default_rng(23)
+    (jq, tq), (jk, tk), (jv, tv) = (
+        _pair(rng, (1, 6, n, 64), "bfloat16") for n in (sq, skv, skv))
+    got = _emulate_tc_attention_fwd64(tq, tk, tv, parts)
+    plain = ref.flash_attention_ref(tq, tk, tv, causal=False)
+    want = jref.flash_attention_ref(jq, jk, jv, causal=False)
+    shares = {"plain": _share(got, plain.float()),
+              "jax": _share(got, np.asarray(want, np.float32))}
+    print(f"tc attention fwd D 64 {(sq, skv)}, {parts} part(s): share of "
+          f"tolerance {shares}")
+    _close(got, plain.float(), "bfloat16")
+    _close(got, np.asarray(want, np.float32), "bfloat16")
 
 
 def _chunked_f64(x, b, c, dt, da, chunk):
