@@ -392,14 +392,22 @@ def phase_device_and_build(state):
         for row in ptxas_report(name):
             emit(row)
     # K2's tensor-core kernels: no spill, and no wgmma that ptxas
-    # serialised (its "Potential Performance Loss" notes: C7513 and kin)
-    bad = [row for name in ("flash_attention", "flash_attention_bwd")
-           for row in ptxas_report(name)
+    # serialised (its "Potential Performance Loss" notes: C7513, C7520
+    # and kin); the report has to name each kernel of the D 128 rows that
+    # see every key
+    rows = [row for name in ("flash_attention", "flash_attention_bwd")
+            for row in ptxas_report(name)]
+    bad = [row for row in rows
            if "note" in row or not re.search(
                r"0 bytes spill stores, 0 bytes spill loads",
                row.get("spills", ""))]
     if bad:
         raise AssertionError(f"ptxas: K2 spills or serialises: {bad}")
+    reported = " ".join(row.get("function", "") for row in rows)
+    missing = [k for k in ("flash_fwd128_tc", "flash_bwd_dq128_tc",
+                           "flash_bwd_dkdv128_tc") if k not in reported]
+    if missing:
+        raise AssertionError(f"ptxas: no line for {missing}")
 
 
 # ------------------------------------------------------------ phase 1b: comm
@@ -2241,7 +2249,14 @@ def _k3_bwd_cases():
 
 def _vlm_cross_case():
     """The VLM's cross-attention in training: q [4, 32, 512, 128] over
-    k/v [4, 8, 1600, 128] (the image memory), non-causal."""
+    k/v [4, 8, 1600, 128] (the image memory), non-causal: D 128 rows that
+    see every key. The grids on the H100's 132 SMs: forward 512 items of
+    two heads' 64 rows (flash_fwd128_tc, 13 key tiles of 128) in 4
+    rounds; backward dk/dv 800 items of 64 keys (flash_bwd_dkdv128_tc, 32
+    pairs shared 16 and 16 by the warpgroups) in 7 rounds, the seventh
+    of 8 items, then dq 512 items (flash_bwd_dq128_tc, 25 key tiles)
+    launched as its dependent, whose CTAs start on the SMs that seventh
+    round leaves idle."""
     return dict(b=B, hq=VISION.n_heads, hkv=VISION.n_kv_heads, s=S,
                 skv=VISION.n_image_tokens, d=VISION.resolved_head_dim,
                 causal=False, window=0)

@@ -69,7 +69,11 @@
 //   instead: the same items, producer and epilogue with 128-key tiles, and
 //   the keys of long rows split between the two warpgroups where that
 //   fills the card's SMs better (its notes below); causal and windowed
-//   rows keep flash_fwd_tc<64>, whose 64-key tiles mask less.
+//   rows keep flash_fwd_tc<64>, whose 64-key tiles mask less. At D 128
+//   (the VLM's cross-attention) rows that see every key go to
+//   flash_fwd128_tc: 128-key tiles too, with a producer warpgroup whose
+//   registers setmaxnreg hands to the consumers (its notes below);
+//   causal and windowed rows keep flash_fwd_tc<128>.
 //
 // f32: flash_fwd, f32 FMAs on the FP32 pipes (the reduced card-vs-CPU checks
 //   hold the f32 kernel path to 1e-3 of the CPU path, which needs full-f32
@@ -307,13 +311,6 @@ __device__ __forceinline__ int rows_of(const Item& it, const Shape& sh,
 __device__ __forceinline__ int head_of(const Item& it, const Shape& sh,
                                        int c) {
   return sh.pair_heads ? it.h + c : it.h;
-}
-
-// The CTA's item of round r: rounds of G items (G CTAs), taken forwards in
-// even rounds and backwards in odd ones, so long and short items pair up.
-__device__ __forceinline__ int item_of_round(int r) {
-  const int g = gridDim.x, c = blockIdx.x;
-  return r * g + ((r & 1) ? g - 1 - c : c);
 }
 
 // Masks and the online softmax of one S tile (keys t0..t0+63) on the raw
@@ -663,10 +660,6 @@ struct Cfg64 {
 constexpr int kBarMerge = 3;  // warpgroup 1's part is in shared memory
 constexpr int kBarFree = 4;   // warpgroup 0 has read it
 
-__device__ __forceinline__ void named_arrive(int id, int threads) {
-  asm volatile("bar.arrive %0, %1;" ::"r"(id), "r"(threads) : "memory");
-}
-
 #define FA_D8(i)                                                        \
   "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),          \
       "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
@@ -1003,10 +996,246 @@ flash_fwd64_tc(const __grid_constant__ CUtensorMap tq,
   if (kSplit && wg == 1 && handed > 0) named_sync(kBarFree, 2 * 128);
 }
 
+// ------------------------------------------------ bf16 at D 128: 128 keys
+
+// At D 128 flash_fwd_tc runs under the 168 registers ptxas grants a thread
+// of a 288-thread CTA, which holds it to 64-key tiles: S is eight
+// m64n64k16 products a tile with both operands from shared memory (128
+// bytes a clock, all the SM has), and every tile pays the row max, the
+// factor, O's rescaling and the barrier waits for 64 keys. Rows that see
+// every key (no causal limit, no window; the VLM's cross-attention, q
+// [4, 32, 512, 128] over k/v [4, 8, 1,600, 128]) go to flash_fwd128_tc
+// instead:
+// * 384 threads: two consumer warpgroups and a producer warpgroup, whose
+//   one elected thread issues every TMA copy as flash_fwd_tc's producer
+//   warp does. setmaxnreg moves registers from the producer warpgroup (40
+//   a thread) to the consumers (232 a thread; 168 each at launch). It has
+//   to be a whole warpgroup: setmaxnreg is executed by all four warps of
+//   one (.sync.aligned), and .inc waits for registers that .dec has
+//   returned to the pool.
+// * flash_fwd_tc's items (64 rows a warpgroup of heads 2p and 2p + 1 when
+//   the group is even, else rows q0 and q0 + 64 of one head; at the cross
+//   shape 512 items on 132 CTAs, 4 rounds) over 128-key tiles (13 at
+//   Skv 1,600, the last one half past Skv, masked).
+// * S = Q K^T is eight m64n128k16 products a tile (K's two 64-key boxes of
+//   each 64-column half adjacent in shared memory form one 128-row
+//   operand: 6 KB of operands per 64 clocks), the softmax of
+//   softmax_tile128 (P packed to bf16 as it is formed), O += P V eight
+//   m64n128k16 products with P from registers and V read MN-major (4 KB
+//   per 64 clocks): with the fills (64 KB a tile for both warpgroups) ~96
+//   of the SM's 128 bytes of shared memory a clock at the tensor peak.
+// * Registers a consumer thread: S 64, O 64, P 32, m, l and the factors 6
+//   (ptxas: 168 at launch, no spill).
+// * A ring of two K and V stages (64 KB each); Q double-buffered across
+//   items (197,728 bytes of shared memory); the epilogue as flash_fwd_tc's
+//   (O / l into the Q tile, TMA store, the logsumexp when asked).
+constexpr int kThreads3 = kConsumerThreads + 128;  // and a producer warpgroup
+
+struct Cfg128 {
+  static constexpr int kQTile = 2 * kBoxBytes;   // 64 rows x 128 columns
+  static constexpr int kKvTile = 4 * kBoxBytes;  // 128 keys of K or V
+  static constexpr int kStages = 2;              // K/V ring depth
+  // barriers: full then empty, for Q[2], K[kStages], V[kStages]
+  static constexpr int kBars = 2 * (2 + 2 * kStages);
+  static constexpr int kSmem = 1024 + 2 * kConsumers * kQTile +
+                               2 * kStages * kKvTile + 8 * kBars;
+};
+
+__global__ void __launch_bounds__(kThreads3, 1)
+flash_fwd128_tc(const __grid_constant__ CUtensorMap tq,
+                const __grid_constant__ CUtensorMap tk,
+                const __grid_constant__ CUtensorMap tv,
+                const __grid_constant__ CUtensorMap to, Shape sh, Perm pq,
+                Perm pk, Perm pv, Perm po, float scale_log2, float* lse,
+                float scale) {
+  using C = Cfg128;
+  constexpr int kSt = C::kStages;
+  extern __shared__ uint8_t smem[];
+  const uint32_t base = (smem_u32(smem) + 1023) & ~1023u;
+  const uint32_t kv_base = base + 2 * kConsumers * C::kQTile;
+  const uint32_t bars = kv_base + 2 * kSt * C::kKvTile;
+  auto q_tile = [&](int i, int c) {
+    return base + C::kQTile * ((i & 1) * kConsumers + c);
+  };
+  // K: box (column half x, key half h) at 2 x + h, so each column half's
+  // 128 keys are one operand; V: box (h, x) at 2 h + x, so a 16-key k-step
+  // reads both column halves a box apart
+  auto k_tile = [&](int st) { return kv_base + C::kKvTile * st; };
+  auto v_tile = [&](int st) { return kv_base + C::kKvTile * (kSt + st); };
+  auto q_full = [&](int i) { return bars + 8 * (i & 1); };
+  auto k_full = [&](int st) { return bars + 8 * (2 + st); };
+  auto v_full = [&](int st) { return bars + 8 * (2 + kSt + st); };
+  constexpr int kEmpty = 8 * (2 + 2 * kSt);
+  auto parity = [](int g) { return (uint32_t)((g / kSt) & 1); };
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  if (tid == 0) {
+    for (int i = 0; i < C::kBars / 2; ++i) {
+      mbar_init(bars + 8 * i, 1);
+      mbar_init(bars + kEmpty + 8 * i, kConsumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp >= kConsumers * 4) {  // the producer warpgroup: one thread copies
+    regs_dec<kProducerRegs>();
+    if (warp != kConsumers * 4 || lane != 0) return;
+    int g = 0;
+    for (int i = 0; item_of_round(i) < sh.n_items; ++i) {
+      const Item it = item64_at<false>(item_of_round(i), sh);
+      const int hk = it.h / sh.group;
+      mbar_wait(q_full(i) + kEmpty, ((i / 2) & 1) ^ 1);
+      mbar_expect(q_full(i), kConsumers * C::kQTile);
+      for (int c = 0; c < kConsumers; ++c)
+#pragma unroll
+        for (int x = 0; x < 2; ++x)
+          tma_load(q_tile(i, c) + x * kBoxBytes, &tq, q_full(i), x * kBox,
+                   rows_of(it, sh, c), head_of(it, sh, c), it.b, pq);
+      for (int t = 0; t < it.n; ++t, ++g) {
+        const int st = g % kSt, t0 = t * kKeys64;
+        // a second key box wholly past Skv arrives as zeros
+        mbar_wait(k_full(st) + kEmpty, parity(g) ^ 1);
+        mbar_expect(k_full(st), C::kKvTile);
+#pragma unroll
+        for (int x = 0; x < 2; ++x)
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+            tma_load(k_tile(st) + (2 * x + h) * kBoxBytes, &tk, k_full(st),
+                     x * kBox, t0 + kBox * h, hk, it.b, pk);
+        mbar_wait(v_full(st) + kEmpty, parity(g) ^ 1);
+        mbar_expect(v_full(st), C::kKvTile);
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int x = 0; x < 2; ++x)
+            tma_load(v_tile(st) + (2 * h + x) * kBoxBytes, &tv, v_full(st),
+                     x * kBox, t0 + kBox * h, hk, it.b, pv);
+      }
+    }
+    return;
+  }
+  regs_inc<kConsumerRegs>();
+
+  const int wg = warp / 4;
+  const bool signal = tid % 128 == 0;
+  float acc[64];
+  float s[64];
+  float m_run[2], l_run[2], corr[2];
+  uint32_t pa[32];
+  const int row = 16 * (warp % 4) + lane / 4;  // rows row, row + 8
+  const int col = 2 * (lane % 4);              // columns col, col + 1 of 8
+#pragma unroll
+  for (int i = 0; i < 64; ++i) s[i] = 0.f;
+  auto release = [&](uint32_t full_bar) {
+    if (signal) mbar_arrive(full_bar + kEmpty);
+  };
+
+  int g = 0;  // the CTA's K/V tiles consumed so far
+  for (int i = 0; item_of_round(i) < sh.n_items; ++i) {
+    const Item item = item64_at<false>(item_of_round(i), sh);
+    const int qw = rows_of(item, sh, wg), hw = head_of(item, sh, wg);
+    const bool live = qw < sh.sq;  // no tile if the rows start past Sq
+#pragma unroll
+    for (int j = 0; j < 64; ++j) acc[j] = 0.f;
+    m_run[0] = m_run[1] = kNegInf;
+    l_run[0] = l_run[1] = 0.f;
+    mbar_wait(q_full(i), (i / 2) & 1);
+    const uint32_t qt = q_tile(i, wg);
+
+    for (int t = 0; t < item.n; ++t, ++g) {
+      const int st = g % kSt;
+      mbar_wait(k_full(st), parity(g));
+      if (live) {
+        // S = Q K^T over the tile's 128 keys: k-step kk reads 16 columns
+        // of Q's and K's column half kk / 4
+        fence_regs(s);
+        wg_fence();
+#pragma unroll
+        for (int kk = 0; kk < 8; ++kk)
+          wgmma_qk128(
+              s,
+              sw128_desc(qt + (kk / 4) * kBoxBytes + (kk % 4) * 32, 16,
+                         kAtomBytes),
+              sw128_desc(k_tile(st) + (kk / 4) * 2 * kBoxBytes +
+                             (kk % 4) * 32,
+                         16, kAtomBytes),
+              kk > 0);
+        wg_commit();
+        wg_wait_all();
+        fence_regs(s);
+      }
+      release(k_full(st));
+      if (live) {
+        softmax_tile128(s, pa, m_run, l_run, corr, t * kKeys64, col, sh.skv,
+                        scale_log2);
+#pragma unroll
+        for (int j = 0; j < 16; ++j)
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            acc[4 * j + 2 * r] *= corr[r];
+            acc[4 * j + 2 * r + 1] *= corr[r];
+          }
+      }
+      mbar_wait(v_full(st), parity(g));
+      if (live) {
+        // O += P V: 16 keys (two swizzle atoms of V's rows) a k-step; the
+        // second column half is a box further on
+        fence_regs(acc);
+        wg_fence();
+#pragma unroll
+        for (int kk = 0; kk < kKeys64 / 16; ++kk)
+          wgmma_pv<128>(acc, pa + 4 * kk,
+                        sw128_desc(v_tile(st) + (kk / 4) * 2 * kBoxBytes +
+                                       (kk % 4) * 2 * kAtomBytes,
+                                   kBoxBytes, kAtomBytes));
+        wg_commit();
+        wg_wait_all();
+        fence_regs(acc);
+      }
+      release(v_full(st));
+    }
+
+    // epilogue, as flash_fwd_tc's: O / l in bf16 into the Q tile, stored
+    // with TMA (rows past Sq dropped); the row's logsumexp when asked
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float l = l_run[r];
+      l += __shfl_xor_sync(0xffffffffu, l, 1);
+      l += __shfl_xor_sync(0xffffffffu, l, 2);
+      const float inv = 1.f / fmaxf(l, 1e-30f);
+      const int rr = row + 8 * r;
+      if (lse != nullptr && lane % 4 == 0 && qw + rr < sh.sq)
+        lse[((long long)item.b * sh.hq + hw) * sh.sq + qw + rr] =
+            l > 0.f ? fmaf(m_run[r], scale, logf(l)) : INFINITY;
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        const uint32_t at = qt + (j / 8) * kBoxBytes + rr * kRowBytes +
+                            (((j % 8) ^ (rr % 8)) * 16) + col * 2;
+        const uint32_t v = pack_bf16(acc[4 * j + 2 * r] * inv,
+                                     acc[4 * j + 2 * r + 1] * inv);
+        asm volatile("st.shared.b32 [%0], %1;" ::"r"(at), "r"(v)
+                     : "memory");
+      }
+    }
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+    named_sync(1 + wg, 128);
+    if (signal) {
+#pragma unroll
+      for (int x = 0; x < 2; ++x)
+        tma_store(&to, qt + x * kBoxBytes, x * kBox, qw, hw, item.b, po);
+      asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+      asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
+      release(q_full(i));  // the tile may take the item after next's Q
+    }
+  }
+}
+
 // The grid: as many CTAs of ``kernel`` as are resident on the card at once
 // (all of L1 as shared memory).
 template <typename Kernel>
-int resident_ctas(Kernel kernel, int smem, int* out) {
+int resident_ctas(Kernel kernel, int smem, int* out, int threads = kThreads) {
   if (*out) return 0;
   int dev, sms, per_sm;
   cudaError_t e = cudaFuncSetAttribute(
@@ -1020,7 +1249,7 @@ int resident_ctas(Kernel kernel, int smem, int* out) {
     e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e == cudaSuccess)
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                      kThreads, smem);
+                                                      threads, smem);
   if (e != cudaSuccess) return (int)e;
   if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
   *out = sms * per_sm;
@@ -1069,6 +1298,34 @@ int launch64(const void* q, const void* k, const void* v, void* o,
     flash_fwd64_tc<false><<<min(resident, sh.n_items), kThreads,
                             Cfg64::kSmem, stream>>>(
         tq, tk, tv, to, sh, pq, pk, pv, po, scale_log2, lse, scale);
+  return 0;
+}
+
+// D 128, rows that see every key: flash_fwd128_tc.
+int launch128(const void* q, const void* k, const void* v, void* o,
+              float* lse, int batch, int hq, int hkv, int sq, int skv,
+              Strides qs, Strides ks, Strides vs, Strides os, float scale,
+              cudaStream_t stream) {
+  CUtensorMap tq, tk, tv, to;
+  Perm pq, pk, pv, po;
+  int err = make_map(&tq, &pq, q, 128, sq, hq, batch, qs);
+  if (!err) err = make_map(&tk, &pk, k, 128, skv, hkv, batch, ks);
+  if (!err) err = make_map(&tv, &pv, v, 128, skv, hkv, batch, vs);
+  if (!err) err = make_map(&to, &po, o, 128, sq, hq, batch, os);
+  static int resident = 0;
+  if (!err)
+    err = resident_ctas(flash_fwd128_tc, Cfg128::kSmem, &resident,
+                        kThreads3);
+  if (err) return err;
+  Shape sh{sq, skv, hq, batch, hq / hkv, 0, 0,
+           (hq / hkv) % 2 == 0 ? 1 : 0, 0, 0};
+  const int span = sh.pair_heads ? kRows : kRows * kConsumers;
+  sh.n_qt = (sq + span - 1) / span;
+  sh.n_items = sh.n_qt * (sh.pair_heads ? hq / 2 : hq) * batch;
+  flash_fwd128_tc<<<min(resident, sh.n_items), kThreads3,
+                    Cfg128::kSmem, stream>>>(
+      tq, tk, tv, to, sh, pq, pk, pv, po, scale * 1.4426950408889634f, lse,
+      scale);
   return 0;
 }
 
@@ -1164,9 +1421,13 @@ int launch_bf16(int d, const void* q, const void* k, const void* v, void* o,
     case 112:  // zamba2's shared attention: padded to two 64-column boxes
       return tc::launch<112>(q, k, v, o, lse, batch, hq, hkv, sq, skv, qs,
                              ks, vs, os, causal, window, scale, stream);
-    case 128:
-      return tc::launch<128>(q, k, v, o, lse, batch, hq, hkv, sq, skv, qs,
-                             ks, vs, os, causal, window, scale, stream);
+    case 128:  // rows that see every key: 128-key tiles (flash_fwd128_tc);
+               // causal and windowed rows keep 64-key tiles, which mask less
+      if (causal || window)
+        return tc::launch<128>(q, k, v, o, lse, batch, hq, hkv, sq, skv, qs,
+                               ks, vs, os, causal, window, scale, stream);
+      return tc::launch128(q, k, v, o, lse, batch, hq, hkv, sq, skv, qs, ks,
+                           vs, os, scale, stream);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -51,7 +51,12 @@
 // to issue their products; and where it fills the card better the dq
 // kernel splits a row block's key tiles between its two warpgroups and
 // adds the two dQ parts in a fixed order. Causal rows keep (2)'s 64-key
-// items split by output, which balance the triangle better.
+// items split by output, which balance the triangle better. At D 128 rows
+// that see every key (the VLM's cross-attention) go to
+// flash_bwd_dkdv128_tc and flash_bwd_dq128_tc, in that order, dq as a
+// programmatic dependent launch that fills the SMs dk/dv's last round
+// leaves idle (their notes below); causal and windowed D 128 rows keep
+// (1) and (2).
 // Rounding P and dS to bf16 before the products is this route's departure
 // from the plain version, as the forward's bf16 P is; it stays within the
 // bf16 tolerance (tests/test_torch_kernels.py emulates the arithmetic on
@@ -72,8 +77,10 @@
 //   (its first k-step overwrites them) so no stale tile stays live across
 //   the products, and the tiles' shared-memory addresses are made opaque
 //   where a product is issued, so the descriptors of every k-step are not
-//   hoisted into registers. setmaxnreg, which could rebalance registers
-//   towards the consumers, hung in the K3 kernel and is not used.
+//   hoisted into registers. The D 128 kernels for rows that see every key
+//   lift the cap: dq with setmaxnreg and a producer warpgroup (a whole
+//   warpgroup: the K3 kernel's hang came with a lone producer warp),
+//   dk/dv with no producer warp at all.
 //   chip_smoke.py prints the ptxas lines and fails on a spill.
 // * ptxas C7513 (every wgmma serialised) came from a software pipeline of
 //   the products in the forward; here each wgmma group is retired
@@ -538,23 +545,11 @@ struct Shape {
   int n_t, n_items;  // dq: q spans; dk/dv: key tiles; and the items
 };
 
-// The CTA's item of round r: rounds of G items (G CTAs), taken forwards in
-// even rounds and backwards in odd ones, so long and short items pair up.
-// Which CTA computes an item does not change its arithmetic.
-__device__ __forceinline__ int item_of_round(int r) {
-  const int g = gridDim.x, c = blockIdx.x;
-  return r * g + ((r & 1) ? g - 1 - c : c);
-}
-
 // Named barriers (0 is __syncthreads).
 constexpr int kBarWg = 1;      // + wg: one consumer warpgroup
 constexpr int kBarTurn = 3;    // + wg: this warpgroup may issue products
 constexpr int kBarMerge = 5;   // dq, split item: warpgroup 1's dQ is staged
 constexpr int kBarFree = 6;    // dq, split item: warpgroup 0 has read it
-
-__device__ __forceinline__ void named_arrive(int id, int threads) {
-  asm volatile("bar.arrive %0, %1;" ::"r"(id), "r"(threads) : "memory");
-}
 
 // ------------------------------------------------------------- prep
 
@@ -1521,10 +1516,573 @@ flash_bwd_dkdv64_tc(const __grid_constant__ CUtensorMap tq,
   }
 }
 
+// ------------------------------------------- D 128, rows that see every key
+
+// At D 128 the 288-thread kernels above run under the 168 registers ptxas
+// grants a thread of a CTA with a producer warp, which is what makes dq
+// form S and dP in 32-key groups (m64n32k16 from shared memory: 192 bytes
+// of operands a clock against the SM's 128, so at most 2/3 of the tensor
+// rate) and dk/dv split its work by output (an f32 P^T tile through shared
+// memory, 32 KB written and read a pair). Rows that see every key (no
+// causal limit, no window) go to the two kernels below instead, whose
+// consumer threads hold up to 232 and 255 registers.
+
+// S (+)= A B^T over D / 16 k-steps, A a bf16 register fragment (k-step kk
+// in a[4 kk .. 4 kk + 3]), B a K-major 64-row tile (no commit).
+template <int D>
+__device__ __forceinline__ void mma_rs_abt(float (&s)[32],
+                                           const uint32_t (&a)[D / 4],
+                                           uint32_t b) {
+  uint32_t unused = 0;
+  opaque(b, unused);
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk)
+    wgmma_rs_qk(s, a + 4 * kk,
+                sw128_desc(b + (kk / 4) * kBoxBytes + (kk % 4) * 32, 16,
+                           kAtomBytes),
+                kk > 0);
+}
+
+// The bf16 A fragments of a K-major 64 x 128 tile (two 64-column boxes,
+// 128-byte swizzle), k-step kk (columns 16 kk ..) in out[4 kk .. 4 kk + 3]:
+// the layout pack_frags gives an accumulator.
+__device__ __forceinline__ void load_frags(uint32_t (&out)[32], uint32_t tile,
+                                           int row, int col) {
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk)
+#pragma unroll
+    for (int x = 0; x < 4; ++x) {
+      const int r = row + 8 * (x & 1), c = 16 * kk + col + 8 * (x >> 1);
+      const uint32_t at = tile + (c / 64) * kBoxBytes + r * kRowBytes +
+                          ((((c % 64) / 8) ^ (r % 8)) * 16) + (c % 8) * 2;
+      asm volatile("ld.shared.b32 %0, [%1];" : "=r"(out[4 * kk + x])
+                   : "r"(at) : "memory");
+    }
+}
+
+// ---------------------------------------------- dq, D 128, every key
+
+// dq = scale dS K for rows that see every key at D 128 (the VLM's
+// cross-attention: q [4, 32, 512, 128] over k/v [4, 8, 1,600, 128]).
+// Items as flash_bwd_dq_tc's: 64 q rows for each consumer warpgroup that
+// read one KV head (heads 2p and 2p + 1 when the GQA group is even, else
+// rows q0 and q0 + 64 of one head), every 64-key tile of Skv; at the cross
+// shape 512 items on 132 CTAs, 4 rounds (3.88 would do).
+// * 384 threads: two consumer warpgroups and a producer warpgroup, whose
+//   one elected thread issues every TMA copy as flash_bwd_dq_tc's
+//   producer warp does. setmaxnreg moves registers from the producer
+//   warpgroup (40 a thread) to the consumers (232 a thread; 168 each at
+//   launch). It has to be a whole warpgroup: setmaxnreg is executed by
+//   all four warps of one (.sync.aligned), and .inc waits for registers
+//   that .dec has returned to the pool.
+// * An item's Q rows arrive in a buffer of their own and stay in
+//   registers as bf16 A fragments (32 a thread; the buffer is released
+//   as soon as every consumer thread has its fragments); dO, L and D_row
+//   in a double buffer. S = Q K^T is then an m64n64k16 product with only
+//   K read from shared memory (64 bytes a clock), dP = dO V^T one with
+//   both operands there (128), dQ += dS K an m64n128k16 product with dS
+//   from registers and K read MN-major (64): with the ring's fills (32 KB
+//   a tile for both warpgroups) ~104 of the SM's 128 bytes a clock at the
+//   tensor peak.
+// * K and V through a ring of kStages 64-key tiles that both warpgroups
+//   read; per tile S and dP (one wgmma group, retired before any read), P
+//   = 2^(S c - L) and dS = P (dP - D_row) in f32 registers, dS rounded to
+//   bf16 as the A operand of dQ += dS K, keys in order (dQ summed over
+//   64-key tiles in key order).
+// * Registers a consumer thread: dQ 64, S 32, dP 32, Q 32, dS 16 (ptxas:
+//   168 at launch, no spill; holding dO as well, 255 spilled 72 bytes).
+//   Shared memory 199,776 bytes: Q, dO double-buffered, 3 K/V stages.
+// * The epilogue scales dQ into the warpgroup's dO tile (no longer read)
+//   and stores it with TMA (rows past Sq dropped).
+constexpr int kThreads3 = 128 * (kConsumers + 1);  // and a producer warpgroup
+
+struct Dq128Cfg {
+  static constexpr int kTile = 2 * kBoxBytes;  // 64 rows x 128 columns
+  static constexpr int kStages = 3;            // K/V ring depth
+  static constexpr int kVec = 2 * kRows * 4;   // a warpgroup's L and D_row
+  // Q of each warpgroup, dO [2 buffers][each warpgroup], K and V of each
+  // stage
+  static constexpr int kTiles = kConsumers + 2 * kConsumers + 2 * kStages;
+  // full and empty barriers: the Q buffer, the dO buffers, each stage
+  static constexpr int kBars = 2 * (1 + 2 + kStages);
+  static constexpr int kSmem = 1024 + kTile * kTiles +
+                               2 * kConsumers * kVec + 8 * kBars;
+};
+
+__global__ void __launch_bounds__(kThreads3, 1)
+flash_bwd_dq128_tc(const __grid_constant__ CUtensorMap tq,
+                   const __grid_constant__ CUtensorMap tk,
+                   const __grid_constant__ CUtensorMap tv,
+                   const __grid_constant__ CUtensorMap tdo,
+                   const __grid_constant__ CUtensorMap tdq, Shape sh,
+                   Perm pq, Perm pk, Perm pv, Perm pdo, Perm pdq,
+                   const float* __restrict__ lrow,
+                   const float* __restrict__ drow, float scale_log2,
+                   float scale) {
+  using C = Dq128Cfg;
+  constexpr int kTile = C::kTile, kStages = C::kStages;
+  extern __shared__ uint8_t smem[];
+  const uint32_t base = (smem_u32(smem) + 1023) & ~1023u;
+  uint8_t* const base_g = smem + (base - smem_u32(smem));
+  // Q of warpgroup c; dO of warpgroup c in buffer i; K of stage st, V
+  // beside it; the L and D_row of warpgroup c in buffer i
+  auto q_tile = [&](int c) { return base + kTile * c; };
+  auto do_tile = [&](int i, int c) {
+    return base + kTile * (kConsumers + (i & 1) * kConsumers + c);
+  };
+  auto k_tile = [&](int st) {
+    return base + kTile * (3 * kConsumers + 2 * st);
+  };
+  const uint32_t vecs = base + kTile * C::kTiles;
+  auto vec = [&](int i, int c) {
+    return vecs + C::kVec * ((i & 1) * kConsumers + c);
+  };
+  const uint32_t bars = vecs + 2 * kConsumers * C::kVec;
+  const uint32_t q_full = bars;
+  auto do_full = [&](int i) { return bars + 8 * (1 + (i & 1)); };
+  auto kv_full = [&](int st) { return bars + 8 * (3 + st); };
+  constexpr int kEmpty = 8 * (3 + kStages);
+  auto parity = [](int g) { return (uint32_t)((g / kStages) & 1); };
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  if (tid == 0) {
+    mbar_init(q_full, 1);
+    mbar_init(q_full + kEmpty, 128 * kConsumers);  // each, once it has Q
+    for (int i = 1; i < C::kBars / 2; ++i) {
+      mbar_init(bars + 8 * i, 1);
+      mbar_init(bars + kEmpty + 8 * i, kConsumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp >= kConsumers * 4) {  // the producer warpgroup: one thread copies
+    regs_dec<kProducerRegs>();
+    if (warp != kConsumers * 4 || lane != 0) return;
+    int g = 0;
+    for (int i = 0; item_of_round_rev(i) < sh.n_items; ++i) {
+      const DqItem it = dq_item<false>(item_of_round_rev(i), sh);
+      const int hk = it.h / sh.group;
+      // a warpgroup whose rows start past sq gets no L and D_row (they
+      // would lie past its head's padded rows)
+      const int live = sh.pair_heads || it.q0 + kRows < sh.sq ? 2 : 1;
+      mbar_wait(q_full + kEmpty, (i & 1) ^ 1);
+      mbar_wait(do_full(i) + kEmpty, ((i / 2) & 1) ^ 1);
+      mbar_expect(q_full, kConsumers * kTile);
+      mbar_expect(do_full(i), kConsumers * kTile + live * C::kVec);
+      for (int c = 0; c < kConsumers; ++c) {
+        const int q0 = sh.pair_heads ? it.q0 : it.q0 + kRows * c;
+        const int h = sh.pair_heads ? it.h + c : it.h;
+#pragma unroll
+        for (int x = 0; x < 2; ++x) {
+          tma_load(q_tile(c) + x * kBoxBytes, &tq, q_full, x * kBox, q0, h,
+                   it.b, pq);
+          tma_load(do_tile(i, c) + x * kBoxBytes, &tdo, do_full(i),
+                   x * kBox, q0, h, it.b, pdo);
+        }
+        if (c < live) {
+          const long long at = ((long long)it.b * sh.hq + h) * sh.sq_pad + q0;
+          bulk_load(vec(i, c), lrow + at, kRows * 4, do_full(i));
+          bulk_load(vec(i, c) + kRows * 4, drow + at, kRows * 4,
+                    do_full(i));
+        }
+      }
+      for (int t = 0; t < it.n; ++t, ++g) {
+        const int st = g % kStages;
+        mbar_wait(kv_full(st) + kEmpty, parity(g) ^ 1);
+        mbar_expect(kv_full(st), 2 * kTile);
+#pragma unroll
+        for (int x = 0; x < 2; ++x) {
+          tma_load(k_tile(st) + x * kBoxBytes, &tk, kv_full(st), x * kBox,
+                   t * kCols, hk, it.b, pk);
+          tma_load(k_tile(st) + kTile + x * kBoxBytes, &tv, kv_full(st),
+                   x * kBox, t * kCols, hk, it.b, pv);
+        }
+      }
+    }
+    return;
+  }
+  regs_inc<kConsumerRegs>();
+
+  const int wg = warp / 4;
+  const bool signal = tid % 128 == 0;
+  const int row = 16 * (warp % 4) + lane / 4;  // rows row, row + 8
+  const int col = 2 * (lane % 4);              // columns col, col + 1 of 8
+  float acc[64], s[32], dp[32];
+  uint32_t qa[32], pd[16];
+
+  int g = 0;  // the CTA's K/V tiles consumed so far
+  for (int i = 0; item_of_round_rev(i) < sh.n_items; ++i) {
+    const DqItem item = dq_item<false>(item_of_round_rev(i), sh);
+    const int qw = sh.pair_heads ? item.q0 : item.q0 + kRows * wg;
+    const int hw = sh.pair_heads ? item.h + wg : item.h;
+    const bool live = qw < sh.sq;
+    mbar_wait(q_full, i & 1);
+    load_frags(qa, q_tile(wg), row, col);
+    mbar_arrive(q_full + kEmpty);  // the buffer may take the next item's Q
+    mbar_wait(do_full(i), (i / 2) & 1);
+    const uint32_t dot = do_tile(i, wg);
+    float lr[2], dr[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float* lv =
+          reinterpret_cast<const float*>(base_g + (vec(i, wg) - base));
+      lr[r] = live ? lv[row + 8 * r] : 0.f;
+      dr[r] = live ? lv[kRows + row + 8 * r] : 0.f;
+    }
+#pragma unroll
+    for (int j = 0; j < 64; ++j) acc[j] = 0.f;
+
+    for (int t = 0; t < item.n; ++t, ++g) {
+      const int st = g % kStages;
+      mbar_wait(kv_full(st), parity(g));
+      if (live) {
+        const uint32_t kt = k_tile(st), vt = kt + kTile;
+        zero(s);
+        zero(dp);
+        wg_fence();
+        mma_rs_abt<128>(s, qa, kt);
+        mma_abt<128>(dp, dot, vt);
+        wg_commit();
+        wg_wait_all();
+        fence_regs(s);
+        fence_regs(dp);
+        const int t0 = t * kCols;
+        const bool edge = t0 + kCols > sh.skv;
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int r = 0; r < 2; ++r)
+#pragma unroll
+            for (int c = 0; c < 2; ++c) {
+              const int e = 4 * j + 2 * r + c;
+              float x = s[e];
+              if (edge && t0 + 8 * j + col + c >= sh.skv) x = kMasked;
+              const float p = ex2(fmaf(x, scale_log2, -lr[r]));
+              dp[e] = p * (dp[e] - dr[r]);
+            }
+        pack_frags(dp, pd);
+        // dQ += dS K
+        fence_regs(acc);
+        wg_fence();
+        mma_pb<128, kCols>(acc, pd, kt);
+        wg_commit();
+        wg_wait_all();
+        fence_regs(acc);
+      }
+      if (signal) mbar_arrive(kv_full(st) + kEmpty);
+    }
+
+    // epilogue: dQ scaled into this warpgroup's dO tile (no longer read)
+    // and stored with TMA, which drops rows past Sq
+    stage_bf16<128>(acc, dot, scale, row, col);
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+    named_sync(kBarWg + wg, 128);
+    if (signal) {
+      if (live) {
+#pragma unroll
+        for (int x = 0; x < 2; ++x)
+          tma_store(&tdq, dot + x * kBoxBytes, x * kBox, qw, hw, item.b,
+                    pdq);
+        asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+        asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
+      }
+      mbar_arrive(do_full(i) + kEmpty);  // the buffer may take item i + 2's
+    }
+  }
+  // launched as a dependent of flash_bwd_dkdv128_tc: end no sooner than it,
+  // so that what follows on the stream sees dk and dv as well
+  grid_dependency_wait();
+}
+
+// ------------------------------------------- dk, dv, D 128, every key
+
+// dv = P^T dO and dk = scale dS^T q for rows that see every key at D 128.
+// An item is one 64-key tile of one KV head (at the cross shape 25 tiles x
+// 8 heads x batch 4 = 800 items on 132 CTAs: 7 rounds, 6.06 would do;
+// 128-key items, 416 in 4 rounds, take 14% more item-time); its work is
+// the (q head of the group, 64-row q tile) pairs, heads outer (32 at the
+// cross shape), and the two warpgroups share them out: warpgroup c takes
+// the pairs p with p % 2 == c.
+// * 256 threads, no producer warp (up to 255 registers a thread): each
+//   warpgroup's elected thread copies its own pairs' Q, dO, L and D_row
+//   by TMA into its own two stages, the pair after next as soon as the
+//   warpgroup is done with a pair, so neither warpgroup waits for the
+//   other's progress to get its operands; warpgroup 0's thread also
+//   copies each item's K and V (double-buffered, the next item's at the
+//   start of this one).
+// * Per pair a warpgroup forms S^T = K Q^T and dP^T = V dO^T (m64n64k16,
+//   both operands from shared memory; one group, retired before any
+//   read), P^T = 2^(S^T c - L) and dS^T = P^T (dP^T - D_row) in f32
+//   registers, 16 columns at a time packed to bf16 as they are formed,
+//   then dV += P^T dO and dK += dS^T Q (m64n128k16, dO and Q read
+//   MN-major). No P^T crosses shared memory; 128 KB of operands and fills
+//   a pair for 4 x 256 tensor clocks: ~125 of the SM's 128 bytes a clock
+//   at the tensor cores' peak (the split by output moved ~190).
+// * Registers a thread: dK 64 and dV 64 of its pairs, S^T 32, dP^T 32,
+//   P^T and dS^T 16 + 16 (ptxas: 240, no spill). Shared memory 199,744
+//   bytes: K/V double-buffered, two Q/dO stages a warpgroup.
+// * The partial sums meet in a fixed order once the item's pairs are
+//   done, through the item's K/V buffer (32 KB, no longer read):
+//   warpgroup 0 writes its dK, warpgroup 1 adds it to its own and writes
+//   its dV, warpgroup 0 adds that to its own; so dK = dK_odd + dK_even and
+//   dV = dV_even + dV_odd, each part summed in pair order. Warpgroup 0
+//   then stages dV in the K tile, warpgroup 1 dK (scaled) in the V tile,
+//   each stored with TMA (rows past Skv dropped).
+// * Each CTA, on starting its last item, lets the dq kernel (launched
+//   after this one as its programmatic dependent) take the SMs it frees.
+constexpr int kThreads2 = 128 * kConsumers;  // two warpgroups, no producer
+constexpr int kBarEx = 7;  // dk/dv: +0..2, the hand-over of dK and dV
+
+struct Kv128Cfg {
+  static constexpr int kTile = 2 * kBoxBytes;  // 64 rows x 128 columns
+  static constexpr int kStages = 2;            // Q/dO stages a warpgroup
+  static constexpr int kVec = 2 * kCols * 4;   // a stage's L and D_row
+  // K and V [2 buffers], then Q and dO [kConsumers][kStages]
+  static constexpr int kTiles = 2 * 2 + 2 * kConsumers * kStages;
+  // barriers: K/V buffers full and empty (2 + 2), each stage full
+  static constexpr int kBars = 2 * 2 + kConsumers * kStages;
+  static constexpr int kSmem = 1024 + kTile * kTiles +
+                               kVec * kConsumers * kStages + 8 * kBars;
+};
+
+__global__ void __launch_bounds__(kThreads2, 1)
+flash_bwd_dkdv128_tc(const __grid_constant__ CUtensorMap tq,
+                     const __grid_constant__ CUtensorMap tk,
+                     const __grid_constant__ CUtensorMap tv,
+                     const __grid_constant__ CUtensorMap tdo,
+                     const __grid_constant__ CUtensorMap tdk,
+                     const __grid_constant__ CUtensorMap tdv, Shape sh,
+                     Perm pq, Perm pk, Perm pv, Perm pdo, Perm pdk,
+                     Perm pdv, const float* __restrict__ lrow,
+                     const float* __restrict__ drow, float scale_log2,
+                     float scale) {
+  using C = Kv128Cfg;
+  constexpr int kTile = C::kTile;
+  extern __shared__ uint8_t smem[];
+  const uint32_t base = (smem_u32(smem) + 1023) & ~1023u;
+  uint8_t* const base_g = smem + (base - smem_u32(smem));
+  const uint32_t vecs = base + kTile * C::kTiles;
+  const uint32_t bars = vecs + C::kVec * kConsumers * C::kStages;
+  // K of buffer i, V beside it; stage st (kStages a warpgroup, warpgroup
+  // c's from c kStages): Q, dO beside it, its L and D_row
+  auto k_tile = [&](int i) { return base + kTile * (2 * (i & 1)); };
+  auto q_tile = [&](int st) { return base + kTile * (4 + 2 * st); };
+  auto vec = [&](int st) { return vecs + C::kVec * st; };
+  auto kv_full = [&](int i) { return bars + 8 * (i & 1); };
+  auto kv_empty = [&](int i) { return bars + 8 * (2 + (i & 1)); };
+  auto st_full = [&](int st) { return bars + 8 * (4 + st); };
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int wg = warp / 4, t128 = tid % 128;
+  const bool signal = t128 == 0;
+  if (tid == 0) {
+    for (int i = 0; i < 2; ++i) {  // K/V: both warpgroups' stores release
+      mbar_init(kv_full(i), 1);
+      mbar_init(kv_empty(i), kConsumers);
+    }
+    for (int st = 0; st < kConsumers * C::kStages; ++st)
+      mbar_init(st_full(st), 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+  }
+  __syncthreads();
+
+  // This warpgroup's copies of its own pairs (p % 2 == wg), in order: the
+  // next is its pair ``np`` of the item of round ``ni``, its ``nj``-th
+  // pair in all, into its stage nj % kStages (the stage of pair nj -
+  // kStages, which this warpgroup has finished).
+  int ni = 0, np = wg, nj = 0;
+  auto issue_next = [&]() {
+    while (item_of_round(ni) < sh.n_items) {
+      const KvItem it = kv_item(item_of_round(ni), sh);
+      if (np >= it.n) {
+        ++ni;
+        np = wg;
+        continue;
+      }
+      const int st = wg * C::kStages + nj % C::kStages;
+      const int h = it.hk * sh.group + np / it.n_qt;
+      const int q0 = (it.qt_lo + np % it.n_qt) * kCols;
+      mbar_expect(st_full(st), 2 * kTile + C::kVec);
+#pragma unroll
+      for (int x = 0; x < 2; ++x) {
+        tma_load(q_tile(st) + x * kBoxBytes, &tq, st_full(st), x * kBox, q0,
+                 h, it.b, pq);
+        tma_load(q_tile(st) + kTile + x * kBoxBytes, &tdo, st_full(st),
+                 x * kBox, q0, h, it.b, pdo);
+      }
+      const long long at = ((long long)it.b * sh.hq + h) * sh.sq_pad + q0;
+      bulk_load(vec(st), lrow + at, kCols * 4, st_full(st));
+      bulk_load(vec(st) + kCols * 4, drow + at, kCols * 4, st_full(st));
+      np += kConsumers;
+      ++nj;
+      return;
+    }
+  };
+  // K and V of the item of round i into buffer i % 2, once both
+  // warpgroups' stores of item i - 2 have read it
+  auto issue_kv = [&](int i) {
+    if (item_of_round(i) >= sh.n_items) return;
+    const KvItem it = kv_item(item_of_round(i), sh);
+    mbar_wait(kv_empty(i), ((i / 2) & 1) ^ 1);
+    mbar_expect(kv_full(i), 2 * kTile);
+#pragma unroll
+    for (int x = 0; x < 2; ++x) {
+      tma_load(k_tile(i) + x * kBoxBytes, &tk, kv_full(i), x * kBox, it.k0,
+               it.hk, it.b, pk);
+      tma_load(k_tile(i) + kTile + x * kBoxBytes, &tv, kv_full(i),
+               x * kBox, it.k0, it.hk, it.b, pv);
+    }
+  };
+  if (signal) {
+    if (wg == 0) issue_kv(0);
+    for (int st = 0; st < C::kStages; ++st) issue_next();
+  }
+
+  const int row = 16 * (warp % 4) + lane / 4;  // key rows row, row + 8
+  const int col = 2 * (lane % 4);              // q columns col, col + 1 of 8
+  float adk[64], adv[64];  // dK and dV of this warpgroup's pairs
+  float s[32], dp[32];     // S^T then P^T; dP^T then dS^T
+  uint32_t pa[16], pd[16];
+
+  int j = 0;  // this warpgroup's pairs so far
+  for (int i = 0; item_of_round(i) < sh.n_items; ++i) {
+    const KvItem item = kv_item(item_of_round(i), sh);
+    zero(adk);
+    zero(adv);
+    // the CTA's last item: the dq kernel, launched after this one, may
+    // take the SMs that this grid's last round leaves idle
+    if (item_of_round(i + 1) >= sh.n_items) launch_dependents();
+    if (signal && wg == 0) issue_kv(i + 1);
+    mbar_wait(kv_full(i), (i / 2) & 1);
+    const uint32_t kt = k_tile(i), vt = kt + kTile;
+    const bool edge_k = item.k0 + kRows > sh.skv;
+    for (int p = wg; p < item.n; p += kConsumers, ++j) {
+      const int st = wg * C::kStages + j % C::kStages;
+      mbar_wait(st_full(st), (j / C::kStages) & 1);
+      const uint32_t qt = q_tile(st), dot = qt + kTile;
+      const float* lv =
+          reinterpret_cast<const float*>(base_g + (vec(st) - base));
+      // S^T = K Q^T and dP^T = V dO^T
+      zero(s);
+      zero(dp);
+      wg_fence();
+      mma_abt<128>(s, kt, qt);
+      mma_abt<128>(dp, vt, dot);
+      wg_commit();
+      wg_wait_all();
+      fence_regs(s);
+      fence_regs(dp);
+      // P^T and dS^T, 16 columns (one k-step of the products) at a time;
+      // q rows past Sq have L = +inf and D_row = 0 (P^T and dS^T 0)
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+        for (int jj = 0; jj < 2; ++jj) {
+          const int jc = 2 * kk + jj;
+          const float2 l2 =
+              *reinterpret_cast<const float2*>(lv + 8 * jc + col);
+          const float2 d2 =
+              *reinterpret_cast<const float2*>(lv + kCols + 8 * jc + col);
+#pragma unroll
+          for (int r = 0; r < 2; ++r)
+#pragma unroll
+            for (int c = 0; c < 2; ++c) {
+              const int e = 4 * jc + 2 * r + c;
+              float x = s[e];
+              if (edge_k && item.k0 + row + 8 * r >= sh.skv) x = kMasked;
+              const float pr = ex2(fmaf(x, scale_log2, -(c ? l2.y : l2.x)));
+              s[e] = pr;
+              dp[e] = pr * (dp[e] - (c ? d2.y : d2.x));
+            }
+        }
+#pragma unroll
+        for (int x = 0; x < 4; ++x) {
+          pa[4 * kk + x] = pack_bf16(s[8 * kk + 2 * x], s[8 * kk + 2 * x + 1]);
+          pd[4 * kk + x] =
+              pack_bf16(dp[8 * kk + 2 * x], dp[8 * kk + 2 * x + 1]);
+        }
+      }
+      // dV += P^T dO and dK += dS^T Q
+      fence_regs(adv);
+      fence_regs(adk);
+      wg_fence();
+      mma_pb<128>(adv, pa, dot);
+      mma_pb<128>(adk, pd, qt);
+      wg_commit();
+      wg_wait_all();
+      fence_regs(adv);
+      fence_regs(adk);
+      // the stage is free (every thread's reads of it came before the
+      // products it fed): it takes this warpgroup's pair after next
+      if (signal) issue_next();
+    }
+
+    // the hand-over, through the item's K/V buffer (both warpgroups are
+    // done reading it after the CTA barrier): each thread's floats at
+    // y[(j / 4) 128 + t128], so a warpgroup's threads meet their
+    // counterparts' elements
+    float4* const y = reinterpret_cast<float4*>(base_g + (kt - base));
+    __syncthreads();
+    if (wg == 0) {
+#pragma unroll
+      for (int q = 0; q < 16; ++q)
+        y[q * 128 + t128] = make_float4(adk[4 * q], adk[4 * q + 1],
+                                        adk[4 * q + 2], adk[4 * q + 3]);
+      named_arrive(kBarEx, kThreads2);       // dK_even is in the buffer
+      named_sync(kBarEx + 1, kThreads2);     // dV_odd is in the buffer
+#pragma unroll
+      for (int q = 0; q < 16; ++q) {
+        const float4 o = y[q * 128 + t128];
+        adv[4 * q] += o.x;
+        adv[4 * q + 1] += o.y;
+        adv[4 * q + 2] += o.z;
+        adv[4 * q + 3] += o.w;
+      }
+      named_arrive(kBarEx + 2, kThreads2);   // warpgroup 0 has read it
+      named_sync(kBarWg, 128);               // before dV overwrites it
+      stage_bf16<128>(adv, kt, 1.f, row, col);
+    } else {
+      named_sync(kBarEx, kThreads2);
+#pragma unroll
+      for (int q = 0; q < 16; ++q) {  // each thread rereads its own slots
+        const float4 o = y[q * 128 + t128];
+        adk[4 * q] += o.x;
+        adk[4 * q + 1] += o.y;
+        adk[4 * q + 2] += o.z;
+        adk[4 * q + 3] += o.w;
+        y[q * 128 + t128] = make_float4(adv[4 * q], adv[4 * q + 1],
+                                        adv[4 * q + 2], adv[4 * q + 3]);
+      }
+      named_arrive(kBarEx + 1, kThreads2);
+      named_sync(kBarEx + 2, kThreads2);
+      stage_bf16<128>(adk, vt, scale, row, col);
+    }
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+    named_sync(kBarWg + wg, 128);
+    if (signal) {
+#pragma unroll
+      for (int x = 0; x < 2; ++x) {
+        if (wg == 0)
+          tma_store(&tdv, kt + x * kBoxBytes, x * kBox, item.k0, item.hk,
+                    item.b, pdv);
+        else
+          tma_store(&tdk, vt + x * kBoxBytes, x * kBox, item.k0, item.hk,
+                    item.b, pdk);
+      }
+      asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+      asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
+      mbar_arrive(kv_empty(i));  // the buffer may take item i + 2's K, V
+    }
+  }
+}
+
 // ------------------------------------------------------------- host
 
 template <typename Kernel>
-int resident_ctas(Kernel kernel, int smem, int* out) {
+int resident_ctas(Kernel kernel, int smem, int* out, int threads = kThreads) {
   if (*out) return 0;
   int dev, sms, per_sm;
   cudaError_t e = cudaFuncSetAttribute(
@@ -1538,11 +2096,58 @@ int resident_ctas(Kernel kernel, int smem, int* out) {
     e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e == cudaSuccess)
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                      kThreads, smem);
+                                                      threads, smem);
   if (e != cudaSuccess) return (int)e;
   if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
   *out = sms * per_sm;
   return 0;
+}
+
+// D 128, rows that see every key: flash_bwd_dkdv128_tc, then
+// flash_bwd_dq128_tc as a programmatic dependent launch (both read only
+// the prep kernel's L and D_row): dq's CTAs start on the SMs that
+// dk/dv's last round leaves idle (at the cross shape 8 items on 132 SMs,
+// a seventh of its time), its highest CTAs, which start last, holding
+// the fewest items. m and pm: the maps of q, k, v, dO, dq, dk, dv.
+int launch128(const CUtensorMap* m, const Perm* pm, const Shape& sh,
+              const float* lrow, const float* drow, float scale,
+              cudaStream_t stream) {
+  static int resident_dq = 0, resident_kv = 0;
+  int err = resident_ctas(flash_bwd_dq128_tc, Dq128Cfg::kSmem, &resident_dq,
+                          kThreads3);
+  if (!err)
+    err = resident_ctas(flash_bwd_dkdv128_tc, Kv128Cfg::kSmem, &resident_kv,
+                        kThreads2);
+  if (err) return err;
+  Shape kv_sh = sh;
+  kv_sh.n_t = (sh.skv + kRows - 1) / kRows;
+  kv_sh.n_items = kv_sh.n_t * sh.hkv * sh.batch;
+  flash_bwd_dkdv128_tc<<<min(resident_kv, kv_sh.n_items), kThreads2,
+                         Kv128Cfg::kSmem, stream>>>(
+      m[0], m[1], m[2], m[3], m[5], m[6], kv_sh, pm[0], pm[1], pm[2], pm[3],
+      pm[5], pm[6], lrow, drow, scale * kLog2e, scale);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  Shape dq_sh = sh;
+  dq_sh.pair_heads = sh.group % 2 == 0 ? 1 : 0;
+  const int span = dq_sh.pair_heads ? kRows : kRows * kConsumers;
+  dq_sh.n_t = (sh.sq + span - 1) / span;
+  dq_sh.n_items =
+      dq_sh.n_t * (dq_sh.pair_heads ? sh.hq / 2 : sh.hq) * sh.batch;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(min(resident_dq, dq_sh.n_items));
+  cfg.blockDim = dim3(kThreads3);
+  cfg.dynamicSmemBytes = Dq128Cfg::kSmem;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  e = cudaLaunchKernelEx(&cfg, flash_bwd_dq128_tc, m[0], m[1], m[2], m[3],
+                         m[4], dq_sh, pm[0], pm[1], pm[2], pm[3], pm[4], lrow,
+                         drow, scale * kLog2e, scale);
+  return (int)e;
 }
 
 // The three launches of the bf16 backward: prep, dq, dk/dv. st: the
@@ -1573,6 +2178,9 @@ int launch(const void* q, const void* k, const void* v, const void* o,
       st[4]);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
+  if constexpr (D == 128)
+    if (!causal && !window) return launch128(m, pm, sh, lrow, drow, scale,
+                                             stream);
 
   // D 64 without a causal limit or a window: flash_bwd_dkdv64_tc (128-key
   // items, a 64-key tile a warpgroup)

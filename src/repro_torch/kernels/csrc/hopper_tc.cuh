@@ -1,9 +1,10 @@
 // Hopper (sm_90a) building blocks shared by the tensor-core kernels:
-// flash_fwd_tc (flash_attention.cu), flash_bwd_*_tc (flash_attention_bwd.cu)
+// flash_fwd*_tc (flash_attention.cu), flash_bwd_*_tc (flash_attention_bwd.cu)
 // and scan_bwd_tc_* (mamba_scan_bwd.cu).
 //
 // * mbarriers: init, arrive, arrive with an expected byte count, and a
-//   parity wait;
+//   parity wait; named barriers (sync and arrive); setmaxnreg; the item
+//   of a persistent CTA's round; programmatic dependent launch;
 // * TMA: 4-D tensor-map loads and stores of one 64 x 64 box of a strided
 //   bf16 [B, S, H, D] operand, and 1-D bulk loads of contiguous bytes, each
 //   completing on an mbarrier; the tensor maps are encoded on the host
@@ -12,8 +13,9 @@
 // * wgmma: descriptors of 128-byte-swizzled shared-memory operands (and of
 //   one k-step of a K-major or an MN-major 64-wide tile), the
 //   fence / commit / wait trio, S (+)= A B^T with both operands K-major in
-//   shared memory (m64n64k16 and m64n32k16), D (+)= A B with A K-major and
-//   B MN-major in shared memory (m64n64k16), and O += P V with P a bf16
+//   shared memory (m64n64k16 and m64n32k16), the same with A a bf16
+//   register fragment (m64n64k16), D (+)= A B with A K-major and B
+//   MN-major in shared memory (m64n64k16), and O += P V with P a bf16
 //   register A fragment and V MN-major in shared memory (m64n64k16 and
 //   m64n128k16).
 //
@@ -81,6 +83,57 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
 // A barrier over ``threads`` threads (a multiple of 32) of the CTA.
 __device__ __forceinline__ void named_sync(int id, int threads) {
   asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(threads) : "memory");
+}
+
+// Arrive at named barrier ``id`` of ``threads`` threads without waiting.
+__device__ __forceinline__ void named_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;" ::"r"(id), "r"(threads) : "memory");
+}
+
+// setmaxnreg: one whole warpgroup (all four warps execute it) gives
+// registers back to the CTA's pool (dec) or takes them from it (inc, which
+// waits until the pool holds them); N registers a thread afterwards. The
+// split of a 384-thread CTA (168 a thread at launch): a producer
+// warpgroup at kProducerRegs, two consumer warpgroups at kConsumerRegs
+// (128 x 40 + 256 x 232 = 384 x 168).
+constexpr int kProducerRegs = 40, kConsumerRegs = 232;
+template <int N>
+__device__ __forceinline__ void regs_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(N));
+}
+template <int N>
+__device__ __forceinline__ void regs_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(N));
+}
+
+// The item of a persistent CTA's round r: rounds of G items (G CTAs),
+// taken forwards in even rounds and backwards in odd ones, so long and
+// short items pair up. Which CTA computes an item does not change its
+// arithmetic.
+__device__ __forceinline__ int item_of_round(int r) {
+  const int g = gridDim.x, c = blockIdx.x;
+  return r * g + ((r & 1) ? g - 1 - c : c);
+}
+
+// item_of_round with the directions swapped (backwards in even rounds):
+// the last round's items go to the lowest CTAs, so the highest, which a
+// launch that waits for free SMs starts last, have the fewest.
+__device__ __forceinline__ int item_of_round_rev(int r) {
+  const int g = gridDim.x, c = blockIdx.x;
+  return r * g + ((r & 1) ? c : g - 1 - c);
+}
+
+// Programmatic dependent launch: the grid launched after this one with
+// cudaLaunchAttributeProgrammaticStreamSerialization may start once every
+// CTA of this grid has signalled (or exited).
+__device__ __forceinline__ void launch_dependents() {
+  asm volatile("griddepcontrol.launch_dependents;" ::: "memory");
+}
+
+// Waits until the grids this one was launched as a dependent of have
+// completed and their writes are visible.
+__device__ __forceinline__ void grid_dependency_wait() {
+  asm volatile("griddepcontrol.wait;" ::: "memory");
 }
 
 // The coordinate of tensor-map dimension d (1..3) for (seq, head, batch).
@@ -170,6 +223,25 @@ __device__ __forceinline__ void fence_regs(float (&r)[N]) {
 #define FA_D8(i)                                                        \
   "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),          \
       "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+
+// S[64 x 64] (+)= A[64 x 16] B[64 x 16]^T: A a bf16 register fragment
+// (the accumulator layout, as pack_frags makes it), B K-major in shared
+// memory.
+__device__ __forceinline__ void wgmma_rs_qk(float (&d)[32], const uint32_t* a,
+                                            uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n"
+      "}\n"
+      : FA_D8(0), FA_D8(8), FA_D8(16), FA_D8(24)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+        "r"(accumulate));
+}
 
 // S[64 x 64] (+)= Q[64 x 16] K[64 x 16]^T, both K-major in shared memory.
 __device__ __forceinline__ void wgmma_qk(float (&d)[32], uint64_t da,

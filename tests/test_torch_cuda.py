@@ -180,6 +180,10 @@ def test_add_rmsnorm_scalar_path(cuda_device, dtype):
     (4, 6, 6, 1500, 64, False, 0),
     (4, 6, 6, 416, 64, True, 0),
     (2, 3, 3, 200, 64, False, 0),              # split keys, ragged tail
+    # D 128, every key visible (128-key tiles): MHA whose second row block
+    # is ragged, and one whose second warpgroup has no row at all
+    (2, 4, 4, 200, 128, False, 0),
+    (1, 3, 3, 40, 128, False, 0),
 ])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_attention_kernel_matches_plain(cuda_device, b, hq, hkv, s, d,
@@ -203,6 +207,11 @@ def test_attention_kernel_matches_plain(cuda_device, b, hq, hkv, s, d,
     (2, 8, 2, 96, 40, 64),        # more queries than keys
     (4, 6, 6, 416, 1500, 64),     # whisper-tiny's cross-attention
     (1, 4, 4, 100, 700, 64),      # split keys, ragged on both sides
+    # D 128 over keys that are no multiple of 128: GQA 4 with a ragged
+    # row block, MHA with a warpgroup past Sq, an odd group (3)
+    (2, 8, 2, 100, 200, 128),
+    (2, 3, 3, 40, 1600, 128),
+    (1, 6, 2, 130, 1000, 128),
 ])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_attention_kernel_sq_ne_skv_matches_plain(cuda_device, b, hq, hkv,
@@ -597,6 +606,12 @@ ATTENTION_BWD_CASES = [
     (2, 3, 3, 100, 64, False, 0),              # D 64: a ragged second tile
     (1, 4, 2, 40, 64, False, 0),               # D 64: no second tile
     (1, 2, 2, 150, 64, False, 0),              # D 64: dq's keys split 2/1
+    # D 128, every key visible (the dk/dv pairs shared out between the
+    # warpgroups, dq's Q and dO in registers): GQA 4 with ragged tiles,
+    # MHA whose second warpgroup has no row, an odd count of pairs
+    (2, 8, 2, 200, 128, False, 0),
+    (1, 3, 3, 40, 128, False, 0),
+    (1, 3, 1, 130, 128, False, 0),
 ]
 
 
@@ -650,6 +665,8 @@ def test_attention_lse_matches_plain_and_leaves_o_alone(
 @pytest.mark.parametrize("hq,hkv,sq,skv,d", [
     (32, 8, 512, 1600, 128),      # the VLM's prompt over its image memory
     (6, 6, 448, 1500, 64),        # whisper-tiny's text over its frames
+    (8, 2, 100, 200, 128),        # D 128: ragged on both sides, GQA 4
+    (3, 3, 40, 1600, 128),        # D 128 MHA: a warpgroup past Sq
 ])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_attention_bwd_sq_ne_skv_matches_plain(cuda_device, hq, hkv, sq, skv,

@@ -349,7 +349,7 @@ def _emulate_tc_scan(x, b, c, dt, da, chunk, terms=3, f64_exponent=True):
 
 
 def _emulate_tc_attention_bwd(q, k, v, o, do, lse, causal, window,
-                              dq_parts=1):
+                              dq_parts=1, dq_keys=32, kv_parts=1):
     """The bf16 tensor-core backward's arithmetic (csrc/flash_attention_bwd.cu)
     in f32 on the CPU, for bf16 q, k, v, o, dO: L = lse log2(e) from the
     forward's logsumexp and D_row = rowsum(dO o o); S and dP as f32 sums of
@@ -363,7 +363,12 @@ def _emulate_tc_attention_bwd(q, k, v, o, do, lse, causal, window,
     pairs in that order, and where the dq kernel splits a row block's key
     tiles between its two warpgroups (``dq_parts`` 2: the even and the odd
     64-key tiles) each sums its tiles in key order and the two parts are
-    added last. Sq and Skv may differ (a cross-attention). Test-local: the
+    added last. At D 128 for rows that see every key the dq kernel sums dQ
+    over whole 64-key tiles in key order (``dq_keys`` 64), and the dk/dv
+    kernel shares each 64-key tile's pairs out between its two warpgroups
+    (``kv_parts`` 2: pair p, counted heads outer, to warpgroup p % 2), each
+    summing its pairs in order; the odd pairs' sum is added to the even
+    pairs' last. Sq and Skv may differ (a cross-attention). Test-local: the
     port does not use it."""
     f32, bf = torch.float32, torch.bfloat16
     b_, hq, sq, d = q.shape
@@ -390,23 +395,29 @@ def _emulate_tc_attention_bwd(q, k, v, o, do, lse, causal, window,
     pb = p.to(bf).to(f32)
     del sc, dp
     dqs = [torch.zeros_like(qf) for _ in range(dq_parts)]
-    for k0 in range(0, skv, 32):                          # dQ: key order
-        dqs[k0 // 64 % dq_parts] += ds[..., k0:k0 + 32] @ kr[:, :, k0:k0 + 32]
+    for k0 in range(0, skv, dq_keys):                     # dQ: key order
+        keys = slice(k0, k0 + dq_keys)
+        dqs[k0 // 64 % dq_parts] += ds[..., keys] @ kr[:, :, keys]
     dq = dqs[0] if dq_parts == 1 else dqs[0] + dqs[1]
-    dk = torch.zeros_like(kf)
-    dv = torch.zeros_like(vf)
+    dks = [torch.zeros_like(kf) for _ in range(kv_parts)]
+    dvs = [torch.zeros_like(vf) for _ in range(kv_parts)]
     qs = qf.view(b_, hkv, g, sq, d)
     dos = dof.view(b_, hkv, g, sq, d)
     ps = pb.view(b_, hkv, g, sq, skv)
     dss = ds.view(b_, hkv, g, sq, skv)
     for k0 in range(0, skv, 64):                          # dK, dV: pairs
+        pair = 0
         for h in range(g):
             for q0 in range(0, sq, 64):
                 rows, keys = slice(q0, q0 + 64), slice(k0, k0 + 64)
                 pt = ps[:, :, h, rows, keys].transpose(-1, -2)
                 dst = dss[:, :, h, rows, keys].transpose(-1, -2)
-                dv[:, :, keys] += pt @ dos[:, :, h, rows]
-                dk[:, :, keys] += dst @ qs[:, :, h, rows]
+                dvs[pair % kv_parts][:, :, keys] += pt @ dos[:, :, h, rows]
+                dks[pair % kv_parts][:, :, keys] += dst @ qs[:, :, h, rows]
+                pair += 1
+    dk, dv = dks[0], dvs[0]
+    if kv_parts == 2:
+        dk, dv = dks[1] + dks[0], dvs[0] + dvs[1]
     return (dq * scale).to(bf), (dk * scale).to(bf), dv.to(bf)
 
 
@@ -431,6 +442,11 @@ def _share(got, want):
     (1, 6, 6, 1500, 64, False, 0),
     pytest.param(1, 6, 6, (448, 1500), 64, False, 0,
                  id="1-6-6-448x1500-64-False-0"),
+    # the VLM's cross-attention at batch 1 of its 4: q 512 over 1,600
+    # image keys, GQA 4, D 128 (dQ over 64-key tiles, the dk/dv pairs
+    # shared out between two warpgroups)
+    pytest.param(1, 32, 8, (512, 1600), 128, False, 0,
+                 id="1-32-8-512x1600-128-False-0"),
 ])
 def test_tc_attention_bwd_numerics_keep_the_tolerance(b, hq, hkv, s, d,
                                                       causal, window):
@@ -449,6 +465,10 @@ def test_tc_attention_bwd_numerics_keep_the_tolerance(b, hq, hkv, s, d,
     if d == 64 and not causal and not window and hq == hkv and skv > 64:
         whole, half = (-(-sq // rows) * hq * 4 for rows in (128, 64))
         dq_parts = 2 if -(-half // 132) < 2 * -(-whole // 132) else 1
+    # D 128 with every key visible: flash_bwd_dq128_tc and
+    # flash_bwd_dkdv128_tc
+    every_key = d == 128 and not causal and not window
+    dq_keys, kv_parts = (64, 2) if every_key else (32, 1)
     rng = np.random.default_rng(21)
     (jq, tq), (jk, tk), (jv, tv), (jdo, tdo) = (
         _pair(rng, (b, h, n, d), "bfloat16")
@@ -456,7 +476,7 @@ def test_tc_attention_bwd_numerics_keep_the_tolerance(b, hq, hkv, s, d,
     o = ref.flash_attention_ref(tq, tk, tv, causal=causal, window=window)
     lse = ref.flash_attention_lse_ref(tq, tk, causal=causal, window=window)
     got = _emulate_tc_attention_bwd(tq, tk, tv, o, tdo, lse, causal, window,
-                                    dq_parts)
+                                    dq_parts, dq_keys, kv_parts)
     plain = ref.flash_attention_bwd_ref(tq, tk, tv, tdo, causal=causal,
                                         window=window)
     _, vjp = jax.vjp(lambda q_, k_, v_: jref.flash_attention_ref(
@@ -468,15 +488,18 @@ def test_tc_attention_bwd_numerics_keep_the_tolerance(b, hq, hkv, s, d,
               "jax": {n: _share(g_, np.asarray(w_, np.float32))
                       for n, g_, w_ in zip(names, got, jgrads)}}
     print(f"tc attention bwd {(b, hq, hkv, s, d, causal, window)}, dq in "
-          f"{dq_parts} part(s): share of tolerance {shares}")
+          f"{dq_parts} part(s) over {dq_keys}-key groups, dk/dv pairs in "
+          f"{kv_parts} part(s): share of tolerance {shares}")
     for g_, w_, j_ in zip(got, plain, jgrads):
         _close(g_, w_.float(), "bfloat16")
         _close(g_, np.asarray(j_, np.float32), "bfloat16")
 
 
 def _emulate_tc_attention_fwd64(q, k, v, parts):
-    """The D 64 bf16 forward kernel's arithmetic (``flash_fwd64_tc`` in
-    csrc/flash_attention.cu), non-causal, in f32 on the CPU: each of
+    """The 128-key bf16 forward kernels' arithmetic (``flash_fwd64_tc`` at
+    D 64 and ``flash_fwd128_tc`` at D 128, with ``parts`` 1, in
+    csrc/flash_attention.cu), non-causal, query head h reading KV head
+    h / group, in f32 on the CPU: each of
     ``parts`` warpgroups (2 where the kernel splits an item's keys, else 1)
     runs the online softmax over its 128-key tiles (tile t goes to part
     t % parts), in key order: S = Q K_t^T as f32 sums of exact bf16
@@ -490,7 +513,9 @@ def _emulate_tc_attention_fwd64(q, k, v, parts):
     d, skv = q.shape[-1], k.shape[2]
     c = torch.tensor(d ** -0.5, dtype=f32) * torch.tensor(
         1.4426950408889634, dtype=f32)
-    qf, kf, vf = (t.to(f32) for t in (q, k, v))
+    group = q.shape[1] // k.shape[1]
+    qf, kf, vf = (t.to(f32).repeat_interleave(group, 1) if t is not q
+                  else t.to(f32) for t in (q, k, v))
     neg_inf = torch.tensor(-1e30, dtype=f32)
     state = []
     for part in range(parts):
@@ -538,6 +563,29 @@ def test_tc_attention_fwd64_numerics_keep_the_tolerance(sq, skv, parts):
               "jax": _share(got, np.asarray(want, np.float32))}
     print(f"tc attention fwd D 64 {(sq, skv)}, {parts} part(s): share of "
           f"tolerance {shares}")
+    _close(got, plain.float(), "bfloat16")
+    _close(got, np.asarray(want, np.float32), "bfloat16")
+
+
+def test_tc_attention_fwd128_numerics_keep_the_tolerance():
+    """The D 128 forward kernel for rows that see every key
+    (``flash_fwd128_tc``: 128-key tiles, P rounded to bf16 as it is
+    formed) at the VLM's cross-attention, batch 1 of its 4 (batches are
+    independent in the kernel): q [1, 32, 512, 128] over k/v [1, 8, 1600,
+    128], GQA 4; emulated, it stays within the bf16 tolerance of the plain
+    version and of the JAX package's reference on the same numpy inputs;
+    each share printed."""
+    rng = np.random.default_rng(29)
+    (jq, tq), (jk, tk), (jv, tv) = (
+        _pair(rng, (1, h, n, 128), "bfloat16")
+        for h, n in ((32, 512), (8, 1600), (8, 1600)))
+    got = _emulate_tc_attention_fwd64(tq, tk, tv, 1)
+    plain = ref.flash_attention_ref(tq, tk, tv, causal=False)
+    want = jref.flash_attention_ref(jq, jk, jv, causal=False)
+    shares = {"plain": _share(got, plain.float()),
+              "jax": _share(got, np.asarray(want, np.float32))}
+    print(f"tc attention fwd D 128 (512, 1600), GQA 4: share of tolerance "
+          f"{shares}")
     _close(got, plain.float(), "bfloat16")
     _close(got, np.asarray(want, np.float32), "bfloat16")
 
