@@ -392,9 +392,9 @@ def phase_device_and_build(state):
         for row in ptxas_report(name):
             emit(row)
     # K2's tensor-core kernels: no spill, and no wgmma that ptxas
-    # serialised (its "Potential Performance Loss" notes: C7513, C7520
-    # and kin); the report has to name each kernel of the D 128 rows that
-    # see every key
+    # serialised (its "Potential Performance Loss" notes: C7513, C7518,
+    # C7520 and kin); the report has to name each kernel of the D 128 rows
+    # that see every key and the forward of causal rows of unpaired heads
     rows = [row for name in ("flash_attention", "flash_attention_bwd")
             for row in ptxas_report(name)]
     bad = [row for row in rows
@@ -404,7 +404,8 @@ def phase_device_and_build(state):
     if bad:
         raise AssertionError(f"ptxas: K2 spills or serialises: {bad}")
     reported = " ".join(row.get("function", "") for row in rows)
-    missing = [k for k in ("flash_fwd128_tc", "flash_bwd_dq128_tc",
+    missing = [k for k in ("flash_fwd128_tc<false>",
+                           "flash_fwd128_tc<true>", "flash_bwd_dq128_tc",
                            "flash_bwd_dkdv128_tc") if k not in reported]
     if missing:
         raise AssertionError(f"ptxas: no line for {missing}")
@@ -2251,7 +2252,7 @@ def _vlm_cross_case():
     """The VLM's cross-attention in training: q [4, 32, 512, 128] over
     k/v [4, 8, 1600, 128] (the image memory), non-causal: D 128 rows that
     see every key. The grids on the H100's 132 SMs: forward 512 items of
-    two heads' 64 rows (flash_fwd128_tc, 13 key tiles of 128) in 4
+    two heads' 64 rows (flash_fwd128_tc<false>, 13 key tiles of 128) in 4
     rounds; backward dk/dv 800 items of 64 keys (flash_bwd_dkdv128_tc, 32
     pairs shared 16 and 16 by the warpgroups) in 7 rounds, the seventh
     of 8 items, then dq 512 items (flash_bwd_dq128_tc, 25 key tiles)
@@ -2264,7 +2265,9 @@ def _vlm_cross_case():
 
 def _codeqwen_case():
     """codeqwen1.5-7b's causal MHA (32 q and 32 KV heads of 128), Fig 10's
-    model."""
+    model. The forward's grid on the H100's 132 SMs: 512 items of 128 rows
+    of one head (flash_fwd128_tc<true>, 1-4 key tiles of 128), the rows
+    ascending round by round, 4 rounds."""
     return dict(b=B, hq=CODEQWEN.n_heads, hkv=CODEQWEN.n_kv_heads, s=S,
                 d=CODEQWEN.resolved_head_dim, causal=True, window=0)
 

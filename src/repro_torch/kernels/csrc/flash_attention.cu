@@ -71,9 +71,13 @@
 //   fills the card's SMs better (its notes below); causal and windowed
 //   rows keep flash_fwd_tc<64>, whose 64-key tiles mask less. At D 128
 //   (the VLM's cross-attention) rows that see every key go to
-//   flash_fwd128_tc: 128-key tiles too, with a producer warpgroup whose
-//   registers setmaxnreg hands to the consumers (its notes below);
-//   causal and windowed rows keep flash_fwd_tc<128>.
+//   flash_fwd128_tc<false>: 128-key tiles too, with a producer warpgroup
+//   whose registers setmaxnreg hands to the consumers (its notes below).
+//   Causal rows of unpaired heads at D 128 and D 112 (codeqwen1.5-7b's and
+//   zamba2-7b's MHA) go to flash_fwd128_tc<true>: the same kernel over
+//   128-row items of one head, rows ascending round by round (its notes
+//   below). Windowed rows and causal rows of paired GQA heads keep
+//   flash_fwd_tc<128> (and <112>).
 //
 // f32: flash_fwd, f32 FMAs on the FP32 pipes (the reduced card-vs-CPU checks
 //   hold the f32 kernel path to 1e-3 of the CPU path, which needs full-f32
@@ -716,14 +720,31 @@ __device__ __forceinline__ void tree16(float (&x)[16]) {
   x[0] = op(x[0], x[1]);
 }
 
-// softmax_tile over a 128-key tile (keys t0..t0+127) of rows that see
-// every key: keys past Skv masked, the same online update, the row max
-// over the thread's 32 columns by a pairwise tree, P's bf16 A fragments
-// for 8 k-steps (k-step kk: columns of j = 2 kk and 2 kk + 1).
+// softmax_tile over a 128-key tile (keys t0..t0+127): keys past Skv
+// masked and, with kCausal, keys past each row (rows qw + row and qw + row
+// + 8 of the warpgroup's first row qw) on a tile that crosses the
+// diagonal; the same online update, the row max over the thread's 32
+// columns by a pairwise tree, P's bf16 A fragments for 8 k-steps (k-step
+// kk: columns of j = 2 kk and 2 kk + 1).
+template <bool kCausal = false>
 __device__ __forceinline__ void softmax_tile128(
     float (&s)[64], uint32_t (&pf)[32], float (&m_run)[2], float (&l_run)[2],
-    float (&corr)[2], int t0, int col, int skv, float scale_log2) {
-  if (t0 + kKeys64 > skv) {
+    float (&corr)[2], int t0, int col, int skv, float scale_log2, int qw = 0,
+    int row = 0) {
+  if constexpr (kCausal) {
+    if (t0 + kKeys64 > skv || t0 + kKeys64 - 1 > qw) {
+#pragma unroll
+      for (int j = 0; j < 16; ++j)
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            const int kj = t0 + 8 * j + col + c;
+            if (kj >= skv || kj > qw + row + 8 * i)
+              s[4 * j + 2 * i + c] = kNegInf;
+          }
+    }
+  } else if (t0 + kKeys64 > skv) {
 #pragma unroll
     for (int j = 0; j < 16; ++j)
 #pragma unroll
@@ -1029,7 +1050,63 @@ flash_fwd64_tc(const __grid_constant__ CUtensorMap tq,
 // * A ring of two K and V stages (64 KB each); Q double-buffered across
 //   items (197,728 bytes of shared memory); the epilogue as flash_fwd_tc's
 //   (O / l into the Q tile, TMA store, the logsumexp when asked).
+//
+// Causal rows of unpaired heads (an odd group, no window: codeqwen1.5-7b's
+// MHA, q and k/v [4, 32, 512, 128], and zamba2-7b's at D 112, whose maps
+// pad it to 128 columns of zeros as flash_fwd_tc<112>'s do) go to
+// flash_fwd128_tc<true>. There flash_fwd_tc<128> lost to three things:
+// its items (rows q0 and q0 + 64 of one head over 64-key tiles) left
+// warpgroup 0 waiting out each item's last tile, 20 tile-steps on the
+// busiest CTA, 4 of them half idle; its items ran longest first, so round
+// 0 read all 33.5 MB of K/V from memory at once; and 168 registers held
+// it to 64-key tiles. The causal variant, the same code otherwise:
+// * Items: rows q0 .. q0 + 127 of one (batch, head) over its keys [0,
+//   min(Skv, q0 + 128)) in 128-key tiles, 1-4 at Sq 512; both warpgroups
+//   see every tile of an item, and only its last tile (the diagonal, or
+//   the one that ends past Skv) is masked: warpgroup 0's second half of it
+//   wholly. 512 items at codeqwen's shape.
+// * Rounds: item w is row block w / chains of chain (batch, head) w %
+//   chains, and CTA c takes items c, c + G, c + 2 G, ...: round r runs row
+//   block r of (nearly) every chain, so each round reads Q and one new
+//   128-key tile of each head from memory and the tiles before it from L2.
+//   4 rounds; the busiest CTA takes 10 tiles (9.7 on average, 20 the
+//   parent's 64-key steps).
+// * L2: the K/V loads ask to keep their lines (evict_last: later rounds
+//   read them again), Q's loads and O's stores to lose theirs first (each
+//   touched once).
+// * Registers, ring, shared memory per clock and epilogue as above (ptxas:
+//   168 at launch, no spill).
 constexpr int kThreads3 = kConsumerThreads + 128;  // and a producer warpgroup
+
+// The items of flash_fwd128_tc<kCausal> and the one a CTA takes in round
+// r. Rows that see every key: item64_at's, by item_of_round. Causal rows
+// of unpaired heads: item w is rows q0 = 128 (w / chains) .. q0 + 127 of
+// chain (batch, head) w % chains over its keys [0, min(Skv, q0 + 128)),
+// and CTA c takes items c, c + G, c + 2 G, ... (G CTAs).
+template <bool kCausal>
+__device__ __forceinline__ Item item128_at(int w, const Shape& sh) {
+  if constexpr (!kCausal) {
+    return item64_at<false>(w, sh);
+  } else {
+    const int chains = sh.hq * sh.batch;
+    Item it;
+    it.span = kRows * kConsumers;
+    it.q0 = w / chains * it.span;
+    it.h = w % chains % sh.hq;
+    it.b = w % chains / sh.hq;
+    it.kv_lo = 0;
+    it.n = (min(sh.skv, it.q0 + it.span) + kKeys64 - 1) / kKeys64;
+    return it;
+  }
+}
+
+template <bool kCausal>
+__device__ __forceinline__ int item128_of_round(int r) {
+  if constexpr (kCausal)
+    return r * gridDim.x + blockIdx.x;
+  else
+    return item_of_round(r);
+}
 
 struct Cfg128 {
   static constexpr int kQTile = 2 * kBoxBytes;   // 64 rows x 128 columns
@@ -1041,6 +1118,7 @@ struct Cfg128 {
                                2 * kStages * kKvTile + 8 * kBars;
 };
 
+template <bool kCausal>
 __global__ void __launch_bounds__(kThreads3, 1)
 flash_fwd128_tc(const __grid_constant__ CUtensorMap tq,
                 const __grid_constant__ CUtensorMap tk,
@@ -1082,17 +1160,31 @@ flash_fwd128_tc(const __grid_constant__ CUtensorMap tq,
   if (warp >= kConsumers * 4) {  // the producer warpgroup: one thread copies
     regs_dec<kProducerRegs>();
     if (warp != kConsumers * 4 || lane != 0) return;
+    // causal rows: later rounds re-read each head's K/V tiles from L2 and
+    // Q is read once, so K/V's lines are kept past others and Q's go first
+    uint64_t keep = 0, drop = 0;
+    if constexpr (kCausal) {
+      keep = policy_evict_last();
+      drop = policy_evict_first();
+    }
+    auto load = [&](uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                    int col, int s, int h, int b, Perm p, uint64_t policy) {
+      if constexpr (kCausal)
+        tma_load_hint(dst, map, bar, col, s, h, b, p, policy);
+      else
+        tma_load(dst, map, bar, col, s, h, b, p);
+    };
     int g = 0;
-    for (int i = 0; item_of_round(i) < sh.n_items; ++i) {
-      const Item it = item64_at<false>(item_of_round(i), sh);
+    for (int i = 0; item128_of_round<kCausal>(i) < sh.n_items; ++i) {
+      const Item it = item128_at<kCausal>(item128_of_round<kCausal>(i), sh);
       const int hk = it.h / sh.group;
       mbar_wait(q_full(i) + kEmpty, ((i / 2) & 1) ^ 1);
       mbar_expect(q_full(i), kConsumers * C::kQTile);
       for (int c = 0; c < kConsumers; ++c)
 #pragma unroll
         for (int x = 0; x < 2; ++x)
-          tma_load(q_tile(i, c) + x * kBoxBytes, &tq, q_full(i), x * kBox,
-                   rows_of(it, sh, c), head_of(it, sh, c), it.b, pq);
+          load(q_tile(i, c) + x * kBoxBytes, &tq, q_full(i), x * kBox,
+               rows_of(it, sh, c), head_of(it, sh, c), it.b, pq, drop);
       for (int t = 0; t < it.n; ++t, ++g) {
         const int st = g % kSt, t0 = t * kKeys64;
         // a second key box wholly past Skv arrives as zeros
@@ -1102,16 +1194,16 @@ flash_fwd128_tc(const __grid_constant__ CUtensorMap tq,
         for (int x = 0; x < 2; ++x)
 #pragma unroll
           for (int h = 0; h < 2; ++h)
-            tma_load(k_tile(st) + (2 * x + h) * kBoxBytes, &tk, k_full(st),
-                     x * kBox, t0 + kBox * h, hk, it.b, pk);
+            load(k_tile(st) + (2 * x + h) * kBoxBytes, &tk, k_full(st),
+                 x * kBox, t0 + kBox * h, hk, it.b, pk, keep);
         mbar_wait(v_full(st) + kEmpty, parity(g) ^ 1);
         mbar_expect(v_full(st), C::kKvTile);
 #pragma unroll
         for (int h = 0; h < 2; ++h)
 #pragma unroll
           for (int x = 0; x < 2; ++x)
-            tma_load(v_tile(st) + (2 * h + x) * kBoxBytes, &tv, v_full(st),
-                     x * kBox, t0 + kBox * h, hk, it.b, pv);
+            load(v_tile(st) + (2 * h + x) * kBoxBytes, &tv, v_full(st),
+                 x * kBox, t0 + kBox * h, hk, it.b, pv, keep);
       }
     }
     return;
@@ -1133,8 +1225,9 @@ flash_fwd128_tc(const __grid_constant__ CUtensorMap tq,
   };
 
   int g = 0;  // the CTA's K/V tiles consumed so far
-  for (int i = 0; item_of_round(i) < sh.n_items; ++i) {
-    const Item item = item64_at<false>(item_of_round(i), sh);
+  for (int i = 0; item128_of_round<kCausal>(i) < sh.n_items; ++i) {
+    const Item item =
+        item128_at<kCausal>(item128_of_round<kCausal>(i), sh);
     const int qw = rows_of(item, sh, wg), hw = head_of(item, sh, wg);
     const bool live = qw < sh.sq;  // no tile if the rows start past Sq
 #pragma unroll
@@ -1168,8 +1261,8 @@ flash_fwd128_tc(const __grid_constant__ CUtensorMap tq,
       }
       release(k_full(st));
       if (live) {
-        softmax_tile128(s, pa, m_run, l_run, corr, t * kKeys64, col, sh.skv,
-                        scale_log2);
+        softmax_tile128<kCausal>(s, pa, m_run, l_run, corr, t * kKeys64,
+                                 col, sh.skv, scale_log2, qw, row);
 #pragma unroll
         for (int j = 0; j < 16; ++j)
 #pragma unroll
@@ -1224,7 +1317,11 @@ flash_fwd128_tc(const __grid_constant__ CUtensorMap tq,
     if (signal) {
 #pragma unroll
       for (int x = 0; x < 2; ++x)
-        tma_store(&to, qt + x * kBoxBytes, x * kBox, qw, hw, item.b, po);
+        if constexpr (kCausal)  // written once: its lines go first
+          tma_store_hint(&to, qt + x * kBoxBytes, x * kBox, qw, hw, item.b,
+                         po, policy_evict_first());
+        else
+          tma_store(&to, qt + x * kBoxBytes, x * kBox, qw, hw, item.b, po);
       asm volatile("cp.async.bulk.commit_group;" ::: "memory");
       asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
       release(q_full(i));  // the tile may take the item after next's Q
@@ -1301,31 +1398,41 @@ int launch64(const void* q, const void* k, const void* v, void* o,
   return 0;
 }
 
-// D 128, rows that see every key: flash_fwd128_tc.
-int launch128(const void* q, const void* k, const void* v, void* o,
+// D 128 (or D 112, padded to it as flash_fwd_tc<112> pads), rows that see
+// every key or causal rows of unpaired heads: flash_fwd128_tc.
+int launch128(int d, const void* q, const void* k, const void* v, void* o,
               float* lse, int batch, int hq, int hkv, int sq, int skv,
-              Strides qs, Strides ks, Strides vs, Strides os, float scale,
-              cudaStream_t stream) {
+              Strides qs, Strides ks, Strides vs, Strides os, int causal,
+              float scale, cudaStream_t stream) {
   CUtensorMap tq, tk, tv, to;
   Perm pq, pk, pv, po;
-  int err = make_map(&tq, &pq, q, 128, sq, hq, batch, qs);
-  if (!err) err = make_map(&tk, &pk, k, 128, skv, hkv, batch, ks);
-  if (!err) err = make_map(&tv, &pv, v, 128, skv, hkv, batch, vs);
-  if (!err) err = make_map(&to, &po, o, 128, sq, hq, batch, os);
-  static int resident = 0;
+  int err = make_map(&tq, &pq, q, d, sq, hq, batch, qs);
+  if (!err) err = make_map(&tk, &pk, k, d, skv, hkv, batch, ks);
+  if (!err) err = make_map(&tv, &pv, v, d, skv, hkv, batch, vs);
+  if (!err) err = make_map(&to, &po, o, d, sq, hq, batch, os);
+  static int resident = 0, resident_causal = 0;
   if (!err)
-    err = resident_ctas(flash_fwd128_tc, Cfg128::kSmem, &resident,
+    err = resident_ctas(flash_fwd128_tc<false>, Cfg128::kSmem, &resident,
                         kThreads3);
+  if (!err)
+    err = resident_ctas(flash_fwd128_tc<true>, Cfg128::kSmem,
+                        &resident_causal, kThreads3);
   if (err) return err;
-  Shape sh{sq, skv, hq, batch, hq / hkv, 0, 0,
+  Shape sh{sq, skv, hq, batch, hq / hkv, causal, 0,
            (hq / hkv) % 2 == 0 ? 1 : 0, 0, 0};
+  if (causal && sh.pair_heads) return (int)cudaErrorInvalidValue;
   const int span = sh.pair_heads ? kRows : kRows * kConsumers;
   sh.n_qt = (sq + span - 1) / span;
   sh.n_items = sh.n_qt * (sh.pair_heads ? hq / 2 : hq) * batch;
-  flash_fwd128_tc<<<min(resident, sh.n_items), kThreads3,
-                    Cfg128::kSmem, stream>>>(
-      tq, tk, tv, to, sh, pq, pk, pv, po, scale * 1.4426950408889634f, lse,
-      scale);
+  const float scale_log2 = scale * 1.4426950408889634f;
+  if (causal)
+    flash_fwd128_tc<true><<<min(resident_causal, sh.n_items), kThreads3,
+                            Cfg128::kSmem, stream>>>(
+        tq, tk, tv, to, sh, pq, pk, pv, po, scale_log2, lse, scale);
+  else
+    flash_fwd128_tc<false><<<min(resident, sh.n_items), kThreads3,
+                             Cfg128::kSmem, stream>>>(
+        tq, tk, tv, to, sh, pq, pk, pv, po, scale_log2, lse, scale);
   return 0;
 }
 
@@ -1418,16 +1525,22 @@ int launch_bf16(int d, const void* q, const void* k, const void* v, void* o,
                               ks, vs, os, causal, window, scale, stream);
       return tc::launch64(q, k, v, o, lse, batch, hq, hkv, sq, skv, qs, ks,
                           vs, os, scale, stream);
-    case 112:  // zamba2's shared attention: padded to two 64-column boxes
+    case 112:  // zamba2's shared attention: padded to two 64-column boxes;
+               // causal rows of unpaired heads as at D 128
+      if (causal && !window && (hq / hkv) % 2)
+        return tc::launch128(112, q, k, v, o, lse, batch, hq, hkv, sq, skv,
+                             qs, ks, vs, os, 1, scale, stream);
       return tc::launch<112>(q, k, v, o, lse, batch, hq, hkv, sq, skv, qs,
                              ks, vs, os, causal, window, scale, stream);
-    case 128:  // rows that see every key: 128-key tiles (flash_fwd128_tc);
-               // causal and windowed rows keep 64-key tiles, which mask less
-      if (causal || window)
-        return tc::launch<128>(q, k, v, o, lse, batch, hq, hkv, sq, skv, qs,
-                               ks, vs, os, causal, window, scale, stream);
-      return tc::launch128(q, k, v, o, lse, batch, hq, hkv, sq, skv, qs, ks,
-                           vs, os, scale, stream);
+    case 128:  // 128-key tiles (flash_fwd128_tc) for rows that see every
+               // key and for causal rows of unpaired heads (codeqwen's
+               // MHA); windowed rows and causal GQA pairs keep 64-key
+               // tiles (flash_fwd_tc<128>)
+      if (!window && (!causal || (hq / hkv) % 2))
+        return tc::launch128(128, q, k, v, o, lse, batch, hq, hkv, sq, skv,
+                             qs, ks, vs, os, causal, scale, stream);
+      return tc::launch<128>(q, k, v, o, lse, batch, hq, hkv, sq, skv, qs,
+                             ks, vs, os, causal, window, scale, stream);
     default:
       return (int)cudaErrorInvalidValue;
   }

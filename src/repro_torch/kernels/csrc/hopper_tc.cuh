@@ -6,9 +6,10 @@
 //   parity wait; named barriers (sync and arrive); setmaxnreg; the item
 //   of a persistent CTA's round; programmatic dependent launch;
 // * TMA: 4-D tensor-map loads and stores of one 64 x 64 box of a strided
-//   bf16 [B, S, H, D] operand, and 1-D bulk loads of contiguous bytes, each
-//   completing on an mbarrier; the tensor maps are encoded on the host
-//   with cuTensorMapEncodeTiled, taken from the driver through
+//   bf16 [B, S, H, D] operand (either with or without an L2 eviction
+//   policy), and 1-D bulk loads of contiguous bytes, each load completing
+//   on an mbarrier; the tensor maps are encoded on the host with
+//   cuTensorMapEncodeTiled, taken from the driver through
 //   cudaGetDriverEntryPoint (no link to libcuda);
 // * wgmma: descriptors of 128-byte-swizzled shared-memory operands (and of
 //   one k-step of a K-major or an MN-major 64-wide tile), the
@@ -156,6 +157,37 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
       : "memory");
 }
 
+// tma_load with an L2 eviction policy (a handle from policy_evict_*).
+__device__ __forceinline__ void tma_load_hint(uint32_t dst,
+                                              const CUtensorMap* map,
+                                              uint32_t bar, int col, int s,
+                                              int h, int b, Perm p,
+                                              uint64_t policy) {
+  const int c1 = coord(p, 1, s, h, b), c2 = coord(p, 2, s, h, b),
+            c3 = coord(p, 3, s, h, b);
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes.L2::cache_hint [%0], [%1, {%3, %4, %5, %6}], [%2], %7;"
+      ::"r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(col),
+      "r"(c1), "r"(c2), "r"(c3), "l"(policy)
+      : "memory");
+}
+
+// L2 policies for tma_load_hint and tma_store_hint: lines kept past
+// others (evict_last), or given up first (evict_first).
+__device__ __forceinline__ uint64_t policy_evict_last() {
+  uint64_t p;
+  asm volatile("createpolicy.fractional.L2::evict_last.b64 %0, 1.0;"
+               : "=l"(p));
+  return p;
+}
+__device__ __forceinline__ uint64_t policy_evict_first() {
+  uint64_t p;
+  asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;"
+               : "=l"(p));
+  return p;
+}
+
 // ``bytes`` contiguous bytes (16-byte aligned, a multiple of 16) into
 // shared memory, completing on ``bar``.
 __device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
@@ -178,6 +210,21 @@ __device__ __forceinline__ void tma_store(const CUtensorMap* map,
       "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group"
       " [%0, {%2, %3, %4, %5}], [%1];" ::"l"(reinterpret_cast<uint64_t>(map)),
       "r"(src), "r"(col), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// tma_store with an L2 eviction policy (a handle from policy_evict_*).
+__device__ __forceinline__ void tma_store_hint(const CUtensorMap* map,
+                                               uint32_t src, int col, int s,
+                                               int h, int b, Perm p,
+                                               uint64_t policy) {
+  const int c1 = coord(p, 1, s, h, b), c2 = coord(p, 2, s, h, b),
+            c3 = coord(p, 3, s, h, b);
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group.L2::cache_hint"
+      " [%0, {%2, %3, %4, %5}], [%1], %6;"
+      ::"l"(reinterpret_cast<uint64_t>(map)), "r"(src), "r"(col), "r"(c1),
+      "r"(c2), "r"(c3), "l"(policy)
       : "memory");
 }
 

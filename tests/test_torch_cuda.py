@@ -233,6 +233,59 @@ def test_attention_kernel_sq_ne_skv_matches_plain(cuda_device, b, hq, hkv,
     assert torch.equal(got, ops.attention(q, k, v, causal=False))
 
 
+# causal rows of unpaired heads at D 128 (and D 112, padded to it):
+# flash_fwd128_tc<true>, 128-row items over 128-key tiles. codeqwen1.5-7b's
+# MHA and zamba2-7b's shape; rows that end inside a row block (200, 130);
+# an odd group of 3; batch 1 (fewer (batch, head) chains than SMs: one
+# round); Sq != Skv both ways; q, k and v as views of one fused [B, S,
+# Hq + 2 Hkv, D] projection
+CAUSAL_UNPAIRED_CASES = [
+    (4, 32, 32, 512, 512, 128, False),
+    (4, 32, 32, 512, 512, 112, False),
+    (1, 3, 1, 200, 200, 128, False),
+    (4, 6, 2, 130, 130, 128, True),
+    (1, 5, 5, 130, 130, 128, False),
+    (2, 3, 3, 130, 200, 128, False),
+    (2, 3, 3, 200, 130, 128, True),
+    (1, 3, 1, 200, 200, 112, True),
+]
+
+
+def _causal_unpaired_inputs(gen, b, hq, hkv, sq, skv, d, fused):
+    dt = torch.bfloat16
+    if fused:
+        s = max(sq, skv)
+        qkv = torch.randn((b, s, hq + 2 * hkv, d), generator=gen,
+                          device="cuda").to(dt)
+        return (qkv[:, :sq, :hq].transpose(1, 2),
+                qkv[:, :skv, hq:hq + hkv].transpose(1, 2),
+                qkv[:, :skv, hq + hkv:].transpose(1, 2))
+    return tuple(torch.randn((b, n, h, d), generator=gen, device="cuda")
+                 .to(dt).transpose(1, 2)
+                 for h, n in ((hq, sq), (hkv, skv), (hkv, skv)))
+
+
+@pytest.mark.parametrize("b,hq,hkv,sq,skv,d,fused", CAUSAL_UNPAIRED_CASES)
+def test_attention_causal_unpaired_heads_kernel(cuda_device, b, hq, hkv, sq,
+                                                skv, d, fused):
+    """bf16 causal rows of unpaired heads go to ``flash_fwd128_tc<true>``
+    (the profiler names it); o within the bf16 tolerance of the plain
+    version, the logsumexp within 1e-5 of ``flash_attention_lse_ref``, o
+    the same bits with and without it, reruns bitwise."""
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    q, k, v = _causal_unpaired_inputs(gen, b, hq, hkv, sq, skv, d, fused)
+    names = _cuda_kernels(lambda: flash_attention(q, k, v, causal=True))
+    assert any("flash_fwd128_tc<true>" in n for n in names), names
+    got = flash_attention(q, k, v, causal=True)
+    _close(got, ref.flash_attention_ref(q, k, v, causal=True), "bfloat16")
+    o, lse = flash_attention(q, k, v, causal=True, return_lse=True)
+    torch.testing.assert_close(
+        lse.cpu(), ref.flash_attention_lse_ref(q, k, causal=True).cpu(),
+        rtol=1e-5, atol=1e-5)
+    assert torch.equal(o, got)
+    assert torch.equal(got, flash_attention(q, k, v, causal=True))
+
+
 def _mamba_inputs(dev, b, s, h, p, n, dtype, seed=0):
     gen = torch.Generator(device=dev).manual_seed(seed)
 

@@ -495,11 +495,11 @@ def test_tc_attention_bwd_numerics_keep_the_tolerance(b, hq, hkv, s, d,
         _close(g_, np.asarray(j_, np.float32), "bfloat16")
 
 
-def _emulate_tc_attention_fwd64(q, k, v, parts):
+def _emulate_tc_attention_fwd64(q, k, v, parts, causal=False):
     """The 128-key bf16 forward kernels' arithmetic (``flash_fwd64_tc`` at
     D 64 and ``flash_fwd128_tc`` at D 128, with ``parts`` 1, in
-    csrc/flash_attention.cu), non-causal, query head h reading KV head
-    h / group, in f32 on the CPU: each of
+    csrc/flash_attention.cu), query head h reading KV head h / group, in
+    f32 on the CPU: each of
     ``parts`` warpgroups (2 where the kernel splits an item's keys, else 1)
     runs the online softmax over its 128-key tiles (tile t goes to part
     t % parts), in key order: S = Q K_t^T as f32 sums of exact bf16
@@ -507,39 +507,53 @@ def _emulate_tc_attention_fwd64(q, k, v, parts):
     2^(s c - m c) with c = D^-1/2 log2(e), l = l corr + rowsum(p), O =
     O corr + bf16(p) V_t; then the parts are merged in a fixed order (m =
     max(m0, m1), each part scaled by 2^((m_i - m) c)) and O / max(l,
-    1e-30) is rounded once to bf16. Test-local: the port does not use
-    it."""
+    1e-30) is rounded once to bf16. ``causal`` (``flash_fwd128_tc<true>``,
+    one part): each 128-row block q0.. takes the tiles of keys [0,
+    min(Skv, q0 + 128)), and a key past a row's position is masked to
+    -1e30 before the max. Test-local: the port does not use it."""
     f32, bf = torch.float32, torch.bfloat16
-    d, skv = q.shape[-1], k.shape[2]
+    d, sq, skv = q.shape[-1], q.shape[2], k.shape[2]
     c = torch.tensor(d ** -0.5, dtype=f32) * torch.tensor(
         1.4426950408889634, dtype=f32)
     group = q.shape[1] // k.shape[1]
     qf, kf, vf = (t.to(f32).repeat_interleave(group, 1) if t is not q
                   else t.to(f32) for t in (q, k, v))
     neg_inf = torch.tensor(-1e30, dtype=f32)
-    state = []
-    for part in range(parts):
-        m = torch.full(q.shape[:-1] + (1,), -1e30, dtype=f32)
-        l = torch.zeros_like(m)
-        acc = torch.zeros_like(qf)
-        for t0 in range(128 * part, skv, 128 * parts):
-            kt, vt = kf[:, :, t0:t0 + 128], vf[:, :, t0:t0 + 128]
-            sc = qf @ kt.transpose(-1, -2)
-            m_new = torch.maximum(m, sc.amax(-1, keepdim=True))
-            corr = torch.exp2((m - m_new) * c)
-            neg = torch.where(m_new == neg_inf, 0.0, -m_new * c)
-            p = torch.exp2(sc * c + neg)
-            l = l * corr + p.sum(-1, keepdim=True)
-            acc = acc * corr + p.to(bf).to(f32) @ vt
-            m = m_new
-        state.append((m, l, acc))
-    m, l, acc = state[0]
-    if parts == 2:
-        (m0, l0, a0), (m1, l1, a1) = state
-        m = torch.maximum(m0, m1)
-        w0, w1 = torch.exp2((m0 - m) * c), torch.exp2((m1 - m) * c)
-        l, acc = l0 * w0 + l1 * w1, a0 * w0 + a1 * w1
-    return (acc / torch.clamp(l, min=1e-30)).to(bf)
+    blocks = range(0, sq, 128) if causal else [0]
+    out = []
+    for q0 in blocks:
+        q1 = min(sq, q0 + 128) if causal else sq
+        kv_hi = min(skv, q0 + 128) if causal else skv
+        qb = qf[:, :, q0:q1]
+        state = []
+        for part in range(parts):
+            m = torch.full(qb.shape[:-1] + (1,), -1e30, dtype=f32)
+            l = torch.zeros_like(m)
+            acc = torch.zeros_like(qb)
+            for t0 in range(128 * part, kv_hi, 128 * parts):
+                kt, vt = kf[:, :, t0:t0 + 128], vf[:, :, t0:t0 + 128]
+                sc = qb @ kt.transpose(-1, -2)
+                if causal:
+                    keys = torch.arange(t0, t0 + kt.shape[2])
+                    sc = torch.where(
+                        keys[None, :] > torch.arange(q0, q1)[:, None],
+                        neg_inf, sc)
+                m_new = torch.maximum(m, sc.amax(-1, keepdim=True))
+                corr = torch.exp2((m - m_new) * c)
+                neg = torch.where(m_new == neg_inf, 0.0, -m_new * c)
+                p = torch.exp2(sc * c + neg)
+                l = l * corr + p.sum(-1, keepdim=True)
+                acc = acc * corr + p.to(bf).to(f32) @ vt
+                m = m_new
+            state.append((m, l, acc))
+        m, l, acc = state[0]
+        if parts == 2:
+            (m0, l0, a0), (m1, l1, a1) = state
+            m = torch.maximum(m0, m1)
+            w0, w1 = torch.exp2((m0 - m) * c), torch.exp2((m1 - m) * c)
+            l, acc = l0 * w0 + l1 * w1, a0 * w0 + a1 * w1
+        out.append((acc / torch.clamp(l, min=1e-30)).to(bf))
+    return torch.cat(out, 2)
 
 
 @pytest.mark.parametrize("sq,skv", [(1500, 1500), (416, 1500)],
@@ -586,6 +600,30 @@ def test_tc_attention_fwd128_numerics_keep_the_tolerance():
               "jax": _share(got, np.asarray(want, np.float32))}
     print(f"tc attention fwd D 128 (512, 1600), GQA 4: share of tolerance "
           f"{shares}")
+    _close(got, plain.float(), "bfloat16")
+    _close(got, np.asarray(want, np.float32), "bfloat16")
+
+
+@pytest.mark.parametrize("d", [128, 112])
+def test_tc_attention_fwd128_causal_numerics_keep_the_tolerance(d):
+    """The D 128 forward kernel for causal rows of unpaired heads
+    (``flash_fwd128_tc<true>``: 128-row items over 128-key tiles, the
+    tiles that cross the diagonal masked) at codeqwen1.5-7b's MHA, batch
+    1 of its 4 (batches are independent in the kernel): q and k/v [1, 32,
+    512, 128], causal; and at zamba2-7b's D 112, which the kernel pads to
+    128 columns of zeros. Emulated, it stays within the bf16 tolerance of
+    the plain version and of the JAX package's reference on the same
+    numpy inputs; each share printed."""
+    rng = np.random.default_rng(31)
+    (jq, tq), (jk, tk), (jv, tv) = (
+        _pair(rng, (1, 32, 512, d), "bfloat16") for _ in range(3))
+    got = _emulate_tc_attention_fwd64(tq, tk, tv, 1, causal=True)
+    plain = ref.flash_attention_ref(tq, tk, tv, causal=True)
+    want = jref.flash_attention_ref(jq, jk, jv, causal=True)
+    shares = {"plain": _share(got, plain.float()),
+              "jax": _share(got, np.asarray(want, np.float32))}
+    print(f"tc attention fwd D {d} causal (512, 512), MHA: share of "
+          f"tolerance {shares}")
     _close(got, plain.float(), "bfloat16")
     _close(got, np.asarray(want, np.float32), "bfloat16")
 

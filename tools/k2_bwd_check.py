@@ -20,7 +20,8 @@ one that recomputes it).
 runs DIR, the tree, the tree and DIR again, each in a process of its own
 (``--csrc DIR`` for DIR's), prints their lines, then one ``compare`` line
 a case: both versions' times (first and second run), their kernels'
-split, SDPA's default and deterministic times, and whether the two
+split, SDPA's default and deterministic times (forward: also SDPA's
+warm kernels and the stream floor), and whether the two
 versions' outputs are bitwise equal (``bitwise``; ``runs_bitwise``: each
 version's digest the same in both of its processes). The parent
 commit's sources, for instance:
@@ -41,7 +42,10 @@ and D 112 without a causal limit (zamba2-7b's heads at batch 1, 130 rows);
 whisper-tiny's D 64 MHA (6 heads): the encoder's [4, 6, 1500, 64] and the
 cross-attention over 1,500 frames, non-causal, and the decoder's causal
 self-attention (448 text rows as trained for the backward, the 416-row
-served prompt for the forward).
+served prompt for the forward); ``kvheads``, a diagnostic: codeqwen1.5-7b's
+causal q [4, 32, 512, 128] over 16 KV heads (group 2: heads paired, twice
+qwen3-8b's K/V bytes) and over 8 (qwen3-8b's), which parts the cost of
+unpaired heads from that of MHA's K/V bytes.
 
 For each shape it holds the bf16 result against the plain version (the
 forward against ``ref.flash_attention_ref``, the gradients against
@@ -50,7 +54,11 @@ digest of the output bits (equal digests in two processes: bitwise equal
 results), then CUDA-event medians (L2 flushed, as ``chip_smoke.py``
 times) beside its bound and SDPA's with PyTorch's default and
 deterministic settings, and the device time of each of its kernels from a
-``torch.profiler`` trace of ten calls (L2 warm). One JSON object a line.
+``torch.profiler`` trace of ten calls (L2 warm). The forward also gives
+SDPA's kernels with L2 warm and, at an MHA shape with Sq = Skv, the time
+of one elementwise kernel (``torch.addcmul``) that moves the bytes of the
+attention's bound, timed as the attention is (``stream_floor_ms``: what
+that timing's memory traffic alone takes). One JSON object a line.
 """
 from __future__ import annotations
 
@@ -67,6 +75,7 @@ sys.path.insert(0, ROOT)
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
 import torch  # noqa: E402
+import torch.nn.functional as F  # noqa: E402
 
 import chip_smoke as cs  # noqa: E402
 from repro_torch.kernels import build, ref  # noqa: E402
@@ -75,10 +84,10 @@ from repro_torch.kernels import flash_attention as fa  # noqa: E402
 BF = torch.bfloat16
 
 
-def _case(arch, cfg, sq, skv, causal, window=0, b=cs.B):
-    return dict(arch=arch, b=b, hq=cfg.n_heads, hkv=cfg.n_kv_heads,
-                d=cfg.resolved_head_dim, sq=sq, skv=skv, causal=causal,
-                window=window)
+def _case(arch, cfg, sq, skv, causal, window=0, b=cs.B, hkv=None):
+    return dict(arch=arch, b=b, hq=cfg.n_heads,
+                hkv=hkv or cfg.n_kv_heads, d=cfg.resolved_head_dim, sq=sq,
+                skv=skv, causal=causal, window=window)
 
 
 def shape_sets(forward):
@@ -104,6 +113,8 @@ def shape_sets(forward):
                         window=100),
                   _case("zamba2-7b non-causal", cs.ZAMBA, 130, 130, False,
                         b=1)],
+        "kvheads": [_case(f"codeqwen1.5-7b q, {h} KV heads", cs.CODEQWEN,
+                          cs.S, cs.S, True, hkv=h) for h in (16, 8)],
     }
 
 
@@ -174,6 +185,17 @@ def check_forward(c, gen, flush, card, source):
         q, k, causal=causal, window=window)).abs().max())
     lib = [None if window else cs._sdpa_ms(q, k, v, flush, det, causal)
            for det in (False, True)]
+    # SDPA's kernels with L2 warm, as kernels_ms; and, where q, k, v and o
+    # have one shape (MHA, Sq = Skv), one elementwise kernel that moves the
+    # attention's bound's bytes (q, k, v read once, o written once), timed
+    # as the attention is: the floor of that timing's memory traffic
+    lib_kernels = None if window else cs.kernel_split(
+        lambda: F.scaled_dot_product_attention(q, k, v, is_causal=causal,
+                                               enable_gqa=True))
+    floor = None
+    if q.shape == k.shape:
+        out = torch.empty_like(q)
+        floor = cs.time_ms(lambda: torch.addcmul(q, k, v, out=out), flush)
     row = {"time": "flash_attention", **c, "source": source,
            "share_of_tolerance": share(got, ref.flash_attention_ref(
                q, k, v, causal=causal, window=window)),
@@ -186,7 +208,9 @@ def check_forward(c, gen, flush, card, source):
            **cs.bound(cs.cost.attention(c["b"], c["hq"], c["hkv"], c["sq"],
                                         c["skv"], c["d"], BF, causal,
                                         window)),
-           "kernels_ms": cs.kernel_split(run), "card": card}
+           "kernels_ms": cs.kernel_split(run),
+           "library_kernels_ms": lib_kernels, "stream_floor_ms": floor,
+           "card": card}
     cs.emit(row)
 
 
@@ -250,13 +274,16 @@ def compare_sources(csrc, forward, shapes):
             e = by_case.setdefault(key, {
                 "parent_ms": [], "change_ms": [], "parent_kernels_ms": [],
                 "change_kernels_ms": [], "library_ms": [],
-                "library_deterministic_ms": [], "digests": {}})
+                "library_deterministic_ms": [], "library_kernels_ms": [],
+                "stream_floor_ms": [], "digests": {}})
             e["digests"].setdefault(version, set()).add(line["digest"])
             e[f"{version}_ms"].append(line["ms"])
             e[f"{version}_kernels_ms"].append(line["kernels_ms"])
             e["library_ms"].append(line["library_ms"])
             e["library_deterministic_ms"].append(
                 line["library_deterministic_ms"])
+            for key in ("library_kernels_ms", "stream_floor_ms"):
+                e[key].append(line.get(key))
             e["bound_ms"], e["bound_by"] = line["bound_ms"], line["bound_by"]
     card = cs.card()
     for (arch, sq, skv, causal), e in by_case.items():
@@ -275,7 +302,7 @@ def main() -> int:
                     help="check and time the forward kernel")
     ap.add_argument("--shapes", default="train",
                     help="comma-separated sets: train, wide, small, "
-                    "whisper")
+                    "whisper, kvheads")
     ap.add_argument("--csrc", help="directory holding another version of "
                     "the kernel's source")
     ap.add_argument("--compare", metavar="DIR",
